@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py            # the full check (needs one CUDA card)
+    python3 chip_smoke.py --quick    # build and hold the kernels only
+
+Phases (any failure raises and the script exits non-zero):
+
+1. fail unless torch sees a CUDA card; print the card's name and power limit;
+2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+3. at the shapes of the two recipes (the per-iteration calls and the coded
+   full-width calls): hold each kernel against its plain-torch version on the
+   card (K1/K2: float32 tolerance; K3: ``torch.equal``), and time kernel,
+   plain version and, for K2, a ``torch.bmm`` pair on pre-gathered windows;
+4. run the ``grid`` (logreg, n=16384, 100 workers x 10 scenarios) and
+   ``pca_paper_scale`` (n=50000, 50 workers x 4 scenarios) recipes at full
+   size through the kernels, all four methods, with every launch counter set
+   to 0 just before and read just after; check ``dsag < sag < coded`` median
+   time-to-gap and print it beside the committed ``BENCH_convergence.json``
+   values; rerun the grid recipe's dsag and sag with the plain versions on the
+   card: event times and fresh counts must be equal, suboptimality within
+   ``rtol=1e-4``;
+5. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+
+It imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 and float64
+#: FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_F64 = 34e12
+F32_RTOL = 1e-4  # kernel vs plain: float32 sums in another order
+F32_ATOL_REL = 1e-5  # ... plus this times the largest |plain| value
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timed_pair(torch, kernel, plain, reps: int, plain_reps: int) -> tuple[float, float]:
+    """Kernel and plain times, taken in turns: plain, kernel, kernel, plain."""
+    p1 = cuda_ms(torch, plain, plain_reps)
+    k1 = cuda_ms(torch, kernel, reps)
+    k2 = cuda_ms(torch, kernel, reps)
+    p2 = cuda_ms(torch, plain, plain_reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unique_rows(starts: np.ndarray, widths: np.ndarray, n: int) -> int:
+    touched = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(touched, starts - 1, 1)
+    np.add.at(touched, starts - 1 + widths, -1)
+    return int(np.count_nonzero(np.cumsum(touched)[:n]))
+
+
+def grid_tasks(n: int, N: int, p: int, S: int, rng) -> tuple[np.ndarray, np.ndarray]:
+    """Per-task (start, width) of S*N grid tasks at random sub-block indices."""
+    from repro_torch.lb.partitioner import p_start, p_stop
+
+    base = np.array([p_start(n, N, i + 1) for i in range(N)])
+    n_loc = np.array([p_stop(n, N, i + 1) for i in range(N)]) - base + 1
+    k = rng.integers(1, p + 1, size=(S, N))
+    lo = base[None, :] + (k - 1) * n_loc[None, :] // p
+    hi = base[None, :] + k * n_loc[None, :] // p - 1
+    return lo.reshape(-1).astype(np.int64), (hi - lo + 1).reshape(-1).astype(np.int64)
+
+
+def check_block_sub(torch, kind: str, X, y, rng) -> dict:
+    """Phase 3 for K1 (logreg) or K2 (pca) at the recipe's two call shapes."""
+    from repro_torch.kernels import block_sub
+
+    dev = X.device
+    n, d = X.shape
+    if kind == "logreg":
+        shapes = {"grid": (100, 10, 10), "coded": None}
+        S_coded, k = 10, None
+    else:
+        shapes = {"grid": (50, 5, 4), "coded": None}
+        S_coded, k = 4, 3
+    rows = []
+    for call, shp in shapes.items():
+        if shp is None:
+            starts = np.ones(S_coded, dtype=np.int64)
+            widths = np.full(S_coded, n, dtype=np.int64)
+        else:
+            N, p, S = shp
+            starts, widths = grid_tasks(n, N, p, S, rng)
+        G = starts.size
+        if kind == "logreg":
+            Vb = torch.as_tensor(0.1 * rng.normal(size=(G, d)), dtype=torch.float32, device=dev)
+        else:
+            q, _ = np.linalg.qr(rng.normal(size=(G, d, k)))
+            Vb = torch.as_tensor(q, dtype=torch.float32, device=dev).contiguous()
+        st = torch.as_tensor(starts, device=dev)
+        wd = torch.as_tensor(widths, device=dev)
+        if kind == "logreg":
+            def kernel():
+                return block_sub.logreg_block_sub(X, y, Vb, st, wd)
+
+            def plain():
+                return block_sub.logreg_block_sub_plain(X, y, Vb, st, wd, int(widths.max()))
+        else:
+            def kernel():
+                return block_sub.pca_block_sub(X, Vb, st, wd)
+
+            def plain():
+                return block_sub.pca_block_sub_plain(X, Vb, st, wd, int(widths.max()))
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not torch.isfinite(got).all() or not torch.allclose(
+            got, want, rtol=F32_RTOL, atol=F32_ATOL_REL * scale
+        ):
+            fail(f"{kind}_block_sub ({call}) disagrees with its plain version: "
+                 f"max |diff| {err:.3e} at max |plain| {scale:.3e}")
+        k_ms, p_ms = timed_pair(torch, kernel, plain, reps=50, plain_reps=20)
+        lib_ms = None
+        if kind == "pca":
+            W = int(widths.max())
+            ar = torch.arange(W, device=dev)
+            idx = (st[:, None] - 1 + ar[None, :]).clamp(0, n - 1)
+            xg = X[idx] * (ar[None, :] < wd[:, None])[:, :, None].float()
+            lib_ms = cuda_ms(torch, lambda: -torch.bmm(xg.transpose(1, 2), torch.bmm(xg, Vb)), 20)
+        row_bytes = d * 4 + (4 if kind == "logreg" else 0)
+        total_rows = int(widths.sum())
+        nbytes = unique_rows(starts, widths, n) * row_bytes + 2 * Vb.numel() * 4 + 16 * G
+        flops = total_rows * ((4 * d + 5) if kind == "logreg" else 4 * d * k)
+        b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
+        rows.append(dict(call=call, G=G, max_width=int(widths.max()), max_abs_err=err,
+                         ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        print(f"  {kind}_block_sub [{call}] G={G} width<={int(widths.max())}: "
+              f"max|diff|={err:.3e} (|plain|<={scale:.3e}) kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bmm pair {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng) -> dict:
+    """Phase 3 for K3 at one recipe's dsag shape; exact equality."""
+    from repro_torch.kernels import cache_events
+
+    dev = torch.device("cuda")
+    order = np.argsort(rng.random((S, R)), axis=1)
+    args = dict(
+        valid_r=torch.as_tensor(rng.random((S, R)) < 0.8, device=dev),
+        slot_r=torch.as_tensor(rng.integers(0, E, size=(S, R)), device=dev),
+        tag_r=torch.as_tensor(np.sort(rng.integers(0, T, size=(S, R)), axis=1)[
+            np.arange(S)[:, None], order], device=dev),
+        vals_r=torch.as_tensor(rng.normal(size=(S, R, F)), device=dev),
+        sums=torch.as_tensor(rng.normal(size=(S, F)), device=dev),
+        values=torch.as_tensor(rng.normal(size=(S, E, F)), device=dev),
+        iters=torch.as_tensor(rng.integers(-1, T, size=(S, E)), device=dev),
+        covered=torch.as_tensor(rng.integers(0, 1000, size=S), device=dev),
+        rejected=torch.as_tensor(rng.integers(0, 10, size=S), device=dev),
+        slot_width=torch.as_tensor(rng.integers(1, 300, size=E), device=dev),
+    )
+    a = tuple(args.values())
+    got = cache_events.grid_cache_update(*a)
+    want = cache_events.grid_cache_update_plain(*a)
+    torch.cuda.synchronize()
+    names = ("sums", "values", "iters", "covered", "rejected")
+    for name, g, w in zip(names, got, want):
+        if not torch.equal(g, w):
+            fail(f"grid_cache_update output {name} is not equal to its plain version")
+    k_ms, p_ms = timed_pair(torch, lambda: cache_events.grid_cache_update(*a),
+                            lambda: cache_events.grid_cache_update_plain(*a),
+                            reps=50, plain_reps=3)
+    n_valid = int(args["valid_r"].sum())
+    n_rej = int((got[4] - args["rejected"]).sum())
+    accepted = n_valid - n_rej
+    nbytes = (S * R * (1 + 8 + 8) + S * R * F * 8 + 2 * (S * F * 8 + S * E * F * 8
+              + S * E * 8 + 2 * S * 8) + E * 8)
+    flops = accepted * F * 2  # one float64 sub and one add per accepted feature
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F64)
+    print(f"  grid_cache_update S={S} R={R} E={E} F={F}: equal (accepted {accepted}, "
+          f"rejected {n_rej}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return dict(call=f"S{S}_R{R}_E{E}_F{F}", max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def committed_ttg() -> dict:
+    bench = json.loads((ROOT / "BENCH_convergence.json").read_text())
+    return {
+        "grid": {m: v["median_time_to_gap"] for m, v in bench["methods"].items()},
+        "pca_paper_scale": {
+            m: v["median_time_to_gap"] for m, v in bench["pca_paper_scale"]["methods"].items()
+        },
+    }
+
+
+def run_recipes(torch) -> tuple[dict, dict]:
+    """Phase 4: both recipes through the kernels, then the plain rerun."""
+    from repro_torch.experiments.convergence import (
+        grid_logreg_sweep,
+        paper_scale_pca_sweep,
+        run_convergence_batch,
+    )
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.experiments.results import convergence_ordering
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    committed = committed_ttg()
+    counts = {}
+    outcomes = {}
+    reset_launch_counts()
+    for recipe, sweep in (("grid", grid_logreg_sweep), ("pca_paper_scale", paper_scale_pca_sweep)):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out, gap = sweep(seed=0, engine=EngineConfig(device="cuda", kernel_backend="cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = launch_counts()
+        counts[recipe] = {k: after[k] - before[k] for k in after}
+        outcomes[recipe] = (out, gap)
+        o = convergence_ordering(out, gap)
+        print(f"  {recipe}: 4 methods x {out.traces.num_scenarios} scenarios x "
+              f"{out.num_iterations} iters in {wall:.2f} s host wall clock "
+              f"(engine {out.engine_seconds:.2f} s); launches {counts[recipe]}")
+        print(f"    {'method':>6} {'port t->gap (sim s)':>22} {'committed (JAX, CPU)':>22} equal")
+        for m in out.results:
+            mine = o[f"median_time_to_gap_{m}"]
+            theirs = committed[recipe].get(m)
+            same = mine == (np.inf if theirs is None else theirs)
+            print(f"    {m:>6} {mine!r:>22} {theirs!r:>22} {same}")
+        for m, res in out.results.items():
+            S, T = res.times.shape
+            if res.suboptimality.shape != (S, T) or res.per_worker_latency.shape[:2] != (S, T):
+                fail(f"{recipe}/{m}: result shapes {res.times.shape}, {res.suboptimality.shape}")
+            if not np.isfinite(res.times).all() or not np.isfinite(res.suboptimality[:, -1]).all():
+                fail(f"{recipe}/{m}: non-finite times or final suboptimality")
+        t = {m: o[f"median_time_to_gap_{m}"] for m in ("dsag", "sag", "coded")}
+        if not (np.isfinite(t["dsag"]) and t["dsag"] < t["sag"] < t["coded"]):
+            fail(f"{recipe}: median time-to-gap ordering dsag < sag < coded broken: {t}")
+        print(f"    dsag < sag < coded holds: sag/dsag={o['sag_over_dsag']:.3f} "
+              f"coded/dsag={o['coded_over_dsag']:.3f}")
+    total = launch_counts()
+    for name, c in total.items():
+        if c == 0:
+            fail(f"kernel {name} was never launched on the main path")
+    if counts["grid"]["logreg_block_sub"] == 0 or counts["pca_paper_scale"]["pca_block_sub"] == 0:
+        fail("a recipe ran without its block-subgradient kernel")
+    if counts["grid"]["grid_cache_update"] == 0 or counts["pca_paper_scale"]["grid_cache_update"] == 0:
+        fail("a recipe ran without the cache-walk kernel")
+
+    # the grid recipe's dsag and sag once more, through the plain versions
+    out, _ = outcomes["grid"]
+    plain_engine = EngineConfig(device="cuda", kernel_backend="torch")
+    for m in ("dsag", "sag"):
+        ref = run_convergence_batch(out.problem, out.traces, out.methods[m], out.num_iterations,
+                                    eval_every=out.eval_every, seed=out.seed, engine=plain_engine)
+        res = out.results[m]
+        if not (np.array_equal(ref.times, res.times)
+                and np.array_equal(ref.fresh_counts, res.fresh_counts)
+                and np.array_equal(ref.rejected_stale, res.rejected_stale)
+                and np.array_equal(ref.per_worker_latency, res.per_worker_latency, equal_nan=True)):
+            fail(f"grid/{m}: kernel and plain runs differ in their event streams")
+        ok = np.isfinite(ref.suboptimality)
+        rel = np.abs(res.suboptimality[ok] - ref.suboptimality[ok]) / np.abs(ref.suboptimality[ok])
+        if not np.array_equal(ok, np.isfinite(res.suboptimality)) or rel.max() > 1e-4:
+            fail(f"grid/{m}: suboptimality differs from the plain run by {rel.max():.3e}")
+        print(f"  grid/{m} kernels vs plain on the card: event streams equal, "
+              f"suboptimality max rel diff {rel.max():.3e} (tolerance 1e-4)")
+    return total, counts
+
+
+def profile_grid_dsag(torch) -> None:
+    """``--profile``: where one grid-recipe dsag run spends the card's time.
+
+    One warm run of the 60-iteration dsag column under ``torch.profiler``:
+    host wall clock (ending in a synchronize), the union of device kernel
+    intervals (busy time), the idle share, kernel count, and the kernels
+    that take the most device time.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.experiments.convergence import grid_logreg_sweep, run_convergence_batch
+    from repro_torch.experiments.engine import EngineConfig
+
+    out, _ = grid_logreg_sweep(seed=0, engine=EngineConfig())  # problem, traces, methods
+    cfg, T = out.methods["dsag"], out.num_iterations
+
+    def run():
+        run_convergence_batch(out.problem, out.traces, cfg, T, eval_every=out.eval_every,
+                              engine=EngineConfig())
+        torch.cuda.synchronize()
+
+    run()  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print("  profile: the profiler recorded no device time (not measured)")
+        return
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    by_name: dict[str, float] = {}
+    for s, e, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    busy_ms = busy / 1e3
+    window_ms = (spans[-1][1] - spans[0][0]) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  profile grid/dsag ({T} iters, profiler on): host wall {wall_ms:.1f} ms, "
+          f"device busy {busy_ms:.2f} ms over a {window_ms:.1f} ms kernel window, "
+          f"idle share {1 - busy_ms / window_ms:.3f}; {len(spans)} device kernels "
+          f"({len(spans) / T:.0f} per iteration)")
+    for name, us in top:
+        print(f"    {us / 1e3:8.3f} ms  {name[:90]}")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.problems import make_genomics_like_matrix, make_higgs_like
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    print(smi.stdout.strip().splitlines()[0])
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"phase 2: built {_build.build_info['path']} in {time.perf_counter() - t0:.1f} s")
+    for line in _build.build_info.get("log", "").splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    print("phase 3: kernels against their plain versions at the recipes' shapes")
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    Xh, yh = make_higgs_like(16_384, seed=0)
+    Xh, yh = torch.as_tensor(Xh, device=dev), torch.as_tensor(yh, device=dev)
+    Xg = torch.as_tensor(make_genomics_like_matrix(50_000, 96, seed=0), device=dev)
+    per_kernel = {
+        "logreg_block_sub": check_block_sub(torch, "logreg", Xh, yh, rng),
+        "pca_block_sub": check_block_sub(torch, "pca", Xg, None, rng),
+        "grid_cache_update": [
+            check_cache_walk(torch, 10, 200, 1000, 29, 60, rng),
+            check_cache_walk(torch, 4, 100, 250, 288, 80, rng),
+        ],
+    }
+    if "--profile" in sys.argv[1:]:
+        profile_grid_dsag(torch)
+    if {"--quick", "--profile"} & set(sys.argv[1:]):
+        print(json.dumps({"per_kernel": per_kernel}))
+        return
+
+    print("phase 4: the grid and pca_paper_scale recipes through the kernels")
+    launches, _ = run_recipes(torch)
+
+    meta = {
+        "logreg_block_sub": ("src/repro_torch/kernels/csrc/block_sub.cu",
+                             "src/repro/kernels/block_sub.py:134"),
+        "pca_block_sub": ("src/repro_torch/kernels/csrc/block_sub.cu",
+                          "src/repro/kernels/block_sub.py:99"),
+        "grid_cache_update": ("src/repro_torch/kernels/csrc/cache_events.cu",
+                              "src/repro/kernels/cache_events.py:107"),
+    }
+    kernels = []
+    for name, rows in per_kernel.items():
+        main_row = rows[0]  # the per-iteration call of the first recipe
+        source, replaces = meta[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+            library_ms=main_row["library_ms"], calls=rows,
+        ))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

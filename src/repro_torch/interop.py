@@ -1,0 +1,60 @@
+"""Carry the reference's state across: problem data, traces, initial iterate.
+
+This system has no weights.  Its state is the problem data and the latency
+traces, so these helpers rebuild the port's problem and
+:class:`~repro_torch.latency.model.FleetTraces` from plain numpy arrays (as
+the JAX package holds them), and the initial iterate ``V0`` travels as a
+numpy array (``run_convergence_batch(..., V0=...)``).  The parity tests hand
+the reference's exact inputs to the port through them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.problems import (
+    FiniteSumProblem,
+    LogisticRegressionProblem,
+    PCAProblem,
+)
+from repro_torch.latency.model import FleetTraces
+
+
+def problem_from_arrays(
+    kind: str, X, y=None, k: int = 3, lam: float | None = None, device=None
+) -> FiniteSumProblem:
+    """A ``"logreg"`` or ``"pca"`` problem over the given numpy data.
+
+    With ``device`` set, the problem's kernels are built there at once (the
+    data moved to the device, the logreg optimum solved).
+    """
+    X = np.asarray(X)
+    if kind == "logreg":
+        if y is None:
+            raise ValueError("logreg needs labels y")
+        prob: FiniteSumProblem = LogisticRegressionProblem(X=X, y=np.asarray(y), lam=lam)
+    elif kind == "pca":
+        prob = PCAProblem(X=X, k=k)
+    else:
+        raise ValueError(f"unknown problem kind {kind!r}; expected 'logreg' or 'pca'")
+    if device is not None:
+        prob.fused_kernels(device)
+    return prob
+
+
+def traces_from_arrays(
+    comm, comp_unit, slowdown, burst_start, burst_end, burst_factor, seed: int = 0
+) -> FleetTraces:
+    """:class:`FleetTraces` over the given ``[S, N, K]`` / ``[N]`` /
+    ``[S, N, M]`` float64 arrays (no churn)."""
+
+    def f64(a):
+        return np.asarray(a, dtype=np.float64)
+
+    comm, comp_unit = f64(comm), f64(comp_unit)
+    if comm.shape != comp_unit.shape or comm.ndim != 3:
+        raise ValueError("comm and comp_unit must be [S, N, K] of one shape")
+    bs, be, bf = f64(burst_start), f64(burst_end), f64(burst_factor)
+    if not (bs.shape == be.shape == bf.shape) or bs.shape[:2] != comm.shape[:2]:
+        raise ValueError("burst tables must be [S, N, M] matching the traces")
+    return FleetTraces(comm, comp_unit, f64(slowdown), bs, be, bf, seed=seed)

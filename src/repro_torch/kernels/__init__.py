@@ -1,0 +1,34 @@
+"""Hand-written CUDA kernels of the port, each beside its plain-torch version.
+
+=========================  =====================================  =================================
+wrapper                    TPU kernel it replaces                 CUDA source
+=========================  =====================================  =================================
+``logreg_block_sub`` (K1)  ``repro/kernels/block_sub.py``         ``csrc/block_sub.cu``
+``pca_block_sub`` (K2)     ``repro/kernels/block_sub.py``         ``csrc/block_sub.cu``
+``grid_cache_update`` (K3) ``repro/kernels/cache_events.py``      ``csrc/cache_events.cu``
+=========================  =====================================  =================================
+
+A wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises.  Each wrapper counts its launches
+in its module's ``launch_counts``; :func:`launch_counts` merges them.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import block_sub, cache_events
+
+_MODULES = (block_sub, cache_events)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
+    out: dict[str, int] = {}
+    for mod in _MODULES:
+        out.update(mod.launch_counts)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for mod in _MODULES:
+        for name in mod.launch_counts:
+            mod.launch_counts[name] = 0

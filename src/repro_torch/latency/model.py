@@ -1,0 +1,310 @@
+"""Per-worker latency model (paper §3), copied from ``repro.latency.model``.
+
+The latency of worker ``i`` for an iteration with computational load ``c`` is
+``X_i = Y_i + Z_i`` with independent, non-identically distributed gamma
+communication (``Y_i``) and per-unit-load computation (``Z_i``) terms, plus
+multiplicative bursts (§3.2) that arrive as a Poisson process and last an
+exponentially distributed time.
+
+Everything here is numpy: the traces are drawn on the host with
+``np.random.default_rng`` and handed to the device engine as tensors.  The
+samplers are copied verbatim from the JAX package so that the same seed gives
+the same arrays in both packages (pinned by ``tests/test_torch_parity.py``);
+this package must not import the JAX one, not even its numpy-only modules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+
+def comp_latency_expr(comp_unit_draw, load, slowdown, factor):
+    """THE §3 computation-latency expression: ``unit * load * slowdown * factor``.
+
+    The multiplication order is load-bearing for exact replay: evaluated left
+    to right, one rounding per product, by numpy here and by eager torch in
+    :mod:`repro_torch.experiments.fused`.
+    """
+    return comp_unit_draw * load * slowdown * factor
+
+
+@dataclasses.dataclass(frozen=True)
+class GammaParams:
+    """Gamma distribution parameterised by (shape, scale).
+
+    Paper footnote 12: a gamma r.v. with mean ``e`` and variance ``v`` has
+    shape ``e^2/v`` and scale ``v/e``.
+    """
+
+    shape: float
+    scale: float
+
+    @staticmethod
+    def from_mean_var(mean: float, var: float) -> GammaParams:
+        if mean <= 0:
+            raise ValueError(f"gamma mean must be positive, got {mean}")
+        var = max(var, 1e-18)  # degenerate -> near-deterministic
+        return GammaParams(shape=mean * mean / var, scale=var / mean)
+
+
+@dataclasses.dataclass
+class WorkerLatencyModel:
+    """Latency model of one worker.
+
+    ``comm`` models Y_i; ``comp_per_unit`` models Z_i per unit of
+    computational load, so a load ``c`` has mean ``c * shape * scale`` of
+    ``comp_per_unit`` (paper Fig. 1).  Only the parameters are copied: :func:`sample_fleet`
+    draws from them; the scalar sampling methods of the JAX package belong
+    to its scalar simulator, which this package does not port yet.
+    """
+
+    comm: GammaParams
+    comp_per_unit: GammaParams
+    burst_rate: float = 0.0  # bursts per second (Poisson)
+    burst_factor_mean: float = 1.12  # paper Fig. 4: ~12% slowdown
+    burst_duration_mean: float = 60.0  # paper Fig. 4: ~1 minute
+    # artificial *persistent* slowdown (paper §7.2 artificial scenario)
+    slowdown: float = 1.0
+
+
+@dataclasses.dataclass
+class ClusterLatencyModel:
+    """A set of per-worker latency models (non-i.i.d. across workers)."""
+
+    workers: list  # list[WorkerLatencyModel]
+    seed: int = 0
+
+    @property
+    def num_workers(self) -> int:
+        return len(self.workers)
+
+
+#: Approximate latency ranges from paper Table 1 (AWS logistic regression):
+#: comm 1e-4..6e-4 s, comp 1.1e-3..1.3e-3 s.
+AWS_LOGREG_COMM = (1e-4, 6e-4)
+AWS_LOGREG_COMP = (1.1e-3, 1.3e-3)
+
+
+def make_heterogeneous_cluster(
+    num_workers: int,
+    *,
+    comm_range=AWS_LOGREG_COMM,
+    comp_range=AWS_LOGREG_COMP,
+    load_unit: float = 1.0,
+    cv_comm: float = 0.35,
+    cv_comp: float = 0.15,
+    burst_rate: float = 1.0 / 90.0,
+    seed: int = 0,
+) -> ClusterLatencyModel:
+    """Cluster with per-worker means drawn uniformly from the paper's measured
+    ranges and fixed coefficients of variation — independent but NOT
+    identically distributed workers (the paper's central modeling point)."""
+    rng = np.random.default_rng(seed)
+    workers = []
+    for _ in range(num_workers):
+        e_y = rng.uniform(*comm_range)
+        e_z = rng.uniform(*comp_range) / load_unit  # per unit load
+        workers.append(
+            WorkerLatencyModel(
+                comm=GammaParams.from_mean_var(e_y, (cv_comm * e_y) ** 2),
+                comp_per_unit=GammaParams.from_mean_var(e_z, (cv_comp * e_z) ** 2),
+                burst_rate=burst_rate,
+            )
+        )
+    return ClusterLatencyModel(workers=workers, seed=seed + 1)
+
+
+@dataclasses.dataclass
+class ChurnSchedule:
+    """Piecewise-constant fleet state over time: slowdowns and liveness.
+
+    ``times`` ([C], strictly increasing, all > 0) are the change boundaries;
+    row ``r`` of ``slowdown`` / ``alive`` ([C+1, N]) applies on
+    ``[times[r-1], times[r])``.  The device engine of this package does not
+    replay churn yet: traces that carry a schedule are refused with
+    ``CAP_CHURN`` (see :mod:`repro_torch.experiments.engine`).
+    """
+
+    times: np.ndarray  # [C] float64, strictly increasing, > 0
+    slowdown: np.ndarray  # [C+1, N] float64
+    alive: np.ndarray  # [C+1, N] bool
+
+    def __post_init__(self):
+        self.times = np.asarray(self.times, dtype=np.float64).reshape(-1)
+        self.slowdown = np.asarray(self.slowdown, dtype=np.float64)
+        self.alive = np.asarray(self.alive, dtype=bool)
+        C = self.times.shape[0]
+        if self.slowdown.ndim != 2 or self.alive.shape != self.slowdown.shape:
+            raise ValueError(
+                "slowdown and alive must both be [C+1, N] with matching shapes"
+            )
+        if self.slowdown.shape[0] != C + 1:
+            raise ValueError(
+                f"{C} boundaries need {C + 1} state rows, "
+                f"got {self.slowdown.shape[0]}"
+            )
+        if C and (not np.all(np.diff(self.times) > 0) or self.times[0] <= 0.0):
+            raise ValueError("churn times must be strictly increasing and > 0")
+        if not np.all(np.isfinite(self.slowdown)) or np.any(self.slowdown <= 0):
+            raise ValueError("churn slowdowns must be finite and > 0")
+        if not np.all(self.alive.any(axis=1)):
+            raise ValueError("every churn row must keep at least one worker alive")
+
+    @property
+    def num_workers(self) -> int:
+        return self.slowdown.shape[1]
+
+    @classmethod
+    def static(cls, slowdown) -> ChurnSchedule:
+        """The trivial all-alive schedule replaying a static slowdown field."""
+        sd = np.asarray(slowdown, dtype=np.float64).reshape(1, -1)
+        return cls(
+            times=np.zeros(0), slowdown=sd, alive=np.ones_like(sd, dtype=bool)
+        )
+
+
+@dataclasses.dataclass
+class FleetTraces:
+    """Pre-sampled latency traces for a whole (scenario x worker x task) grid.
+
+    ``comm[s, i, k]`` / ``comp_unit[s, i, k]`` hold the k-th communication /
+    per-unit-load computation draw of worker ``i`` in scenario ``s``; a
+    worker consumes its draws sequentially, one per *started* task.  Bursts
+    are non-overlapping multiplicative windows per (scenario, worker).
+    """
+
+    comm: np.ndarray  # [S, N, K] float64
+    comp_unit: np.ndarray  # [S, N, K] float64, per unit computational load
+    slowdown: np.ndarray  # [N] persistent per-worker slowdown factors
+    burst_start: np.ndarray  # [S, N, M] (M == 0 when burst-free)
+    burst_end: np.ndarray  # [S, N, M]
+    burst_factor: np.ndarray  # [S, N, M]
+    seed: int = 0
+    churn: ChurnSchedule | None = None
+
+    @property
+    def num_scenarios(self) -> int:
+        return self.comm.shape[0]
+
+    @property
+    def num_workers(self) -> int:
+        return self.comm.shape[1]
+
+    @property
+    def horizon(self) -> int:
+        return self.comm.shape[2]
+
+    @property
+    def has_bursts(self) -> bool:
+        return self.burst_start.shape[2] > 0
+
+    def with_churn(self, churn: ChurnSchedule | None) -> FleetTraces:
+        """Copy of these traces carrying ``churn`` (None clears it)."""
+        if churn is not None and churn.num_workers != self.num_workers:
+            raise ValueError(
+                f"churn schedule has {churn.num_workers} workers "
+                f"but the traces have {self.num_workers}"
+            )
+        return dataclasses.replace(self, churn=churn)
+
+
+def sample_fleet(
+    cluster: ClusterLatencyModel,
+    n_scenarios: int,
+    horizon: int,
+    *,
+    burst_rate: float | None = None,
+    burst_factor_mean: float | None = None,
+    burst_duration_mean: float | None = None,
+    time_horizon: float | None = None,
+    load_hint: float = 1.0,
+    max_bursts: int = 4096,
+    seed: int = 0,
+) -> FleetTraces:
+    """Draw the full (scenario x worker x task) latency grid at once.
+
+    Vectorizes the §3 gamma model and the §3.2 burst process over
+    ``n_scenarios`` independent scenarios and ``horizon`` tasks per worker.
+    The ``burst_*`` keywords override the cluster's burst parameters
+    uniformly (how the sweep realizes burst *regimes*).  ``time_horizon``
+    bounds the burst renewal process in simulated seconds; if omitted it is
+    twice the expected makespan of ``horizon`` tasks of load ``load_hint`` on
+    the slowest worker.
+    """
+    N = cluster.num_workers
+    rng = np.random.default_rng(seed)
+    shape_c = np.array([w.comm.shape for w in cluster.workers])
+    scale_c = np.array([w.comm.scale for w in cluster.workers])
+    shape_z = np.array([w.comp_per_unit.shape for w in cluster.workers])
+    scale_z = np.array([w.comp_per_unit.scale for w in cluster.workers])
+    slowdown = np.array([w.slowdown for w in cluster.workers], dtype=np.float64)
+
+    comm = rng.gamma(shape_c[None, :, None], scale_c[None, :, None],
+                     size=(n_scenarios, N, horizon))
+    comp_unit = rng.gamma(shape_z[None, :, None], scale_z[None, :, None],
+                          size=(n_scenarios, N, horizon))
+
+    rates = np.array(
+        [burst_rate if burst_rate is not None else w.burst_rate for w in cluster.workers],
+        dtype=np.float64,
+    )
+    f_means = np.array(
+        [
+            burst_factor_mean if burst_factor_mean is not None else w.burst_factor_mean
+            for w in cluster.workers
+        ],
+        dtype=np.float64,
+    )
+    d_means = np.array(
+        [
+            burst_duration_mean
+            if burst_duration_mean is not None
+            else w.burst_duration_mean
+            for w in cluster.workers
+        ],
+        dtype=np.float64,
+    )
+
+    if np.all(rates <= 0.0):
+        empty = np.zeros((n_scenarios, N, 0))
+        return FleetTraces(comm, comp_unit, slowdown, empty, empty.copy(),
+                           empty.copy(), seed=seed)
+
+    if time_horizon is None:
+        per_task = np.max(
+            (shape_c * scale_c) + (shape_z * scale_z) * load_hint * slowdown
+        )
+        # bursts inflate the realized makespan; without accounting for the
+        # duty cycle a high-duty regime would outrun its sampled windows
+        duty = (rates * d_means) / (1.0 + rates * d_means)
+        inflation = 1.0 + float(np.max(duty * (f_means - 1.0)))
+        time_horizon = 2.0 * horizon * float(per_task) * inflation
+    max_rate = float(np.max(rates))
+    mean_cycle = 1.0 / max_rate + float(np.min(d_means))
+    M = int(math.ceil(1.5 * time_horizon / mean_cycle) + 6)
+    if M > max_bursts:
+        raise ValueError(
+            f"{M} burst windows needed to cover time_horizon={time_horizon:g} "
+            f"but max_bursts={max_bursts}; raise max_bursts or pass a smaller "
+            "time_horizon"
+        )
+
+    safe_scale = np.where(rates > 0.0, 1.0 / np.maximum(rates, 1e-30), 1.0)
+    gaps = rng.exponential(safe_scale[None, :, None], size=(n_scenarios, N, M))
+    gaps = np.where(rates[None, :, None] > 0.0, gaps, np.inf)
+    durations = rng.exponential(d_means[None, :, None], size=(n_scenarios, N, M))
+    # stationary start: a worker begins mid-burst with probability
+    # dur/(idle+dur) — zero out the first idle gap for those pairs
+    duty = (rates * d_means) / (1.0 + rates * d_means)
+    in_burst_at_0 = rng.random((n_scenarios, N)) < duty[None, :]
+    gaps[:, :, 0] = np.where(in_burst_at_0, 0.0, gaps[:, :, 0])
+    factors = 1.0 + rng.exponential(
+        np.maximum(f_means - 1.0, 1e-12)[None, :, None], size=(n_scenarios, N, M)
+    )
+    # alternating renewal: start_m = sum_{j<=m} gap_j + sum_{j<m} dur_j
+    starts = np.cumsum(gaps, axis=2) + np.cumsum(durations, axis=2) - durations
+    ends = starts + durations
+    return FleetTraces(comm, comp_unit, slowdown, starts, ends, factors, seed=seed)
