@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py            # the full check (needs one CUDA card)
     python3 chip_smoke.py --quick    # build and hold the kernels only
+    python3 chip_smoke.py --profile  # kernels, then where the card's time goes
 
 Phases (any failure raises and the script exits non-zero):
 
 1. fail unless torch sees a CUDA card; print the card's name and power limit;
 2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
-3. at the shapes of the two recipes (the per-iteration calls and the coded
-   full-width calls): hold each kernel against its plain-torch version on the
-   card (K1/K2: float32 tolerance; K3: ``torch.equal``), and time kernel,
-   plain version and, for K2, a ``torch.bmm`` pair on pre-gathered windows;
-4. run the ``grid`` (logreg, n=16384, 100 workers x 10 scenarios) and
-   ``pca_paper_scale`` (n=50000, 50 workers x 4 scenarios) recipes at full
-   size through the kernels, all four methods, with every launch counter set
-   to 0 just before and read just after; check ``dsag < sag < coded`` median
-   time-to-gap and print it beside the committed ``BENCH_convergence.json``
-   values; rerun the grid recipe's dsag and sag with the plain versions on the
-   card: event times and fresh counts must be equal, suboptimality within
-   ``rtol=1e-4``;
-5. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+3. at the main paths' shapes: hold each kernel against its plain-torch
+   version on the card (K1/K2/K5: float32 tolerance; K3/K4: ``torch.equal``)
+   and time kernel, plain version and, where one PyTorch call computes the
+   same function (K2, K5), that call;
+4. slice 1, the convergence sweep: run the ``grid`` (logreg, n=16384, 100
+   workers x 10 scenarios) and ``pca_paper_scale`` (n=50000, 50 workers x 4
+   scenarios) recipes at full size through the kernels, all four methods,
+   with every launch counter set to 0 just before and read just after;
+   check ``dsag < sag < coded`` median time-to-gap and print it beside the
+   committed ``BENCH_convergence.json`` values; rerun the grid recipe's dsag
+   and sag with the plain versions on the card: event times and fresh
+   counts must be equal, suboptimality within ``rtol=1e-4``;
+5. slice 2, the live two-tier trainer (``repro_torch.launch.train``), with
+   the counters set to 0 just before and read just after: the committed
+   ``live_validation`` recipe (logreg 512 x 29, 8 groups) for dsag and sag,
+   and the paper-scale logreg (16000 x 29, 100 groups) and PCA (50000 x 64,
+   50 groups) jobs, through K1, K4 and K5; streams, fresh/flush counts,
+   final gaps, losses and max ξ against the JAX reference's values; the
+   logreg paper-scale dsag run again through the plain versions on the card;
+6. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -44,6 +52,27 @@ PEAK_F32 = 67e12
 PEAK_F64 = 34e12
 F32_RTOL = 1e-4  # kernel vs plain: float32 sums in another order
 F32_ATOL_REL = 1e-5  # ... plus this times the largest |plain| value
+
+#: the JAX reference's live trainer (``repro.launch.train`` on the CPU) on
+#: the paper-scale jobs of :func:`paper_live_opts`: final gap (step 79),
+#: virtual seconds at step 79, loss at steps 0 and 79, max ξ, Σ fresh, Σ flush
+PAPER_LIVE = {
+    ("logreg", "dsag"): (0.06209114794638987, 0.45683806155687146, 0.6931475400924683,
+                         0.27441734075546265, 1.0, 6420, 1213),
+    ("logreg", "sag"): (0.06065378725356596, 0.45328783348307056, 0.6931475400924683,
+                        0.27296364307403564, 0.8899999856948853, 6400, 0),
+    ("pca", "dsag"): (5.4318966143239383e-05, 0.43198621088886074, -3762.041748046875,
+                      -17223.625, 1.0, 3211, 540),
+    ("pca", "sag"): (0.0001726642506709912, 0.4317791705027311, -3762.041748046875,
+                     -17213.455078125, 0.9399999976158142, 3200, 0),
+}
+#: paper-scale jobs: (samples, groups, w, eta)
+PAPER_JOBS = {"logreg": (16_000, 100, 80, 0.25), "pca": (50_000, 50, 40, 0.9)}
+#: live path tolerances against the reference: relative, on the final gap
+#: (logreg; PCA's gap near 5e-5 comes from a float32 iterate re-projected by
+#: a QR whose last bits differ from LAPACK's) and on the losses
+LIVE_GAP_RTOL = {"logreg": 1e-4, "pca": 1e-2}
+LIVE_LOSS_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -216,6 +245,74 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng) -> dict
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def check_dsag_update(torch, p: int, n: int, slot_dtype, rng) -> dict:
+    """Phase 3 for K4 at one shape; exact equality with the plain version."""
+    from repro_torch.kernels import dsag_update
+
+    dev = torch.device("cuda")
+    g = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32, device=dev).to(slot_dtype)
+    c = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32, device=dev).to(slot_dtype)
+    h = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.random(p) < 0.7, dtype=torch.float32, device=dev)
+    got = dsag_update.dsag_cache_update(g, c, h, mask)
+    want = dsag_update.dsag_cache_update_plain(g, c, h, mask)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("new_c", "new_h"), got, want):
+        if not torch.equal(a, b):
+            fail(f"dsag_cache_update [{p}, {n}] {slot_dtype}: {name} is not equal "
+                 f"to its plain version")
+    k_ms, p_ms = timed_pair(torch, lambda: dsag_update.dsag_cache_update(g, c, h, mask),
+                            lambda: dsag_update.dsag_cache_update_plain(g, c, h, mask),
+                            reps=50, plain_reps=10)
+    sz = g.element_size()
+    nbytes = p * n * 3 * sz + 2 * n * 4 + p * 4  # g, c read; c written; h read, written
+    flops = 6 * p * n
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
+    dt = str(slot_dtype).removeprefix("torch.")
+    print(f"  dsag_cache_update [{p}, {n}] {dt}: equal; kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(call=f"p{p}_n{n}_{dt}", max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_gram_matvec(torch, x, v) -> dict:
+    """Phase 3 for K5 at one shape (``x`` [m, d] or [B, m, d])."""
+    from repro_torch.kernels import gram_matvec
+
+    got = gram_matvec.gram_matvec(x, v)
+    want = gram_matvec.gram_matvec_plain(x, v)
+    again = gram_matvec.gram_matvec(x, v)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    shape = "x".join(str(s) for s in x.shape) + "·" + "x".join(str(s) for s in v.shape)
+    if not torch.isfinite(got).all() or not torch.allclose(
+        got, want, rtol=F32_RTOL, atol=F32_ATOL_REL * scale
+    ):
+        fail(f"gram_matvec {shape} disagrees with its plain version: max |diff| "
+             f"{err:.3e} at max |plain| {scale:.3e}")
+    if not torch.equal(got, again):
+        fail(f"gram_matvec {shape} does not repeat its bits")
+    k_ms, p_ms = timed_pair(torch, lambda: gram_matvec.gram_matvec(x, v),
+                            lambda: gram_matvec.gram_matvec_plain(x, v), reps=50, plain_reps=20)
+    if x.dim() == 3:
+        vb = v.expand(x.shape[0], *v.shape)
+        lib_ms = cuda_ms(torch, lambda: torch.bmm(x.transpose(1, 2), torch.bmm(x, vb)), 20)
+    else:
+        lib_ms = cuda_ms(torch, lambda: x.T @ (x @ v), 20)
+    B = x.shape[0] if x.dim() == 3 else 1
+    m, d = x.shape[-2:]
+    k = v.shape[1]
+    nbytes = (B * m * d + d * k + B * d * k) * 4
+    flops = 4 * B * m * d * k
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
+    print(f"  gram_matvec {shape}: max|diff|={err:.3e} (|plain|<={scale:.3e}); kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, matmul pair {lib_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return dict(call=shape, max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def committed_ttg() -> dict:
     bench = json.loads((ROOT / "BENCH_convergence.json").read_text())
     return {
@@ -272,9 +369,9 @@ def run_recipes(torch) -> tuple[dict, dict]:
         print(f"    dsag < sag < coded holds: sag/dsag={o['sag_over_dsag']:.3f} "
               f"coded/dsag={o['coded_over_dsag']:.3f}")
     total = launch_counts()
-    for name, c in total.items():
-        if c == 0:
-            fail(f"kernel {name} was never launched on the main path")
+    for name in ("logreg_block_sub", "pca_block_sub", "grid_cache_update"):
+        if total[name] == 0:
+            fail(f"kernel {name} was never launched on the sweep path")
     if counts["grid"]["logreg_block_sub"] == 0 or counts["pca_paper_scale"]["pca_block_sub"] == 0:
         fail("a recipe ran without its block-subgradient kernel")
     if counts["grid"]["grid_cache_update"] == 0 or counts["pca_paper_scale"]["grid_cache_update"] == 0:
@@ -301,37 +398,188 @@ def run_recipes(torch) -> tuple[dict, dict]:
     return total, counts
 
 
-def profile_grid_dsag(torch) -> None:
-    """``--profile``: where one grid-recipe dsag run spends the card's time.
+def paper_live_opts(arch: str, method: str, engine, steps: int = 80):
+    """Trainer options of one paper-scale live job: heavy-burst traces of a
+    ``make_heterogeneous_cluster`` fleet normalised to one group's load, 2
+    scenarios (scenario 0 replayed), margin 0.02, eval every 10 steps."""
+    from repro_torch.core.problems import (
+        LogisticRegressionProblem,
+        PCAProblem,
+        make_genomics_like_matrix,
+        make_higgs_like,
+    )
+    from repro_torch.experiments.grid import HEAVY_BURSTS
+    from repro_torch.latency.model import make_heterogeneous_cluster, sample_fleet
+    from repro_torch.launch.paper_jobs import paper_train_config
+    from repro_torch.launch.train import TrainerOptions
 
-    One warm run of the 60-iteration dsag column under ``torch.profiler``:
-    host wall clock (ending in a synchronize), the union of device kernel
-    intervals (busy time), the idle share, kernel count, and the kernels
-    that take the most device time.
-    """
+    n, G, w, eta = PAPER_JOBS[arch]
+    if arch == "logreg":
+        X, y = make_higgs_like(n, seed=0)
+        prob = LogisticRegressionProblem(X=X, y=y)
+    else:
+        prob = PCAProblem(X=make_genomics_like_matrix(n, 64, seed=0))
+    cluster = make_heterogeneous_cluster(G, seed=3, burst_rate=0.0,
+                                         load_unit=prob.compute_cost(1, n // G))
+    traces = sample_fleet(cluster, 2, 4 * steps, burst_rate=HEAVY_BURSTS.rate,
+                          burst_factor_mean=HEAVY_BURSTS.factor_mean,
+                          burst_duration_mean=HEAVY_BURSTS.duration_mean, seed=7)
+    return TrainerOptions(
+        arch=arch, steps=steps, samples=n, num_groups=G, dsag_w=w, method=method,
+        traces=traces, scenario=0, train_config=paper_train_config(eta),
+        simulate_stragglers=False, failure_max_misses=10**6, eval_every=10,
+        log_every=10**6, seed=0, engine=engine,
+    )
+
+
+def timed_run(torch, opts):
+    """(trainer, history, host seconds of ``run()`` ending in a synchronize)."""
+    from repro_torch.launch.train import Trainer
+
+    trainer = Trainer(opts)
+    t0 = time.perf_counter()
+    hist = trainer.run()
+    torch.cuda.synchronize()
+    return trainer, hist, time.perf_counter() - t0
+
+
+def run_live(torch) -> dict:
+    """Phase 5: the live two-tier trainer through K1, K4 and K5."""
+    import dataclasses
+
+    from repro_torch.core.problems import LogisticRegressionProblem, make_higgs_like
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.experiments.grid import HEAVY_BURSTS
+    from repro_torch.ft.validation import controller_streams, group_loads
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.latency.model import make_heterogeneous_cluster, sample_fleet
+    from repro_torch.launch.paper_jobs import paper_train_config
+    from repro_torch.launch.train import TrainerOptions, check_history
+
+    card = EngineConfig(device="cuda", kernel_backend="cuda")
+    live_committed = json.loads((ROOT / "BENCH_convergence.json").read_text())["live_validation"]
+    r = live_committed["recipe"]
+    reset_launch_counts()
+
+    # 5.1 the committed live_validation recipe
+    n, G, T = r["num_samples"], r["n_workers"], r["num_iterations"]
+    X, y = make_higgs_like(n, seed=r["seed"])
+    prob = LogisticRegressionProblem(X=X, y=y)
+    cluster = make_heterogeneous_cluster(G, seed=r["seed"] + 3, burst_rate=0.0,
+                                         load_unit=prob.compute_cost(1, n // G))
+    traces = sample_fleet(cluster, r["n_scenarios"], 4 * T, burst_rate=HEAVY_BURSTS.rate,
+                          burst_factor_mean=HEAVY_BURSTS.factor_mean,
+                          burst_duration_mean=HEAVY_BURSTS.duration_mean, seed=r["seed"] + 7)
+    first_virtual = {}
+    print(f"  live_validation recipe (logreg {n} x 29, {G} groups, w={r['w']}, {T} steps, "
+          f"margin {r['margin']}):")
+    for m in ("dsag", "sag"):
+        opts = TrainerOptions(
+            arch="logreg", steps=T, samples=n, num_groups=G, dsag_w=r["w"], method=m,
+            traces=traces, scenario=r["scenario"],
+            train_config=dataclasses.replace(paper_train_config(r["eta"]),
+                                             dsag_margin=r["margin"]),
+            simulate_stragglers=False, failure_max_misses=10**6,
+            eval_every=r["eval_every"], log_every=10**6, seed=r["seed"], engine=card,
+        )
+        _, hist, wall = timed_run(torch, opts)
+        cs = controller_streams(traces, r["scenario"], w=r["w"], num_iterations=T,
+                                loads=group_loads(prob, G), margin=r["margin"],
+                                accepts_stale=m == "dsag")
+        for f in ("mask", "flush", "evict"):
+            if not np.array_equal(np.stack(hist[f"{f}_stream"]), getattr(cs, f)):
+                fail(f"live_validation/{m}: the trainer's {f} stream differs from "
+                     f"controller_streams")
+        gap = hist["eval"][-1][3]
+        want = live_committed["methods"][m]["final_gap_live"]
+        rel = abs(gap - want) / want
+        first_virtual[m] = next((v for (_s, _w, v, g) in hist["eval"] if g <= r["gap"]), np.inf)
+        print(f"    {m}: streams equal controller_streams; final gap {gap!r} vs committed "
+              f"{want!r} (rel diff {rel:.2e}, tolerance 1e-4); first eval at gap <= "
+              f"{r['gap']} at virtual {first_virtual[m]:.6f} s (simulator's time-to-gap "
+              f"{live_committed['methods'][m]['virtual_time_to_gap']:.6f} s); "
+              f"{wall:.2f} s host, {wall / T * 1e3:.2f} ms/step")
+        if not np.isfinite(gap) or rel > 1e-4:
+            fail(f"live_validation/{m}: final gap {gap} vs committed {want}")
+    if not first_virtual["dsag"] <= first_virtual["sag"]:
+        fail(f"live_validation: dsag reached the gap later than sag: {first_virtual}")
+
+    # 5.2 the paper-scale jobs
+    finals = {}
+    print(f"    {'job':>12} {'port final gap':>24} {'reference':>24} {'loss 0 -> 79':>24} "
+          f"{'max xi':>7} {'fresh/flush':>11} {'host s':>7} {'ms/step':>8}")
+    for arch in PAPER_JOBS:
+        for m in ("dsag", "sag"):
+            trainer, hist, wall = timed_run(torch, paper_live_opts(arch, m, card))
+            gap_ref, virt_ref, l0_ref, l79_ref, xi_ref, fresh_ref, flush_ref = PAPER_LIVE[arch, m]
+            gap = hist["eval"][-1][3]
+            fresh = int(np.sum(hist["mask_stream"]))
+            flush = int(np.sum(hist["flush_stream"]))
+            xi = max(hist["xi"])
+            loss0, loss79 = hist["loss"][0], hist["loss"][-1]
+            print(f"    {arch + '/' + m:>12} {gap!r:>24} {gap_ref!r:>24} "
+                  f"{f'{loss0:.6g} -> {loss79:.6g}':>24} {xi:>7.3f} {f'{fresh}/{flush}':>11} "
+                  f"{wall:>7.3f} {wall / len(hist['loss']) * 1e3:>8.3f}")
+            if (fresh, flush) != (fresh_ref, flush_ref) or xi != xi_ref:
+                fail(f"{arch}/{m}: fresh/flush {fresh}/{flush}, max xi {xi} vs the "
+                     f"reference's {fresh_ref}/{flush_ref}, {xi_ref}")
+            if hist["virtual"][-1] != virt_ref:
+                fail(f"{arch}/{m}: virtual time {hist['virtual'][-1]!r} vs {virt_ref!r}")
+            if not np.isclose(gap, gap_ref, rtol=LIVE_GAP_RTOL[arch], atol=0.0):
+                fail(f"{arch}/{m}: final gap {gap!r} vs the reference's {gap_ref!r}")
+            for got, want in ((loss0, l0_ref), (loss79, l79_ref)):
+                if not np.isclose(got, want, rtol=LIVE_LOSS_RTOL, atol=0.0):
+                    fail(f"{arch}/{m}: loss {got!r} vs the reference's {want!r}")
+            if m == "dsag":
+                ok, msg = check_history(hist)
+                if not ok:
+                    fail(f"{arch}/dsag: {msg}")
+            finals[arch, m] = (trainer.state["params"], hist)
+    print(f"    gap tolerance rtol {LIVE_GAP_RTOL}; loss rtol {LIVE_LOSS_RTOL}; fresh, "
+          f"flush, max xi and virtual time exact; dsag passes --check")
+    counts = launch_counts()
+    for name in ("logreg_block_sub", "dsag_cache_update", "gram_matvec"):
+        if counts[name] == 0:
+            fail(f"kernel {name} was never launched on the live path")
+    print(f"  live path launches: {counts}")
+
+    # 5.3 the logreg paper-scale dsag run through the plain versions on the card
+    plain = EngineConfig(device="cuda", kernel_backend="torch")
+    trainer, hist, wall = timed_run(torch, paper_live_opts("logreg", "dsag", plain))
+    V_k, hist_k = finals["logreg", "dsag"]
+    for f in ("mask_stream", "flush_stream", "evict_stream"):
+        if not np.array_equal(np.stack(hist[f]), np.stack(hist_k[f])):
+            fail(f"logreg/dsag: kernel and plain runs differ in {f}")
+    V_p = trainer.state["params"]
+    err = float((V_k - V_p).abs().max())
+    if not torch.allclose(V_k, V_p, rtol=1e-4, atol=1e-5 * float(V_p.abs().max())):
+        fail(f"logreg/dsag: kernel and plain final params differ by {err:.3e}")
+    print(f"  logreg/dsag through the plain versions on the card: streams equal, final "
+          f"params max |diff| {err:.3e} (rtol 1e-4, atol 1e-5 max|V|); {wall:.2f} s host")
+    return counts
+
+
+def profile_run(torch, label: str, setup, iters: int) -> None:
+    """One warm run under ``torch.profiler``: host wall clock (ending in a
+    synchronize), the union of device kernel intervals (busy time), the idle
+    share, kernel count, and the kernels that take the most time.
+    ``setup()`` returns the run to time (set-up stays outside the window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.experiments.convergence import grid_logreg_sweep, run_convergence_batch
-    from repro_torch.experiments.engine import EngineConfig
-
-    out, _ = grid_logreg_sweep(seed=0, engine=EngineConfig())  # problem, traces, methods
-    cfg, T = out.methods["dsag"], out.num_iterations
-
-    def run():
-        run_convergence_batch(out.problem, out.traces, cfg, T, eval_every=out.eval_every,
-                              engine=EngineConfig())
-        torch.cuda.synchronize()
-
-    run()  # warm
+    setup()()  # warm
+    torch.cuda.synchronize()
+    run = setup()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
-        print("  profile: the profiler recorded no device time (not measured)")
+        print(f"  profile {label}: the profiler recorded no device time (not measured)")
         return
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     by_name: dict[str, float] = {}
@@ -346,12 +594,28 @@ def profile_grid_dsag(torch) -> None:
     busy_ms = busy / 1e3
     window_ms = (spans[-1][1] - spans[0][0]) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"  profile grid/dsag ({T} iters, profiler on): host wall {wall_ms:.1f} ms, "
+    print(f"  profile {label} ({iters} iters, profiler on): host wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.2f} ms over a {window_ms:.1f} ms kernel window, "
           f"idle share {1 - busy_ms / window_ms:.3f}; {len(spans)} device kernels "
-          f"({len(spans) / T:.0f} per iteration)")
+          f"({len(spans) / iters:.0f} per iteration)")
     for name, us in top:
         print(f"    {us / 1e3:8.3f} ms  {name[:90]}")
+
+
+def profile_paths(torch) -> None:
+    """``--profile``: the grid recipe's dsag column (60 iterations) and the
+    paper-scale live logreg and PCA dsag jobs (80 steps each)."""
+    from repro_torch.experiments.convergence import grid_logreg_sweep, run_convergence_batch
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.launch.train import Trainer
+
+    out, _ = grid_logreg_sweep(seed=0, engine=EngineConfig())  # problem, traces, methods
+    cfg, T = out.methods["dsag"], out.num_iterations
+    profile_run(torch, "grid/dsag", lambda: lambda: run_convergence_batch(
+        out.problem, out.traces, cfg, T, eval_every=out.eval_every, engine=EngineConfig()), T)
+    for arch in PAPER_JOBS:
+        opts = paper_live_opts(arch, "dsag", EngineConfig())
+        profile_run(torch, f"live {arch}/dsag", lambda: Trainer(opts).run, opts.steps)
 
 
 def main() -> None:
@@ -391,15 +655,38 @@ def main() -> None:
             check_cache_walk(torch, 10, 200, 1000, 29, 60, rng),
             check_cache_walk(torch, 4, 100, 250, 288, 80, rng),
         ],
+        # the live path's shapes: logreg paper scale, PCA paper scale (50
+        # groups x 64 x 3), live_validation; then the bf16 kernels_bench shape
+        "dsag_cache_update": [
+            check_dsag_update(torch, 100, 29, torch.float32, rng),
+            check_dsag_update(torch, 50, 192, torch.float32, rng),
+            check_dsag_update(torch, 8, 29, torch.float32, rng),
+            check_dsag_update(torch, 8, 1 << 20, torch.bfloat16, rng),
+        ],
+        "gram_matvec": [
+            check_gram_matvec(
+                torch,
+                torch.as_tensor(make_genomics_like_matrix(50_000, 64, seed=0),
+                                device=dev).view(50, 1000, 64),
+                torch.as_tensor(np.linalg.qr(rng.normal(size=(64, 3)))[0],
+                                dtype=torch.float32, device=dev).contiguous()),
+            check_gram_matvec(
+                torch,
+                torch.as_tensor(rng.normal(size=(4096, 512)), dtype=torch.float32, device=dev),
+                torch.as_tensor(rng.normal(size=(512, 8)), dtype=torch.float32, device=dev)),
+        ],
     }
     if "--profile" in sys.argv[1:]:
-        profile_grid_dsag(torch)
+        profile_paths(torch)
     if {"--quick", "--profile"} & set(sys.argv[1:]):
         print(json.dumps({"per_kernel": per_kernel}))
         return
 
     print("phase 4: the grid and pca_paper_scale recipes through the kernels")
-    launches, _ = run_recipes(torch)
+    sweep_launches, _ = run_recipes(torch)
+    print("phase 5: the live two-tier trainer through the kernels")
+    live_launches = run_live(torch)
+    launches = {k: sweep_launches[k] + live_launches[k] for k in sweep_launches}
 
     meta = {
         "logreg_block_sub": ("src/repro_torch/kernels/csrc/block_sub.cu",
@@ -408,14 +695,19 @@ def main() -> None:
                           "src/repro/kernels/block_sub.py:99"),
         "grid_cache_update": ("src/repro_torch/kernels/csrc/cache_events.cu",
                               "src/repro/kernels/cache_events.py:107"),
+        "dsag_cache_update": ("src/repro_torch/kernels/csrc/dsag_update.cu",
+                              "src/repro/kernels/dsag_update.py:47"),
+        "gram_matvec": ("src/repro_torch/kernels/csrc/gram_matvec.cu",
+                        "src/repro/kernels/gram_matvec.py:41"),
     }
     kernels = []
     for name, rows in per_kernel.items():
-        main_row = rows[0]  # the per-iteration call of the first recipe
+        main_row = rows[0]  # the per-iteration call of the first recipe / job
         source, replaces = meta[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=launches[name], launches_sweep=sweep_launches[name],
+            launches_live=live_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

@@ -1,0 +1,234 @@
+"""DSAG's Tier-1 training step (paper Eq. 6), from ``repro.core.dsag_pjit``.
+
+Groups are the paper's partitions.  Per step the Tier-2 controller hands in
+``mask`` (fresh within the deadline), ``flush`` (a stale result landed) and
+``evict`` (the group failed) as ``[P]`` bool tensors, and the step applies
+the SAG cache rule in its incremental form
+
+    H  <- H + Σ_i m_i (g_i - c_i)          c_i <- m_i ? g_i : c_i
+    ξ  <- coverage(filled groups)          Ĥ = H / (ξ P)
+
+then the optimizer step on Ĥ and, for PCA, the re-projection.  A missed
+group's gradient parks in a *pending* slot; a later flush bit moves it into
+the cache.  The cache and H update runs through kernel K4
+(:mod:`repro_torch.kernels.dsag_update`).
+
+The port's state holds one parameter tensor (the paper problems' iterate
+``V``), so every slot is a tensor with a leading group dim, flattened to
+``[P, n]`` for K4.  What is not ported is refused with a capability code:
+an int8 cache (:data:`CAP_INT8_CACHE`), a mesh (:data:`CAP_MESH`), and a
+job that offers no per-group gradient (:data:`CAP_GROUP_GRAD`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.experiments.engine import refuse
+from repro_torch.kernels import dsag_update as k4
+from repro_torch.optim.optimizers import (
+    apply_updates,
+    clip_by_global_norm,
+    global_norm,
+    make_optimizer,
+)
+
+#: dsag_cache_dtype="int8" (optim/compression.py's quantized cache)
+CAP_INT8_CACHE = "int8-cache-not-ported"
+#: a device mesh (sharded groups, ZeRO slots)
+CAP_MESH = "mesh-not-ported"
+#: a job without ``group_value_and_grad`` (the reference's vmapped autodiff)
+CAP_GROUP_GRAD = "group-grad-required"
+
+_SLOT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    num_groups: int
+    axes: tuple[str, ...]  # mesh axes the group dim is sharded over (() = none)
+
+
+def make_group_spec(tc: TrainConfig, mesh=None) -> GroupSpec:
+    """The single-device group geometry (``mesh=None``) of the reference."""
+    if mesh is not None:
+        raise refuse(CAP_MESH, "sharded DSAG groups over a mesh are not ported yet")
+    return GroupSpec(num_groups=1 if not tc.dsag else 4, axes=())
+
+
+def _slot_dtype(tc: TrainConfig) -> torch.dtype:
+    """The cache / pending slots' dtype (float32 or bfloat16)."""
+    if tc.dsag_cache_dtype == "int8":
+        raise refuse(CAP_INT8_CACHE, "the int8 per-row-scaled DSAG cache is not ported yet")
+    if tc.dsag_cache_dtype not in _SLOT_DTYPES:
+        raise ValueError(f"unknown dsag_cache_dtype {tc.dsag_cache_dtype!r}")
+    return _SLOT_DTYPES[tc.dsag_cache_dtype]
+
+
+def init_dsag_state(params: torch.Tensor, gs: GroupSpec, tc: TrainConfig) -> dict:
+    dt = _slot_dtype(tc)
+    shape = (gs.num_groups,) + tuple(params.shape)
+    dev = params.device
+    return {
+        "cache": torch.zeros(shape, dtype=dt, device=dev),
+        "pending": torch.zeros(shape, dtype=dt, device=dev),
+        "pending_valid": torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
+        "filled": torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
+        "h": torch.zeros(params.shape, dtype=torch.float32, device=dev),
+    }
+
+
+def _bmask(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Broadcast a [P] mask against [P, ...]."""
+    return m.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def dsag_update(dsag: dict, group_grads: torch.Tensor, mask, flush, evict=None,
+                backend: str = "cuda"):
+    """Apply the DSAG cache rule; returns ``(new_dsag, h_hat, xi)``.
+
+    ``group_grads`` [P, ...] float32; ``mask`` / ``flush`` / ``evict`` [P]
+    bool.  ``backend="cuda"`` runs the cache and H update through the K4
+    wrapper (the kernel on CUDA tensors, its plain version on CPU tensors),
+    ``"torch"`` through the plain version everywhere.
+
+    The reference's rule is folded into K4's inputs:
+
+    * ``m' = mask | eff_flush | evict`` with ``mask`` excluding ``evict``
+      and ``eff_flush = flush & ~mask & pending_valid``;
+    * ``g' = evict ? 0 : (mask ? g : (eff_flush ? pending : 0))``, stored
+      in the cache's dtype before K4 sees it.  Evict is applied last, since
+      ``eff_flush`` does not exclude an evicted group and the reference
+      zeroes such a slot after its flush was selected.
+
+    K4's ``c <- m' ? g' : c`` and ``h += Σ m'(g' - c)`` are then the
+    reference's ``stored`` slot and its delta, bf16 slots included: the
+    reference takes the delta from the stored, rounded value, and the
+    pre-rounded ``g'`` gives K4 the same value.  The cache, pending slots,
+    ``filled``, ``pending_valid`` and ξ equal the reference's exactly.  H is
+    accumulated in K4's order (h first, then the groups in order), where
+    the reference sums the deltas first and adds h last, so H agrees with
+    the reference within float32 rounding, not bit for bit.
+    """
+    p = mask.shape[0]
+    if evict is None:
+        evict = torch.zeros_like(mask)
+    # the masks stay bool tensors: torch refuses `~` on a float tensor and
+    # `1 - bool_tensor`, so every float use below casts explicitly
+    mask = mask & ~evict
+    # a flush is only meaningful if the slot was pending and not fresh now
+    eff_flush = flush & ~mask & dsag["pending_valid"]
+    cache, pending = dsag["cache"], dsag["pending"]
+    dt = cache.dtype
+    g = group_grads.to(torch.float32)
+    g_slot = g.to(dt)
+    zero = torch.zeros((), dtype=dt, device=g.device)
+    g_in = torch.where(_bmask(mask, g), g_slot,
+                       torch.where(_bmask(eff_flush, g), pending, zero))
+    g_in = torch.where(_bmask(evict, g), zero, g_in)
+    m_in = (mask | eff_flush | evict).to(torch.float32)
+    update = k4.dsag_cache_update if backend == "cuda" else k4.dsag_cache_update_plain
+    new_c, new_h = update(g_in.reshape(p, -1), cache.reshape(p, -1),
+                          dsag["h"].reshape(-1), m_in)
+    # pending: keep the oldest in-flight gradient unless fresh/flushed now
+    take_new = mask | eff_flush | ~dsag["pending_valid"]
+    new_pending = torch.where(_bmask(take_new, g), g_slot, pending)
+
+    arrived = mask | eff_flush
+    new_filled = (dsag["filled"] | arrived) & ~evict
+    # after a fresh arrival nothing is in flight; every other group has
+    # this step's gradient in flight (after a flush too), unless it was
+    # evicted: its in-flight gradient died with it.  (The reference's
+    # where(arrived, True, valid | ~mask), cleared where mask or evict,
+    # reduces to this.)
+    new_pending_valid = ~mask & ~evict
+
+    # ξ = clip(mean(filled), 1e-6, 1): XLA computes the reference's mean as
+    # the count times the float32 reciprocal of P, and so does this (a
+    # division rounds differently, e.g. 5/6), so ξ equals the reference's
+    xi = torch.clamp(new_filled.to(torch.float32).sum() * (1.0 / p), 1e-6, 1.0)
+    new_h = new_h.reshape(dsag["h"].shape)
+    h_hat = new_h / (xi * p)
+    new_dsag = {
+        "cache": new_c.reshape(cache.shape),
+        "pending": new_pending,
+        "pending_valid": new_pending_valid,
+        "filled": new_filled,
+        "h": new_h,
+    }
+    return new_dsag, h_hat, xi
+
+
+def make_train_step(job: Any, tc: TrainConfig, gs: GroupSpec, mesh=None,
+                    project_fn=None, backend: str = "cuda"):
+    """Build ``step(state, batch, mask, flush, evict=None) -> (state, metrics)``.
+
+    ``job.group_value_and_grad(params, batch)`` returns ``(losses [P],
+    grads [P, ...])`` — what the reference's ``vmap(value_and_grad)`` of
+    the per-group loss returns.  ``project_fn``, when given, re-projects the
+    updated parameters (the paper's PCA orthonormalization).  ``backend``
+    selects the kernels (``"cuda"``) or their plain versions (``"torch"``)
+    for the cache update.
+    """
+    if mesh is not None:
+        raise refuse(CAP_MESH, "a mesh-sharded train step is not ported yet")
+    group_value_and_grad = getattr(job, "group_value_and_grad", None)
+    if group_value_and_grad is None:
+        raise refuse(
+            CAP_GROUP_GRAD,
+            "the port computes per-group gradients through the job's "
+            "group_value_and_grad (no autodiff of a loss_fn yet)",
+        )
+    opt = make_optimizer(tc)
+
+    def step(state, batch, mask, flush, evict=None):
+        params = state["params"]
+        losses, grads = group_value_and_grad(params, batch)
+        if tc.dsag:
+            new_dsag, h_hat, xi = dsag_update(
+                state["dsag"], grads, mask, flush, evict, backend=backend
+            )
+        else:
+            new_dsag = state["dsag"]
+            xi = torch.ones((), dtype=torch.float32, device=params.device)
+            h_hat = grads.to(torch.float32).mean(dim=0)
+
+        if tc.grad_clip > 0:
+            h_hat, gnorm = clip_by_global_norm(h_hat, tc.grad_clip)
+        else:
+            gnorm = global_norm(h_hat)
+
+        updates, new_opt = opt.update(h_hat, state["opt"], params)
+        new_params = apply_updates(params, updates)
+        if project_fn is not None:
+            new_params = project_fn(new_params)
+        new_state = {
+            "params": new_params,
+            "opt": new_opt,
+            "dsag": new_dsag,
+            "step": state["step"] + 1,
+        }
+        metrics = {
+            "loss": losses.mean(),
+            "per_group_loss": losses,
+            "grad_norm": gnorm,
+            "xi": xi,
+            "mask_count": mask.sum(),
+        }
+        return new_state, metrics
+
+    return step
+
+
+def init_train_state(params: torch.Tensor, tc: TrainConfig, gs: GroupSpec) -> dict:
+    opt = make_optimizer(tc)
+    return {
+        "params": params,
+        "opt": opt.init(params),
+        "dsag": init_dsag_state(params, gs, tc),
+        "step": torch.zeros((), dtype=torch.int32, device=params.device),
+    }

@@ -74,6 +74,11 @@ class EngineCapabilityError(ValueError):
         self.capability = capability
 
 
+def refuse(code: str, detail: str) -> EngineCapabilityError:
+    """The error a port entry point raises for a part it does not run."""
+    return EngineCapabilityError(EngineCapability(False, code, detail))
+
+
 def engine_capability(engine: EngineConfig, config=None, traces=None) -> EngineCapability:
     """Whether ``engine`` can run ``config`` (a MethodConfig) on ``traces``."""
     dev = torch.device(engine.device)

@@ -1,4 +1,5 @@
-"""Carry the reference's state across: problem data, traces, initial iterate.
+"""Carry the reference's state across: problem data, traces, initial iterate,
+and the live trainer's train state.
 
 This system has no weights.  Its state is the problem data and the latency
 traces, so these helpers rebuild the port's problem and
@@ -11,6 +12,7 @@ the reference's exact inputs to the port through them.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.problems import (
     FiniteSumProblem,
@@ -58,3 +60,35 @@ def traces_from_arrays(
     if not (bs.shape == be.shape == bf.shape) or bs.shape[:2] != comm.shape[:2]:
         raise ValueError("burst tables must be [S, N, M] matching the traces")
     return FleetTraces(comm, comp_unit, f64(slowdown), bs, be, bf, seed=seed)
+
+
+def train_state_from_arrays(
+    params, cache, pending, pending_valid, filled, h, mu, step, device="cuda",
+    slot_dtype=torch.float32,
+) -> dict:
+    """The live trainer's train state from numpy arrays of the reference's.
+
+    ``params``, ``h`` and the sgd momentum ``mu`` are float32; ``cache`` /
+    ``pending`` [P, ...] arrive as float32 arrays and are stored as
+    ``slot_dtype`` (bfloat16 slots travel as float32 holding bfloat16
+    values, so the conversion is exact); ``pending_valid`` / ``filled`` [P]
+    bool; ``step`` an int.
+    """
+    dev = torch.device(device)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    step_t = torch.tensor(int(step), dtype=torch.int32, device=dev)
+    return {
+        "params": f32(params),
+        "opt": {"mu": f32(mu), "step": step_t.clone()},
+        "dsag": {
+            "cache": f32(cache).to(slot_dtype),
+            "pending": f32(pending).to(slot_dtype),
+            "pending_valid": torch.as_tensor(np.asarray(pending_valid, dtype=bool), device=dev),
+            "filled": torch.as_tensor(np.asarray(filled, dtype=bool), device=dev),
+            "h": f32(h),
+        },
+        "step": step_t,
+    }

@@ -6,6 +6,8 @@ wrapper                    TPU kernel it replaces                 CUDA source
 ``logreg_block_sub`` (K1)  ``repro/kernels/block_sub.py``         ``csrc/block_sub.cu``
 ``pca_block_sub`` (K2)     ``repro/kernels/block_sub.py``         ``csrc/block_sub.cu``
 ``grid_cache_update`` (K3) ``repro/kernels/cache_events.py``      ``csrc/cache_events.cu``
+``dsag_cache_update`` (K4) ``repro/kernels/dsag_update.py``       ``csrc/dsag_update.cu``
+``gram_matvec`` (K5)       ``repro/kernels/gram_matvec.py``       ``csrc/gram_matvec.cu``
 =========================  =====================================  =================================
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -15,9 +17,9 @@ in its module's ``launch_counts``; :func:`launch_counts` merges them.
 
 from __future__ import annotations
 
-from repro_torch.kernels import block_sub, cache_events
+from repro_torch.kernels import block_sub, cache_events, dsag_update, gram_matvec
 
-_MODULES = (block_sub, cache_events)
+_MODULES = (block_sub, cache_events, dsag_update, gram_matvec)
 
 
 def launch_counts() -> dict[str, int]:

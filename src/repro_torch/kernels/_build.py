@@ -36,6 +36,8 @@ SIGNATURES = {
     "dsag_logreg_block_sub": (_P,) * 6 + (_I64, _I64, _I32, _I32, _P),
     "dsag_pca_block_sub": (_P,) * 5 + (_I64, _I64, _I32, _I32, _I32, _P),
     "dsag_grid_cache_update": (_P,) * 15 + (_I32,) * 5 + (_P,),
+    "dsag_dsag_cache_update": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _P),
+    "dsag_gram_matvec": (_P,) * 4 + (_I64, _I64, _I32, _I32, _I32, _P),
 }
 #: integer constants the wrappers check shapes against
 CONSTANTS = (
@@ -43,6 +45,8 @@ CONSTANTS = (
     "dsag_pca_threads",
     "dsag_pca_chunk",
     "dsag_pca_max_out",
+    "dsag_gram_chunk",
+    "dsag_gram_tile",
 )
 
 #: what the last build did: library path, seconds, nvcc's -Xptxas -v report

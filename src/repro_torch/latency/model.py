@@ -49,6 +49,18 @@ class GammaParams:
         var = max(var, 1e-18)  # degenerate -> near-deterministic
         return GammaParams(shape=mean * mean / var, scale=var / mean)
 
+    def sample(self, rng: np.random.Generator, size=None) -> np.ndarray:
+        return rng.gamma(self.shape, self.scale, size=size)
+
+
+@dataclasses.dataclass
+class BurstState:
+    """Multiplicative latency burst (paper §3.2 / Fig. 4)."""
+
+    active: bool = False
+    factor: float = 1.0
+    ends_at: float = 0.0
+
 
 @dataclasses.dataclass
 class WorkerLatencyModel:
@@ -56,9 +68,10 @@ class WorkerLatencyModel:
 
     ``comm`` models Y_i; ``comp_per_unit`` models Z_i per unit of
     computational load, so a load ``c`` has mean ``c * shape * scale`` of
-    ``comp_per_unit`` (paper Fig. 1).  Only the parameters are copied: :func:`sample_fleet`
-    draws from them; the scalar sampling methods of the JAX package belong
-    to its scalar simulator, which this package does not port yet.
+    ``comp_per_unit`` (paper Fig. 1).  :func:`sample_fleet` draws whole
+    trace grids from the parameters; :meth:`sample_total` is the scalar
+    sampler with the lazily thinned burst process, which the live trainer's
+    straggler simulation draws from (``ClusterLatencyModel.sample_all``).
     """
 
     comm: GammaParams
@@ -69,6 +82,56 @@ class WorkerLatencyModel:
     # artificial *persistent* slowdown (paper §7.2 artificial scenario)
     slowdown: float = 1.0
 
+    _burst: BurstState = dataclasses.field(default_factory=BurstState)
+
+    # -- burst process --------------------------------------------------
+    def _start_burst(self, now: float, rng: np.random.Generator) -> float:
+        factor = 1.0 + rng.exponential(self.burst_factor_mean - 1.0)
+        self._burst = BurstState(
+            active=True,
+            factor=factor,
+            ends_at=now + rng.exponential(self.burst_duration_mean),
+        )
+        return factor
+
+    def _burst_factor(self, now: float, rng: np.random.Generator) -> float:
+        if self._burst.active:
+            if now >= self._burst.ends_at:
+                # the idle-gap clock restarts when the burst ends
+                self._last_query_t = self._burst.ends_at
+                self._burst = BurstState()
+            else:
+                return self._burst.factor
+        if self.burst_rate > 0.0:
+            last = getattr(self, "_last_query_t", None)
+            if last is None:
+                # stationary start: the fleet was running long before t=0, so
+                # a worker is mid-burst with probability dur/(idle+dur); the
+                # residual duration is again exponential (memorylessness)
+                self._last_query_t = now
+                lam_m = self.burst_rate * self.burst_duration_mean
+                if rng.random() < lam_m / (1.0 + lam_m):
+                    return self._start_burst(now, rng)
+                return 1.0
+            # burst arrivals sampled lazily at query time by thinning the
+            # Poisson process over the elapsed idle gap (memorylessness)
+            p_start = 1.0 - math.exp(-self.burst_rate * max(now - last, 0.0))
+            self._last_query_t = now
+            if rng.random() < p_start:
+                return self._start_burst(now, rng)
+        return 1.0
+
+    # -- sampling --------------------------------------------------------
+    def sample_comm(self, rng: np.random.Generator) -> float:
+        return float(self.comm.sample(rng))
+
+    def sample_comp(self, c: float, rng: np.random.Generator, now: float = 0.0) -> float:
+        base = float(self.comp_per_unit.sample(rng)) * c
+        return base * self.slowdown * self._burst_factor(now, rng)
+
+    def sample_total(self, c: float, rng: np.random.Generator, now: float = 0.0) -> float:
+        return self.sample_comm(rng) + self.sample_comp(c, rng, now)
+
 
 @dataclasses.dataclass
 class ClusterLatencyModel:
@@ -77,9 +140,18 @@ class ClusterLatencyModel:
     workers: list  # list[WorkerLatencyModel]
     seed: int = 0
 
+    def __post_init__(self):
+        self.rng = np.random.default_rng(self.seed)
+
     @property
     def num_workers(self) -> int:
         return len(self.workers)
+
+    def sample_all(self, c: float, now: float = 0.0) -> np.ndarray:
+        """One latency draw per worker for a single iteration."""
+        return np.array(
+            [w.sample_total(c, self.rng, now) for w in self.workers], dtype=np.float64
+        )
 
 
 #: Approximate latency ranges from paper Table 1 (AWS logistic regression):
@@ -125,7 +197,9 @@ class ChurnSchedule:
     row ``r`` of ``slowdown`` / ``alive`` ([C+1, N]) applies on
     ``[times[r-1], times[r])``.  The device engine of this package does not
     replay churn yet: traces that carry a schedule are refused with
-    ``CAP_CHURN`` (see :mod:`repro_torch.experiments.engine`).
+    ``CAP_CHURN`` (see :mod:`repro_torch.experiments.engine`).  The live
+    trainer's controller does replay it (``alive_at`` at each assignment,
+    the slowdown row at each task start).
     """
 
     times: np.ndarray  # [C] float64, strictly increasing, > 0
@@ -164,6 +238,14 @@ class ChurnSchedule:
         return cls(
             times=np.zeros(0), slowdown=sd, alive=np.ones_like(sd, dtype=bool)
         )
+
+    def row_at(self, t):
+        """Row index active at time(s) ``t`` (scalar or array)."""
+        return np.searchsorted(self.times, t, side="right")
+
+    def alive_at(self, t) -> np.ndarray:
+        """Liveness row(s) at time(s) ``t`` (scalar -> [N], [S] -> [S, N])."""
+        return self.alive[self.row_at(t)]
 
 
 @dataclasses.dataclass
@@ -209,6 +291,42 @@ class FleetTraces:
                 f"but the traces have {self.num_workers}"
             )
         return dataclasses.replace(self, churn=churn)
+
+    def _scalar_burst_factor(self, s: int, i: int, t: float) -> float:
+        """Burst factor of worker ``i`` of scenario ``s`` at time ``t``."""
+        if not self.has_bursts:
+            return 1.0
+        starts = self.burst_start[s, i]
+        idx = int(np.searchsorted(starts, t, side="right")) - 1
+        if idx >= 0 and t < self.burst_end[s, i, idx]:
+            return float(self.burst_factor[s, i, idx])
+        return 1.0
+
+    def scalar_task_latency(
+        self, scenario: int, worker: int, k: int, start: float, load: float
+    ) -> tuple:
+        """(comm, comp) of the ``k``-th draw of one worker, started at ``start``.
+
+        The scalar replay the live trainer's controller consumes
+        (``ft.validation.trace_latency_fn``); the product goes through
+        :func:`comp_latency_expr`, as every replay path does.  Raises when a
+        worker's draw stream is exhausted; silently reusing the last draw
+        would fake a deterministic worker.
+        """
+        if k >= self.horizon:
+            raise ValueError(
+                f"trace draws exhausted for worker {worker} "
+                f"(horizon {self.horizon}); sample a longer fleet"
+            )
+        factor = self._scalar_burst_factor(scenario, worker, start)
+        if self.churn is None:
+            slowdown = self.slowdown[worker]
+        else:
+            slowdown = self.churn.slowdown[int(self.churn.row_at(start)), worker]
+        comp = comp_latency_expr(
+            self.comp_unit[scenario, worker, k], load, slowdown, factor
+        )
+        return self.comm[scenario, worker, k], comp
 
 
 def sample_fleet(

@@ -1,0 +1,300 @@
+"""The live two-tier DSAG trainer for the paper problems, from
+``repro.launch.train``.
+
+Wires together
+
+    paper problem (logreg / pca) -> Tier-1 step (K1/K5 group gradients, K4
+    cache update, sgd, QR) -> Tier-2 deadline controller (mask/flush/evict)
+    -> failure detector -> (optional) straggler simulation
+
+on the card by default.  Replaying a ``FleetTraces`` scenario through the
+controller (``TrainerOptions.traces``) gives the (mask, flush, evict)
+streams of the JAX package's controller and scalar simulator bit for bit;
+``time_scale > 0`` turns the virtual straggler waits into real sleeps.
+The host syncs where the reference does: metrics are drained every
+``log_every`` steps, and an evaluation pulls one float to the host.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 20 --check
+  PYTHONPATH=src python -m repro_torch.launch.train --arch pca --groups 8 \\
+      --samples 512 --device cpu --kernel-backend torch
+
+Not ported (refused with a capability code): the model-zoo archs
+(:data:`CAP_ARCH`), checkpoints and ``--restore`` (:data:`CAP_CHECKPOINT`),
+and, through the Tier-1 step, an int8 cache, adamw/adafactor and a mesh.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.dsag_pjit import GroupSpec, init_train_state, make_train_step
+from repro_torch.experiments.engine import EngineConfig, refuse
+from repro_torch.ft.runtime import DeadlineController, FailureDetector
+from repro_torch.ft.validation import trace_latency_fn
+from repro_torch.latency.model import make_heterogeneous_cluster
+from repro_torch.launch.paper_jobs import PAPER_ARCHES, make_paper_job, paper_train_config
+
+#: a model-zoo --arch: only the paper problems are ported
+CAP_ARCH = "arch-not-ported"
+#: checkpoint_dir / --restore: the checkpoint manager is not ported
+CAP_CHECKPOINT = "checkpoint-not-ported"
+
+
+@dataclasses.dataclass
+class TrainerOptions:
+    arch: str = "logreg"
+    steps: int = 50
+    seed: int = 0
+    checkpoint_dir: str | None = None
+    restore: bool = False
+    mesh: Any | None = None
+    train_config: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    #: simulate straggling groups: per-step latency draws feed the deadline
+    #: controller exactly like real step timings would
+    simulate_stragglers: bool = True
+    dsag_w: int | None = None  # wait-for-w groups (default: 3/4 of P)
+    log_every: int = 10
+    num_groups: int | None = None  # group count (default 4)
+    samples: int = 1024  # problem size
+    method: str = "dsag"  # dsag | sag (controller stale-acceptance mode)
+    #: replay a pre-sampled FleetTraces scenario through the controller
+    #: instead of live-sampling the straggler cluster (the pinned path)
+    traces: Any | None = None
+    scenario: int = 0
+    #: seconds of real sleep per unit of virtual straggler time
+    time_scale: float = 0.0
+    eval_every: int = 0  # suboptimality eval cadence (0 = off)
+    failure_max_misses: int = 5
+    #: where the step runs: the card and its kernels unless asked otherwise
+    engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
+
+
+class Trainer:
+    def __init__(self, opts: TrainerOptions):
+        self.opts = opts
+        tc = opts.train_config
+        if opts.method not in ("dsag", "sag"):
+            raise ValueError(f"method {opts.method!r} not in ('dsag', 'sag')")
+        if opts.arch not in PAPER_ARCHES:
+            raise refuse(CAP_ARCH, f"--arch {opts.arch!r}: only the paper problems "
+                                   f"{PAPER_ARCHES} are ported; the model zoo is not")
+        if opts.checkpoint_dir or opts.restore:
+            raise refuse(CAP_CHECKPOINT, "checkpoints (checkpoint_dir, --restore) "
+                                         "are not ported yet")
+        G = opts.num_groups or 4
+        self.gs = GroupSpec(num_groups=G, axes=())
+        self.job = make_paper_job(opts.arch, G, samples=opts.samples, seed=opts.seed,
+                                  engine=opts.engine)
+        self.device = self.job.device
+        self.data = self.job.batch_iterator()
+        project_fn = self.job.project_fn if opts.arch == "pca" else None
+        self.step_fn = make_train_step(self.job, tc, self.gs, opts.mesh,
+                                       project_fn=project_fn,
+                                       backend=opts.engine.kernel_backend)
+
+        # Tier-2 control plane
+        w = opts.dsag_w or max(1, (3 * G) // 4)
+        self.deadlines = DeadlineController(
+            G, w=w, margin=tc.dsag_margin, accepts_stale=opts.method == "dsag"
+        )
+        self.failures = FailureDetector(G, max_misses=opts.failure_max_misses)
+        if opts.traces is not None:
+            self._latency_of = trace_latency_fn(opts.traces, opts.scenario, self.job.loads)
+            self._churn = opts.traces.churn
+            self.straggler_sim = None
+        else:
+            self._latency_of = None
+            self._churn = None
+            self.straggler_sim = (
+                make_heterogeneous_cluster(
+                    G,
+                    comp_range=(0.9, 1.4),
+                    comm_range=(0.01, 0.05),
+                    cv_comp=0.08,
+                    seed=opts.seed + 3,
+                )
+                if opts.simulate_stragglers
+                else None
+            )
+
+    # -- lifecycle ---------------------------------------------------------
+    def init_state(self):
+        params = self.job.init_params(self.opts.seed)
+        return init_train_state(params, self.opts.train_config, self.gs)
+
+    def _group_latencies(self, step: int) -> np.ndarray:
+        if self.straggler_sim is None:
+            return np.ones(self.gs.num_groups)
+        return self.straggler_sim.sample_all(c=1.0, now=float(step))
+
+    def _step_inputs(self, step: int):
+        """One Tier-2 decision: (mask, flush, evict, virtual elapsed)."""
+        if self._latency_of is not None:
+            alive = (
+                self._churn.alive_at(self.deadlines.now)
+                if self._churn is not None
+                else None
+            )
+            si = self.deadlines.step_inputs(self._latency_of, alive=alive)
+            mask_np, flush_np, evict_np = si.mask, si.flush, si.evict
+            elapsed = si.elapsed
+        else:
+            lat = self._group_latencies(step)
+            mask_np, flush_np = self.deadlines.step_masks(lat, step)
+            evict_np = np.zeros(self.gs.num_groups, dtype=bool)
+            elapsed = 0.0
+        was_failed = self.failures.failed.copy()
+        self.failures.observe(mask_np)
+        # failed groups cannot flush; newly-failed groups get their cache
+        # entry evicted (paper §6.3) so H stays unbiased
+        flush_np = np.logical_and(flush_np, ~self.failures.failed)
+        evict_np = np.logical_or(
+            evict_np, np.logical_and(self.failures.failed, ~was_failed)
+        )
+        return mask_np, flush_np, evict_np, elapsed
+
+    # -- main loop ----------------------------------------------------------
+    def run(self) -> dict[str, list]:
+        """Train ``opts.steps`` steps from a fresh state; the final train
+        state is kept as ``self.state``."""
+        opts = self.opts
+        tc = opts.train_config
+        state = self.init_state()
+        history: dict[str, list] = {
+            "loss": [],
+            "xi": [],
+            "mask_count": [],
+            "step_time": [],
+            "virtual": [],
+            "eval": [],  # (step, wall s, virtual s, suboptimality)
+            # per-step Tier-2 decisions, for the cross-layer pin
+            "mask_stream": [],
+            "flush_stream": [],
+            "evict_stream": [],
+        }
+        #: device-side metrics, materialized every log_every steps (and at
+        #: the end) so the host never forces a per-step sync
+        pending: list[tuple[int, dict, float]] = []
+
+        def drain():
+            for s, m, dt in pending:
+                history["loss"].append(float(m["loss"]))
+                history["xi"].append(float(m["xi"]))
+                history["mask_count"].append(int(m["mask_count"]))
+                history["step_time"].append(dt)
+            pending.clear()
+
+        G = self.gs.num_groups
+        dev = self.device
+        wall0 = time.perf_counter()
+        for step in range(opts.steps):
+            batch = next(self.data)
+            if tc.dsag:
+                mask_np, flush_np, evict_np, elapsed = self._step_inputs(step)
+                history["mask_stream"].append(mask_np.copy())
+                history["flush_stream"].append(flush_np.copy())
+                history["evict_stream"].append(evict_np.copy())
+            else:
+                mask_np = np.ones(G, bool)
+                flush_np = np.zeros(G, bool)
+                evict_np = flush_np
+                elapsed = 0.0
+            if opts.time_scale > 0 and elapsed > 0:
+                # make the virtual straggler wait real
+                time.sleep(elapsed * opts.time_scale)
+            t0 = time.perf_counter()
+            bits = torch.from_numpy(np.stack([mask_np, flush_np, evict_np]))
+            if dev.type == "cuda":
+                # one copy of the [3, G] decision per step, from pinned memory
+                # so it queues behind the previous step instead of waiting
+                bits = bits.pin_memory().to(dev, non_blocking=True)
+            state, metrics = self.step_fn(state, batch, bits[0], bits[1], bits[2])
+            pending.append((step, metrics, time.perf_counter() - t0))
+            history["virtual"].append(float(self.deadlines.now))
+            if opts.eval_every > 0 and (step % opts.eval_every == 0 or step == opts.steps - 1):
+                # pulls the params (a sync point): keep the cadence coarse
+                gap = self.job.suboptimality(state["params"])
+                history["eval"].append(
+                    (step, time.perf_counter() - wall0, float(self.deadlines.now), gap)
+                )
+            if step % opts.log_every == 0:
+                drain()
+                print(
+                    f"[train] step {step:5d} loss {history['loss'][-1]:.4f} "
+                    f"xi {history['xi'][-1]:.2f} "
+                    f"fresh {history['mask_count'][-1]}/{G} "
+                    f"({history['step_time'][-1]*1e3:.0f} ms)"
+                )
+        drain()
+        history["wall_seconds"] = [time.perf_counter() - wall0]
+        self.state = state
+        return history
+
+
+def check_history(hist: dict) -> tuple[bool, str]:
+    """The ``--check`` gate: ξ reached 1 and the loss decreased (first
+    quarter of the steps against the last quarter)."""
+    if not hist["loss"]:
+        return False, "[check] FAILED: no steps ran"
+    q = max(1, len(hist["loss"]) // 4)
+    first = float(np.mean(hist["loss"][:q]))
+    last = float(np.mean(hist["loss"][-q:]))
+    xi_max = max(hist["xi"])
+    ok = last < first and xi_max >= 1.0 - 1e-6
+    return ok, (f"[check] loss {first:.4f} -> {last:.4f}; max xi {xi_max:.3f}: "
+                f"{'OK' if ok else 'FAILED'}")
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="logreg",
+                    help=f"one of {PAPER_ARCHES} (the model zoo is not ported)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--samples", type=int, default=1024)
+    ap.add_argument("--groups", type=int, default=None)
+    ap.add_argument("--method", default="dsag", choices=["dsag", "sag"])
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--restore", action="store_true")
+    ap.add_argument("--no-dsag", action="store_true")
+    ap.add_argument("--lr", type=float, default=0.25, help="step size eta")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    ap.add_argument("--kernel-backend", default="cuda", choices=["cuda", "torch"],
+                    help="the CUDA kernels (default) or their plain-torch versions")
+    ap.add_argument("--check", action="store_true",
+                    help="assert ξ reached 1.0 and the loss decreased (smoke gate)")
+    args = ap.parse_args(argv)
+    opts = TrainerOptions(
+        arch=args.arch,
+        steps=args.steps,
+        samples=args.samples,
+        num_groups=args.groups,
+        method=args.method,
+        seed=args.seed,
+        checkpoint_dir=args.checkpoint_dir,
+        restore=args.restore,
+        train_config=paper_train_config(args.lr, dsag=not args.no_dsag),
+        engine=EngineConfig(device=args.device, kernel_backend=args.kernel_backend),
+    )
+    hist = Trainer(opts).run()
+    if hist["loss"]:
+        print(f"[train] done; final loss {hist['loss'][-1]:.4f}")
+    else:
+        print("[train] done; no steps to run")
+    if args.check:
+        ok, msg = check_history(hist)
+        print(msg)
+        if not ok:
+            raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()
