@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the full check (needs one CUDA card)
     python3 chip_smoke.py --quick    # build and hold the kernels only
     python3 chip_smoke.py --profile  # kernels, then where the card's time goes
+    python3 chip_smoke.py --build-times  # one nvcc call against one per source
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -12,7 +13,7 @@ Phases (any failure raises and the script exits non-zero):
 3. at the main paths' shapes: hold each kernel against its plain-torch
    version on the card (K1/K2/K5: float32 tolerance; K3/K4: ``torch.equal``)
    and time kernel, plain version and, where one PyTorch call computes the
-   same function (K2, K5), that call;
+   same function (K2, K5, K6), that call;
 4. slice 1, the convergence sweep: run the ``grid`` (logreg, n=16384, 100
    workers x 10 scenarios) and ``pca_paper_scale`` (n=50000, 50 workers x 4
    scenarios) recipes at full size through the kernels, all four methods,
@@ -28,7 +29,20 @@ Phases (any failure raises and the script exits non-zero):
    50 groups) jobs, through K1, K4 and K5; streams, fresh/flush counts,
    final gaps, losses and max ξ against the JAX reference's values; the
    logreg paper-scale dsag run again through the plain versions on the card;
-6. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. slice 3, serving (``repro_torch.launch.serve``): qwen1.5-0.5b at full
+   width and depth (seeded random weights), 4 prompts of 2048 tokens, prefill
+   and 32 greedy tokens through K6, with the counters set to 0 just before
+   and read just after ``Server.generate``; then, over the same weights,
+   prefill and 31 teacher-forced decode steps through K6, through the plain
+   ``full_attention`` and through the float32 model (the yardstick), held
+   to :data:`SERVE_TOL`; the float32 model through K6 against it through
+   ``full_attention`` (:data:`SERVE_F32_TOL`); decode of token s from an
+   (s-1)-token cache against the s-token prefill, in bfloat16 and in float32,
+   and (the witness of the bfloat16 gap) from the K6 cache with the decode's
+   scores kept in float32;
+   K6 against its plain version on layer 0's real q, k, v; K6 launches = 24
+   per prefill;
+7. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -40,6 +54,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -50,6 +65,8 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
+#: bf16 dense tensor-core FLOP/s (the bound of attention's matrix products)
+PEAK_BF16 = 989e12
 F32_RTOL = 1e-4  # kernel vs plain: float32 sums in another order
 F32_ATOL_REL = 1e-5  # ... plus this times the largest |plain| value
 
@@ -73,6 +90,27 @@ PAPER_JOBS = {"logreg": (16_000, 100, 80, 0.25), "pca": (50_000, 50, 40, 0.9)}
 #: a QR whose last bits differ from LAPACK's) and on the losses
 LIVE_GAP_RTOL = {"logreg": 1e-4, "pca": 1e-2}
 LIVE_LOSS_RTOL = 1e-4
+#: K6 against its plain version's float32 result: float32 rounding, plus half
+#: a bfloat16 ulp (2**-8 relative) where the output is bfloat16
+K6_RTOL = {"float32": 1e-4, "bfloat16": 1e-4 + 2.0**-8}
+K6_ATOL_REL = 1e-5
+#: the serving cell: batch, prompt length, generated tokens
+SERVE_B, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
+#: logits of the K6 run against the plain-attention run, bfloat16: the plain
+#: path rounds scores to bfloat16 before its float32 softmax (the reference's
+#: full_attention), K6 keeps them in float32, and at this init (projection
+#: std 1/sqrt(24)) scores reach a few hundred, where a bfloat16 ulp is 1 to 4:
+#: close keys' probabilities move, and 24 layers of random weights carry it
+#: on (measured on the H100: 0.42).  The same holds for decode from an
+#: (s-1)-token cache against a K6 prefill: the decode step's attention is the
+#: plain one (0.38; against the plain prefill 0.07).  Bounds on the relative
+#: RMS difference ||a - b|| / ||b|| of each logit vector (two unrelated logit
+#: vectors give ~1.4).  The K6 run must also be no further from the float32
+#: run than the plain run is; the float32 checks below are the tight ones.
+SERVE_TOL = {"k6_vs_plain": 0.5, "decode_vs_prefill": 0.5}
+#: the model in float32 through K6 against it through full_attention, and its
+#: decode against its prefill: float32 rounding only
+SERVE_F32_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -309,6 +347,64 @@ def check_gram_matvec(torch, x, v) -> dict:
     print(f"  gram_matvec {shape}: max|diff|={err:.3e} (|plain|<={scale:.3e}); kernel "
           f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, matmul pair {lib_ms:.4f} ms, "
           f"bound {b_ms:.5f} ms ({b_by})")
+    return dict(call=shape, max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def causal_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a causal mask aligned bottom-right leaves, per head."""
+    if not causal:
+        return sq * sk
+    offs = sk - sq
+    return sum(min(sk, q + offs + 1) for q in range(sq))
+
+
+def k6_within_tolerance(torch, got, want32) -> bool:
+    rtol = K6_RTOL[str(got.dtype).removeprefix("torch.")]
+    return bool(torch.isfinite(got).all()) and torch.allclose(
+        got.float(), want32, rtol=rtol, atol=K6_ATOL_REL * float(want32.abs().max()))
+
+
+def check_flash(torch, b: int, h: int, sq: int, sk: int, d: int, rng,
+                causal: bool = True, dtype=None) -> dict:
+    """Phase 3 for K6 at one [b, h, s, d] shape (bfloat16 by default)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels import flash_attention as k6
+
+    dtype = dtype or torch.bfloat16
+    dev = torch.device("cuda")
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, h, n, d)), dtype=torch.float32,
+                               device=dev).to(dtype) for n in (sq, sk, sk))
+    got = k6.flash_attention_op(q, k, v, causal=causal)
+    want = k6.flash_attention_plain(q, k, v, causal=causal)
+    want32 = k6.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    shape = f"[{b}, {h}, {sq}/{sk}, {d}] {str(dtype).removeprefix('torch.')}"
+    if not k6_within_tolerance(torch, got, want32):
+        fail(f"flash_attention {shape} disagrees with its plain version: max |diff| "
+             f"{float((got.float() - want32).abs().max()):.3e}")
+    k_ms, p_ms = timed_pair(torch, lambda: k6.flash_attention_op(q, k, v, causal=causal),
+                            lambda: k6.flash_attention_plain(q, k, v, causal=causal),
+                            reps=20, plain_reps=5)
+    # the library call: SDPA with K6's bottom-right causal mask (its
+    # is_causal=True is top-left, the same only where sq == sk)
+    mask = causal_lower_right(sq, sk) if causal else None
+    lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    lib_err = float((lib.float() - want32).abs().max())
+    if lib_err > 0.05 * float(want32.abs().max()):  # a bf16 call, not another function
+        fail(f"SDPA with a bottom-right causal mask disagrees with K6's function at {shape}: "
+             f"max |diff| {lib_err:.3e}")
+    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20)
+    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * q.element_size()
+    flops = 4 * b * h * d * causal_pairs(sq, sk, causal)
+    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
+    print(f"  flash_attention {shape} causal={causal}: max|diff|={err:.3e} vs plain "
+          f"(bf16 out); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+          f"(max |SDPA - float32 plain| {lib_err:.3e}), bound "
+          f"{b_ms:.5f} ms ({b_by}, {flops:.3e} flops)")
     return dict(call=shape, max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -559,7 +655,202 @@ def run_live(torch) -> dict:
     return counts
 
 
-def profile_run(torch, label: str, setup, iters: int) -> None:
+def logit_diff(torch, got, want) -> tuple[float, float]:
+    """(max |got - want| / max |want|, ||got - want|| / ||want||), float32."""
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail("non-finite logits")
+    d = got - want
+    return float(d.abs().max() / want.abs().max()), float(d.norm() / want.norm())
+
+
+def decode_step_f32_scores(cfg, params, x, cache, index: int):
+    """``models.attention.gqa_decode_step`` with its scores and probabilities
+    kept in float32, as K6's prefill keeps them: K6's plain version over the
+    cache's first ``index + 1`` positions."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models.attention import _project_qkv, _repeat_kv
+    from repro_torch.models.layers import apply_rope
+
+    q, k_new, v_new = _project_qkv(cfg, params, x)
+    pos = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
+    q, k_new = apply_rope(q, pos, cfg.rope_theta), apply_rope(k_new, pos, cfg.rope_theta)
+    k, v = cache["k"], cache["v"]
+    k[:, index:index + 1] = k_new.to(k.dtype)
+    v[:, index:index + 1] = v_new.to(v.dtype)
+    groups = q.shape[2] // k.shape[2]
+    kk, vv = (_repeat_kv(t[:, :index + 1], groups).transpose(1, 2) for t in (k, v))
+    out = flash_attention_plain(q.transpose(1, 2), kk, vv).transpose(1, 2)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype)), cache
+
+
+def serving_prompts(vocab: int):
+    return np.random.default_rng(0).integers(0, vocab, (SERVE_B, SERVE_PROMPT))
+
+
+def run_serving(torch) -> dict:
+    """Phase 6: serve qwen1.5-0.5b at full width and depth through K6."""
+    import dataclasses
+
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import apply_norm, apply_rope, tree_map
+    from repro_torch.models.transformer import embed_inputs, layer_params
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    max_len = SERVE_PROMPT + SERVE_TOKENS + 8
+    srv = Server("qwen1.5-0.5b", smoke=False, max_len=max_len, device="cuda", seed=0)
+    cfg, params, L = srv.cfg, srv.params, srv.cfg.num_layers
+    prompts = serving_prompts(cfg.vocab_size)
+    print(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
+          f"{cfg.resolved_head_dim}, {srv.model.num_params() / 1e6:.1f} M params "
+          f"(bf16, seed 0); batch {SERVE_B} x prompt {SERVE_PROMPT}, {SERVE_TOKENS} tokens, "
+          f"cache {max_len}")
+    srv.generate({"tokens": prompts[:, :128]}, 2)  # warm the libraries (not counted)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    toks = srv.generate({"tokens": prompts}, SERVE_TOKENS)
+    counts = launch_counts()
+    t = srv.timings
+    if counts["flash_attention"] != L:
+        fail(f"serving: {counts['flash_attention']} flash_attention launches for one "
+             f"prefill, expected {L}")
+    vocab_padded = params["embed"]["tok"].shape[0]
+    if toks.shape != (SERVE_B, SERVE_TOKENS) or not bool(((toks >= 0) & (toks < vocab_padded)).all()):
+        fail(f"serving: generated tokens of shape {tuple(toks.shape)} outside [0, {vocab_padded})")
+    decode_ms = t["decode"] / (SERVE_TOKENS - 1) * 1e3
+    tok_s = SERVE_B * SERVE_TOKENS / (t["prefill"] + t["decode"])
+    print(f"  generate through K6 ({smi}): prefill {t['prefill']:.4f} s "
+          f"({SERVE_B * SERVE_PROMPT / t['prefill']:.0f} prompt tok/s), decode "
+          f"{decode_ms:.3f} ms/token step ({SERVE_B / decode_ms * 1e3:.0f} tok/s), "
+          f"{tok_s:.1f} generated tok/s end to end; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
+    out = {"launches": counts["flash_attention"], "prefill_s": t["prefill"],
+           "decode_ms_per_token": decode_ms, "tokens_per_s": tok_s}
+    k6_prefills = 1
+
+    with torch.inference_mode():
+        # three runs over the same weights, teacher-forced with the plain run's
+        # tokens: bf16 through K6, bf16 through full_attention, and the float32
+        # model through full_attention as the yardstick of both
+        tokens = torch.as_tensor(prompts, device="cuda")
+        batch = {"tokens": tokens}
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(lambda a: a.float(), params)
+        runs = {"k6": (srv.model, params),
+                "plain": (build_model(cfg, kernel_backend="torch"), params),
+                "f32": (build_model(cfg32, kernel_backend="torch"), p32)}
+        logits, caches, prefill_s = {}, {}, {}
+        for name, (model, p) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches[name] = model.prefill(p, batch, max_len)
+            torch.cuda.synchronize()
+            prefill_s[name] = time.perf_counter() - t0
+            logits[name] = [lg[:, -1]]
+        k6_prefills += 1
+        tok = logits["plain"][0].argmax(-1)[:, None]
+        for step in range(SERVE_TOKENS - 1):
+            for name, (model, p) in runs.items():
+                lg, caches[name] = model.decode_step(p, tok, caches[name], SERVE_PROMPT + step)
+                logits[name].append(lg[:, -1])
+            tok = logits["plain"][-1].argmax(-1)[:, None]
+        rms = {pair: [logit_diff(torch, a, b)[1] for a, b in zip(logits[pair[0]], logits[pair[1]])]
+               for pair in (("k6", "plain"), ("k6", "f32"), ("plain", "f32"))}
+        agree = float(np.mean([float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                               for a, b in zip(logits["k6"], logits["plain"])]))
+        tol = SERVE_TOL["k6_vs_plain"]
+        worst = max(rms["k6", "plain"])
+        err_k6, err_plain = float(np.mean(rms["k6", "f32"])), float(np.mean(rms["plain", "f32"]))
+        print(f"  prefill + {SERVE_TOKENS - 1} teacher-forced steps (prefill s: K6 "
+              f"{prefill_s['k6']:.4f}, plain {prefill_s['plain']:.4f}, float32 plain "
+              f"{prefill_s['f32']:.4f}): rel RMS of logits K6 vs plain worst {worst:.4f} "
+              f"(tolerance {tol}); against the float32 run, mean K6 {err_k6:.4f} and plain "
+              f"{err_plain:.4f} (K6 must be no further); greedy tokens K6 vs plain agree "
+              f"{agree:.3f} of {SERVE_B * SERVE_TOKENS}")
+        if worst > tol:
+            fail(f"serving: K6 and plain runs differ by rel RMS {worst} (tolerance {tol})")
+        if err_k6 > err_plain:
+            fail(f"serving: the K6 run is further from the float32 run ({err_k6}) than "
+                 f"the plain run ({err_plain})")
+        out.update(k6_vs_plain_rel_rms=worst, k6_vs_f32_rel_rms=err_k6,
+                   plain_vs_f32_rel_rms=err_plain, greedy_agree=agree,
+                   plain_prefill_s=prefill_s["plain"])
+        del caches
+
+        # the float32 model through K6 against the float32 model through full_attention
+        k6_32 = build_model(cfg32, kernel_backend="cuda")
+        lg, cache = k6_32.prefill(p32, batch, max_len)
+        del cache
+        k6_prefills += 1
+        lg_f32k6 = lg[:, -1]
+        d32 = logit_diff(torch, lg_f32k6, logits["f32"][0])
+        print(f"  float32 model through K6 vs through full_attention: prefill logits "
+              f"max|diff|/max {d32[0]:.3e}, rel RMS {d32[1]:.3e} (tolerance {SERVE_F32_TOL})")
+        if max(d32) > SERVE_F32_TOL:
+            fail(f"serving: float32 K6 and plain prefills differ by {d32}")
+        out.update(f32_max_rel=d32[0], f32_rel_rms=d32[1])
+
+        # decode of token s from an (s-1)-token cache against the s-token prefill:
+        # bf16 through K6, bf16 with no kernel (prefill and decode attention
+        # alike), and float32 through K6
+        cases = (("bf16 K6", srv.model, params, logits["k6"][0], SERVE_TOL["decode_vs_prefill"]),
+                 ("bf16 plain", runs["plain"][0], params, logits["plain"][0], None),
+                 ("float32 K6", k6_32, p32, lg_f32k6, SERVE_F32_TOL))
+        for label, model, p, want, tol in cases:
+            _, cache_m1 = model.prefill(p, {"tokens": tokens[:, :-1]}, max_len)
+            k6_prefills += model.kernel_backend == "cuda"
+            lg_d, _ = model.decode_step(p, tokens[:, -1:], cache_m1, SERVE_PROMPT - 1)
+            del cache_m1
+            dp = logit_diff(torch, lg_d[:, -1], want)[1]
+            print(f"  {label}: decode of token {SERVE_PROMPT} from a {SERVE_PROMPT - 1}-token "
+                  f"cache vs the {SERVE_PROMPT}-token prefill: rel RMS {dp:.3e} "
+                  f"(tolerance {tol if tol is not None else 'none: printed beside K6'})")
+            if tol is not None and dp > tol:
+                fail(f"serving: {label} decode-vs-prefill logits differ by rel RMS {dp} "
+                     f"(tolerance {tol})")
+            out[f"decode_vs_prefill_rel_rms_{label.replace(' ', '_')}"] = dp
+        # the witness of the bf16 K6 gap: the same decode from the K6 cache with
+        # its scores kept in float32 (K6's plain version over the cache)
+        _, cache_m1 = srv.model.prefill(params, {"tokens": tokens[:, :-1]}, max_len)
+        k6_prefills += 1
+        with mock.patch.object(attn, "gqa_decode_step", decode_step_f32_scores):
+            lg_d, _ = srv.model.decode_step(params, tokens[:, -1:], cache_m1, SERVE_PROMPT - 1)
+        del cache_m1
+        dp = logit_diff(torch, lg_d[:, -1], logits["k6"][0])[1]
+        print(f"  bf16 K6, decode with float32 scores (witness): decode vs prefill rel RMS "
+              f"{dp:.3e} (none: printed beside the bf16 K6 and plain rows)")
+        out["decode_vs_prefill_rel_rms_bf16_K6_f32_scores"] = dp
+        del logits
+    total = launch_counts()["flash_attention"]
+    if total != L * k6_prefills:
+        fail(f"serving: {total} flash_attention launches for {k6_prefills} prefills")
+    print(f"  flash_attention launches in phase 6: {total} = {L} x {k6_prefills} prefills")
+    with torch.inference_mode():
+        # K6 on layer 0's real activations (scores of a few hundred at this init)
+        lp = layer_params(params["blocks"], 0)
+        h = apply_norm(cfg, lp["ln1"], embed_inputs(cfg, params, tokens))
+        q, k, v = attn._project_qkv(cfg, lp["attn"], h)
+        pos = torch.arange(SERVE_PROMPT, device="cuda").expand(SERVE_B, SERVE_PROMPT)
+        q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta)
+        got = k6.flash_attention_bshd(q, k, v)
+        want32 = k6.flash_attention_plain(*(x.float().transpose(1, 2) for x in (q, k, v)))
+        if not k6_within_tolerance(torch, got, want32.transpose(1, 2)):
+            fail("flash_attention on layer 0's activations disagrees with its plain version")
+        print(f"  K6 on layer 0's q, k, v (|q| <= {float(q.abs().max()):.1f}): within "
+              f"tolerance of its plain version, max |diff| "
+              f"{float((got.float() - want32.transpose(1, 2)).abs().max()):.3e}")
+
+    return out
+
+
+def profile_run(torch, label: str, setup, iters: int) -> dict | None:
     """One warm run under ``torch.profiler``: host wall clock (ending in a
     synchronize), the union of device kernel intervals (busy time), the idle
     share, kernel count, and the kernels that take the most time.
@@ -580,7 +871,7 @@ def profile_run(torch, label: str, setup, iters: int) -> None:
                    if e.device_type == DeviceType.CUDA)
     if not spans:
         print(f"  profile {label}: the profiler recorded no device time (not measured)")
-        return
+        return None
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     by_name: dict[str, float] = {}
     for s, e, name in spans:
@@ -600,6 +891,7 @@ def profile_run(torch, label: str, setup, iters: int) -> None:
           f"({len(spans) / iters:.0f} per iteration)")
     for name, us in top:
         print(f"    {us / 1e3:8.3f} ms  {name[:90]}")
+    return {"busy_ms": busy_ms, "window_ms": window_ms, "by_name_us": by_name}
 
 
 def profile_paths(torch) -> None:
@@ -616,6 +908,59 @@ def profile_paths(torch) -> None:
     for arch in PAPER_JOBS:
         opts = paper_live_opts(arch, "dsag", EngineConfig())
         profile_run(torch, f"live {arch}/dsag", lambda: Trainer(opts).run, opts.steps)
+
+
+def profile_serving(torch) -> None:
+    """``--profile``: the serving cell's prefill (K6's share of device time)
+    and one decode step (the device's idle share)."""
+    from repro_torch.launch.serve import Server
+
+    max_len = SERVE_PROMPT + SERVE_TOKENS + 8
+    srv = Server("qwen1.5-0.5b", smoke=False, max_len=max_len, device="cuda", seed=0)
+    batch = {"tokens": torch.as_tensor(serving_prompts(srv.cfg.vocab_size), device="cuda")}
+    params, model = srv.params, srv.model
+
+    @torch.inference_mode()
+    def prefill():
+        return model.prefill(params, batch, max_len)
+
+    prof = profile_run(torch, "serve prefill", lambda: prefill, 1)
+    if prof is not None:
+        k6_us = sum(us for name, us in prof["by_name_us"].items() if "flash_fwd" in name)
+        print(f"    K6 share of prefill device time: {k6_us / 1e3 / prof['busy_ms']:.3f} "
+              f"({k6_us / 1e3:.3f} of {prof['busy_ms']:.3f} ms)")
+    logits, cache = prefill()
+    tok = logits[:, -1].argmax(-1)[:, None]
+
+    @torch.inference_mode()
+    def step():
+        return model.decode_step(params, tok, cache, SERVE_PROMPT)
+
+    profile_run(torch, "serve decode step", lambda: step, 1)
+
+
+def build_times(_build) -> None:
+    """``--build-times``: the kernel library built from scratch by one ``nvcc``
+    call over every source, against ``_build.compile_library`` (one ``nvcc``
+    per source, started together, then a link), in turns."""
+    import tempfile
+
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    one_call = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared"]
+    times: dict[str, list[float]] = {"one nvcc call": [], "one nvcc per source": []}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        for rep in range(2):
+            for label in (times if rep == 0 else reversed(times)):
+                out = Path(tmp) / f"{rep}_{len(times[label])}_{label[-6:]}.so"
+                t0 = time.perf_counter()
+                if label == "one nvcc call":
+                    subprocess.run([*one_call, "-o", str(out), *map(str, sources)],
+                                   capture_output=True, check=True)
+                else:
+                    _build.compile_library(sources, out)
+                times[label].append(time.perf_counter() - t0)
+    print(f"  build from scratch, {len(sources)} sources, s: " + "; ".join(
+        f"{label} {', '.join(f'{t:.2f}' for t in ts)}" for label, ts in times.items()))
 
 
 def main() -> None:
@@ -641,6 +986,9 @@ def main() -> None:
     for line in _build.build_info.get("log", "").splitlines():
         if "Used" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+
+    if "--build-times" in sys.argv[1:]:
+        build_times(_build)
 
     print("phase 3: kernels against their plain versions at the recipes' shapes")
     rng = np.random.default_rng(0)
@@ -675,10 +1023,18 @@ def main() -> None:
                 torch.as_tensor(rng.normal(size=(4096, 512)), dtype=torch.float32, device=dev),
                 torch.as_tensor(rng.normal(size=(512, 8)), dtype=torch.float32, device=dev)),
         ],
+        # the serving prefill (24 launches per prefill), the kernels_bench
+        # shape, and a decode-like single query row over the full cache
+        "flash_attention": [
+            check_flash(torch, SERVE_B, 16, SERVE_PROMPT, SERVE_PROMPT, 64, rng),
+            check_flash(torch, 1, 4, 1024, 1024, 128, rng),
+            check_flash(torch, SERVE_B, 16, 1, SERVE_PROMPT + SERVE_TOKENS + 5, 64, rng),
+        ],
     }
     if "--profile" in sys.argv[1:]:
         profile_paths(torch)
-    if {"--quick", "--profile"} & set(sys.argv[1:]):
+        profile_serving(torch)
+    if {"--quick", "--profile", "--build-times"} & set(sys.argv[1:]):
         print(json.dumps({"per_kernel": per_kernel}))
         return
 
@@ -686,7 +1042,10 @@ def main() -> None:
     sweep_launches, _ = run_recipes(torch)
     print("phase 5: the live two-tier trainer through the kernels")
     live_launches = run_live(torch)
+    print("phase 6: serving qwen1.5-0.5b at full width and depth through K6")
+    serving = run_serving(torch)
     launches = {k: sweep_launches[k] + live_launches[k] for k in sweep_launches}
+    launches["flash_attention"] = serving["launches"]
 
     meta = {
         "logreg_block_sub": ("src/repro_torch/kernels/csrc/block_sub.cu",
@@ -699,6 +1058,8 @@ def main() -> None:
                               "src/repro/kernels/dsag_update.py:47"),
         "gram_matvec": ("src/repro_torch/kernels/csrc/gram_matvec.cu",
                         "src/repro/kernels/gram_matvec.py:41"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:78"),
     }
     kernels = []
     for name, rows in per_kernel.items():
@@ -706,13 +1067,15 @@ def main() -> None:
         source, replaces = meta[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], launches_sweep=sweep_launches[name],
-            launches_live=live_launches[name],
+            launches=launches[name], launches_sweep=sweep_launches.get(name, 0),
+            launches_live=live_launches.get(name, 0),
+            launches_serve=serving["launches"] if name == "flash_attention" else 0,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], calls=rows,
         ))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

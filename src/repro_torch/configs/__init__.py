@@ -1,5 +1,37 @@
-"""Configuration dataclasses of the port."""
+"""Configuration dataclasses of the port and the registry of the model archs
+it serves: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-from repro_torch.configs.base import TrainConfig
+The port serves the dense family; every other arch of the JAX package's
+registry is refused with :data:`~repro_torch.experiments.engine.CAP_ARCH`.
+"""
 
-__all__ = ["TrainConfig"]
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.experiments.engine import CAP_ARCH, refuse
+
+_MODULES: dict[str, str] = {
+    "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise refuse(CAP_ARCH, f"arch {name!r} is not ported; the port serves {ARCHS}")
+    return importlib.import_module(_MODULES[name])
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).config()
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke_config()
+
+
+__all__ = ["ARCHS", "ModelConfig", "TrainConfig", "get_config", "get_smoke_config"]

@@ -1,15 +1,91 @@
-"""Tier-1 training configuration, copied from ``repro.configs.base``.
+"""Configuration dataclasses, copied from ``repro.configs.base``.
 
-The same frozen dataclass with the same fields and defaults, so a
-configuration reads the same in both packages.  The live trainer of this
-package runs the paper problems only (``launch/paper_jobs.py``); fields that
-configure the model zoo's sharding are kept for parity and must stay at
-their defaults here (a mesh is refused by :mod:`repro_torch.launch.train`).
+The same frozen dataclasses with the same fields, defaults and properties,
+so a configuration reads the same in both packages.  :class:`ModelConfig`
+describes the model zoo, of which the port serves the dense family
+(``repro_torch.launch.serve``); the other families' fields are kept for
+parity and refused where a model is built.  :class:`TrainConfig` configures
+the live trainer, which runs the paper problems only
+(``launch/paper_jobs.py``); fields that configure the model zoo's sharding
+are kept for parity and must stay at their defaults here (a mesh is refused
+by :mod:`repro_torch.launch.train`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | enc_dec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    head_pad_to: int = 1  # pad query heads up to a multiple of this (TP)
+    kv_pad_to: int = 1  # pad kv heads (MHA models shard kv over 'model')
+    qkv_bias: bool = False
+    mlp_swiglu: bool = True  # False -> 2-matrix GELU MLP (whisper/starcoder2)
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+    moe_dispatch_chunks: int = 1
+
+    # --- MLA (deepseek-v2) ---
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # --- SSM (mamba2 SSD) ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+
+    # --- hybrid (zamba2): one shared attention block every `attn_every` ---
+    attn_every: int = 0
+
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0  # stub frontend emits this many frame embeddings
+
+    # --- VLM (pixtral): stub frontend emits this many patch embeddings ---
+    num_image_tokens: int = 0
+
+    # Max positions for learned-absolute embeddings (0 -> RoPE, no table)
+    max_position_embeddings: int = 0
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing -> long_500k cell runs."""
+        return self.family in ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,6 +26,8 @@ CAP_CUDA_DTYPE = "cuda-unsupported-dtype"
 CAP_LOAD_BALANCE = "load-balance-not-ported"
 #: traces carrying a ChurnSchedule are not ported yet
 CAP_CHURN = "churn-not-ported"
+#: a model architecture (or a model feature) the port does not run yet
+CAP_ARCH = "arch-not-ported"
 
 _KERNEL_BACKENDS = ("torch", "cuda")
 

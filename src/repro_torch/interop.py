@@ -1,12 +1,13 @@
 """Carry the reference's state across: problem data, traces, initial iterate,
-and the live trainer's train state.
+the live trainer's train state, and a served model's parameters.
 
 This system has no weights.  Its state is the problem data and the latency
 traces, so these helpers rebuild the port's problem and
 :class:`~repro_torch.latency.model.FleetTraces` from plain numpy arrays (as
 the JAX package holds them), and the initial iterate ``V0`` travels as a
-numpy array (``run_convergence_batch(..., V0=...)``).  The parity tests hand
-the reference's exact inputs to the port through them.
+numpy array (``run_convergence_batch(..., V0=...)``).  The model zoo's
+parameters travel as the reference's nested dicts of numpy arrays.  The
+parity tests hand the reference's exact inputs to the port through them.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from repro_torch.core.problems import (
     PCAProblem,
 )
 from repro_torch.latency.model import FleetTraces
+from repro_torch.models.layers import ParamDecl, torch_dtype
+from repro_torch.models.transformer import lm_decls
 
 
 def problem_from_arrays(
@@ -92,3 +95,28 @@ def train_state_from_arrays(
         },
         "step": step_t,
     }
+
+
+def model_params_from_arrays(cfg, tree, device="cuda") -> dict:
+    """The port's parameters of ``cfg``'s model from the reference's tree.
+
+    ``tree`` is the reference's parameter tree as nested dicts of numpy
+    arrays (the same keys, stacked ``[L, ...]`` block leaves).  Each leaf is
+    stored in its declared dtype; bfloat16 leaves travel as float32 arrays
+    holding bfloat16 values, so the conversion is exact.
+    """
+    dev = torch.device(device)
+
+    def convert(decl, a, path):
+        if isinstance(decl, ParamDecl):
+            a = np.asarray(a)
+            if tuple(a.shape) != tuple(decl.shape):
+                raise ValueError(f"{path}: expected shape {decl.shape}, got {a.shape}")
+            t = torch.as_tensor(a.astype(np.float32), device=dev)
+            return t.to(torch_dtype(decl.dtype or cfg.dtype))
+        if set(decl) != set(a):
+            raise ValueError(f"{path or 'params'}: keys {sorted(a)} differ from the "
+                             f"declared {sorted(decl)}")
+        return {k: convert(decl[k], a[k], f"{path}/{k}") for k in decl}
+
+    return convert(lm_decls(cfg), tree, "")

@@ -8,6 +8,7 @@ wrapper                    TPU kernel it replaces                 CUDA source
 ``grid_cache_update`` (K3) ``repro/kernels/cache_events.py``      ``csrc/cache_events.cu``
 ``dsag_cache_update`` (K4) ``repro/kernels/dsag_update.py``       ``csrc/dsag_update.cu``
 ``gram_matvec`` (K5)       ``repro/kernels/gram_matvec.py``       ``csrc/gram_matvec.cu``
+``flash_attention`` (K6)   ``repro/kernels/flash_attention.py``   ``csrc/flash_attention.cu``
 =========================  =====================================  =================================
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -17,9 +18,15 @@ in its module's ``launch_counts``; :func:`launch_counts` merges them.
 
 from __future__ import annotations
 
-from repro_torch.kernels import block_sub, cache_events, dsag_update, gram_matvec
+from repro_torch.kernels import (
+    block_sub,
+    cache_events,
+    dsag_update,
+    flash_attention,
+    gram_matvec,
+)
 
-_MODULES = (block_sub, cache_events, dsag_update, gram_matvec)
+_MODULES = (block_sub, cache_events, dsag_update, gram_matvec, flash_attention)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Every ``csrc/*.cu`` goes through one ``nvcc`` call into one shared library
-with a plain C interface: no PyTorch headers, so the build takes seconds, not
-minutes.  The library lands in ``build/`` beside this module (listed in
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface: no PyTorch headers, so the build takes seconds, not minutes.
+The library lands in ``build/`` beside this module (listed in
 ``.gitignore``) under a name carrying a digest of the sources and flags, so a
 changed source is rebuilt and an unchanged one is loaded as it is.  Nothing is
 built when a module is imported (the CPU tests import every module): the
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -26,11 +28,11 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in build_info
 )
 
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 #: C entry point -> argument types (each returns an int CUDA error code)
 SIGNATURES = {
     "dsag_logreg_block_sub": (_P,) * 6 + (_I64, _I64, _I32, _I32, _P),
@@ -38,6 +40,8 @@ SIGNATURES = {
     "dsag_grid_cache_update": (_P,) * 15 + (_I32,) * 5 + (_P,),
     "dsag_dsag_cache_update": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _P),
     "dsag_gram_matvec": (_P,) * 4 + (_I64, _I64, _I32, _I32, _I32, _P),
+    "dsag_flash_attention": (_P,) * 4 + (_I64,) * 4 + (_I32,) * 4 + (_F32,) + (_I64,) * 12
+    + (_I32, _P),
 }
 #: integer constants the wrappers check shapes against
 CONSTANTS = (
@@ -47,6 +51,8 @@ CONSTANTS = (
     "dsag_pca_max_out",
     "dsag_gram_chunk",
     "dsag_gram_tile",
+    "dsag_flash_block_q",
+    "dsag_flash_block_k",
 )
 
 #: what the last build did: library path, seconds, nvcc's -Xptxas -v report
@@ -69,6 +75,28 @@ def _nvcc() -> str:
     return found
 
 
+def compile_library(sources: list[Path], out: Path) -> str:
+    """Compile ``sources`` into the shared library ``out``: one ``nvcc -c``
+    per source, all started together, then one link.  Returns ptxas's report."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
+        objs = [f"{objdir}/{src.stem}.o" for src in sources]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        results = [(cmd, p, *p.communicate()) for cmd, p in zip(jobs, procs)]  # reap all
+        failed = [r for r in results if r[1].returncode != 0]
+        if not failed:
+            link = [nvcc, "-shared", "-o", str(out), *objs]
+            p = subprocess.run(link, capture_output=True, text=True)
+            failed = [(link, p, p.stdout, p.stderr)] if p.returncode else []
+        if failed:
+            cmd, p, stdout, stderr = failed[0]
+            raise RuntimeError(f"nvcc failed with code {p.returncode}:\n{' '.join(cmd)}\n"
+                               f"{stdout}{stderr}")
+    return "".join(stderr for *_, stderr in results)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its digest is new."""
     global _lib
@@ -86,15 +114,8 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+        build_info["log"] = compile_library(sources, tmp)
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-        build_info["log"] = proc.stderr
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -36,14 +36,12 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.dsag_pjit import GroupSpec, init_train_state, make_train_step
-from repro_torch.experiments.engine import EngineConfig, refuse
+from repro_torch.experiments.engine import CAP_ARCH, EngineConfig, refuse
 from repro_torch.ft.runtime import DeadlineController, FailureDetector
 from repro_torch.ft.validation import trace_latency_fn
 from repro_torch.latency.model import make_heterogeneous_cluster
 from repro_torch.launch.paper_jobs import PAPER_ARCHES, make_paper_job, paper_train_config
 
-#: a model-zoo --arch: only the paper problems are ported
-CAP_ARCH = "arch-not-ported"
 #: checkpoint_dir / --restore: the checkpoint manager is not ported
 CAP_CHECKPOINT = "checkpoint-not-ported"
 
@@ -85,7 +83,8 @@ class Trainer:
             raise ValueError(f"method {opts.method!r} not in ('dsag', 'sag')")
         if opts.arch not in PAPER_ARCHES:
             raise refuse(CAP_ARCH, f"--arch {opts.arch!r}: only the paper problems "
-                                   f"{PAPER_ARCHES} are ported; the model zoo is not")
+                                   f"{PAPER_ARCHES} are trained; training the model "
+                                   f"zoo is not ported")
         if opts.checkpoint_dir or opts.restore:
             raise refuse(CAP_CHECKPOINT, "checkpoints (checkpoint_dir, --restore) "
                                          "are not ported yet")

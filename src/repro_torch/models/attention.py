@@ -1,0 +1,199 @@
+"""GQA attention (+RoPE, optional QKV bias) with prefill and KV-cached decode
+paths, from ``repro.models.attention``.
+
+The math follows the reference op for op: scores are formed in the
+activation dtype and softmaxed in float32, probabilities cast back, and
+masked scores set to ``NEG_INF`` (-1e30).  The port has no mesh, so the
+reference's sharding constraints are gone.
+
+Prefill attention (:func:`_attend`) on CUDA tensors with the ``"cuda"``
+kernel backend runs CUDA kernel K6 (``kernels/flash_attention.py``), which
+reads the model's ``[b, s, h, d]`` tensors in place and serves GQA without
+repeating K and V; on CPU tensors, or with the ``"torch"`` backend, it is
+the reference's ``full_attention`` / ``chunked_attention`` as written.
+Decode attention (:func:`gqa_decode_step`) is a plain einsum over the
+cache, as the reference computes it outside any Pallas kernel; it writes
+the new key and value into the cache in place (the reference donates the
+cache to its jitted step).  MLA and cross-attention are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention_bshd
+from repro_torch.models.layers import ParamDecl, apply_rope
+
+NEG_INF = -1e30
+# materialize full scores only below this many query positions
+CHUNKED_ATTENTION_THRESHOLD = 8_192
+QUERY_CHUNK = 1_024
+
+
+# ---------------------------------------------------------------------------
+# Declarations
+# ---------------------------------------------------------------------------
+
+
+def gqa_decls(cfg: ModelConfig, heads: int | None = None) -> dict[str, ParamDecl]:
+    from repro_torch.models.transformer import padded_kv_heads
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h = heads or cfg.num_heads
+    kvh = padded_kv_heads(cfg)
+    out = {
+        "wq": ParamDecl((d, h, hd), ("embed", "heads", "head"), init="scaled"),
+        "wk": ParamDecl((d, kvh, hd), ("embed", "kv_heads", "head"), init="scaled"),
+        "wv": ParamDecl((d, kvh, hd), ("embed", "kv_heads", "head"), init="scaled"),
+        "wo": ParamDecl((h, hd, d), ("heads", "head", "embed"), init="scaled"),
+    }
+    if cfg.qkv_bias:
+        out["bq"] = ParamDecl((h, hd), ("heads", "head"), init="zeros")
+        out["bk"] = ParamDecl((kvh, hd), ("kv_heads", "head"), init="zeros")
+        out["bv"] = ParamDecl((kvh, hd), ("kv_heads", "head"), init="zeros")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Core attention math
+# ---------------------------------------------------------------------------
+
+
+def _repeat_kv(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[b, s, kvh, d] -> [b, s, kvh*n, d]."""
+    if n == 1:
+        return x
+    return torch.repeat_interleave(x, n, dim=2)
+
+
+def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                   scale: float | None = None) -> torch.Tensor:
+    """q [b, sq, h, d], k [b, sk, h, d], v [b, sk, h, dv] -> [b, sq, h, dv]."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        scores = torch.where(mask[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                      chunk: int = QUERY_CHUNK, scale: float | None = None) -> torch.Tensor:
+    """Query-chunked attention: per-chunk memory is [b, h, chunk, sk]."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = scale or 1.0 / math.sqrt(d)
+    if sq % chunk != 0:
+        return full_attention(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+    kpos = torch.arange(sk, device=q.device)
+    outs = []
+    for i in range(sq // chunk):
+        qblk = q[:, i * chunk:(i + 1) * chunk]
+        scores = torch.einsum("bqhd,bkhd->bhqk", qblk, k).to(torch.float32) * scale
+        if causal:
+            qpos = i * chunk + torch.arange(chunk, device=q.device) + q_offset
+            mask = kpos[None, :] <= qpos[:, None]
+            scores = torch.where(mask[None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", probs, v))
+    return torch.cat(outs, dim=1)
+
+
+def _attend(q, k, v, *, causal: bool, q_offset: int = 0, scale: float | None = None,
+            backend: str = "cuda") -> torch.Tensor:
+    """Attention of q [b, sq, h, d] over k, v [b, sk, kvh, d] (``h % kvh == 0``).
+
+    CUDA tensors with the ``"cuda"`` backend go through K6, which takes the
+    prefill calls of this model (q_offset 0, the default scale, sq == sk
+    when causal) and refuses others; everything else is the reference's
+    plain path over repeated kv heads.
+    """
+    if backend == "cuda" and q.device.type == "cuda":
+        if q_offset or scale is not None or (causal and q.shape[1] != k.shape[1]):
+            raise ValueError(
+                f"the flash-attention kernel serves prefill attention (q_offset 0, the "
+                f"default scale, sq == sk); got q_offset={q_offset}, scale={scale}, "
+                f"sq={q.shape[1]}, sk={k.shape[1]}"
+            )
+        return flash_attention_bshd(q, k, v, causal=causal)
+    groups = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    if q.shape[1] > CHUNKED_ATTENTION_THRESHOLD:
+        return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+    return full_attention(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+
+def _project_qkv(cfg: ModelConfig, params, x):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    return q, k, v
+
+
+def gqa_forward(cfg: ModelConfig, params, x, positions, *, causal: bool = True,
+                use_rope: bool = True, backend: str = "cuda") -> torch.Tensor:
+    """Training / prefill attention over a full sequence: x [b, s, d]."""
+    q, k, v = _project_qkv(cfg, params, x)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = _attend(q, k, v, causal=causal, backend=backend)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+
+
+def gqa_prefill_with_cache(cfg: ModelConfig, params, x, positions, *,
+                           use_rope: bool = True, backend: str = "cuda"):
+    """Prefill that also returns the prompt's keys and values [b, s, kvh, hd]
+    (unpadded: the caller writes them into its cache, whose tail it zeroes)."""
+    q, k, v = _project_qkv(cfg, params, x)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = _attend(q, k, v, causal=True, backend=backend)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return y, {"k": k, "v": v}
+
+
+def gqa_decode_step(cfg: ModelConfig, params, x, cache, index: int,
+                    use_rope: bool = True):
+    """One token: x [b, 1, d]; cache k/v [b, S, kvh, hd], written in place at
+    ``index`` (the number of tokens already in the cache)."""
+    index = int(index)
+    S = cache["k"].shape[1]
+    if not 0 <= index < S:
+        raise ValueError(f"decode index {index} outside the cache of length {S}")
+    q, k_new, v_new = _project_qkv(cfg, params, x)
+    if use_rope:
+        pos = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    k, v = cache["k"], cache["v"]
+    k[:, index:index + 1] = k_new.to(k.dtype)
+    v[:, index:index + 1] = v_new.to(v.dtype)
+    groups = q.shape[2] // k.shape[2]
+    kk = _repeat_kv(k, groups)
+    vv = _repeat_kv(v, groups)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kk).to(torch.float32) * scale
+    valid = torch.arange(S, device=x.device)[None, None, None, :] <= index
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return y, {"k": k, "v": v}

@@ -1,0 +1,207 @@
+"""Common layers and the parameter-declaration system, from
+``repro.models.layers``.
+
+Every parameter is declared once (shape, per-dim logical axes, init) and
+:func:`init_from_decls` materializes the declarations as a nested dict of
+tensors drawn from an explicit ``torch.Generator``.  The port has no mesh:
+the logical axes are kept for parity, the reference's sharding rules and
+``tp_contract`` become plain einsums.  Dtype handling follows the
+reference op for op (f32 inside the norms, the rotary angles and the SiLU,
+cast back to the activation dtype), so a float32 model equals the
+reference's within float32 rounding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.experiments.engine import CAP_ARCH, refuse
+
+
+def torch_dtype(name) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` (or a torch dtype) as a torch dtype."""
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Parameter declarations
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDecl:
+    shape: tuple[int, ...]
+    logical: tuple[str, ...]  # one logical axis name per dim
+    init: str = "normal"  # normal | zeros | ones | scaled (1/sqrt(fan_in))
+    dtype: str | None = None  # override model dtype (e.g. fp32 for norms)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes {self.logical} differ in rank")
+
+
+def _init_leaf(decl: ParamDecl, gen: torch.Generator, dtype) -> torch.Tensor:
+    dt = torch_dtype(decl.dtype or dtype)
+    dev = gen.device
+    if decl.init == "zeros":
+        return torch.zeros(decl.shape, dtype=dt, device=dev)
+    if decl.init == "ones":
+        return torch.ones(decl.shape, dtype=dt, device=dev)
+    if decl.init == "scaled":
+        # the reference's rule as it is: for a stacked [L, ...] leaf the fan-in
+        # is the layer count
+        fan_in = decl.shape[0]
+        std = 1.0 / math.sqrt(max(fan_in, 1))
+    elif decl.init == "normal":
+        std = 0.02
+    else:
+        raise ValueError(decl.init)
+    draw = torch.randn(decl.shape, generator=gen, dtype=torch.float32, device=dev)
+    return (draw * std).to(dt)
+
+
+def is_decl(x) -> bool:
+    return isinstance(x, ParamDecl)
+
+
+def _leaves(tree, prefix=()):
+    """(path, leaf) pairs in the order ``jax.tree.flatten`` walks a dict."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], prefix + (key,))
+    else:
+        yield prefix, tree
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_from_decls(decls, gen: torch.Generator, dtype) -> Any:
+    """Materialize ``decls`` on ``gen``'s device, drawing in leaf order."""
+    out: dict = {}
+    for path, decl in _leaves(decls):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _init_leaf(decl, gen, dtype)
+    return out
+
+
+def num_elements(decls) -> int:
+    return sum(math.prod(d.shape) for _, d in _leaves(decls))
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_decls(dim: int, axis: str = "embed2") -> dict[str, ParamDecl]:
+    return {"scale": ParamDecl((dim,), (axis,), init="ones", dtype="float32")}
+
+
+def rmsnorm(params, x, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"]).to(dt)
+
+
+def norm_decls(cfg: ModelConfig, dim: int | None = None) -> dict[str, ParamDecl]:
+    if cfg.family == "enc_dec":
+        raise refuse(CAP_ARCH, f"{cfg.name}: layernorm (the enc_dec family) is not ported")
+    return rmsnorm_decls(dim or cfg.d_model)
+
+
+def apply_norm(cfg: ModelConfig, params, x) -> torch.Tensor:
+    if cfg.family == "enc_dec":
+        raise refuse(CAP_ARCH, f"{cfg.name}: layernorm (the enc_dec family) is not ported")
+    return rmsnorm(params, x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, x.device)  # [hd/2]
+    angles = positions[..., :, None].to(torch.float32) * freqs  # [..., s, hd/2]
+    cos = torch.cos(angles)[..., :, None, :]  # [..., s, 1, hd/2]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense FFN)
+# ---------------------------------------------------------------------------
+
+
+def mlp_decls(cfg: ModelConfig, d_ff: int | None = None, swiglu: bool = True):
+    if not swiglu:
+        raise refuse(CAP_ARCH, f"{cfg.name}: the GELU MLP is not ported")
+    d = cfg.d_model
+    f = d_ff or cfg.d_ff
+    return {
+        "w_gate": ParamDecl((d, f), ("embed", "mlp"), init="scaled"),
+        "w_up": ParamDecl((d, f), ("embed", "mlp"), init="scaled"),
+        "w_down": ParamDecl((f, d), ("mlp", "embed"), init="scaled"),
+    }
+
+
+def mlp_apply(params, x, swiglu: bool = True) -> torch.Tensor:
+    """SwiGLU: ``(silu(x W_gate) in f32, cast) * x W_up``, then ``W_down``."""
+    if not swiglu:
+        raise refuse(CAP_ARCH, "the GELU MLP is not ported")
+    gate = torch.einsum("...d,df->...f", x, params["w_gate"])
+    up = torch.einsum("...d,df->...f", x, params["w_up"])
+    h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+    return torch.einsum("...f,fd->...d", h, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def embed_decls(cfg: ModelConfig) -> dict[str, ParamDecl]:
+    v = round_up(cfg.vocab_size, 256)  # the reference pads for vocab sharding
+    out = {"tok": ParamDecl((v, cfg.d_model), ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        out["unembed"] = ParamDecl((cfg.d_model, v), ("embed", "vocab"), init="scaled")
+    return out
+
+
+def embed_lookup(params, tokens, d_model: int, dtype) -> torch.Tensor:
+    return params["tok"].to(dtype)[tokens]
+
+
+def unembed(cfg: ModelConfig, params, x) -> torch.Tensor:
+    """Logits over the padded vocab (tied: ``x @ tok.T``)."""
+    if cfg.tie_embeddings:
+        return torch.einsum("...d,vd->...v", x, params["tok"].to(x.dtype))
+    return torch.einsum("...d,dv->...v", x, params["unembed"].to(x.dtype))

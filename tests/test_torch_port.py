@@ -212,7 +212,7 @@ def test_launch_counters_stay_zero_on_cpu():
                                *_tasks(rng, 50, 3, 9))
     cache_events.grid_cache_update(*_cache_inputs(rng))
     assert launch_counts() == {"logreg_block_sub": 0, "pca_block_sub": 0, "grid_cache_update": 0,
-                               "dsag_cache_update": 0, "gram_matvec": 0}
+                               "dsag_cache_update": 0, "gram_matvec": 0, "flash_attention": 0}
 
 
 def test_wrappers_on_cpu_take_the_plain_versions():
@@ -320,7 +320,7 @@ def test_cache_plain_equals_a_scalar_walk(seed):
 
 def test_kernel_sources_define_every_entry_point():
     text = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
-    assert len(list(_build.CSRC.glob("*.cu"))) == 4
+    assert len(list(_build.CSRC.glob("*.cu"))) == 5
     for name in list(_build.SIGNATURES) + list(_build.CONSTANTS) + ["dsag_cuda_error_string"]:
         assert f" {name}(" in text, name
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
