@@ -9,11 +9,13 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. fail unless torch sees a CUDA card; print the card's name and power limit;
-2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc;
+2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc and
+   print each kernel's registers, spills and shared memory (``-Xptxas -v``);
 3. at the main paths' shapes: hold each kernel against its plain-torch
-   version on the card (K1/K2/K5: float32 tolerance; K3/K4: ``torch.equal``)
-   and time kernel, plain version and, where one PyTorch call computes the
-   same function (K2, K5, K6), that call;
+   version on the card (K1/K2/K5: float32 tolerance; K3/K4: ``torch.equal``;
+   K6: :data:`K6_RTOL`, also at a length no multiple of its tiles and with
+   GQA) and time kernel, plain version and, where one PyTorch call computes
+   the same function (K2, K5, K6), that call;
 4. slice 1, the convergence sweep: run the ``grid`` (logreg, n=16384, 100
    workers x 10 scenarios) and ``pca_paper_scale`` (n=50000, 50 workers x 4
    scenarios) recipes at full size through the kernels, all four methods,
@@ -194,15 +196,17 @@ def check_block_sub(torch, kind: str, X, y, rng) -> dict:
             Vb = torch.as_tensor(q, dtype=torch.float32, device=dev).contiguous()
         st = torch.as_tensor(starts, device=dev)
         wd = torch.as_tensor(widths, device=dev)
+        # the static widest window, as the sweep passes it (fused.py)
+        W = int(widths.max())
         if kind == "logreg":
             def kernel():
-                return block_sub.logreg_block_sub(X, y, Vb, st, wd)
+                return block_sub.logreg_block_sub(X, y, Vb, st, wd, W)
 
             def plain():
                 return block_sub.logreg_block_sub_plain(X, y, Vb, st, wd, int(widths.max()))
         else:
             def kernel():
-                return block_sub.pca_block_sub(X, Vb, st, wd)
+                return block_sub.pca_block_sub(X, Vb, st, wd, W)
 
             def plain():
                 return block_sub.pca_block_sub_plain(X, Vb, st, wd, int(widths.max()))
@@ -366,8 +370,10 @@ def k6_within_tolerance(torch, got, want32) -> bool:
 
 
 def check_flash(torch, b: int, h: int, sq: int, sk: int, d: int, rng,
-                causal: bool = True, dtype=None) -> dict:
-    """Phase 3 for K6 at one [b, h, s, d] shape (bfloat16 by default)."""
+                causal: bool = True, dtype=None, kvh: int | None = None) -> dict:
+    """Phase 3 for K6 at one shape (bfloat16 by default): ``[b, h, s, d]``
+    through ``flash_attention_op``, or with ``kvh`` kv heads (GQA) in the
+    model's ``[b, s, h, d]`` layout through ``flash_attention_bshd``."""
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
@@ -375,36 +381,64 @@ def check_flash(torch, b: int, h: int, sq: int, sk: int, d: int, rng,
 
     dtype = dtype or torch.bfloat16
     dev = torch.device("cuda")
-    q, k, v = (torch.as_tensor(rng.normal(size=(b, h, n, d)), dtype=torch.float32,
-                               device=dev).to(dtype) for n in (sq, sk, sk))
-    got = k6.flash_attention_op(q, k, v, causal=causal)
-    want = k6.flash_attention_plain(q, k, v, causal=causal)
-    want32 = k6.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    kvh = kvh or h
+
+    def draw(n, heads):
+        return torch.as_tensor(rng.normal(size=(b, n, heads, d)), dtype=torch.float32,
+                               device=dev).to(dtype)
+
+    if kvh == h:
+        q, k, v = (draw(n, h).transpose(1, 2).contiguous() for n in (sq, sk, sk))
+        qh, kh, vh = q, k, v  # [b, h, s, d]
+
+        def kernel():
+            return k6.flash_attention_op(q, k, v, causal=causal)
+    else:
+        q, k, v = draw(sq, h), draw(sk, kvh), draw(sk, kvh)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+        def kernel():
+            return k6.flash_attention_bshd(q, k, v, causal=causal).transpose(1, 2)
+    # the plain version takes the kv heads repeated (its CPU path does the same)
+    kr, vr = (t.repeat_interleave(h // kvh, dim=1) for t in (kh, vh))
+
+    def plain():
+        return k6.flash_attention_plain(qh, kr, vr, causal=causal)
+
+    got = kernel()
+    want = plain()
+    want32 = k6.flash_attention_plain(qh.float(), kr.float(), vr.float(), causal=causal)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    shape = f"[{b}, {h}, {sq}/{sk}, {d}] {str(dtype).removeprefix('torch.')}"
+    heads = f"{h}" if kvh == h else f"{h} q / {kvh} kv"
+    shape = f"[{b}, {heads}, {sq}/{sk}, {d}] {str(dtype).removeprefix('torch.')}"
     if not k6_within_tolerance(torch, got, want32):
         fail(f"flash_attention {shape} disagrees with its plain version: max |diff| "
              f"{float((got.float() - want32).abs().max()):.3e}")
-    k_ms, p_ms = timed_pair(torch, lambda: k6.flash_attention_op(q, k, v, causal=causal),
-                            lambda: k6.flash_attention_plain(q, k, v, causal=causal),
-                            reps=20, plain_reps=5)
+    k_ms, p_ms = timed_pair(torch, kernel, plain, reps=20, plain_reps=5)
     # the library call: SDPA with K6's bottom-right causal mask (its
-    # is_causal=True is top-left, the same only where sq == sk)
+    # is_causal=True is top-left, the same only where sq == sk), on the same
+    # kv heads (enable_gqa) and layout
     mask = causal_lower_right(sq, sk) if causal else None
-    lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    gqa = {"enable_gqa": True} if kvh != h else {}
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, **gqa)
+
+    lib = library()
     lib_err = float((lib.float() - want32).abs().max())
     if lib_err > 0.05 * float(want32.abs().max()):  # a bf16 call, not another function
         fail(f"SDPA with a bottom-right causal mask disagrees with K6's function at {shape}: "
              f"max |diff| {lib_err:.3e}")
-    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20)
-    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * q.element_size()
+    lib_ms = cuda_ms(torch, library, 20)
+    nbytes = (2 * b * h * sq * d + 2 * b * kvh * sk * d) * q.element_size()
     flops = 4 * b * h * d * causal_pairs(sq, sk, causal)
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
     print(f"  flash_attention {shape} causal={causal}: max|diff|={err:.3e} vs plain "
-          f"(bf16 out); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
-          f"(max |SDPA - float32 plain| {lib_err:.3e}), bound "
-          f"{b_ms:.5f} ms ({b_by}, {flops:.3e} flops)")
+          f"({str(dtype).removeprefix('torch.')} out); kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max |SDPA - float32 plain| {lib_err:.3e}), "
+          f"kernel/SDPA {k_ms / lib_ms:.2f}, bound {b_ms:.5f} ms ({b_by}, {flops:.3e} flops, "
+          f"{flops / k_ms * 1e-9:.1f} TFLOP/s)")
     return dict(call=shape, max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by)
 
@@ -939,6 +973,30 @@ def profile_serving(torch) -> None:
     profile_run(torch, "serve decode step", lambda: step, 1)
 
 
+def ptxas_report(log: str) -> list[str]:
+    """``-Xptxas -v``'s registers, spills and shared memory, one line per
+    kernel and line of the report, under the kernel's (template) name."""
+    import re
+
+    lines, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            # _ZN <len><anonymous namespace> <len><kernel> [I Li<D> E ...]
+            name = entry.group(1)
+            parts = re.match(r"_ZN(\d+)", name)
+            if parts:
+                rest = name[parts.end() + int(parts.group(1)):]
+                m = re.match(r"(\d+)", rest)
+                if m:
+                    rest = rest[m.end():]
+                    tmpl = re.match(r"ILi(\d+)E", rest[int(m.group(1)):])
+                    name = rest[:int(m.group(1))] + (f"<{tmpl.group(1)}>" if tmpl else "")
+        elif name and ("spill" in line or "Used" in line):
+            lines.append(f"{name}: {line.split(' : ', 1)[-1].strip()}")
+    return lines
+
+
 def build_times(_build) -> None:
     """``--build-times``: the kernel library built from scratch by one ``nvcc``
     call over every source, against ``_build.compile_library`` (one ``nvcc``
@@ -983,9 +1041,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     print(f"phase 2: built {_build.build_info['path']} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_info.get("log", "").splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for line in ptxas_report(_build.build_info.get("log", "")):
+        print(f"  ptxas: {line}")
 
     if "--build-times" in sys.argv[1:]:
         build_times(_build)
@@ -1024,11 +1081,15 @@ def main() -> None:
                 torch.as_tensor(rng.normal(size=(512, 8)), dtype=torch.float32, device=dev)),
         ],
         # the serving prefill (24 launches per prefill), the kernels_bench
-        # shape, and a decode-like single query row over the full cache
+        # shape, a decode-like single query row over the full cache, a length
+        # that is no multiple of the tiles, and GQA (16 q heads over 2 kv
+        # heads) in the model's [b, s, h, d] layout
         "flash_attention": [
             check_flash(torch, SERVE_B, 16, SERVE_PROMPT, SERVE_PROMPT, 64, rng),
             check_flash(torch, 1, 4, 1024, 1024, 128, rng),
             check_flash(torch, SERVE_B, 16, 1, SERVE_PROMPT + SERVE_TOKENS + 5, 64, rng),
+            check_flash(torch, SERVE_B, 16, 2085, 2085, 64, rng),
+            check_flash(torch, SERVE_B, 16, SERVE_PROMPT, SERVE_PROMPT, 64, rng, kvh=2),
         ],
     }
     if "--profile" in sys.argv[1:]:

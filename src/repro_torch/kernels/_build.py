@@ -36,7 +36,7 @@ _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_f
 #: C entry point -> argument types (each returns an int CUDA error code)
 SIGNATURES = {
     "dsag_logreg_block_sub": (_P,) * 6 + (_I64, _I64, _I32, _I32, _P),
-    "dsag_pca_block_sub": (_P,) * 5 + (_I64, _I64, _I32, _I32, _I32, _P),
+    "dsag_pca_block_sub": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
     "dsag_grid_cache_update": (_P,) * 15 + (_I32,) * 5 + (_P,),
     "dsag_dsag_cache_update": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _P),
     "dsag_gram_matvec": (_P,) * 4 + (_I64, _I64, _I32, _I32, _I32, _P),
@@ -49,6 +49,7 @@ CONSTANTS = (
     "dsag_pca_threads",
     "dsag_pca_chunk",
     "dsag_pca_max_out",
+    "dsag_pca_slab",
     "dsag_gram_chunk",
     "dsag_gram_tile",
     "dsag_flash_block_q",

@@ -9,7 +9,10 @@ not inherit the width-bucket ladder (it exists for XLA's bit contract) and
 evaluates every task of an iteration in one launch from per-task
 ``(start, width)``.  Both kernels read each window row once and do O(d) or
 O(d*k) flops per row, so they are bound by bytes; see the source for the
-design.  Results agree with the plain versions within float32 rounding of a
+design.  K2 spreads a task wider than one slab of rows over several blocks
+and sums their partials in a second pass (:func:`pca_slabs` counts the
+slabs from the caller's static widest window, never from the card).
+Results agree with the plain versions within float32 rounding of a
 different summation order (tolerances are stated where they are compared:
 ``tests/test_torch_port.py`` and ``chip_smoke.py``).
 
@@ -118,12 +121,21 @@ def logreg_block_sub(X, y, Vb, starts, widths, max_width=None):
     return out
 
 
+def pca_slabs(max_width: int | None, n: int, slab_rows: int) -> int:
+    """K2's blocks per task: ``ceil(W / slab_rows)``, ``W`` the widest window
+    (``max_width``, else ``n``; no window is longer than ``n``), at least 1.
+    One slab means one pass with one block per task."""
+    W = n if max_width is None else min(int(max_width), n)
+    return max(1, -(-W // slab_rows))
+
+
 def pca_block_sub(X, Vb, starts, widths, max_width=None):
     """§3 PCA block subgradients ``-X_b^T (X_b V_g)``, ``[G, d, k]``.
 
     ``X`` [n, d] float32, ``Vb`` [G, d, k] float32, ``starts`` / ``widths``
-    [G] int64.  CPU tensors take :func:`pca_block_sub_plain`; CUDA tensors
-    launch K2.
+    [G] int64; ``max_width`` bounds every width (a static int: it sets the
+    slab count without reading the card).  CPU tensors take
+    :func:`pca_block_sub_plain`; CUDA tensors launch K2.
     """
     if _on_cpu(X, Vb, starts, widths):
         return pca_block_sub_plain(X, Vb, starts, widths, max_width)
@@ -143,13 +155,20 @@ def pca_block_sub(X, Vb, starts, widths, max_width=None):
             f"pca_block_sub supports d*k <= {threads * max_out} and "
             f"{smem} <= 49152 bytes of shared memory; got d={d}, k={k}"
         )
+    slab = _build.constant("dsag_pca_slab")
+    slabs = pca_slabs(max_width, n, slab)
+    if slabs > 65_535:
+        raise ValueError(f"pca_block_sub supports windows of at most {65_535 * slab} rows, "
+                         f"got {slabs} slabs of {slab}")
     out = torch.empty((G, d, k), dtype=torch.float32, device=dev)
     if G == 0:
         return out
+    partial = torch.empty((G, slabs, d, k), dtype=torch.float32, device=dev) if slabs > 1 else None
     _build.launch(
         "dsag_pca_block_sub",
         X.data_ptr(), Vb.data_ptr(), starts.data_ptr(), widths.data_ptr(),
-        out.data_ptr(), G, n, d, k, dev.index or 0, _stream(dev),
+        None if partial is None else partial.data_ptr(), out.data_ptr(),
+        G, n, d, k, slabs, dev.index or 0, _stream(dev),
     )
     launch_counts["pca_block_sub"] += 1
     return out

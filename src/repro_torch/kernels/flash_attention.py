@@ -7,8 +7,12 @@ VMEM, head dim padded to 128 lanes).  It keeps the reference's contract:
 ``[b, h, s, d]`` in and out, causal mask aligned bottom-right to the true
 lengths, float32 math inside, the output in the input's dtype, and the same
 two refusals (causal with ``sq > sk``; non-causal with ``sk % block_k``).
-``block_q`` / ``block_k`` take part only in that contract: the CUDA kernel
-(``csrc/flash_attention.cu``) picks its own tiles.
+``block_q`` / ``block_k`` take part only in that contract: the CUDA kernels
+(``csrc/flash_attention.cu``) pick their own tiles.  bfloat16 runs on the
+tensor cores (``mma.sync``, K and V staged by ``cp.async``), which needs every
+base pointer 16-byte aligned and every batch, head and position stride a
+multiple of 8 elements (:func:`check_alignment`); float32 runs on the CUDA
+cores.
 
 :func:`flash_attention_bshd` is the model's entry: ``[b, s, h, d]`` queries
 and ``[b, s, kvh, d]`` keys and values, read and written in place through
@@ -67,6 +71,20 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32)).to(q.dtype)
 
 
+def check_alignment(*tensors) -> None:
+    """Raise unless each ``[b, h, s, d]`` view can feed the bfloat16 kernel:
+    ``cp.async`` and its output stores move 16 bytes, so each base pointer
+    and each batch, head and position stride (in bytes) is a multiple of 16."""
+    for t in tensors:
+        nbytes = [s * t.element_size() for s in t.stride()[:3]]
+        if t.data_ptr() % 16 or any(n % 16 for n in nbytes):
+            raise ValueError(
+                f"bfloat16 flash attention needs 16-byte aligned rows: base pointer "
+                f"{t.data_ptr():#x}, strides {tuple(t.stride()[:3])} elements of "
+                f"{t.element_size()} bytes"
+            )
+
+
 def _launch(q, k, v, out, causal: bool) -> None:
     """K6 over ``[b, h, s, d]`` views (any batch/head/position strides, head
     dim contiguous); k and v may have ``h / groups`` heads."""
@@ -91,9 +109,6 @@ def _launch(q, k, v, out, causal: bool) -> None:
     for t, what in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
         if t.stride(3) != 1:
             raise ValueError(f"{what}: the head dim must be contiguous")
-    block_q = _build.constant("dsag_flash_block_q")
-    if -(-sq // block_q) > 65_535:
-        raise ValueError(f"flash attention kernel supports sq <= {65_535 * block_q}, got {sq}")
     if b * h == 0 or sq == 0:
         return
     target = out
@@ -103,6 +118,11 @@ def _launch(q, k, v, out, causal: bool) -> None:
         dp = next(n for n in HEAD_DIMS if n > d)
         q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
         target = torch.empty((b, h, sq, dp), dtype=q.dtype, device=dev)
+    if q.dtype == torch.bfloat16:
+        check_alignment(q, k, v, target)
+    block_q = _build.constant("dsag_flash_block_q")
+    if -(-sq // block_q) > 65_535:
+        raise ValueError(f"flash attention kernel supports sq <= {65_535 * block_q}, got {sq}")
     _build.launch(
         "dsag_flash_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), target.data_ptr(),
@@ -121,7 +141,8 @@ def flash_attention_op(q, k, v, *, causal: bool = True, block_q: int = 128,
     """Flash attention over ``[b, h, s, d]`` (the reference's contract).
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch K6
-    (float32 or bfloat16, head dims up to 128) or raise.
+    (float32 or bfloat16, head dims up to 128; bfloat16 16-byte aligned) or
+    raise.
     """
     _check_contract(q.shape[2], k.shape[2], causal, block_k)
     if _on_cpu(q, k, v):

@@ -278,6 +278,21 @@ def test_pca_plain_matches_numpy_loop(seed):
         np.testing.assert_allclose(got[g].numpy(), -(x.T @ (x @ V[g])), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize(("max_width", "n", "slabs"), [
+    (200, 16_384, 1),  # the sweep's grid calls: one pass, one block per task
+    (512, 50_000, 1),  # exactly one slab
+    (513, 50_000, 2),  # one slab and one row
+    (511, 50_000, 1),
+    (50_000, 50_000, 98),  # the coded call: ceil(50000 / 512)
+    (None, 50_000, 98),  # no static width: every window fits in n rows
+    (None, 300, 1),
+    (10**6, 1_000, 2),  # no window is longer than n
+    (0, 1_000, 1),
+])
+def test_pca_slab_count(max_width, n, slabs):
+    assert block_sub.pca_slabs(max_width, n, 512) == slabs
+
+
 def test_plain_versions_do_not_depend_on_the_pad_width():
     rng = np.random.default_rng(3)
     X, y = torch.randn(70, 5), torch.sign(torch.randn(70))
@@ -461,6 +476,41 @@ def test_gpu_pca_kernel_matches_plain(card):
     Vb = torch.linalg.qr(torch.randn(40, 96, 3, device=card))[0].contiguous()
     got = block_sub.pca_block_sub(X, Vb, st, wd)
     _assert_kernel_close(got, block_sub.pca_block_sub_plain(X, Vb, st, wd))
+
+
+def _window_tasks(case: str, n: int, slab: int):
+    """(starts, widths, max_width) of one K2 call over wide windows."""
+    if case == "coded":  # the sweep's coded call: 4 full-width tasks
+        return [1] * 4, [n] * 4, n
+    if case == "slab_edges":  # one slab and one row, one row short of a slab,
+        # a window ending at row n, one row, exactly one slab
+        widths = [slab + 1, slab - 1, 3 * slab + 7, 1, slab]
+        starts = [1, 17, n - widths[2] + 1, n, 1000]
+        return starts, widths, max(widths)
+    if case == "mixed":  # the grid call's narrow tasks beside full-width ones
+        rng = np.random.default_rng(7)
+        widths = list(rng.integers(1, 201, size=30)) + [n, n - 5, 2 * slab]
+        starts = [int(rng.integers(1, n - w + 2)) for w in widths]
+        return starts, widths, n
+    assert case == "max_width_none"
+    return [1, 101, n - 4000], [n, 20_000, 4000], None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["coded", "slab_edges", "mixed", "max_width_none"])
+def test_gpu_pca_kernel_over_row_slabs(card, case):
+    n = 50_000
+    X = torch.as_tensor(make_genomics_like_matrix(n, 96, seed=3), device=card)
+    starts, widths, max_width = _window_tasks(case, n, _build.constant("dsag_pca_slab"))
+    st = torch.as_tensor(starts, dtype=torch.int64, device=card)
+    wd = torch.as_tensor(widths, dtype=torch.int64, device=card)
+    Vb = torch.linalg.qr(torch.randn(len(starts), 96, 3, device=card))[0].contiguous()
+    before = launch_counts()["pca_block_sub"]
+    got = block_sub.pca_block_sub(X, Vb, st, wd, max_width)
+    again = block_sub.pca_block_sub(X, Vb, st, wd, max_width)
+    assert launch_counts()["pca_block_sub"] == before + 2
+    _assert_kernel_close(got, block_sub.pca_block_sub_plain(X, Vb, st, wd, max(widths)))
+    assert torch.equal(got, again)  # slab partials summed in a fixed order
 
 
 @pytest.mark.gpu

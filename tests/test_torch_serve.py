@@ -473,6 +473,28 @@ def test_unported_model_features_are_refused(change):
     assert _code(e) == CAP_ARCH
 
 
+@pytest.mark.parametrize("where", ["pointer", "stride"])
+def test_k6_refuses_misaligned_bf16_rows_before_any_launch(monkeypatch, where):
+    # a [b, s, h, d] view sliced at an odd offset: the base pointer 2 bytes
+    # off a 16-byte boundary, or a head stride of 68 elements (136 bytes)
+    if where == "pointer":
+        q = torch.zeros(1, 64, 4, 72, dtype=torch.bfloat16)[..., 1:65]
+    else:
+        q = torch.zeros(1, 64, 4, 68, dtype=torch.bfloat16)[..., :64]
+    k = v = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16)
+    out = torch.empty(1, 64, 4, 64, dtype=torch.bfloat16)
+
+    def no_build():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(k6._build, "library", no_build)
+    k6.check_alignment(*(t.transpose(1, 2) for t in (k, v, out)))  # aligned: passes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k6.check_alignment(q.transpose(1, 2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k6._launch(*(t.transpose(1, 2) for t in (q, k, v, out)), causal=True)
+
+
 def test_server_needs_a_card_or_the_cpu_asked_for():
     with pytest.raises(EngineCapabilityError) as e:
         Server("qwen1.5-0.5b", device="cpu", kernel_backend="cuda")
@@ -520,8 +542,16 @@ def _k6_tolerance(got, want32):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", K6_DTYPES)
-@pytest.mark.parametrize("case", K6_CASES + [(2, 3, 200, 333, 128, True),
-                                             (2, 4, 256, 256, 64, False)])
+@pytest.mark.parametrize("case", K6_CASES + [
+    (2, 3, 200, 333, 128, True),
+    (2, 4, 256, 256, 64, False),
+    # the bf16 kernel's edges: lengths no multiple of its 64-row tiles, one
+    # query row over a long cache, d = 128 over many key tiles, non-causal
+    (1, 2, 2085, 2085, 64, True),
+    (2, 4, 1, 2085, 64, True),
+    (1, 2, 700, 700, 128, True),
+    (1, 3, 300, 384, 64, False),
+])
 def test_gpu_k6_matches_plain(card, case, dt):
     b, h, sq, sk, d, causal = case
     rng = np.random.default_rng(8)
@@ -536,11 +566,12 @@ def test_gpu_k6_matches_plain(card, case, dt):
 
 
 @pytest.mark.gpu
-def test_gpu_k6_bshd_gqa_matches_plain(card):
+@pytest.mark.parametrize("s", [300, 2085])
+def test_gpu_k6_bshd_gqa_matches_plain(card, s):
     rng = np.random.default_rng(9)
-    q = torch.as_tensor(rng.normal(size=(2, 300, 8, 64)), device=card).bfloat16()
-    k = torch.as_tensor(rng.normal(size=(2, 300, 2, 64)), device=card).bfloat16()
-    v = torch.as_tensor(rng.normal(size=(2, 300, 2, 64)), device=card).bfloat16()
+    q = torch.as_tensor(rng.normal(size=(2, s, 8, 64)), device=card).bfloat16()
+    k = torch.as_tensor(rng.normal(size=(2, s, 2, 64)), device=card).bfloat16()
+    v = torch.as_tensor(rng.normal(size=(2, s, 2, 64)), device=card).bfloat16()
     got = k6.flash_attention_bshd(q, k, v)
     want32 = k6.flash_attention_plain(q.float().transpose(1, 2),
                                       _repeat_kv(k, 4).float().transpose(1, 2),
