@@ -14,8 +14,11 @@ Phases (any failure raises and the script exits non-zero):
 3. at the main paths' shapes: hold each kernel against its plain-torch
    version on the card (K1/K2/K5: float32 tolerance; K3/K4: ``torch.equal``;
    K6: :data:`K6_RTOL`, also at a length no multiple of its tiles and with
-   GQA) and time kernel, plain version and, where one PyTorch call computes
-   the same function (K2, K5, K6), that call;
+   GQA; K1/K2/K5 must also repeat their bits) and time kernel, plain
+   version and, where one PyTorch call computes the same function (K2, K5,
+   K6), that call; beside each K1/K2/K5 event time, the kernel's device time
+   per call from ``torch.profiler`` (event times of small calls include the
+   wrapper's host time);
 4. slice 1, the convergence sweep: run the ``grid`` (logreg, n=16384, 100
    workers x 10 scenarios) and ``pca_paper_scale`` (n=50000, 50 workers x 4
    scenarios) recipes at full size through the kernels, all four methods,
@@ -168,24 +171,66 @@ def grid_tasks(n: int, N: int, p: int, S: int, rng) -> tuple[np.ndarray, np.ndar
     return lo.reshape(-1).astype(np.int64), (hi - lo + 1).reshape(-1).astype(np.int64)
 
 
+def device_ms(torch, fn, calls: int) -> tuple[float | None, str]:
+    """Device time per call of ``fn`` under ``torch.profiler``: the CUDA
+    kernels' time in ``key_averages()`` over ``calls`` calls, divided by
+    ``calls`` (no host time in it), and the kernels' names with their
+    launches per call.  None where the profiler recorded no device time in
+    three tries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then records no device event: try again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in kern)
+        if us > 0:
+            names = ", ".join(f"{e.key[:40]} x{e.count / calls:g}" for e in kern)
+            return us / 1e3 / calls, names
+    return None, "the profiler recorded no device time"
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def check_block_sub(torch, kind: str, X, y, rng) -> dict:
-    """Phase 3 for K1 (logreg) or K2 (pca) at the recipe's two call shapes."""
+    """Phase 3 for K1 (logreg: grid, live and coded calls) or K2 (pca: grid
+    and coded calls) at the main paths' shapes."""
+    from repro_torch.core.problems import make_higgs_like
     from repro_torch.kernels import block_sub
 
     dev = X.device
-    n, d = X.shape
+    d = X.shape[1]
     if kind == "logreg":
-        shapes = {"grid": (100, 10, 10), "coded": None}
+        # grid: the sweep's per-iteration call; live: the paper-scale live
+        # logreg job's call (100 groups of n // G = 160 rows over n = 16000,
+        # launch/paper_jobs.py); coded: the sweep's full-width call
+        shapes = {"grid": (100, 10, 10), "live": (16_000, 100), "coded": None}
         S_coded, k = 10, None
     else:
         shapes = {"grid": (50, 5, 4), "coded": None}
         S_coded, k = 4, 3
     rows = []
     for call, shp in shapes.items():
+        Xc, yc = X, y
         if shp is None:
+            n = X.shape[0]
             starts = np.ones(S_coded, dtype=np.int64)
             widths = np.full(S_coded, n, dtype=np.int64)
+        elif call == "live":
+            n, G = shp
+            Xl, yl = make_higgs_like(n, seed=0)
+            Xc, yc = torch.as_tensor(Xl, device=dev), torch.as_tensor(yl, device=dev)
+            starts = 1 + (n // G) * np.arange(G, dtype=np.int64)
+            widths = np.full(G, n // G, dtype=np.int64)
         else:
+            n = X.shape[0]
             N, p, S = shp
             starts, widths = grid_tasks(n, N, p, S, rng)
         G = starts.size
@@ -196,22 +241,23 @@ def check_block_sub(torch, kind: str, X, y, rng) -> dict:
             Vb = torch.as_tensor(q, dtype=torch.float32, device=dev).contiguous()
         st = torch.as_tensor(starts, device=dev)
         wd = torch.as_tensor(widths, device=dev)
-        # the static widest window, as the sweep passes it (fused.py)
+        # the static widest window, as the sweep (fused.py) and the live job pass it
         W = int(widths.max())
         if kind == "logreg":
             def kernel():
-                return block_sub.logreg_block_sub(X, y, Vb, st, wd, W)
+                return block_sub.logreg_block_sub(Xc, yc, Vb, st, wd, W)
 
             def plain():
-                return block_sub.logreg_block_sub_plain(X, y, Vb, st, wd, int(widths.max()))
+                return block_sub.logreg_block_sub_plain(Xc, yc, Vb, st, wd, W)
         else:
             def kernel():
-                return block_sub.pca_block_sub(X, Vb, st, wd, W)
+                return block_sub.pca_block_sub(Xc, Vb, st, wd, W)
 
             def plain():
-                return block_sub.pca_block_sub_plain(X, Vb, st, wd, int(widths.max()))
+                return block_sub.pca_block_sub_plain(Xc, Vb, st, wd, W)
         got = kernel()
         want = plain()
+        again = kernel()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
@@ -220,24 +266,27 @@ def check_block_sub(torch, kind: str, X, y, rng) -> dict:
         ):
             fail(f"{kind}_block_sub ({call}) disagrees with its plain version: "
                  f"max |diff| {err:.3e} at max |plain| {scale:.3e}")
+        if not torch.equal(got, again):
+            fail(f"{kind}_block_sub ({call}) does not repeat its bits")
         k_ms, p_ms = timed_pair(torch, kernel, plain, reps=50, plain_reps=20)
+        dev_ms, dev_kernels = device_ms(torch, kernel, 50)
         lib_ms = None
         if kind == "pca":
-            W = int(widths.max())
             ar = torch.arange(W, device=dev)
             idx = (st[:, None] - 1 + ar[None, :]).clamp(0, n - 1)
-            xg = X[idx] * (ar[None, :] < wd[:, None])[:, :, None].float()
+            xg = Xc[idx] * (ar[None, :] < wd[:, None])[:, :, None].float()
             lib_ms = cuda_ms(torch, lambda: -torch.bmm(xg.transpose(1, 2), torch.bmm(xg, Vb)), 20)
         row_bytes = d * 4 + (4 if kind == "logreg" else 0)
         total_rows = int(widths.sum())
         nbytes = unique_rows(starts, widths, n) * row_bytes + 2 * Vb.numel() * 4 + 16 * G
         flops = total_rows * ((4 * d + 5) if kind == "logreg" else 4 * d * k)
         b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
-        rows.append(dict(call=call, G=G, max_width=int(widths.max()), max_abs_err=err,
-                         ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+        rows.append(dict(call=call, G=G, max_width=W, max_abs_err=err, ms=k_ms,
+                         device_ms=dev_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by))
-        print(f"  {kind}_block_sub [{call}] G={G} width<={int(widths.max())}: "
-              f"max|diff|={err:.3e} (|plain|<={scale:.3e}) kernel {k_ms:.4f} ms, "
+        print(f"  {kind}_block_sub [{call}] G={G} width<={W}: "
+              f"max|diff|={err:.3e} (|plain|<={scale:.3e}), repeats its bits; kernel "
+              f"{k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), "
               f"plain {p_ms:.4f} ms, bmm pair {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
     return rows
@@ -337,6 +386,7 @@ def check_gram_matvec(torch, x, v) -> dict:
         fail(f"gram_matvec {shape} does not repeat its bits")
     k_ms, p_ms = timed_pair(torch, lambda: gram_matvec.gram_matvec(x, v),
                             lambda: gram_matvec.gram_matvec_plain(x, v), reps=50, plain_reps=20)
+    dev_ms, dev_kernels = device_ms(torch, lambda: gram_matvec.gram_matvec(x, v), 50)
     if x.dim() == 3:
         vb = v.expand(x.shape[0], *v.shape)
         lib_ms = cuda_ms(torch, lambda: torch.bmm(x.transpose(1, 2), torch.bmm(x, vb)), 20)
@@ -349,10 +399,10 @@ def check_gram_matvec(torch, x, v) -> dict:
     flops = 4 * B * m * d * k
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
     print(f"  gram_matvec {shape}: max|diff|={err:.3e} (|plain|<={scale:.3e}); kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, matmul pair {lib_ms:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by})")
-    return dict(call=shape, max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+          f"{k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, "
+          f"matmul pair {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(call=shape, max_abs_err=err, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def causal_pairs(sq: int, sk: int, causal: bool) -> int:

@@ -35,23 +35,26 @@ NVCC_FLAGS = (
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 #: C entry point -> argument types (each returns an int CUDA error code)
 SIGNATURES = {
-    "dsag_logreg_block_sub": (_P,) * 6 + (_I64, _I64, _I32, _I32, _P),
+    "dsag_logreg_block_sub": (_P,) * 7 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
     "dsag_pca_block_sub": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
     "dsag_grid_cache_update": (_P,) * 15 + (_I32,) * 5 + (_P,),
     "dsag_dsag_cache_update": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _P),
-    "dsag_gram_matvec": (_P,) * 4 + (_I64, _I64, _I32, _I32, _I32, _P),
+    "dsag_gram_matvec": (_P,) * 4 + (_I64, _I64) + (_I32,) * 6 + (_P,),
+    "dsag_gram_tile_rows": (_I32, _I32),
     "dsag_flash_attention": (_P,) * 4 + (_I64,) * 4 + (_I32,) * 4 + (_F32,) + (_I64,) * 12
     + (_I32, _P),
 }
 #: integer constants the wrappers check shapes against
 CONSTANTS = (
-    "dsag_logreg_threads",
+    "dsag_logreg_max_warps",
+    "dsag_logreg_slab",
     "dsag_pca_threads",
     "dsag_pca_chunk",
     "dsag_pca_max_out",
     "dsag_pca_slab",
-    "dsag_gram_chunk",
-    "dsag_gram_tile",
+    "dsag_gram_max_k",
+    "dsag_gram_max_d",
+    "dsag_gram_max_cluster",
     "dsag_flash_block_q",
     "dsag_flash_block_k",
 )
@@ -135,13 +138,14 @@ def library() -> ctypes.CDLL:
 
 def constant(name: str) -> int:
     """One of the kernels' integer limits (:data:`CONSTANTS`)."""
-    library()
+    if _lib is None:
+        library()
     return _constants[name]
 
 
 def launch(name: str, *args) -> None:
     """Call one C entry point; raise if the launch reported a CUDA error."""
-    lib = library()
+    lib = _lib if _lib is not None else library()
     code = getattr(lib, name)(*args)
     if code != 0:
         msg = lib.dsag_cuda_error_string(code).decode()

@@ -2,11 +2,14 @@
 
 ``gram_matvec`` replaces ``repro/kernels/gram_matvec.py::gram_matvec``
 (Pallas, a sequential row-block grid carrying a ``[d, k]`` float32
-accumulator in VMEM).  The CUDA version (``csrc/gram_matvec.cu``) gives each
-(group, 128-row chunk) one block that forms both products from the rows it
-stages in shared memory and writes a float32 partial; a second launch sums
-the partials in chunk order.  No float atomics, so a run repeats its bits.
-It reads X once and is bound by bytes at the live PCA shapes.
+accumulator in VMEM).  The CUDA version (``csrc/gram_matvec.cu``) splits
+each group's rows into chunks (:func:`gram_chunks`: enough blocks for about
+two waves of the H100's SMs); a block streams its chunk through a
+``cp.async`` ring and forms both products with its ``[d, k]`` share in
+registers.  The chunks' sums meet in chunk order: inside a thread-block
+cluster where a group has at most 8 chunks (one launch), else through
+float32 partials and a second launch.  No float atomics, so a run repeats
+its bits.  It reads X once and is bound by bytes.
 
 An optional leading group dim evaluates every group of the live PCA step in
 one call: ``x [B, m, d]``, ``v [d, k]`` → ``[B, d, k]``, each slice equal to
@@ -18,6 +21,8 @@ where they are compared: ``tests/test_torch_live.py``, ``chip_smoke.py``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
@@ -26,8 +31,33 @@ from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
 #: kernel launches per wrapper (counted only where a kernel is launched)
 launch_counts = {"gram_matvec": 0}
 
-#: shared memory one H100 block can opt in to (227 KB)
-_MAX_SMEM = 232_448
+#: blocks K5 aims at: two waves of the H100's 132 SMs
+TARGET_BLOCKS = 2 * 132
+
+
+def gram_chunks(B: int, m: int, tile: int) -> tuple[int, int]:
+    """K5's ``(chunks per group, rows per chunk)`` for ``[B, m, d]``: about
+    ``TARGET_BLOCKS / B`` chunks per group, each a multiple of ``tile``
+    rows.  A pure function of the shapes, never of the card."""
+    per_group = max(1, -(-TARGET_BLOCKS // max(B, 1)))
+    rows = -(-max(m, 1) // per_group)
+    rows = -(-rows // tile) * tile
+    return -(-m // rows), rows
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, m: int, d: int, k: int, vec: bool) -> tuple[int, int, int]:
+    """``(chunks, rows per chunk, scratch floats)`` of one K5 launch;
+    ValueError where K5 does not take the shape."""
+    max_k, max_d = _build.constant("dsag_gram_max_k"), _build.constant("dsag_gram_max_d")
+    if k > max_k or d > max_d or B > 65_535:
+        raise ValueError(f"gram_matvec supports k <= {max_k}, d <= {max_d} and B <= 65535; "
+                         f"got B={B}, d={d}, k={k}")
+    # chunks of whole tiles, at least 32 rows (narrower chunks only add partials)
+    tile = _build.library().dsag_gram_tile_rows(d, int(vec))
+    nchunks, rows = gram_chunks(B, m, max(32, tile))
+    scratch = B * nchunks * d * k if nchunks > _build.constant("dsag_gram_max_cluster") else 0
+    return nchunks, rows, scratch
 
 
 def gram_matvec_plain(x, v):
@@ -45,33 +75,29 @@ def gram_matvec(x, v):
     """
     if _on_cpu(x, v):
         return gram_matvec_plain(x, v)
-    batched = x.dim() == 3
-    if x.dim() not in (2, 3) or v.dim() != 2:
+    shape = x.shape
+    if len(shape) not in (2, 3) or v.dim() != 2:
         raise ValueError(f"expected x [m, d] or [B, m, d] and v [d, k], got "
-                         f"{tuple(x.shape)} and {tuple(v.shape)}")
-    B, m, d = x.shape if batched else (1, *x.shape)
+                         f"{tuple(shape)} and {tuple(v.shape)}")
+    B, m, d = shape if len(shape) == 3 else (1, *shape)
     k = v.shape[1]
     dev = x.device
-    _require(x, "x", torch.float32, tuple(x.shape), dev)
+    _require(x, "x", torch.float32, shape, dev)
     _require(v, "v", torch.float32, (d, k), dev)
-    chunk = _build.constant("dsag_gram_chunk")
-    tile = _build.constant("dsag_gram_tile")
-    smem = (2 * d * k + tile * (d + 1) + tile * k) * 4
-    if smem > _MAX_SMEM or B > 65_535:
-        raise ValueError(
-            f"gram_matvec supports {smem} <= {_MAX_SMEM} bytes of shared memory "
-            f"and B <= 65535; got B={B}, d={d}, k={k}"
-        )
-    out_shape = (B, d, k) if batched else (d, k)
+    vec = d % 4 == 0 and x.data_ptr() % 16 == 0
+    nchunks, rows, scratch = _plan(B, m, d, k, vec)
+    out_shape = (B, d, k) if len(shape) == 3 else (d, k)
     if m == 0 or d == 0 or k == 0 or B == 0:
         return torch.zeros(out_shape, dtype=torch.float32, device=dev)
-    nchunks = -(-m // chunk)
-    partial = torch.empty((B, nchunks, d, k), dtype=torch.float32, device=dev)
-    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    if scratch:  # one allocation: the result, then the chunks' partials
+        buf = torch.empty(B * d * k + scratch, dtype=torch.float32, device=dev)
+        out, partial = buf[:B * d * k].view(out_shape), buf.data_ptr() + B * d * k * 4
+    else:
+        out, partial = torch.empty(out_shape, dtype=torch.float32, device=dev), None
     _build.launch(
         "dsag_gram_matvec",
-        x.data_ptr(), v.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        B, m, d, k, dev.index or 0, _stream(dev),
+        x.data_ptr(), v.data_ptr(), partial, out.data_ptr(),
+        B, m, d, k, rows, nchunks, int(vec), dev.index, _stream(dev),
     )
     launch_counts["gram_matvec"] += 1
     return out

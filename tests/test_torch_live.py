@@ -376,6 +376,18 @@ def test_k5_plain_matches_reference(ref, against, batched):
     _close(got.numpy(), ref[p + against])
 
 
+@pytest.mark.parametrize(("B", "m", "align", "chunks", "rows"), [
+    (50, 1000, 64, 6, 192),  # the live PCA step (64-row tiles at d = 64): 300 blocks
+    (1, 4096, 32, 128, 32),  # kernels_bench [4096, 512]·[512, 8]: 128 chunks of 32 rows
+    (2, 37, 32, 2, 32),  # tiny: the last chunk holds 5 rows
+    (1, 50_000, 64, 261, 192),
+    (1, 1, 32, 1, 32),
+    (300, 64, 64, 1, 64),  # more groups than target blocks: one chunk a group
+])
+def test_k5_chunk_count(B, m, align, chunks, rows):
+    assert k5.gram_chunks(B, m, align) == (chunks, rows)
+
+
 def test_k5_batched_slices_equal_unbatched(ref):
     x, v = _t(ref["k5b/x"]), _t(ref["k5b/v"])
     full = k5.gram_matvec_plain(x, v)
@@ -651,7 +663,12 @@ def test_gpu_k4_bit_equal_to_plain(card, dt, p, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(50, 1000, 64, 3), (1, 4096, 512, 8), (2, 37, 5, 2)])
+@pytest.mark.parametrize("shape", [
+    (50, 1000, 64, 3), (1, 4096, 512, 8), (2, 37, 5, 2),
+    (1, 5003, 96, 5),  # m no multiple of the chunk (157 chunks of 32 rows)
+    (1, 50_000, 64, 3),  # one group of 50000 rows: 261 chunks
+    (4, 777, 16, 4),  # d*k = 64, fewer than one block's 256 threads
+])
 def test_gpu_k5_matches_plain(card, shape):
     B, m, d, k = shape
     rng = np.random.default_rng(6)

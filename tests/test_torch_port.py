@@ -290,7 +290,24 @@ def test_pca_plain_matches_numpy_loop(seed):
     (0, 1_000, 1),
 ])
 def test_pca_slab_count(max_width, n, slabs):
-    assert block_sub.pca_slabs(max_width, n, 512) == slabs
+    assert block_sub.row_slabs(max_width, n, 512) == slabs
+
+
+@pytest.mark.parametrize(("max_width", "n", "slabs", "warps"), [
+    (17, 16_384, 1, 1),  # the sweep's grid call: one warp per task, one pass
+    (160, 16_000, 1, 5),  # the live logreg call (n // G rows per group)
+    (16_384, 16_384, 64, 8),  # the coded call: ceil(16384 / 256) slabs
+    (None, 16_384, 64, 8),  # no static width: every window fits in n rows
+    (32, 16_384, 1, 1),
+    (33, 16_384, 1, 2),
+    (256, 50_000, 1, 8),  # exactly one slab
+    (257, 50_000, 2, 8),  # one slab and one row
+    (10**6, 1_000, 4, 8),  # no window is longer than n
+    (0, 1_000, 1, 1),
+])
+def test_logreg_slab_count(max_width, n, slabs, warps):
+    assert block_sub.row_slabs(max_width, n, 256) == slabs
+    assert block_sub.logreg_warps(max_width, n, 256, 8) == warps
 
 
 def test_plain_versions_do_not_depend_on_the_pad_width():
@@ -510,6 +527,23 @@ def test_gpu_pca_kernel_over_row_slabs(card, case):
     again = block_sub.pca_block_sub(X, Vb, st, wd, max_width)
     assert launch_counts()["pca_block_sub"] == before + 2
     _assert_kernel_close(got, block_sub.pca_block_sub_plain(X, Vb, st, wd, max(widths)))
+    assert torch.equal(got, again)  # slab partials summed in a fixed order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["coded", "slab_edges", "mixed", "max_width_none"])
+def test_gpu_logreg_kernel_over_row_slabs(card, case):
+    n = 50_000
+    X, y = (torch.as_tensor(a, device=card) for a in make_higgs_like(n, seed=3))
+    starts, widths, max_width = _window_tasks(case, n, _build.constant("dsag_logreg_slab"))
+    st = torch.as_tensor(starts, dtype=torch.int64, device=card)
+    wd = torch.as_tensor(widths, dtype=torch.int64, device=card)
+    Vb = 0.1 * torch.randn(len(starts), X.shape[1], device=card)
+    before = launch_counts()["logreg_block_sub"]
+    got = block_sub.logreg_block_sub(X, y, Vb, st, wd, max_width)
+    again = block_sub.logreg_block_sub(X, y, Vb, st, wd, max_width)
+    assert launch_counts()["logreg_block_sub"] == before + 2
+    _assert_kernel_close(got, block_sub.logreg_block_sub_plain(X, y, Vb, st, wd, max(widths)))
     assert torch.equal(got, again)  # slab partials summed in a fixed order
 
 
