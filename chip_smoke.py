@@ -11,14 +11,20 @@ Phases (any failure raises and the script exits non-zero):
 1. fail unless torch sees a CUDA card; print the card's name and power limit;
 2. build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc and
    print each kernel's registers, spills and shared memory (``-Xptxas -v``);
+   hold the kernels' limits mirrored in ``_build.LIMITS`` (and K5's tile
+   rows) against the compiled ones;
 3. at the main paths' shapes: hold each kernel against its plain-torch
    version on the card (K1/K2/K5: float32 tolerance; K3/K4: ``torch.equal``;
    K6: :data:`K6_RTOL`, also at a length no multiple of its tiles and with
    GQA; K1/K2/K5 must also repeat their bits) and time kernel, plain
    version and, where one PyTorch call computes the same function (K2, K5,
-   K6), that call; beside each K1/K2/K5 event time, the kernel's device time
-   per call from ``torch.profiler`` (event times of small calls include the
-   wrapper's host time);
+   K6), that call; beside each event time, the kernel's device time per
+   call from ``torch.profiler`` (event times of small calls include the
+   wrapper's host time); then K1, K2 and K5 past their fast paths' widths
+   (the wide path: K1 at d = 97 and 1000, K2 at d = 180 and at k = 12, K5
+   at d = 1100 and at k = 12), held and timed the same way; K4 on its other
+   path too (staged or streaming), equal to the plain version, device time
+   beside the chosen one's;
 4. slice 1, the convergence sweep: run the ``grid`` (logreg, n=16384, 100
    workers x 10 scenarios) and ``pca_paper_scale`` (n=50000, 50 workers x 4
    scenarios) recipes at full size through the kernels, all four methods,
@@ -26,7 +32,11 @@ Phases (any failure raises and the script exits non-zero):
    check ``dsag < sag < coded`` median time-to-gap and print it beside the
    committed ``BENCH_convergence.json`` values; rerun the grid recipe's dsag
    and sag with the plain versions on the card: event times and fresh
-   counts must be equal, suboptimality within ``rtol=1e-4``;
+   counts must be equal, suboptimality within ``rtol=1e-4``; then the CLI
+   ``python -m repro_torch.convergence_sweep --problem pca --cols 180`` (K2's
+   wide path) with the counters set to 0 just before and read just after,
+   and again with ``--kernel-backend torch``: event streams equal,
+   suboptimality within ``rtol=1e-4`` + ``atol=1e-6``;
 5. slice 2, the live two-tier trainer (``repro_torch.launch.train``), with
    the counters set to 0 just before and read just after: the committed
    ``live_validation`` recipe (logreg 512 x 29, 8 groups) for dsag and sag,
@@ -175,21 +185,21 @@ def device_ms(torch, fn, calls: int) -> tuple[float | None, str]:
     """Device time per call of ``fn`` under ``torch.profiler``: the CUDA
     kernels' time in ``key_averages()`` over ``calls`` calls, divided by
     ``calls`` (no host time in it), and the kernels' names with their
-    launches per call.  None where the profiler recorded no device time in
-    three tries."""
+    launches per call.  None where the profiler recorded no device time, or
+    dropped some of the launches, in three tries."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then records no device event: try again
+    for _ in range(3):  # the profiler now and then drops device events: try again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         us = sum(e.self_device_time_total for e in kern)
-        if us > 0:
+        if us > 0 and min(e.count for e in kern) >= calls:
             names = ", ".join(f"{e.key[:40]} x{e.count / calls:g}" for e in kern)
             return us / 1e3 / calls, names
     return None, "the profiler recorded no device time"
@@ -199,9 +209,10 @@ def fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def check_block_sub(torch, kind: str, X, y, rng) -> dict:
+def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> list:
     """Phase 3 for K1 (logreg: grid, live and coded calls) or K2 (pca: grid
-    and coded calls) at the main paths' shapes."""
+    and coded calls) at the main paths' shapes, or at ``shapes`` (call ->
+    grid layout (N, p, S)) with ``X``'s width and, for K2, ``k`` columns."""
     from repro_torch.core.problems import make_higgs_like
     from repro_torch.kernels import block_sub
 
@@ -211,11 +222,11 @@ def check_block_sub(torch, kind: str, X, y, rng) -> dict:
         # grid: the sweep's per-iteration call; live: the paper-scale live
         # logreg job's call (100 groups of n // G = 160 rows over n = 16000,
         # launch/paper_jobs.py); coded: the sweep's full-width call
-        shapes = {"grid": (100, 10, 10), "live": (16_000, 100), "coded": None}
+        shapes = shapes or {"grid": (100, 10, 10), "live": (16_000, 100), "coded": None}
         S_coded, k = 10, None
     else:
-        shapes = {"grid": (50, 5, 4), "coded": None}
-        S_coded, k = 4, 3
+        shapes = shapes or {"grid": (50, 5, 4), "coded": None}
+        S_coded = 4
     rows = []
     for call, shp in shapes.items():
         Xc, yc = X, y
@@ -281,10 +292,14 @@ def check_block_sub(torch, kind: str, X, y, rng) -> dict:
         nbytes = unique_rows(starts, widths, n) * row_bytes + 2 * Vb.numel() * 4 + 16 * G
         flops = total_rows * ((4 * d + 5) if kind == "logreg" else 4 * d * k)
         b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
-        rows.append(dict(call=call, G=G, max_width=W, max_abs_err=err, ms=k_ms,
-                         device_ms=dev_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=b_by))
-        print(f"  {kind}_block_sub [{call}] G={G} width<={W}: "
+        plan = (block_sub.logreg_plan(G, n, d, W) if kind == "logreg"
+                else block_sub.pca_plan(G, n, d, k, W))
+        path = "wide" if plan.wide else "fast"
+        rows.append(dict(call=call, G=G, d=d, k=k, max_width=W, path=path, max_abs_err=err,
+                         ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        print(f"  {kind}_block_sub [{call}] G={G} d={d}{'' if k is None else f' k={k}'} "
+              f"width<={W} ({path} path): "
               f"max|diff|={err:.3e} (|plain|<={scale:.3e}), repeats its bits; kernel "
               f"{k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), "
               f"plain {p_ms:.4f} ms, bmm pair {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
@@ -292,8 +307,9 @@ def check_block_sub(torch, kind: str, X, y, rng) -> dict:
     return rows
 
 
-def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng) -> dict:
-    """Phase 3 for K3 at one recipe's dsag shape; exact equality."""
+def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
+                     plain_reps: int = 3) -> dict:
+    """Phase 3 for K3 at one dsag shape; exact equality."""
     from repro_torch.kernels import cache_events
 
     dev = torch.device("cuda")
@@ -313,6 +329,9 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng) -> dict
     )
     a = tuple(args.values())
     got = cache_events.grid_cache_update(*a)
+    # the device time before the plain version runs: after its ~10^5 small
+    # launches at R = 10000 the profiler recorded no device time for a while
+    dev_ms, dev_kernels = device_ms(torch, lambda: cache_events.grid_cache_update(*a), 50)
     want = cache_events.grid_cache_update_plain(*a)
     torch.cuda.synchronize()
     names = ("sums", "values", "iters", "covered", "rejected")
@@ -321,7 +340,7 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng) -> dict
             fail(f"grid_cache_update output {name} is not equal to its plain version")
     k_ms, p_ms = timed_pair(torch, lambda: cache_events.grid_cache_update(*a),
                             lambda: cache_events.grid_cache_update_plain(*a),
-                            reps=50, plain_reps=3)
+                            reps=50, plain_reps=plain_reps)
     n_valid = int(args["valid_r"].sum())
     n_rej = int((got[4] - args["rejected"]).sum())
     accepted = n_valid - n_rej
@@ -330,10 +349,25 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng) -> dict
     flops = accepted * F * 2  # one float64 sub and one add per accepted feature
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_F64)
     print(f"  grid_cache_update S={S} R={R} E={E} F={F}: equal (accepted {accepted}, "
-          f"rejected {n_rej}); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by})")
-    return dict(call=f"S{S}_R{R}_E{E}_F{F}", max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+          f"rejected {n_rej}); kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), "
+          f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(call=f"S{S}_R{R}_E{E}_F{F}", max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
+                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def k4_launch(torch, g, c, h, mask, streaming: bool):
+    """K4's kernel on a given path, launched directly (for the comparison of
+    its two paths; not counted): ``(new_c, new_h)``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.block_sub import _stream
+
+    p, n = g.shape
+    new_c, new_h = torch.empty_like(c), torch.empty_like(h)
+    _build.launch("dsag_dsag_cache_update", g.data_ptr(), c.data_ptr(), h.data_ptr(),
+                  mask.data_ptr(), new_c.data_ptr(), new_h.data_ptr(), p, n,
+                  int(g.dtype == torch.bfloat16), int(c.dtype == torch.bfloat16),
+                  int(streaming), g.device.index or 0, _stream(g.device))
+    return new_c, new_h
 
 
 def check_dsag_update(torch, p: int, n: int, slot_dtype, rng) -> dict:
@@ -355,15 +389,27 @@ def check_dsag_update(torch, p: int, n: int, slot_dtype, rng) -> dict:
     k_ms, p_ms = timed_pair(torch, lambda: dsag_update.dsag_cache_update(g, c, h, mask),
                             lambda: dsag_update.dsag_cache_update_plain(g, c, h, mask),
                             reps=50, plain_reps=10)
+    dev_ms, dev_kernels = device_ms(torch, lambda: dsag_update.dsag_cache_update(g, c, h, mask), 50)
     sz = g.element_size()
     nbytes = p * n * 3 * sz + 2 * n * 4 + p * 4  # g, c read; c written; h read, written
     flops = 6 * p * n
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
     dt = str(slot_dtype).removeprefix("torch.")
-    print(f"  dsag_cache_update [{p}, {n}] {dt}: equal; kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    return dict(call=f"p{p}_n{n}_{dt}", max_abs_err=0.0, ms=k_ms, plain_ms=p_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    # the path the wrapper does not take here, held and timed beside it
+    streaming = n >= dsag_update.STREAM_MIN_N
+    path, other = ("stream", "staged") if streaming else ("staged", "stream")
+    for name, a, b in zip(("new_c", "new_h"), k4_launch(torch, g, c, h, mask, not streaming),
+                          want):
+        if not torch.equal(a, b):
+            fail(f"dsag_cache_update [{p}, {n}] {slot_dtype} ({other} path): {name} is not "
+                 f"equal to its plain version")
+    other_ms, _ = device_ms(torch, lambda: k4_launch(torch, g, c, h, mask, not streaming), 50)
+    print(f"  dsag_cache_update [{p}, {n}] {dt} ({path}): equal; kernel {k_ms:.4f} ms (device "
+          f"{fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+          f"the {other} path, equal too: device {fmt_ms(other_ms)}")
+    return dict(call=f"p{p}_n{n}_{dt}", path=path, max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
+                other_path_device_ms=other_ms,
+                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_gram_matvec(torch, x, v) -> dict:
@@ -398,11 +444,13 @@ def check_gram_matvec(torch, x, v) -> dict:
     nbytes = (B * m * d + d * k + B * d * k) * 4
     flops = 4 * B * m * d * k
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
-    print(f"  gram_matvec {shape}: max|diff|={err:.3e} (|plain|<={scale:.3e}); kernel "
+    path = "wide" if gram_matvec.is_wide(B, d, k) else "fast"
+    print(f"  gram_matvec {shape} ({path} path): max|diff|={err:.3e} "
+          f"(|plain|<={scale:.3e}); kernel "
           f"{k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, "
           f"matmul pair {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    return dict(call=shape, max_abs_err=err, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(call=shape, path=path, max_abs_err=err, ms=k_ms, device_ms=dev_ms,
+                plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def causal_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -466,6 +514,7 @@ def check_flash(torch, b: int, h: int, sq: int, sk: int, d: int, rng,
         fail(f"flash_attention {shape} disagrees with its plain version: max |diff| "
              f"{float((got.float() - want32).abs().max()):.3e}")
     k_ms, p_ms = timed_pair(torch, kernel, plain, reps=20, plain_reps=5)
+    dev_ms, dev_kernels = device_ms(torch, kernel, 20)
     # the library call: SDPA with K6's bottom-right causal mask (its
     # is_causal=True is top-left, the same only where sq == sk), on the same
     # kv heads (enable_gqa) and layout
@@ -485,12 +534,13 @@ def check_flash(torch, b: int, h: int, sq: int, sk: int, d: int, rng,
     flops = 4 * b * h * d * causal_pairs(sq, sk, causal)
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
     print(f"  flash_attention {shape} causal={causal}: max|diff|={err:.3e} vs plain "
-          f"({str(dtype).removeprefix('torch.')} out); kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max |SDPA - float32 plain| {lib_err:.3e}), "
+          f"({str(dtype).removeprefix('torch.')} out); kernel {k_ms:.4f} ms (device "
+          f"{fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+          f"(max |SDPA - float32 plain| {lib_err:.3e}), "
           f"kernel/SDPA {k_ms / lib_ms:.2f}, bound {b_ms:.5f} ms ({b_by}, {flops:.3e} flops, "
           f"{flops / k_ms * 1e-9:.1f} TFLOP/s)")
-    return dict(call=shape, max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    return dict(call=shape, max_abs_err=err, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def committed_ttg() -> dict:
@@ -576,6 +626,54 @@ def run_recipes(torch) -> tuple[dict, dict]:
         print(f"  grid/{m} kernels vs plain on the card: event streams equal, "
               f"suboptimality max rel diff {rel.max():.3e} (tolerance 1e-4)")
     return total, counts
+
+
+#: the wide-feature sweep: the CLI at its default sizes with a PCA width past
+#: K2's fast path (d*k > 1024 or 48 KB of shared memory from d = 180 at k = 3)
+WIDE_SWEEP_ARGV = ["--problem", "pca", "--cols", "180"]
+
+
+def run_wide_sweep(torch) -> dict:
+    """Phase 4, last: ``python -m repro_torch.convergence_sweep --problem pca
+    --cols 180`` through the kernels (K2's wide path, K3), with the counters
+    set to 0 just before and read just after, then through
+    ``--kernel-backend torch`` on the card: event streams equal,
+    suboptimality within rtol 1e-4 + atol 1e-6."""
+    from repro_torch import convergence_sweep
+    from repro_torch.kernels import block_sub, launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out, gap, _ = convergence_sweep.run(WIDE_SWEEP_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    plain, _, _ = convergence_sweep.run(WIDE_SWEEP_ARGV + ["--kernel-backend", "torch"])
+    S, N = out.traces.num_scenarios, out.traces.num_workers
+    d, k = out.problem.X.shape[1], out.problem.k
+    if not block_sub.pca_plan(S * N, out.problem.num_samples, d, k, None).wide:
+        fail(f"--cols {d}: K2 took its fast path, not the wide one")
+    for name in ("pca_block_sub", "grid_cache_update"):
+        if counts[name] == 0:
+            fail(f"--cols {d} sweep: kernel {name} was never launched")
+    worst = 0.0
+    for m, res in out.results.items():
+        ref = plain.results[m]
+        if not (np.array_equal(ref.times, res.times)
+                and np.array_equal(ref.fresh_counts, res.fresh_counts)
+                and np.array_equal(ref.rejected_stale, res.rejected_stale)
+                and np.array_equal(ref.per_worker_latency, res.per_worker_latency, equal_nan=True)):
+            fail(f"--cols {d} sweep/{m}: kernel and plain runs differ in their event streams")
+        if not np.allclose(res.suboptimality, ref.suboptimality, rtol=1e-4, atol=1e-6,
+                           equal_nan=True):
+            fail(f"--cols {d} sweep/{m}: suboptimality differs from the plain run")
+        ok = np.isfinite(ref.suboptimality)
+        worst = max(worst, float(np.max(np.abs(res.suboptimality[ok] - ref.suboptimality[ok]))))
+    print(f"  convergence_sweep {' '.join(WIDE_SWEEP_ARGV)} (n={out.problem.num_samples}, d={d}, "
+          f"k={k}, {N} workers x {S} scenarios x {out.num_iterations} iters): {wall:.2f} s host; "
+          f"launches {counts}; event streams equal to the plain run on the card, "
+          f"suboptimality max |diff| {worst:.3e} (rtol 1e-4, atol 1e-6)")
+    return counts
 
 
 def paper_live_opts(arch: str, method: str, engine, steps: int = 80):
@@ -1040,7 +1138,7 @@ def ptxas_report(log: str) -> list[str]:
                 m = re.match(r"(\d+)", rest)
                 if m:
                     rest = rest[m.end():]
-                    tmpl = re.match(r"ILi(\d+)E", rest[int(m.group(1)):])
+                    tmpl = re.match(r"IL[ib](\d+)E", rest[int(m.group(1)):])
                     name = rest[:int(m.group(1))] + (f"<{tmpl.group(1)}>" if tmpl else "")
         elif name and ("spill" in line or "Used" in line):
             lines.append(f"{name}: {line.split(' : ', 1)[-1].strip()}")
@@ -1094,6 +1192,13 @@ def main() -> None:
     for line in ptxas_report(_build.build_info.get("log", "")):
         print(f"  ptxas: {line}")
 
+    # the launch plans and the engines' capability checks read the kernels'
+    # limits from Python mirrors: hold each against the compiled value
+    bad = _build.mirror_mismatches()
+    if bad:
+        fail(f"mirrored kernel limits differ from the compiled ones (mirrored, compiled): {bad}")
+    print(f"  {len(_build.LIMITS)} mirrored limits equal the compiled ones")
+
     if "--build-times" in sys.argv[1:]:
         build_times(_build)
 
@@ -1103,9 +1208,18 @@ def main() -> None:
     Xh, yh = make_higgs_like(16_384, seed=0)
     Xh, yh = torch.as_tensor(Xh, device=dev), torch.as_tensor(yh, device=dev)
     Xg = torch.as_tensor(make_genomics_like_matrix(50_000, 96, seed=0), device=dev)
+    # the wide paths (any feature width): K1 on the grid call's task layout
+    # at d = 97 and 1000, K2 at d = 180 (k = 3) and k = 12 (d = 96)
+    Xw = {d: torch.as_tensor(rng.normal(size=(16_384, d)), dtype=torch.float32, device=dev)
+          for d in (97, 1000)}
+    X180 = torch.as_tensor(make_genomics_like_matrix(50_000, 180, seed=0), device=dev)
     per_kernel = {
-        "logreg_block_sub": check_block_sub(torch, "logreg", Xh, yh, rng),
-        "pca_block_sub": check_block_sub(torch, "pca", Xg, None, rng),
+        "logreg_block_sub": check_block_sub(torch, "logreg", Xh, yh, rng) + [
+            row for d in (97, 1000) for row in check_block_sub(
+                torch, "logreg", Xw[d], yh, rng, shapes={f"grid d={d}": (100, 10, 10)})],
+        "pca_block_sub": check_block_sub(torch, "pca", Xg, None, rng)
+        + check_block_sub(torch, "pca", X180, None, rng, shapes={"grid d=180": (50, 5, 4)})
+        + check_block_sub(torch, "pca", Xg, None, rng, shapes={"grid k=12": (50, 5, 4)}, k=12),
         "grid_cache_update": [
             check_cache_walk(torch, 10, 200, 1000, 29, 60, rng),
             check_cache_walk(torch, 4, 100, 250, 288, 80, rng),
@@ -1129,6 +1243,17 @@ def main() -> None:
                 torch,
                 torch.as_tensor(rng.normal(size=(4096, 512)), dtype=torch.float32, device=dev),
                 torch.as_tensor(rng.normal(size=(512, 8)), dtype=torch.float32, device=dev)),
+            # the wide path: d past 1024, k past 8
+            check_gram_matvec(
+                torch,
+                torch.as_tensor(make_genomics_like_matrix(50_000, 1100, seed=0),
+                                device=dev).view(50, 1000, 1100),
+                torch.as_tensor(np.linalg.qr(rng.normal(size=(1100, 3)))[0],
+                                dtype=torch.float32, device=dev).contiguous()),
+            check_gram_matvec(
+                torch,
+                torch.as_tensor(rng.normal(size=(4096, 64)), dtype=torch.float32, device=dev),
+                torch.as_tensor(rng.normal(size=(64, 12)), dtype=torch.float32, device=dev)),
         ],
         # the serving prefill (24 launches per prefill), the kernels_bench
         # shape, a decode-like single query row over the full cache, a length
@@ -1142,6 +1267,11 @@ def main() -> None:
             check_flash(torch, SERVE_B, 16, SERVE_PROMPT, SERVE_PROMPT, 64, rng, kvh=2),
         ],
     }
+    # K3 at a dsag sweep of 5000 workers (p = 10): five windows of ranks, one
+    # walk block per scenario; last, as its plain version's many launches
+    # leave the profiler without device times for the kernels after it
+    per_kernel["grid_cache_update"].append(check_cache_walk(
+        torch, 2, 10_000, 50_000, 29, 60, np.random.default_rng(1), plain_reps=1))
     if "--profile" in sys.argv[1:]:
         profile_paths(torch)
         profile_serving(torch)
@@ -1151,11 +1281,12 @@ def main() -> None:
 
     print("phase 4: the grid and pca_paper_scale recipes through the kernels")
     sweep_launches, _ = run_recipes(torch)
+    wide_launches = run_wide_sweep(torch)
     print("phase 5: the live two-tier trainer through the kernels")
     live_launches = run_live(torch)
     print("phase 6: serving qwen1.5-0.5b at full width and depth through K6")
     serving = run_serving(torch)
-    launches = {k: sweep_launches[k] + live_launches[k] for k in sweep_launches}
+    launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k] for k in sweep_launches}
     launches["flash_attention"] = serving["launches"]
 
     meta = {
@@ -1179,6 +1310,7 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], launches_sweep=sweep_launches.get(name, 0),
+            launches_wide_sweep=wide_launches.get(name, 0),
             launches_live=live_launches.get(name, 0),
             launches_serve=serving["launches"] if name == "flash_attention" else 0,
             max_abs_err=max(r["max_abs_err"] for r in rows),

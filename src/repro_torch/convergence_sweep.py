@@ -39,7 +39,8 @@ from repro_torch.experiments.results import convergence_ordering
 from repro_torch.latency.model import make_heterogeneous_cluster
 
 
-def main(argv=None) -> dict:
+def run(argv=None):
+    """Parse ``argv`` and run the sweep it names: ``(outcome, gap, args)``."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--problem", choices=("logreg", "pca"), default="logreg")
@@ -98,7 +99,12 @@ def main(argv=None) -> dict:
             eval_every=args.eval_every, regime=HEAVY_BURSTS, seed=0,
             engine=engine,
         )
-    gap = default_gap if args.gap is None else args.gap
+    return out, default_gap if args.gap is None else args.gap, args
+
+
+def main(argv=None) -> dict:
+    out, gap, args = run(argv)
+    N = out.traces.num_workers
     print(
         f"{len(out.methods)} methods x {out.traces.num_scenarios} scenarios x "
         f"{out.num_iterations} iterations in {out.engine_seconds:.2f}s "

@@ -28,6 +28,9 @@ CAP_LOAD_BALANCE = "load-balance-not-ported"
 CAP_CHURN = "churn-not-ported"
 #: a model architecture (or a model feature) the port does not run yet
 CAP_ARCH = "arch-not-ported"
+#: kernel_backend="cuda" for shapes past a CUDA kernel's remaining limits
+#: (a grid dimension past CUDA's, K3's event ranks past its shared memory)
+CAP_CUDA_SHAPE = "cuda-shape-unsupported"
 
 _KERNEL_BACKENDS = ("torch", "cuda")
 
@@ -122,4 +125,15 @@ def kernel_dtype_capability(engine: EngineConfig, value_dtype) -> EngineCapabili
             CAP_CUDA_DTYPE,
             f"kernel_backend='cuda' supports float32 data only, got {value_dtype}",
         )
+    return EngineCapability(True, CAP_OK, "supported")
+
+
+def kernel_shape_capability(engine: EngineConfig, errors) -> EngineCapability:
+    """Whether the CUDA kernels take the shapes of a run: ``errors`` are the
+    kernels' ``shape_error`` reports (a reason, or None), pure functions of
+    the shapes, so a run is refused before its first launch."""
+    if engine.kernel_backend == "cuda":
+        for err in errors:
+            if err is not None:
+                return EngineCapability(False, CAP_CUDA_SHAPE, err)
     return EngineCapability(True, CAP_OK, "supported")

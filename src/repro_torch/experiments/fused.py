@@ -50,8 +50,9 @@ from repro_torch.experiments.engine import (
     EngineConfig,
     engine_capability,
     kernel_dtype_capability,
+    kernel_shape_capability,
 )
-from repro_torch.kernels import cache_events
+from repro_torch.kernels import block_sub, cache_events
 from repro_torch.latency.model import FleetTraces, comp_latency_expr
 from repro_torch.lb.partitioner import p_start, p_stop
 
@@ -154,6 +155,22 @@ def _static_spec(
         max_width=max(widths),
         kernel_backend=kernel_backend,
     )
+
+
+def _kernel_shape_errors(spec: _StaticSpec, kernels: FusedKernels, S: int, N: int) -> list:
+    """What K1/K2 and K3 report of this run's launch shapes (None where
+    they take them): the per-iteration subgradient call over S*N tasks, the
+    coded call's S full-width tasks, and the cache walk over the events of
+    an iteration (in-flight and fresh results for dsag, fresh ones for sag)."""
+    n = kernels.num_samples
+    vshape = kernels.value_shape
+    d, k = vshape[0], (vshape[1] if len(vshape) == 2 else None)
+    calls = [(S * N, spec.max_width)] + ([(S, n)] if spec.name == "coded" else [])
+    errors = [block_sub.shape_error(G, n, d, k, W) for G, W in calls]
+    if spec.uses_cache:
+        R = 2 * N if spec.accepts_stale else N
+        errors.append(cache_events.shape_error(S, R, spec.num_slots, int(np.prod(vshape))))
+    return errors
 
 
 def _bcast(mask, value_ndim: int):
@@ -468,8 +485,11 @@ def prepare_scan_inputs(
     spec = _static_spec(
         problem, config, traces.num_workers, T, cost_scale, eng.kernel_backend
     )
-    dev = kernels.device
     S = traces.num_scenarios
+    scap = kernel_shape_capability(eng, _kernel_shape_errors(spec, kernels, S, traces.num_workers))
+    if not scap.supported:
+        raise EngineCapabilityError(scap)
+    dev = kernels.device
     v0 = problem.init(seed) if V0 is None else np.asarray(V0)
     V0_stack = torch.as_tensor(np.repeat(v0[None], S, axis=0), device=dev)
     eval_mask = np.zeros(T, dtype=bool)

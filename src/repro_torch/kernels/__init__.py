@@ -11,6 +11,9 @@ wrapper                    TPU kernel it replaces                 CUDA source
 ``flash_attention`` (K6)   ``repro/kernels/flash_attention.py``   ``csrc/flash_attention.cu``
 =========================  =====================================  =================================
 
+K1, K2 and K5 share a second, wide path (``csrc/rows_wide.cuh``) for feature
+widths past their fast paths' caps, so every width runs on the card.
+
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches
 in its module's ``launch_counts``; :func:`launch_counts` merges them.

@@ -37,27 +37,37 @@ _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_f
 SIGNATURES = {
     "dsag_logreg_block_sub": (_P,) * 7 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
     "dsag_pca_block_sub": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
-    "dsag_grid_cache_update": (_P,) * 15 + (_I32,) * 5 + (_P,),
-    "dsag_dsag_cache_update": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _P),
+    "dsag_grid_cache_update": (_P,) * 15 + (_I32,) * 8 + (_P,),
+    "dsag_dsag_cache_update": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
     "dsag_gram_matvec": (_P,) * 4 + (_I64, _I64) + (_I32,) * 6 + (_P,),
     "dsag_gram_tile_rows": (_I32, _I32),
+    "dsag_wide_block_sub": (_P,) * 8 + (_I64, _I64, _I32, _I32, _I64, _I32, _I64, _I32, _I32, _P),
+    "dsag_gram_matvec_wide": (_P,) * 5 + (_I64, _I64, _I32, _I32, _I32, _I64, _I32, _P),
     "dsag_flash_attention": (_P,) * 4 + (_I64,) * 4 + (_I32,) * 4 + (_F32,) + (_I64,) * 12
     + (_I32, _P),
 }
-#: integer constants the wrappers check shapes against
-CONSTANTS = (
-    "dsag_logreg_max_warps",
-    "dsag_logreg_slab",
-    "dsag_pca_threads",
-    "dsag_pca_chunk",
-    "dsag_pca_max_out",
-    "dsag_pca_slab",
-    "dsag_gram_max_k",
-    "dsag_gram_max_d",
-    "dsag_gram_max_cluster",
-    "dsag_flash_block_q",
-    "dsag_flash_block_k",
-)
+#: the kernels' integer limits, mirrored from the sources so that the
+#: wrappers' launch plans and the engines' capability checks are pure
+#: functions of the shapes (no build, no card); ``chip_smoke.py`` phase 2
+#: holds every entry against the compiled value (:func:`mirror_mismatches`)
+LIMITS = {
+    "dsag_logreg_max_warps": 8,
+    "dsag_logreg_max_out": 3,
+    "dsag_logreg_slab": 256,
+    "dsag_pca_threads": 256,
+    "dsag_pca_chunk": 64,
+    "dsag_pca_max_out": 4,
+    "dsag_pca_slab": 512,
+    "dsag_wide_slab": 256,
+    "dsag_gram_max_k": 8,
+    "dsag_gram_max_d": 1024,
+    "dsag_gram_max_cluster": 8,
+    "dsag_cache_window": 2048,
+    "dsag_flash_block_q": 64,
+    "dsag_flash_block_k": 64,
+}
+#: integer constants the library exports
+CONSTANTS = tuple(LIMITS)
 
 #: what the last build did: library path, seconds, nvcc's -Xptxas -v report
 build_info: dict = {}
@@ -137,10 +147,16 @@ def library() -> ctypes.CDLL:
 
 
 def constant(name: str) -> int:
-    """One of the kernels' integer limits (:data:`CONSTANTS`)."""
+    """One of the kernels' integer limits (:data:`CONSTANTS`), as compiled."""
     if _lib is None:
         library()
     return _constants[name]
+
+
+def mirror_mismatches() -> dict[str, tuple[int, int]]:
+    """``{name: (mirrored, compiled)}`` for every entry of :data:`LIMITS`
+    that differs from the built library's value (builds it first)."""
+    return {name: (v, constant(name)) for name, v in LIMITS.items() if constant(name) != v}
 
 
 def launch(name: str, *args) -> None:

@@ -12,7 +12,11 @@ so they are bound by bytes; see the source for the design.  Both spread a
 task wider than one slab of rows over several blocks and sum their partials
 in a second pass (:func:`row_slabs` counts the slabs from the caller's
 static widest window, never from the card); K1 sizes its block from the
-same width (:func:`logreg_warps`).
+same width (:func:`logreg_warps`).  Feature widths past the fast paths'
+caps take the wide path (``csrc/rows_wide.cuh``: a row pass, then a
+feature-tiled pass), so every width the reference runs runs here too;
+:func:`logreg_plan` and :func:`pca_plan` choose the path from the shapes
+alone, with the kernels' limits mirrored in ``_build.LIMITS``.
 Results agree with the plain versions within float32 rounding of a
 different summation order (tolerances are stated where they are compared:
 ``tests/test_torch_port.py`` and ``chip_smoke.py``).
@@ -25,6 +29,7 @@ sync) and mask the rows past each width, like the JAX reference.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -110,21 +115,107 @@ def logreg_warps(max_width: int | None, n: int, slab_rows: int, max_warps: int) 
     return min(max_warps, max(1, -(-min(W, slab_rows) // 32)))
 
 
+#: CUDA's grid limits: x up to 2**31 - 1 blocks, y up to 65535
+GRID_X, GRID_Y = 2**31 - 1, 65_535
+
+
+class Plan(NamedTuple):
+    """One K1/K2/K5 launch: the fast path or the wide one (``wide``), slabs
+    of ``slab_rows`` rows per task, K1's warps per block (fast path), the
+    rows ``W`` of the wide path's row-pass scratch, and the floats the
+    wrapper allocates after the result (partials, then that scratch)."""
+
+    wide: bool
+    slabs: int
+    slab_rows: int
+    warps: int
+    W: int
+    scratch: int
+
+
+def wide_plan(G: int, W: int, d: int, k: int, logreg: bool) -> Plan:
+    """The wide path (``csrc/rows_wide.cuh``) for G tasks of at most W rows:
+    slabs of at least ``dsag_wide_slab`` rows, more where the window would
+    need more than 65535 slabs.  ValueError past a grid limit."""
+    W = max(1, W)
+    slab_rows = max(_build.LIMITS["dsag_wide_slab"], -(-W // GRID_Y))
+    slabs = max(1, -(-W // slab_rows))
+    row_grid = G * -(-W // 8)
+    feat_grid = G * -(-d // 128) * (1 if logreg else -(-k // 8))
+    if max(row_grid, feat_grid) > GRID_X:
+        raise ValueError(f"{G} tasks of up to {W} rows at d={d}, k={k} need "
+                         f"{max(row_grid, feat_grid)} blocks, past CUDA's grid limit {GRID_X}")
+    partial = G * slabs * d * k if slabs > 1 else 0
+    return Plan(True, slabs, slab_rows, 0, W, partial + G * W * k)
+
+
 @functools.lru_cache(maxsize=256)
-def _logreg_plan(n: int, d: int, max_width: int | None) -> tuple[int, int]:
-    """``(slabs, warps)`` of one K1 launch; ValueError where K1 does not take
-    the shape.  A block keeps 32 rows of (d | 1) floats per warp in at most
-    48 KB of shared memory."""
+def logreg_plan(G: int, n: int, d: int, max_width: int | None) -> Plan:
+    """K1's launch for G tasks over ``X [n, d]``: the fast path where a
+    warp's 32 rows of (d | 1) floats fit 48 KB of shared memory and a lane
+    holds its features (d <= 96), else the wide path.  A pure function of
+    the shapes; ValueError only past a grid limit."""
+    lim = _build.LIMITS
+    slab = lim["dsag_logreg_slab"]
     fit = (12_288 - d) // (32 * (d | 1))
-    if d > 96 or fit < 1:
-        raise ValueError(f"logreg_block_sub supports d <= 96, got {d}")
-    slab = _build.constant("dsag_logreg_slab")
     slabs = row_slabs(max_width, n, slab)
-    if slabs > 65_535:
-        raise ValueError(f"logreg_block_sub supports windows of at most {65_535 * slab} rows, "
-                         f"got {slabs} slabs of {slab}")
-    return slabs, logreg_warps(max_width, n, slab,
-                               min(fit, _build.constant("dsag_logreg_max_warps")))
+    if d <= 32 * lim["dsag_logreg_max_out"] and fit >= 1 and slabs <= GRID_Y:
+        warps = logreg_warps(max_width, n, slab, min(fit, lim["dsag_logreg_max_warps"]))
+        return Plan(False, slabs, slab, warps, 0, G * d * slabs if slabs > 1 else 0)
+    W = n if max_width is None else min(int(max_width), n)
+    return wide_plan(G, W, d, 1, True)
+
+
+@functools.lru_cache(maxsize=256)
+def pca_plan(G: int, n: int, d: int, k: int, max_width: int | None) -> Plan:
+    """K2's launch for G tasks over ``X [n, d]`` and ``[d, k]`` iterates:
+    the fast path where a thread's outputs cover d*k and the staged rows fit
+    48 KB of shared memory, else the wide path.  A pure function of the
+    shapes; ValueError only past a grid limit."""
+    lim = _build.LIMITS
+    chunk = lim["dsag_pca_chunk"]
+    smem = (d * k + chunk * (d + 1) + chunk * k) * 4
+    slabs = row_slabs(max_width, n, lim["dsag_pca_slab"])
+    if (d * k <= lim["dsag_pca_threads"] * lim["dsag_pca_max_out"] and smem <= 48 * 1024
+            and slabs <= GRID_Y):
+        return Plan(False, slabs, lim["dsag_pca_slab"], 0, 0,
+                    G * d * k * slabs if slabs > 1 else 0)
+    W = n if max_width is None else min(int(max_width), n)
+    return wide_plan(G, W, d, k, False)
+
+
+def shape_error(G: int, n: int, d: int, k: int | None, max_width: int | None) -> str | None:
+    """Why K1 (``k is None``) or K2 cannot take G tasks of at most
+    ``max_width`` rows over ``X [n, d]``, or None: what the engines check
+    before their first launch (``cuda-shape-unsupported``)."""
+    try:
+        logreg_plan(G, n, d, max_width) if k is None else pca_plan(G, n, d, k, max_width)
+    except ValueError as e:
+        return f"{'logreg' if k is None else 'pca'}_block_sub: {e}"
+    return None
+
+
+def _launch_wide(X, y, Vb, starts, widths, plan: Plan, G: int, n: int, d: int, k: int,
+                 out_shape: tuple, logreg: bool):
+    """One allocation (the result, then the partials and the row-pass
+    scratch) and the wide path's launches, counted under K1 or K2."""
+    dev = X.device
+    size = G * d * k
+    buf = torch.empty(size + plan.scratch, dtype=torch.float32, device=dev)
+    out = buf[:size].view(out_shape)
+    base = buf.data_ptr() + size * 4
+    partial = base if plan.slabs > 1 else None
+    scratch = base + (G * plan.slabs * d * k * 4 if plan.slabs > 1 else 0)
+    if G == 0:
+        return out
+    _build.launch(
+        "dsag_wide_block_sub",
+        X.data_ptr(), None if y is None else y.data_ptr(), Vb.data_ptr(), starts.data_ptr(),
+        widths.data_ptr(), scratch, partial, out.data_ptr(), G, n, d, k, plan.W, plan.slabs,
+        plan.slab_rows, int(logreg), dev.index, _stream(dev),
+    )
+    launch_counts["logreg_block_sub" if logreg else "pca_block_sub"] += 1
+    return out
 
 
 def logreg_block_sub(X, y, Vb, starts, widths, max_width=None):
@@ -134,7 +225,8 @@ def logreg_block_sub(X, y, Vb, starts, widths, max_width=None):
     ``widths`` [G] int64 (1-based starts; rows ``start-1 .. start+width-2``);
     ``max_width`` bounds every width (a static int: it sets the slab count
     and the block size without reading the card).  CPU tensors take
-    :func:`logreg_block_sub_plain`; CUDA tensors launch K1.
+    :func:`logreg_block_sub_plain`; CUDA tensors launch K1 (its wide path
+    past d = 96, :func:`logreg_plan`).
     """
     if _on_cpu(X, y, Vb, starts, widths):
         return logreg_block_sub_plain(X, y, Vb, starts, widths, max_width)
@@ -146,9 +238,11 @@ def logreg_block_sub(X, y, Vb, starts, widths, max_width=None):
     _require(Vb, "Vb", torch.float32, (G, d), dev)
     _require(starts, "starts", torch.int64, (G,), dev)
     _require(widths, "widths", torch.int64, (G,), dev)
-    slabs, warps = _logreg_plan(n, d, None if max_width is None else int(max_width))
-    if slabs > 1:  # one allocation: the result, then the slabs' partials
-        buf = torch.empty(G * d * (1 + slabs), dtype=torch.float32, device=dev)
+    plan = logreg_plan(G, n, d, None if max_width is None else int(max_width))
+    if plan.wide:
+        return _launch_wide(X, y, Vb, starts, widths, plan, G, n, d, 1, (G, d), True)
+    if plan.scratch:  # one allocation: the result, then the slabs' partials
+        buf = torch.empty(G * d + plan.scratch, dtype=torch.float32, device=dev)
         out, partial = buf[:G * d].view(G, d), buf.data_ptr() + G * d * 4
     else:
         out, partial = torch.empty((G, d), dtype=torch.float32, device=dev), None
@@ -157,7 +251,7 @@ def logreg_block_sub(X, y, Vb, starts, widths, max_width=None):
     _build.launch(
         "dsag_logreg_block_sub",
         X.data_ptr(), y.data_ptr(), Vb.data_ptr(), starts.data_ptr(), widths.data_ptr(),
-        partial, out.data_ptr(), G, n, d, slabs, warps, dev.index, _stream(dev),
+        partial, out.data_ptr(), G, n, d, plan.slabs, plan.warps, dev.index, _stream(dev),
     )
     launch_counts["logreg_block_sub"] += 1
     return out
@@ -169,7 +263,8 @@ def pca_block_sub(X, Vb, starts, widths, max_width=None):
     ``X`` [n, d] float32, ``Vb`` [G, d, k] float32, ``starts`` / ``widths``
     [G] int64; ``max_width`` bounds every width (a static int: it sets the
     slab count without reading the card).  CPU tensors take
-    :func:`pca_block_sub_plain`; CUDA tensors launch K2.
+    :func:`pca_block_sub_plain`; CUDA tensors launch K2 (its wide path past
+    d*k = 1024 or 48 KB of shared memory, :func:`pca_plan`).
     """
     if _on_cpu(X, Vb, starts, widths):
         return pca_block_sub_plain(X, Vb, starts, widths, max_width)
@@ -180,29 +275,20 @@ def pca_block_sub(X, Vb, starts, widths, max_width=None):
     _require(Vb, "Vb", torch.float32, (G, d, k), dev)
     _require(starts, "starts", torch.int64, (G,), dev)
     _require(widths, "widths", torch.int64, (G,), dev)
-    threads = _build.constant("dsag_pca_threads")
-    chunk = _build.constant("dsag_pca_chunk")
-    max_out = _build.constant("dsag_pca_max_out")
-    smem = (d * k + chunk * (d + 1) + chunk * k) * 4
-    if d * k > threads * max_out or smem > 48 * 1024:
-        raise ValueError(
-            f"pca_block_sub supports d*k <= {threads * max_out} and "
-            f"{smem} <= 49152 bytes of shared memory; got d={d}, k={k}"
-        )
-    slab = _build.constant("dsag_pca_slab")
-    slabs = row_slabs(max_width, n, slab)
-    if slabs > 65_535:
-        raise ValueError(f"pca_block_sub supports windows of at most {65_535 * slab} rows, "
-                         f"got {slabs} slabs of {slab}")
-    out = torch.empty((G, d, k), dtype=torch.float32, device=dev)
+    plan = pca_plan(G, n, d, k, None if max_width is None else int(max_width))
+    if plan.wide:
+        return _launch_wide(X, None, Vb, starts, widths, plan, G, n, d, k, (G, d, k), False)
+    if plan.scratch:  # one allocation: the result, then the slabs' partials
+        buf = torch.empty(G * d * k + plan.scratch, dtype=torch.float32, device=dev)
+        out, partial = buf[:G * d * k].view(G, d, k), buf.data_ptr() + G * d * k * 4
+    else:
+        out, partial = torch.empty((G, d, k), dtype=torch.float32, device=dev), None
     if G == 0:
         return out
-    partial = torch.empty((G, slabs, d, k), dtype=torch.float32, device=dev) if slabs > 1 else None
     _build.launch(
         "dsag_pca_block_sub",
         X.data_ptr(), Vb.data_ptr(), starts.data_ptr(), widths.data_ptr(),
-        None if partial is None else partial.data_ptr(), out.data_ptr(),
-        G, n, d, k, slabs, dev.index or 0, _stream(dev),
+        partial, out.data_ptr(), G, n, d, k, plan.slabs, dev.index or 0, _stream(dev),
     )
     launch_counts["pca_block_sub"] += 1
     return out

@@ -2,12 +2,18 @@
 
 ``grid_cache_update`` replaces ``repro/kernels/cache_events.py::
 grid_cache_update`` (Pallas, one program per scenario walking the event
-ranks in a ``fori_loop``).  The CUDA version (``csrc/cache_events.cu``) runs
-one block per scenario with threads over the feature axis, ranks in order
-inside the block, and float64 adds in rank order, so it equals the plain
-version (and the reference's ``ref.grid_cache_update_ref``) bit for bit.  It
-is bound by bytes: it copies each scenario's value table once and touches
-one table row per event.
+ranks in a ``fori_loop``).  The CUDA version (``csrc/cache_events.cu``)
+decides every event's fate from the tags alone first (in shared memory,
+1–8 blocks per scenario), then forms every delta at once and adds them
+to the sums in rank order with float64 adds, so it equals the plain version
+(and the reference's ``ref.grid_cache_update_ref``) bit for bit; extra
+blocks of the same launch copy the table rows no event names.  It is bound
+by bytes: it copies each scenario's value table once and touches one table
+row per event.  A walk decides its ranks in shared memory, a window of at
+most ``dsag_cache_window`` ranks at a time; past one window a scenario has
+one walk block, which carries the state from each window to the next in
+the outputs, so every R, E and F runs (:func:`shape_error` names the grid
+limits that remain).
 
 Events arrive rank-ordered: the caller ranks them with a stable argsort on
 event time (+inf where invalid) and gathers, and pre-clips the slots to
@@ -15,6 +21,8 @@ event time (+inf where invalid) and gathers, and pre-clips the slots to
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -54,6 +62,78 @@ def grid_cache_update_plain(
     return sums, values, iters, covered, rejected
 
 
+#: CUDA's limit on a grid's x dimension
+GRID_X = 2**31 - 1
+#: copy blocks K3 aims at beside its walks: two waves of the H100's 132 SMs
+TARGET_COPY_BLOCKS = 2 * 132
+#: table rows a copy block takes at most (one byte of flags each in shared memory)
+MAX_COPY_ROWS = 2048
+
+
+def walk_blocks(R: int, F: int) -> int:
+    """K3's walk blocks per scenario: one per 8 features, at most 8 (each
+    decides the scenario's events and takes a slice of the features), where
+    the R ranks fit one window; else one, which walks the windows in order."""
+    if R > _build.LIMITS["dsag_cache_window"]:
+        return 1
+    return min(8, max(1, -(-F // 8)))
+
+
+def copy_plan(S: int, E: int) -> tuple[int, int]:
+    """``(rows per copy block, copy blocks per scenario)``: about
+    :data:`TARGET_COPY_BLOCKS` blocks over the ``[S, E]`` rows, whole rows
+    of one scenario each.  A pure function of the shapes."""
+    rows = min(MAX_COPY_ROWS, max(1, -(-S * E // TARGET_COPY_BLOCKS)))
+    return rows, -(-E // rows)
+
+
+def shape_error(S: int, R: int, E: int, F: int) -> str | None:
+    """Why K3 cannot take S scenarios of R ranked events over an ``[E, F]``
+    table, or None (``cuda-shape-unsupported``): its int indices into a
+    scenario's event values, and the grid that holds the walks and the copy
+    blocks."""
+    if R * F >= 2**31:
+        return f"grid_cache_update: R*F = {R * F} event values per scenario, 2**31 or more"
+    blocks = S * walk_blocks(R, F) + S * copy_plan(S, E)[1]
+    if blocks > GRID_X:
+        return f"grid_cache_update: {blocks} blocks, past CUDA's grid limit {GRID_X}"
+    return None
+
+
+_DTYPES = (torch.bool, torch.int64, torch.int64, torch.float64, torch.float64, torch.float64,
+           torch.int64, torch.int64, torch.int64, torch.int64)
+_NAMES = ("valid_r", "slot_r", "tag_r", "vals_r", "sums", "values", "iters", "covered",
+          "rejected", "slot_width")
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(S: int, R: int, E: int, F: int) -> tuple[int, int, int]:
+    """``(walk blocks per scenario, rows per copy block, copy blocks per
+    scenario)``; ValueError where K3 does not take the shape."""
+    err = shape_error(S, R, E, F)
+    if err is not None:
+        raise ValueError(err)
+    return (walk_blocks(R, F), *copy_plan(S, E))
+
+
+def _check(args) -> None:
+    """Raise unless the ten operands are contiguous tensors of the kernel's
+    dtypes and consistent shapes on one device (one fast test first)."""
+    valid_r, vals_r, values = args[0], args[3], args[5]
+    S, R = valid_r.shape
+    E, F = values.shape[1], values.shape[-1]
+    dev = valid_r.device
+    shapes = ((S, R), (S, R), (S, R), (S, R, F), (S, F), (S, E, F), (S, E), (S,), (S,), (E,))
+    if all(t.dtype == dt and t.device == dev and t.shape == sh and t.is_contiguous()
+           for t, dt, sh in zip(args, _DTYPES, shapes)):
+        return
+    if vals_r.dim() != 3 or values.dim() != 3:
+        raise ValueError(f"vals_r and values must be [S, R, F] and [S, E, F], got "
+                         f"{tuple(vals_r.shape)} and {tuple(values.shape)}")
+    for t, name, dt, sh in zip(args, _NAMES, _DTYPES, shapes):
+        _require(t, name, dt, sh, dev)
+
+
 def grid_cache_update(
     valid_r,  # [S, R] bool, rank-ordered event validity
     slot_r,  # [S, R] int64, rank-ordered slots in [0, E)
@@ -73,26 +153,24 @@ def grid_cache_update(
             rejected, slot_width)
     if _on_cpu(*args):
         return grid_cache_update_plain(*args)
+    _check(args)
     S, R = valid_r.shape
     E, F = values.shape[1], values.shape[-1]
     dev = valid_r.device
-    i64, f64 = torch.int64, torch.float64
-    _require(valid_r, "valid_r", torch.bool, (S, R), dev)
-    _require(slot_r, "slot_r", i64, (S, R), dev)
-    _require(tag_r, "tag_r", i64, (S, R), dev)
-    _require(vals_r, "vals_r", f64, (S, R, F), dev)
-    _require(sums, "sums", f64, (S, F), dev)
-    _require(values, "values", f64, (S, E, F), dev)
-    _require(iters, "iters", i64, (S, E), dev)
-    _require(covered, "covered", i64, (S,), dev)
-    _require(rejected, "rejected", i64, (S,), dev)
-    _require(slot_width, "slot_width", i64, (E,), dev)
+    wpb, rows_per, cps = _plan(S, R, E, F)
+    # one allocation for the five outputs (all 8-byte elements), the value
+    # table first so that it is 16-byte aligned for the copy blocks; views
+    # by as_strided, the cheapest on the host
+    EF = E * F
+    at_sums, at_iters = S * EF, S * EF + S * F
+    buf = torch.empty(at_iters + S * E + 2 * S, dtype=torch.float64, device=dev)
+    ibuf = buf.view(torch.int64)
     outs = (
-        torch.empty_like(sums),
-        torch.empty_like(values),
-        torch.empty_like(iters),
-        torch.empty_like(covered),
-        torch.empty_like(rejected),
+        torch.as_strided(buf, (S, F), (F, 1), at_sums),
+        torch.as_strided(buf, (S, E, F), (EF, F, 1), 0),
+        torch.as_strided(ibuf, (S, E), (E, 1), at_iters),
+        torch.as_strided(ibuf, (S,), (1,), at_iters + S * E),
+        torch.as_strided(ibuf, (S,), (1,), at_iters + S * E + S),
     )
     if S == 0:
         return outs
@@ -100,7 +178,7 @@ def grid_cache_update(
         "dsag_grid_cache_update",
         *(t.data_ptr() for t in args),
         *(t.data_ptr() for t in outs),
-        S, R, E, F, dev.index or 0, _stream(dev),
+        S, R, E, F, wpb, rows_per, cps, dev.index or 0, _stream(dev),
     )
     launch_counts["grid_cache_update"] += 1
     return outs

@@ -32,11 +32,17 @@
 // adds c_r * x_r over its features (lane + 32*o) into registers, rows in
 // order.  The warps' sums meet once, in warp order, in shared memory.
 //
+// Widths past these kernels' caps (K1: d > 96; K2: d*k > 1024 or more than
+// 48 KB of shared memory) take the wide path of rows_wide.cuh, two passes
+// with no cap on d or k; the wrappers choose the path from the shapes.
+//
 // Reductions run in a fixed order (no float atomics), so a run repeats its
 // bits.  Every entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows_wide.cuh"
 
 namespace {
 
@@ -47,7 +53,6 @@ constexpr int kPcaThreads = 256;
 constexpr int kPcaChunk = 64;        // window rows staged in shared memory
 constexpr int kPcaMaxOut = 4;        // outputs per thread: d*k <= 1024
 constexpr int kPcaSlab = 512;        // window rows per block of a wide task
-constexpr int kReduceThreads = 256;
 
 // K1: -sum_r x_r * (y_r * sigmoid(-y_r * <x_r, v_g>)) / n over the rows of
 // slab `slab` of task g's window (the last slab takes the window's rest).
@@ -213,30 +218,6 @@ __global__ void pca_block_sub_kernel(
   }
 }
 
-// out[g] = -(sum over slabs of partial[g][slab]) / div, in slab order: one
-// thread per (task, output element), no float atomics.  K2 passes div = 1
-// (exact), K1 div = n.
-__global__ void slab_reduce_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ out, int slabs, int dk,
-                                   int64_t total, float div) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t g = idx / dk;
-  const int e = (int)(idx % dk);
-  const float* p = partial + g * slabs * dk + e;
-  float s = 0.f;
-  for (int sl = 0; sl < slabs; ++sl) s += p[(int64_t)sl * dk];
-  out[idx] = -s / div;
-}
-
-cudaError_t reduce_slabs(const float* partial, float* out, int64_t G, int dk, int slabs,
-                         float div, cudaStream_t s) {
-  const int64_t total = G * dk;
-  slab_reduce_kernel<<<(unsigned)((total + kReduceThreads - 1) / kReduceThreads),
-                       kReduceThreads, 0, s>>>(partial, out, slabs, dk, total, div);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -244,11 +225,13 @@ extern "C" {
 // Limits the wrappers check before launching (shared memory stays under the
 // 48 KB a block gets without opting in).
 int dsag_logreg_max_warps() { return kLogregMaxWarps; }
+int dsag_logreg_max_out() { return kLogregMaxOut; }
 int dsag_logreg_slab() { return kLogregSlab; }
 int dsag_pca_threads() { return kPcaThreads; }
 int dsag_pca_chunk() { return kPcaChunk; }
 int dsag_pca_max_out() { return kPcaMaxOut; }
 int dsag_pca_slab() { return kPcaSlab; }
+int dsag_wide_slab() { return kWideSlab; }
 
 // slabs = ceil(widest window / kLogregSlab) >= 1, at most 65535; warps in
 // 1..kLogregMaxWarps; partial: [G, slabs, d] scratch when slabs > 1 (unused,
@@ -268,7 +251,7 @@ int dsag_logreg_block_sub(const float* X, const float* y, const float* Vb,
       X, y, Vb, starts, widths, partial, out, n, d, slabs);
   err = cudaGetLastError();
   if (err != cudaSuccess || slabs == 1) return (int)err;
-  return (int)reduce_slabs(partial, out, G, d, slabs, (float)n, s);
+  return (int)reduce_slabs(partial, out, G, d, slabs, -1.f, (float)n, s);
 }
 
 // slabs = ceil(widest window / kPcaSlab) >= 1, at most 65535; partial:
@@ -287,7 +270,23 @@ int dsag_pca_block_sub(const float* X, const float* Vb, const int64_t* starts,
       X, Vb, starts, widths, partial, out, n, d, k, slabs);
   err = cudaGetLastError();
   if (err != cudaSuccess || slabs == 1) return (int)err;
-  return (int)reduce_slabs(partial, out, G, d * k, slabs, 1.f, s);
+  return (int)reduce_slabs(partial, out, G, (int64_t)d * k, slabs, -1.f, 1.f, s);
+}
+
+// The wide path (rows_wide.cuh) of K1 (logreg = 1: k = 1, V = Vb [G, d],
+// out = -sum / n) and K2 (logreg = 0: V = Vb [G, d, k], out = -sum), for any d
+// and k.  W: the static widest window; scratch: [G, W, k] floats; slabs =
+// ceil(W / slab_rows) <= 65535; partial: [G, slabs, d, k] scratch when slabs
+// > 1 (may be null otherwise).
+int dsag_wide_block_sub(const float* X, const float* y, const float* Vb, const int64_t* starts,
+                        const int64_t* widths, float* scratch, float* partial, float* out,
+                        int64_t G, int64_t n, int d, int k, int64_t W, int slabs,
+                        int64_t slab_rows, int logreg, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_wide(X, y, Vb, (int64_t)d * k, starts, widths, scratch, partial, out, G,
+                         n, 0, d, k, W, slabs, slab_rows, logreg != 0, -1.f,
+                         logreg ? (float)n : 1.f, (cudaStream_t)stream);
 }
 
 const char* dsag_cuda_error_string(int code) {

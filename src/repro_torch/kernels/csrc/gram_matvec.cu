@@ -45,11 +45,17 @@
 // Both products are computed here, as the TPU kernel computes both in its
 // body: no library GEMM.  A leading group dim ([B, m, d] x [d, k] ->
 // [B, d, k]) evaluates every group of the live PCA step in one launch.
+// Where k > kGramMaxK or d > kGramMaxJ * kGramThreads (or the group count
+// is past a grid dimension), the wrapper takes the wide path of
+// rows_wide.cuh instead (dsag_gram_matvec_wide): a row pass forming P = X V
+// into scratch, then a feature-tiled pass, with no cap on d or k.
 // Every entry point returns cudaGetLastError() after its launches.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows_wide.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -439,6 +445,19 @@ int dsag_gram_matvec(const float* x, const float* v, float* partial, float* out,
   gram_reduce_kernel<<<(unsigned)((total + 31) / 32), kGramThreads, 0, s>>>(
       partial, out, nchunks, d * k, total);
   return (int)cudaGetLastError();
+}
+
+// The wide path (rows_wide.cuh) for any d and k: x [B, m, d], v [d, k] ->
+// out [B, d, k]; scratch: [B, m, k] floats; slabs = ceil(m / slab_rows) <=
+// 65535; partial: [B, slabs, d, k] scratch when slabs > 1 (may be null
+// otherwise).
+int dsag_gram_matvec_wide(const float* x, const float* v, float* scratch, float* partial,
+                          float* out, int64_t B, int64_t m, int d, int k, int slabs,
+                          int64_t slab_rows, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_wide(x, nullptr, v, 0, nullptr, nullptr, scratch, partial, out, B, B * m,
+                         m, d, k, m, slabs, slab_rows, false, 1.f, 1.f, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -44,6 +44,7 @@ from repro_torch.experiments.engine import (
     EngineCapabilityError,
     EngineConfig,
     engine_capability,
+    kernel_shape_capability,
 )
 from repro_torch.kernels import block_sub, gram_matvec
 from repro_torch.lb.partitioner import p_start, p_stop
@@ -91,6 +92,12 @@ class PaperJob:
         G = self.num_groups
         if n % G:
             raise ValueError(f"{n} samples not divisible by {G} groups")
+        d = np.shape(self.problem.X)[1]
+        shape_err = (block_sub.shape_error(G, n, d, None, n // G) if self.name == "logreg"
+                     else gram_matvec.shape_error(G, n // G, d, self.problem.k))
+        cap = kernel_shape_capability(self.engine, [shape_err])
+        if not cap.supported:
+            raise EngineCapabilityError(cap)
         bounds = [(p_start(n, G, i), p_stop(n, G, i)) for i in range(1, G + 1)]
         self.loads = np.array(
             [self.problem.compute_cost(s, e) for s, e in bounds], dtype=np.float64

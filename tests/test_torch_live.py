@@ -59,8 +59,10 @@ from repro_torch.core.dsag_pjit import (
 )
 from repro_torch.experiments.engine import (
     CAP_CUDA_KERNELS_OFF_DEVICE,
+    CAP_CUDA_SHAPE,
     EngineCapabilityError,
     EngineConfig,
+    engine_capability,
 )
 from repro_torch.ft.runtime import FailureDetector, elastic_remap_groups
 from repro_torch.ft.validation import controller_streams
@@ -578,6 +580,24 @@ def test_capability_codes():
     assert _code(e) == CAP_CUDA_KERNELS_OFF_DEVICE
 
 
+@pytest.mark.parametrize("arch", ["logreg", "pca"])
+def test_live_job_refuses_shapes_past_the_kernels_limits(monkeypatch, arch):
+    """The live trainer checks its K1/K5 launch shapes when the job is made,
+    before any launch (cuda-shape-unsupported); here the kernels' shape
+    reports are forced, and the device check is passed over on the CPU."""
+    from repro_torch.kernels import block_sub
+    from repro_torch.launch import paper_jobs
+
+    monkeypatch.setattr(paper_jobs, "engine_capability", lambda *a: engine_capability(CPU))
+    monkeypatch.setattr(block_sub, "shape_error", lambda *a: "logreg_block_sub: past a limit")
+    monkeypatch.setattr(k5, "shape_error", lambda *a: "gram_matvec: past a limit")
+    with pytest.raises(EngineCapabilityError) as e:
+        make_paper_job(arch, 4, samples=64,
+                       engine=EngineConfig(device="cuda", kernel_backend="cuda"))
+    assert _code(e) == CAP_CUDA_SHAPE
+    assert make_paper_job(arch, 4, samples=64, engine=CPU).num_groups == 4  # plain: any shape
+
+
 def test_launch_counters_stay_zero_on_cpu():
     reset_launch_counts()
     opts = TrainerOptions(arch="pca", steps=3, samples=64, num_groups=4, engine=CPU,
@@ -647,18 +667,28 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize(("dt", "p", "n"), [("float32", 100, 29), ("float32", 50, 192),
-                                            ("bfloat16", 8, 1 << 16)])
-def test_gpu_k4_bit_equal_to_plain(card, dt, p, n):
+@pytest.mark.parametrize(("gdt", "cdt"), [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                          ("bfloat16", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize(("p", "n"), [
+    (100, 29), (50, 192), (8, 29),  # the live steps' shapes
+    (8, 1 << 16), (8, 132 * 256),  # one thread per element walks the groups (from 33792)
+    (1, 29), (1, 1000),  # one group
+    (300, 45), (600, 100),  # more groups than one staged chunk (256); n no multiple of 32
+])
+def test_gpu_k4_bit_equal_to_plain(card, gdt, cdt, p, n):
     rng = np.random.default_rng(5)
-    sd = _slot_dtype(dt)
-    g = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32, device=card).to(sd)
-    c = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32, device=card).to(sd)
+    g = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32,
+                        device=card).to(_slot_dtype(gdt))
+    c = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32,
+                        device=card).to(_slot_dtype(cdt))
     h = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=card)
     m = torch.as_tensor(rng.random(p) < 0.5, device=card).float()
+    before = launch_counts()["dsag_cache_update"]
     kc, kh = k4.dsag_cache_update(g, c, h, m)
     pc, ph = k4.dsag_cache_update_plain(g, c, h, m)
     torch.cuda.synchronize()
+    assert launch_counts()["dsag_cache_update"] == before + 1
+    assert kc.dtype == c.dtype and kh.dtype == torch.float32
     assert torch.equal(kc, pc) and torch.equal(kh, ph)
 
 
@@ -668,6 +698,9 @@ def test_gpu_k4_bit_equal_to_plain(card, dt, p, n):
     (1, 5003, 96, 5),  # m no multiple of the chunk (157 chunks of 32 rows)
     (1, 50_000, 64, 3),  # one group of 50000 rows: 261 chunks
     (4, 777, 16, 4),  # d*k = 64, fewer than one block's 256 threads
+    (50, 1000, 1100, 3),  # the wide path: d past 1024
+    (1, 4096, 64, 12),  # the wide path: k past 8
+    (3, 700, 1030, 9),  # the wide path: both, two column chunks
 ])
 def test_gpu_k5_matches_plain(card, shape):
     B, m, d, k = shape

@@ -46,6 +46,7 @@ from repro_torch.experiments.engine import (
     CAP_CHURN,
     CAP_CUDA_DTYPE,
     CAP_CUDA_KERNELS_OFF_DEVICE,
+    CAP_CUDA_SHAPE,
     CAP_CUDA_UNAVAILABLE,
     CAP_LOAD_BALANCE,
     CAP_OK,
@@ -53,12 +54,15 @@ from repro_torch.experiments.engine import (
     EngineConfig,
     engine_capability,
     kernel_dtype_capability,
+    kernel_shape_capability,
 )
 from repro_torch.experiments.results import convergence_ordering
+from repro_torch.experiments import fused
 from repro_torch.kernels import (
     _build,
     block_sub,
     cache_events,
+    gram_matvec,
     launch_counts,
     reset_launch_counts,
 )
@@ -89,7 +93,12 @@ def _tasks(rng, n: int, G: int, max_w: int):
 
 
 def _cache_inputs(rng, S=3, R=15, E=7, F=4, device="cpu"):
-    a = dict(
+    return tuple(torch.as_tensor(v, device=device)
+                 for v in _cache_inputs_np(rng, S, R, E, F).values())
+
+
+def _cache_inputs_np(rng, S, R, E, F):
+    return dict(
         valid_r=rng.random((S, R)) < 0.75,
         slot_r=rng.integers(0, E, size=(S, R)),
         tag_r=rng.integers(0, 6, size=(S, R)),
@@ -101,7 +110,6 @@ def _cache_inputs(rng, S=3, R=15, E=7, F=4, device="cpu"):
         rejected=rng.integers(0, 4, size=S),
         slot_width=rng.integers(1, 30, size=E),
     )
-    return tuple(torch.as_tensor(v, device=device) for v in a.values())
 
 
 # -- isolation -------------------------------------------------------------------
@@ -191,6 +199,113 @@ def test_cuda_kernels_take_float32_only():
 def test_engine_config_validates(kwargs):
     with pytest.raises((ValueError, RuntimeError)):
         EngineConfig(**kwargs)
+
+
+@pytest.mark.parametrize(("kind", "G", "n", "d", "k", "W", "wide", "slabs"), [
+    ("logreg", 1000, 16_384, 29, None, 17, False, 1),  # the sweep's grid call
+    ("logreg", 10, 16_384, 29, None, 16_384, False, 64),  # the coded call
+    ("logreg", 1000, 16_384, 96, None, 17, False, 1),  # the fast path's widest d
+    ("logreg", 1000, 16_384, 97, None, 17, True, 1),
+    ("logreg", 10, 16_384, 1000, None, 16_384, True, 64),
+    ("pca", 200, 50_000, 96, 3, 200, False, 1),  # pca_paper_scale's grid call
+    ("pca", 4, 50_000, 96, 3, 50_000, False, 98),  # ... and its coded call
+    ("pca", 200, 50_000, 179, 3, 200, False, 1),  # the last d the staged rows fit
+    ("pca", 200, 50_000, 180, 3, 200, True, 1),
+    ("pca", 6, 4096, 180, 3, 4096, True, 16),  # the --cols 180 sweep's coded call
+    ("pca", 200, 50_000, 96, 12, 200, True, 1),  # d*k past 1024
+    ("pca", 2, 10**8, 96, 3, 10**8, True, 65_531),  # past 65535 slabs: 1526-row slabs
+])
+def test_block_sub_launch_plan(kind, G, n, d, k, W, wide, slabs):
+    plan = block_sub.logreg_plan(G, n, d, W) if kind == "logreg" else block_sub.pca_plan(
+        G, n, d, k, W)
+    assert (plan.wide, plan.slabs) == (wide, slabs)
+    assert plan.slabs <= block_sub.GRID_Y and plan.slabs * plan.slab_rows >= min(W, n)
+    if wide:  # partials where there are several slabs, then the row pass's [G, W, k]
+        kk = k or 1
+        assert plan.W == min(W, n)
+        assert plan.scratch == (G * slabs * d * kk if slabs > 1 else 0) + G * plan.W * kk
+    assert block_sub.shape_error(G, n, d, k, W) is None
+
+
+@pytest.mark.parametrize(("shape", "wide", "chunks", "rows"), [
+    ((50, 1000, 64, 3), False, None, None),  # the live PCA step
+    ((1, 4096, 512, 8), False, None, None),
+    ((50, 1000, 1100, 3), True, 4, 256),  # d past 1024
+    ((1, 4096, 64, 12), True, 16, 256),  # k past 8
+    ((70_000, 10, 16, 3), True, 1, 256),  # more groups than the fast grid's y
+])
+def test_k5_launch_plan(shape, wide, chunks, rows):
+    """The path from the shapes alone; the wide path's plan too (the fast
+    path's chunks follow the compiled kernel's tile rows, on the card)."""
+    B, m, d, k = shape
+    assert gram_matvec.is_wide(B, d, k) == wide
+    if wide:
+        p = gram_matvec.plan(B, m, d, k, d % 4 == 0)
+        assert (p.wide, p.slabs, p.slab_rows) == (True, chunks, rows)
+    assert gram_matvec.shape_error(B, m, d, k) is None
+
+
+@pytest.mark.parametrize(("S", "R", "E", "F", "plan"), [
+    (10, 200, 1000, 29, (4, 38, 27)),  # the grid recipe's dsag walk
+    (4, 100, 250, 288, (8, 4, 63)),  # pca_paper_scale's dsag walk
+    (1, 8192, 10**6, 1, (1, 2048, 489)),  # four windows of ranks; many rows
+    (1, 2048, 1000, 29, (4, 4, 250)),  # the most ranks one window holds
+    (1, 2049, 1000, 29, (1, 4, 250)),  # two windows: one walk block carries them
+    (10, 10_000, 50_000, 29, (1, 1894, 27)),  # a dsag sweep of 5000 workers
+])
+def test_k3_launch_plan(S, R, E, F, plan):
+    assert cache_events._plan(S, R, E, F) == plan
+    assert cache_events.shape_error(S, R, E, F) is None
+
+
+@pytest.mark.parametrize("case", ["logreg", "pca", "gram", "cache_grid", "cache_values"])
+def test_shape_errors_past_the_kernels_limits(case):
+    big = 2**20
+    err = {
+        "logreg": lambda: block_sub.shape_error(big, big, 97, None, big),
+        "pca": lambda: block_sub.shape_error(big, big, 180, 3, big),
+        "gram": lambda: gram_matvec.shape_error(big, 2**14, 2048, 3),
+        "cache_grid": lambda: cache_events.shape_error(2**22, 10, 2**20, 1),
+        "cache_values": lambda: cache_events.shape_error(1, 8192, 10, 2**18),
+    }[case]()
+    assert err is not None and err.split(":")[0] in (
+        "logreg_block_sub", "pca_block_sub", "gram_matvec", "grid_cache_update")
+    assert kernel_shape_capability(EngineConfig(device="cuda", kernel_backend="cuda"),
+                                   [None, err]).code == CAP_CUDA_SHAPE
+    assert kernel_shape_capability(CPU, [err]).supported  # the plain versions take any shape
+
+
+def test_cuda_shape_refused_before_any_launch(monkeypatch):
+    """A dsag sweep whose cache walk needs more blocks than CUDA's grid holds
+    (the limit lowered here, as no small shape reaches it): refused with
+    cuda-shape-unsupported before the first launch."""
+    N = 8
+    monkeypatch.setattr(cache_events, "GRID_X", 4)
+    X, y = make_higgs_like(2 * N, seed=1)
+    prob = LogisticRegressionProblem(X=X, y=y)
+    cl = make_heterogeneous_cluster(N, seed=2, burst_rate=0.0, load_unit=1.0)
+    tr = sample_fleet(cl, 1, 2, seed=3)
+    cpu_kernels = prob.fused_kernels("cpu")
+    monkeypatch.setattr(fused, "engine_capability", lambda *a: engine_capability(CPU))
+    monkeypatch.setattr(prob, "fused_kernels", lambda device: cpu_kernels)
+    reset_launch_counts()
+    with pytest.raises(EngineCapabilityError) as ei:
+        run_convergence_batch(prob, tr, MethodConfig("dsag", w=N - 1, subpartitions=1), 1,
+                              engine=EngineConfig(device="cuda", kernel_backend="cuda"))
+    assert ei.value.capability.code == CAP_CUDA_SHAPE
+    assert "grid_cache_update" in str(ei.value)
+    assert all(v == 0 for v in launch_counts().values())
+    # the same run on the plain versions is not refused
+    res = run_convergence_batch(prob, tr, MethodConfig("dsag", w=N - 1, subpartitions=1), 1,
+                                engine=CPU)
+    assert res.times.shape == (1, 1)
+
+
+def test_mirrored_limits_name_every_exported_constant():
+    text = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    assert set(_build.CONSTANTS) == set(_build.LIMITS)
+    for name in _build.LIMITS:
+        assert f"int {name}()" in text, name
 
 
 def test_too_many_iterations_for_the_traces():
@@ -545,6 +660,90 @@ def test_gpu_logreg_kernel_over_row_slabs(card, case):
     assert launch_counts()["logreg_block_sub"] == before + 2
     _assert_kernel_close(got, block_sub.logreg_block_sub_plain(X, y, Vb, st, wd, max(widths)))
     assert torch.equal(got, again)  # slab partials summed in a fixed order
+
+
+#: K3's edge cases: (S, R, E, F, how the events are drawn)
+K3_CASES = {
+    "repeated_slots": (3, 120, 4, 5, "default"),  # long chains on few slots
+    "equal_tags": (2, 60, 20, 3, "equal_tags"),  # a tag equal to the slot's: rejected
+    "all_invalid": (3, 40, 10, 4, "all_invalid"),
+    "negative_tags": (2, 80, 6, 3, "negative_tags"),  # an accepted tag < 0 empties the slot
+    "large_E": (2, 50, 200_000, 3, "default"),  # far more rows than shared memory holds
+    "F1": (4, 30, 12, 1, "default"),
+    "F_past_1024": (2, 40, 30, 1500, "default"),  # more features than threads
+    "S1": (1, 200, 1000, 29, "default"),
+    # past one window of ranks: one walk block carries the tags, values and
+    # counts from each window to the next
+    "windows": (2, 8193, 5000, 3, "default"),  # four windows and one rank
+    "windows_few_slots": (2, 5000, 40, 33, "rising_tags"),  # slots named in every window
+    "windows_negative_tags": (2, 4500, 30, 2, "negative_tags"),  # emptied and refilled
+}
+
+
+def _k3_case(case: str, device):
+    S, R, E, F, how = K3_CASES[case]
+    rng = np.random.default_rng(sorted(K3_CASES).index(case))
+    a = dict(_cache_inputs_np(rng, S, R, E, F))
+    if how == "equal_tags":
+        a["iters"] = np.full((S, E), 3)
+        a["tag_r"] = np.full((S, R), 3)
+    elif how == "all_invalid":
+        a["valid_r"] = np.zeros((S, R), dtype=bool)
+    elif how == "negative_tags":
+        a["tag_r"] = rng.integers(-3, 4, size=(S, R))
+    elif how == "rising_tags":  # accepted and stale events in every window
+        a["tag_r"] = np.arange(R)[None, :] // 40 + rng.integers(0, 3, size=(S, R))
+    return tuple(torch.as_tensor(v, device=device) for v in a.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_gpu_cache_kernel_edge_cases(card, case):
+    a = _k3_case(case, card)
+    before = [t.clone() for t in a]
+    got = cache_events.grid_cache_update(*a)
+    want = cache_events.grid_cache_update_plain(*a)
+    torch.cuda.synchronize()
+    for name, g, p in zip(("sums", "values", "iters", "covered", "rejected"), got, want):
+        assert torch.equal(g, p), name
+    for t, b in zip(a, before):  # inputs are not modified
+        assert torch.equal(t, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(("kind", "d", "k"), [("logreg", 97, None), ("logreg", 1000, None),
+                                              ("pca", 180, 3), ("pca", 96, 12)])
+@pytest.mark.parametrize("case", ["grid", "coded", "slab_edges"])
+def test_gpu_block_sub_wide_path(card, kind, d, k, case):
+    """K1 and K2 past their fast paths' widths: the wide path, within the
+    float32 tolerance of the plain versions, repeating its bits."""
+    rng = np.random.default_rng(8)
+    n = 16_384
+    X = torch.as_tensor(rng.random((n, d)) < 0.1, dtype=torch.float32, device=card)
+    y = torch.as_tensor(np.where(rng.random(n) < 0.5, -1.0, 1.0), dtype=torch.float32,
+                        device=card)
+    if case == "grid":
+        st, wd = _tasks(rng, n, 600, 17)
+        starts, widths, max_width = st.tolist(), wd.tolist(), 17
+    else:
+        starts, widths, max_width = _window_tasks(case, n, _build.LIMITS["dsag_wide_slab"])
+    st = torch.as_tensor(starts, dtype=torch.int64, device=card)
+    wd = torch.as_tensor(widths, dtype=torch.int64, device=card)
+    G = len(starts)
+    if kind == "logreg":
+        assert block_sub.logreg_plan(G, n, d, max_width).wide
+        Vb = 0.1 * torch.randn(G, d, device=card)
+        got = block_sub.logreg_block_sub(X, y, Vb, st, wd, max_width)
+        again = block_sub.logreg_block_sub(X, y, Vb, st, wd, max_width)
+        want = block_sub.logreg_block_sub_plain(X, y, Vb, st, wd, max(widths))
+    else:
+        assert block_sub.pca_plan(G, n, d, k, max_width).wide
+        Vb = torch.linalg.qr(torch.randn(G, d, k, device=card))[0].contiguous()
+        got = block_sub.pca_block_sub(X, Vb, st, wd, max_width)
+        again = block_sub.pca_block_sub(X, Vb, st, wd, max_width)
+        want = block_sub.pca_block_sub_plain(X, Vb, st, wd, max(widths))
+    _assert_kernel_close(got, want)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
