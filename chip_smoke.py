@@ -24,7 +24,10 @@ Phases (any failure raises and the script exits non-zero):
    (the wide path: K1 at d = 97 and 1000, K2 at d = 180 and at k = 12, K5
    at d = 1100 and at k = 12), held and timed the same way; K4 on its other
    path too (staged or streaming), equal to the plain version, device time
-   beside the chosen one's;
+   beside the chosen one's; K1 and K2 at the scalar simulator's single task
+   and the host engine's median batch (:data:`HOST_BATCH`); last, K3 at
+   10000 events per scenario (its plain version's launches, like phases
+   4-7, leave the profiler without device times for later calls);
 4. slice 1, the convergence sweep: run the ``grid`` (logreg, n=16384, 100
    workers x 10 scenarios) and ``pca_paper_scale`` (n=50000, 50 workers x 4
    scenarios) recipes at full size through the kernels, all four methods,
@@ -57,7 +60,24 @@ Phases (any failure raises and the script exits non-zero):
    scores kept in float32;
    K6 against its plain version on layer 0's real q, k, v; K6 launches = 24
    per prefill;
-7. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+7. slice 7, the engines and the iteration-time sweeps, with the counters set
+   to 0 just before each path and read just after: the ``grid`` recipe's
+   dsag, sag, sgd and coded through the host engine (all 10 scenarios) and
+   the scalar ``TrainingSimulator`` (scenario 0), through K1, held equal to
+   the device engine's phase-4 runs bit for bit (times, fresh counts,
+   per-worker latencies, rejects, evictions and suboptimality); the same for
+   ``pca_paper_scale``'s dsag and sag at :data:`PCA_ENGINE_DEPTH` iterations
+   through K2; each engine's wall clock; the host engine's median K1/K2
+   batch equal to :data:`HOST_BATCH` (phase 3 holds and times K1 and K2
+   there and at the scalar simulator's single task, as no device time can
+   be taken after phase 3's windowed K3 check);
+   the live pin without the reference (the port's controller equals the
+   port's simulator on the ``live_validation`` recipe and the paper-scale
+   logreg job, dsag and sag); the ``BENCH_sweep.json`` grid (100 workers x
+   10 seeds x 100 iterations, 3 regimes) on the card, every cell and the
+   three orderings equal to the committed file, beside the scalar event
+   loop's seconds;
+8. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -212,7 +232,10 @@ def fmt_ms(ms: float | None) -> str:
 def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> list:
     """Phase 3 for K1 (logreg: grid, live and coded calls) or K2 (pca: grid
     and coded calls) at the main paths' shapes, or at ``shapes`` (call ->
-    grid layout (N, p, S)) with ``X``'s width and, for K2, ``k`` columns."""
+    grid layout (N, p, S), or (N, p, S, G): the first G tasks of that layout
+    padded to its widest window, as the scalar simulator and the host engine
+    call the kernels) with ``X``'s width and, for K2, ``k`` columns."""
+    from repro_torch.cluster.simulator import MethodConfig, task_pad_width
     from repro_torch.core.problems import make_higgs_like
     from repro_torch.kernels import block_sub
 
@@ -242,8 +265,11 @@ def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> lis
             widths = np.full(G, n // G, dtype=np.int64)
         else:
             n = X.shape[0]
-            N, p, S = shp
+            N, p, S = shp[:3]
             starts, widths = grid_tasks(n, N, p, S, rng)
+            pad = task_pad_width(MethodConfig("dsag", subpartitions=p), n, N)
+            if len(shp) == 4:
+                starts, widths = starts[:shp[3]], widths[:shp[3]]
         G = starts.size
         if kind == "logreg":
             Vb = torch.as_tensor(0.1 * rng.normal(size=(G, d)), dtype=torch.float32, device=dev)
@@ -253,7 +279,7 @@ def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> lis
         st = torch.as_tensor(starts, device=dev)
         wd = torch.as_tensor(widths, device=dev)
         # the static widest window, as the sweep (fused.py) and the live job pass it
-        W = int(widths.max())
+        W = pad if shp is not None and call != "live" else int(widths.max())
         if kind == "logreg":
             def kernel():
                 return block_sub.logreg_block_sub(Xc, yc, Vb, st, wd, W)
@@ -625,7 +651,7 @@ def run_recipes(torch) -> tuple[dict, dict]:
             fail(f"grid/{m}: suboptimality differs from the plain run by {rel.max():.3e}")
         print(f"  grid/{m} kernels vs plain on the card: event streams equal, "
               f"suboptimality max rel diff {rel.max():.3e} (tolerance 1e-4)")
-    return total, counts
+    return total, counts, outcomes
 
 
 #: the wide-feature sweep: the CLI at its default sizes with a PCA width past
@@ -834,6 +860,193 @@ def run_live(torch) -> dict:
         fail(f"logreg/dsag: kernel and plain final params differ by {err:.3e}")
     print(f"  logreg/dsag through the plain versions on the card: streams equal, final "
           f"params max |diff| {err:.3e} (rtol 1e-4, atol 1e-5 max|V|); {wall:.2f} s host")
+    return counts
+
+
+#: phase 7: iterations of the pca_paper_scale recipe held scalar == host ==
+#: device (the recipe runs 80; the scalar simulator walks one event at a time)
+PCA_ENGINE_DEPTH = 20
+#: the host engine's median K1/K2 batch (tasks per masked call) on the grid
+#: recipe's dsag, sag and sgd and on pca_paper_scale's dsag and sag at
+#: PCA_ENGINE_DEPTH: phase 3 times the kernels there, phase 7 checks the
+#: medians (the event streams, hence the batches, are deterministic)
+HOST_BATCH = {"logreg_block_sub": 947, "pca_block_sub": 200}
+
+
+def engines_equal(label: str, scalar, batched: dict, scenario: int = 0) -> None:
+    """Fail unless every batched result (engine -> ConvergenceBatchResult)
+    equals the scalar history on ``scenario``, and the batched results equal
+    each other on every scenario, bit for bit."""
+    from repro_torch.experiments.convergence import history_mismatches
+
+    (first, res0), *rest = batched.items()
+    bad = history_mismatches(scalar, res0, scenario)
+    if bad:
+        fail(f"{label}: the scalar simulator differs from the {first} engine in {bad}")
+    for name, res in rest:
+        for s in range(res.num_scenarios):
+            bad = history_mismatches(res0.history(s), res, s)
+            if bad:
+                fail(f"{label}: the {name} engine differs from the {first} engine "
+                     f"on scenario {s} in {bad}")
+
+
+def recording(block_sub, name: str, sizes: list):
+    """``mock.patch`` of a K1/K2 wrapper that records each masked-batch
+    call's task count (not the coded bound's full-range calls)."""
+    real = getattr(block_sub, name)
+
+    def wrapper(X, *args):
+        Vb, max_width = args[-4], args[-1]
+        if max_width != X.shape[0]:
+            sizes.append(Vb.shape[0])
+        return real(X, *args)
+
+    return mock.patch.object(block_sub, name, wrapper)
+
+
+def run_engines(torch, outcomes: dict) -> dict:
+    """Phase 7: the scalar simulator and the host engine through K1/K2 against
+    the device engine (bit for bit), the live pin without the reference, and
+    the ``BENCH_sweep.json`` grid on the card.  Returns the K1/K2 launches
+    of the host and scalar runs."""
+    import dataclasses
+
+    from repro_torch.cluster.simulator import MethodConfig
+    from repro_torch.core.problems import LogisticRegressionProblem, make_higgs_like
+    from repro_torch.experiments.convergence import run_convergence_batch, scalar_convergence_run
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.experiments.grid import HEAVY_BURSTS, run_sweep, scalar_sweep_seconds
+    from repro_torch.experiments.results import outcome_to_dict
+    from repro_torch.ft.validation import pin_streams
+    from repro_torch.kernels import block_sub, launch_counts, reset_launch_counts
+    from repro_torch.latency.model import make_heterogeneous_cluster, sample_fleet
+
+    card = EngineConfig(device="cuda", kernel_backend="cuda")
+    host = dataclasses.replace(card, kind="host")
+    counts = {"logreg_block_sub": 0, "pca_block_sub": 0}
+    host_G = {"logreg_block_sub": [], "pca_block_sub": []}
+
+    # (a) scalar == host == device through K1/K2
+    for recipe, kname, methods, depth in (
+        ("grid", "logreg_block_sub", ("dsag", "sag", "sgd", "coded"), None),
+        ("pca_paper_scale", "pca_block_sub", ("dsag", "sag"), PCA_ENGINE_DEPTH),
+    ):
+        out, _ = outcomes[recipe]
+        T = depth or out.num_iterations
+        out = dataclasses.replace(out, num_iterations=T,
+                                  methods={m: out.methods[m] for m in methods})
+        runs = {"scan": {}, "host": {}}
+        walls = {}
+        for kind, eng in (("scan", card), ("host", host)):
+            if kind == "scan" and depth is None:  # phase 4's runs at full depth
+                runs[kind] = {m: out.results[m] for m in methods}
+                walls[kind] = None
+                continue
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with recording(block_sub, kname, host_G[kname] if kind == "host" else []):
+                for m in methods:
+                    runs[kind][m] = run_convergence_batch(
+                        out.problem, out.traces, out.methods[m], T,
+                        eval_every=out.eval_every, seed=out.seed, engine=eng)
+            torch.cuda.synchronize()
+            walls[kind] = time.perf_counter() - t0
+            if kind == "host":
+                n_host = launch_counts()[kname]
+                counts[kname] += n_host
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        scalar = {m: scalar_convergence_run(out, m, 0, engine=card) for m in methods}
+        walls["scalar"] = time.perf_counter() - t0
+        n_scalar = launch_counts()[kname]
+        counts[kname] += n_scalar
+        if n_host == 0 or n_scalar == 0:
+            fail(f"{recipe}: {kname} was not launched on the host ({n_host}) or the "
+                 f"scalar ({n_scalar}) path")
+        for m in methods:
+            engines_equal(f"{recipe}/{m}", scalar[m], {k: runs[k][m] for k in ("scan", "host")})
+        S = out.traces.num_scenarios
+        scan_wall = (f"{walls['scan']:.2f} s" if walls["scan"] is not None
+                     else f"{outcomes[recipe][0].engine_seconds:.2f} s (phase 4, all 4 methods)")
+        print(f"  {recipe} ({len(methods)} methods, {T} iterations, scenario 0 of {S}): "
+              f"scalar == host == device bit for bit (times, fresh counts, per-worker "
+              f"latencies, rejects, evictions, suboptimality); host and device equal on "
+              f"all {S} scenarios")
+        print(f"    wall clock: device engine {scan_wall}; host engine {walls['host']:.2f} s "
+              f"({n_host} {kname} launches, tasks per launch median "
+              f"{int(np.median(host_G[kname]))}); scalar simulator {walls['scalar']:.2f} s "
+              f"for scenario 0 ({n_scalar} launches), {walls['scalar'] * S:.2f} s scaled to "
+              f"{S} scenarios (scalar_convergence_seconds' extrapolation)")
+
+    # phase 3 held and timed K1/K2 at these batches
+    medians = {k: int(np.median(v)) for k, v in host_G.items()}
+    if medians != HOST_BATCH:
+        fail(f"the host engine's median K1/K2 batches {medians} are not phase 3's {HOST_BATCH}")
+
+    # (b) the live pin: the port's controller == the port's scalar simulator
+    live = json.loads((ROOT / "BENCH_convergence.json").read_text())["live_validation"]
+    r = live["recipe"]
+    n, G, T = r["num_samples"], r["n_workers"], r["num_iterations"]
+    X, y = make_higgs_like(n, seed=r["seed"])
+    prob = LogisticRegressionProblem(X=X, y=y)
+    cluster = make_heterogeneous_cluster(G, seed=r["seed"] + 3, burst_rate=0.0,
+                                         load_unit=prob.compute_cost(1, n // G))
+    traces = sample_fleet(cluster, r["n_scenarios"], 4 * T, burst_rate=HEAVY_BURSTS.rate,
+                          burst_factor_mean=HEAVY_BURSTS.factor_mean,
+                          burst_duration_mean=HEAVY_BURSTS.duration_mean, seed=r["seed"] + 7)
+    jobs = [("live_validation", prob, cluster, traces, r["scenario"], T, r["w"], r["eta"],
+             r["margin"], r["seed"])]
+    n, G, w, eta = PAPER_JOBS["logreg"]
+    X, y = make_higgs_like(n, seed=0)
+    prob = LogisticRegressionProblem(X=X, y=y)
+    cluster = make_heterogeneous_cluster(G, seed=3, burst_rate=0.0,
+                                         load_unit=prob.compute_cost(1, n // G))
+    traces = sample_fleet(cluster, 2, 4 * 80, burst_rate=HEAVY_BURSTS.rate,
+                          burst_factor_mean=HEAVY_BURSTS.factor_mean,
+                          burst_duration_mean=HEAVY_BURSTS.duration_mean, seed=7)
+    jobs.append(("paper-scale logreg", prob, cluster, traces, 0, 80, w, eta, 0.02, 0))
+    for label, prob, cluster, traces, scen, T, w, eta, margin, seed in jobs:
+        for m in ("dsag", "sag"):
+            cfg = MethodConfig(name=m, w=w, eta=eta, margin=margin, subpartitions=1)
+            t0 = time.perf_counter()
+            ctrl, sim, hist = pin_streams(prob, cluster, traces, scen, cfg, T, seed=seed,
+                                          engine=card)
+            wall = time.perf_counter() - t0
+            if not (ctrl == sim and np.array_equal(ctrl.times, sim.times)):
+                fail(f"pin {label}/{m}: controller and simulator differ: "
+                     f"{ctrl.mismatch_summary(sim)}")
+            msg = ""
+            if label == "live_validation":
+                want = live["methods"][m]["virtual_time_to_gap"]
+                got = hist.time_to_gap(r["gap"])
+                msg = (f"; simulator time-to-gap {got!r} (the reference's {want!r}, "
+                       f"equal: {got == want})")
+            print(f"  pin {label}/{m} ({traces.num_workers} groups, {T} steps): controller "
+                  f"== simulator (mask, flush, evict, virtual times; Σ fresh "
+                  f"{int(sim.mask.sum())}, Σ flush {int(sim.flush.sum())}) in {wall:.2f} s{msg}")
+
+    # (c) the BENCH_sweep.json grid on the card
+    committed = json.loads((ROOT / "BENCH_sweep.json").read_text())
+    g = committed["grid"]
+    sweep = run_sweep(n_workers=g["n_workers"], n_seeds=g["n_seeds"],
+                      num_iterations=g["num_iterations"], w_fracs=(0.8,), device="cuda")
+    mine = outcome_to_dict(sweep)
+    fields = ("mean_iter_time", "std_iter_time", "mean_fresh", "n_seeds")
+    if set(mine["cells"]) != set(committed["cells"]):
+        fail(f"sweep cells {sorted(mine['cells'])} vs committed {sorted(committed['cells'])}")
+    for key, cell in committed["cells"].items():
+        for f in fields:
+            if mine["cells"][key][f] != cell[f]:
+                fail(f"sweep cell {key}: {f} {mine['cells'][key][f]!r} vs committed {cell[f]!r}")
+    if mine["ordering"] != committed["ordering"]:
+        fail(f"sweep orderings differ from the committed ones: {mine['ordering']}")
+    scalar_s = scalar_sweep_seconds(sweep)
+    print(f"  BENCH_sweep grid ({g['n_workers']} workers x {g['n_seeds']} seeds x "
+          f"{g['num_iterations']} iterations, {len(mine['cells'])} cells, 3 regimes): "
+          f"{', '.join(fields)} and the 3 orderings equal the committed file; engine "
+          f"{sweep.engine_seconds:.3f} s on the card, scalar_sweep_seconds {scalar_s:.2f} s "
+          f"({scalar_s / sweep.engine_seconds:.1f}x)")
     return counts
 
 
@@ -1267,9 +1480,20 @@ def main() -> None:
             check_flash(torch, SERVE_B, 16, SERVE_PROMPT, SERVE_PROMPT, 64, rng, kvh=2),
         ],
     }
+    # K1 and K2 at the scalar simulator's single task and the host engine's
+    # median masked batch (phase 7 fails unless the host engine's batches
+    # have that median), padded to the run's task_pad_width
+    G_log, G_pca = HOST_BATCH["logreg_block_sub"], HOST_BATCH["pca_block_sub"]
+    per_kernel["logreg_block_sub"] += check_block_sub(
+        torch, "logreg", Xh, yh, rng,
+        shapes={"scalar G=1": (100, 10, 10, 1), f"host G={G_log}": (100, 10, 10, G_log)})
+    per_kernel["pca_block_sub"] += check_block_sub(
+        torch, "pca", Xg, None, rng,
+        shapes={"scalar G=1": (50, 5, 4, 1), f"host G={G_pca}": (50, 5, 4, G_pca)})
     # K3 at a dsag sweep of 5000 workers (p = 10): five windows of ranks, one
     # walk block per scenario; last, as its plain version's many launches
-    # leave the profiler without device times for the kernels after it
+    # leave the profiler without device times for the kernels after it (so do
+    # phases 4-7: every device time is taken in phase 3)
     per_kernel["grid_cache_update"].append(check_cache_walk(
         torch, 2, 10_000, 50_000, 29, 60, np.random.default_rng(1), plain_reps=1))
     if "--profile" in sys.argv[1:]:
@@ -1280,13 +1504,19 @@ def main() -> None:
         return
 
     print("phase 4: the grid and pca_paper_scale recipes through the kernels")
-    sweep_launches, _ = run_recipes(torch)
+    sweep_launches, _, outcomes = run_recipes(torch)
     wide_launches = run_wide_sweep(torch)
     print("phase 5: the live two-tier trainer through the kernels")
     live_launches = run_live(torch)
     print("phase 6: serving qwen1.5-0.5b at full width and depth through K6")
     serving = run_serving(torch)
-    launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k] for k in sweep_launches}
+    print("phase 7: the scalar simulator and the host engine against the device engine, "
+          "the live pin, the BENCH_sweep grid")
+    t0 = time.perf_counter()
+    engine_launches = run_engines(torch, outcomes)
+    print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
+                + engine_launches.get(k, 0) for k in sweep_launches}
     launches["flash_attention"] = serving["launches"]
 
     meta = {
@@ -1312,6 +1542,7 @@ def main() -> None:
             launches=launches[name], launches_sweep=sweep_launches.get(name, 0),
             launches_wide_sweep=wide_launches.get(name, 0),
             launches_live=live_launches.get(name, 0),
+            launches_engines=engine_launches.get(name, 0),
             launches_serve=serving["launches"] if name == "flash_attention" else 0,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],

@@ -7,16 +7,21 @@ engine and print each method's time-to-gap across scenarios.
   python -m repro_torch.convergence_sweep --paper-scale    # n=50k PCA recipe
   python -m repro_torch.convergence_sweep --device cpu --kernel-backend torch \\
       --workers 8 --scenarios 2 --iters 10 --samples 1024
+  python -m repro_torch.convergence_sweep --engine host --check-scalar
 
 Runs DSAG, SAG (w = N), SGD and the idealized coded bound through the full
 training loop on one shared heavy-burst trace draw, like
 ``examples/convergence_sweep.py`` of the JAX package, and prints the same
-table and the same ``sag/dsag``, ``coded/dsag`` line.
+table and the same ``sag/dsag``, ``coded/dsag`` line.  ``--engine host``
+runs the numpy host loop instead of the device engine; ``--check-scalar``
+replays scenario 0 of every method through the scalar ``TrainingSimulator``
+on the same device and kernels and fails unless it is bit-exact.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -30,8 +35,10 @@ from repro_torch.core.problems import (
 from repro_torch.experiments.convergence import (
     PAPER_SCALE_PCA,
     default_convergence_methods,
+    history_mismatches,
     paper_scale_pca_sweep,
     run_convergence_sweep,
+    scalar_convergence_run,
 )
 from repro_torch.experiments.engine import EngineConfig
 from repro_torch.experiments.grid import HEAVY_BURSTS
@@ -65,8 +72,15 @@ def run(argv=None):
     ap.add_argument("--kernel-backend", choices=("cuda", "torch"), default="cuda",
                     help="the hand-written CUDA kernels or their plain-torch "
                     "versions")
+    ap.add_argument("--engine", choices=("auto", "scan", "host"), default="auto",
+                    help="the device engine (auto/scan) or the numpy host loop")
+    ap.add_argument("--check-scalar", action="store_true",
+                    help="replay scenario 0 of every method through the scalar "
+                    "TrainingSimulator and fail unless it is bit-exact")
     args = ap.parse_args(argv)
-    engine = EngineConfig(device=args.device, kernel_backend=args.kernel_backend)
+    engine = EngineConfig(
+        device=args.device, kernel_backend=args.kernel_backend, kind=args.engine
+    )
 
     if args.paper_scale:
         out, default_gap = paper_scale_pca_sweep(seed=0, engine=engine)
@@ -102,14 +116,34 @@ def run(argv=None):
     return out, default_gap if args.gap is None else args.gap, args
 
 
+def check_scalar(out, engine: EngineConfig) -> tuple[float, float]:
+    """Replay scenario 0 of every method through the scalar simulator on
+    ``engine``'s device and kernels; raise unless each equals the batched
+    run bit for bit.  Returns the replays' seconds and that time scaled to
+    all scenarios."""
+    t0 = time.perf_counter()
+    for name, res in out.results.items():
+        bad = history_mismatches(scalar_convergence_run(out, name, 0, engine=engine), res, 0)
+        if bad:
+            raise AssertionError(f"{name}: the scalar replay of scenario 0 differs in {bad}")
+    measured = time.perf_counter() - t0
+    return measured, measured * out.traces.num_scenarios
+
+
 def main(argv=None) -> dict:
     out, gap, args = run(argv)
     N = out.traces.num_workers
+    engine = EngineConfig(device=args.device, kernel_backend=args.kernel_backend)
     print(
         f"{len(out.methods)} methods x {out.traces.num_scenarios} scenarios x "
         f"{out.num_iterations} iterations in {out.engine_seconds:.2f}s "
-        f"(device {args.device}, {args.kernel_backend} kernels)"
+        f"({args.engine} engine, device {args.device}, {args.kernel_backend} kernels)"
     )
+    if args.check_scalar:
+        measured, scaled = check_scalar(out, engine)
+        print(f"scalar TrainingSimulator replay of scenario 0: bit-exact for "
+              f"{len(out.results)} methods in {measured:.2f}s ({scaled:.1f}s for all "
+              f"{out.traces.num_scenarios} scenarios)")
     header = f"{'method':>6} {'w':>4} {'median t->gap (s)':>18} {'final gap':>11} {'total t (s)':>12}"
     print(header)
     print("-" * len(header))

@@ -16,6 +16,23 @@ gradient.  The generators :func:`make_higgs_like` and
 :func:`make_genomics_like_matrix` and the optima (numpy Newton solve, numpy
 ``eigvalsh``) are copied verbatim, so the same seed gives the same data and
 the same optimum as the reference.
+
+Every float expression that feeds the convergence engines lives here once:
+the scalar ``TrainingSimulator`` and the host engine call the numpy-facing
+methods of :class:`FiniteSumProblem` (which run the same
+:class:`FusedKernels` on the engine's device), the device engine calls the
+kernels directly.  The three agree bit for bit because every result is
+independent of the batch it was computed in:
+
+* a task's block subgradient depends on its window and on the pad width of
+  the call (K1's slab count and warps, the plain versions' gather width),
+  never on the other tasks: every engine passes the run's static
+  :func:`~repro_torch.cluster.simulator.task_pad_width`;
+* the suboptimality and the projection are taken one iterate at a time, as
+  the reference maps them with ``lax.map``: a batched float64 product or
+  reduction need not sum in a single iterate's order (MKL's on the CPU does
+  not; cuBLAS, cuSOLVER and torch's reductions choose their kernels by
+  shape).
 """
 
 from __future__ import annotations
@@ -26,7 +43,10 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from repro_torch.experiments.engine import EngineConfig
 from repro_torch.kernels import block_sub
+
+F64 = torch.float64
 
 
 def width_bucket(m: int, num_samples: int) -> int:
@@ -69,8 +89,33 @@ class FusedKernels:
         return fn(Vb, starts, widths, max_width)
 
 
+def _map_rows(one):
+    """``one`` (an iterate -> a tensor) over the rows of an ``[S, ...]``
+    stack, one call per row: each row's bits are then those of the same
+    iterate alone (what ``lax.map`` gives the reference)."""
+
+    def mapped(V_stack):
+        return torch.stack([one(V_stack[s]) for s in range(V_stack.shape[0])])
+
+    return mapped
+
+
+def _sign_fixed_qr(V):
+    """Gram-Schmidt == thin-QR orthonormalization with ``sign(diag(R))``
+    fixed, row-major (the QR's Q is column-major, on the card too)."""
+    q, r = torch.linalg.qr(V)
+    return (q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))[..., None, :]).contiguous()
+
+
 class FiniteSumProblem:
-    """Interface shared by the engines: numpy data, per-device kernels."""
+    """Interface shared by the engines: numpy data, per-device kernels.
+
+    The numpy-facing methods below are what the scalar ``TrainingSimulator``
+    and the host engine call: numpy in, numpy out, each evaluated through
+    :meth:`fused_kernels` on ``engine.device`` (default ``EngineConfig()``:
+    the card, kernels K1/K2) with ``engine.kernel_backend``.  Subgradients
+    take the run's static ``pad_width`` (see the module docstring).
+    """
 
     num_samples: int
     cost_per_row: float
@@ -98,6 +143,81 @@ class FiniteSumProblem:
     def compute_cost(self, start: int, stop: int) -> float:
         """Computational load c of the block (paper §3: ops count)."""
         return float(self.cost_per_row * (stop - start + 1))
+
+    def compute_cost_batch(self, starts, stops) -> np.ndarray:
+        """Vectorized :meth:`compute_cost` (same float expression per row)."""
+        rows = np.asarray(stops, dtype=np.int64) - np.asarray(starts, np.int64) + 1
+        return self.cost_per_row * rows
+
+    # -- numpy-facing methods (scalar simulator, host engine) ---------------
+    def _kernels_for(self, engine):
+        eng = EngineConfig() if engine is None else engine
+        return self.fused_kernels(eng.device), eng.kernel_backend
+
+    def subgradient(self, V, start: int, stop: int, *, pad_width=None, engine=None):
+        """Sum of ∇f_k(V) for k in [start, stop] (1-based inclusive)."""
+        return self.subgradient_blocks_masked(
+            np.asarray(V)[None], np.array([start]), np.array([stop]),
+            pad_width=pad_width, engine=engine,
+        )[0]
+
+    def subgradient_blocks(self, V_stack, starts, stops, *, pad_width=None, engine=None):
+        """[G, ...] block subgradients of G equal-width (iterate, interval)
+        tasks; row g equals ``subgradient(V_stack[g], starts[g], stops[g])``
+        bit for bit at the same ``pad_width``."""
+        widths = np.asarray(stops, np.int64) - np.asarray(starts, np.int64) + 1
+        if widths.size and not np.all(widths == widths[0]):
+            raise ValueError("subgradient_blocks requires equal-width intervals")
+        return self.subgradient_blocks_masked(
+            V_stack, starts, stops, pad_width=pad_width, engine=engine
+        )
+
+    def subgradient_blocks_masked(
+        self, V_stack, starts, stops, *, pad_width=None, engine=None
+    ):
+        """Like :meth:`subgradient_blocks` for mixed-width intervals: one
+        kernel call (the kernels take per-task windows), rows past each
+        width masked.  ``pad_width`` (default: the widest interval) bounds
+        every width."""
+        k, backend = self._kernels_for(engine)
+        starts = np.asarray(starts, dtype=np.int64)
+        widths = np.asarray(stops, dtype=np.int64) - starts + 1
+        if widths.size == 0:
+            return np.zeros((0,) + k.value_shape, dtype=np.float32)
+        W = int(widths.max()) if pad_width is None else int(pad_width)
+        if widths.max() > W:
+            raise ValueError(f"an interval is wider than pad_width={W}")
+        # fresh tensors on the device (torch.tensor copies)
+        out = k.sub_blocks(
+            torch.tensor(np.asarray(V_stack), device=k.device),
+            torch.tensor(starts, device=k.device),
+            torch.tensor(widths, device=k.device),
+            backend,
+            W,
+        )
+        return out.cpu().numpy()
+
+    def regularizer_grad(self, V: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def project(self, V, *, engine=None) -> np.ndarray:
+        """The G(·) operator of paper Eq. (2)."""
+        return self.project_batch(np.asarray(V)[None], engine=engine)[0]
+
+    def project_batch(self, V_stack, *, engine=None) -> np.ndarray:
+        """Apply G(·) to a stack of iterates, one at a time (the device
+        engine's call)."""
+        k, _ = self._kernels_for(engine)
+        return k.project(torch.tensor(np.asarray(V_stack), device=k.device)).cpu().numpy()
+
+    def suboptimality(self, V, *, engine=None) -> float:
+        return float(self.suboptimality_batch(np.asarray(V)[None], engine=engine)[0])
+
+    def suboptimality_batch(self, V_stack, *, engine=None) -> np.ndarray:
+        """[S] float64 suboptimality gaps; row s equals
+        ``suboptimality(V_stack[s])`` bit for bit (one iterate per call)."""
+        k, _ = self._kernels_for(engine)
+        return k.suboptimality(torch.tensor(np.asarray(V_stack), device=k.device)).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -164,18 +284,11 @@ class PCAProblem(FiniteSumProblem):
         def plain(Vb, starts, widths, max_width=None):
             return block_sub.pca_block_sub_plain(X, Vb, starts, widths, max_width)
 
-        def suboptimality(V_stack):
+        def suboptimality_one(V):
             # (optimal explained variance - achieved) / total variance, in
             # float64 (the reference's X64 @ V, outside any Pallas kernel)
-            xv = X64 @ V_stack.to(torch.float64)  # [S, n, k]
-            explained = (xv * xv).sum(dim=(1, 2))
-            return torch.clamp_min((opt - explained) / total, 1e-16)
-
-        def project(V_stack):
-            # Gram-Schmidt == thin-QR orthonormalization, sign-fixed
-            q, r = torch.linalg.qr(V_stack)
-            diag = torch.diagonal(r, dim1=-2, dim2=-1)
-            return q * torch.sign(diag)[..., None, :]
+            xv = X64 @ V.to(F64).contiguous()  # [n, k]
+            return torch.clamp_min((opt - (xv * xv).sum()) / total, 1e-16)
 
         return FusedKernels(
             device=device,
@@ -185,10 +298,13 @@ class PCAProblem(FiniteSumProblem):
             cost_per_row=self.cost_per_row,
             kernel=kernel,
             plain=plain,
-            suboptimality=suboptimality,
-            project=project,
+            suboptimality=_map_rows(suboptimality_one),
+            project=_map_rows(_sign_fixed_qr),
             regularizer_grad=lambda V_stack: V_stack,  # ∇ 1/2||V||_F^2
         )
+
+    def regularizer_grad(self, V: np.ndarray) -> np.ndarray:
+        return V  # ∇ 1/2||V||_F^2
 
 
 # ---------------------------------------------------------------------------
@@ -268,18 +384,18 @@ class LogisticRegressionProblem(FiniteSumProblem):
         def plain(Vb, starts, widths, max_width=None):
             return block_sub.logreg_block_sub_plain(X, y, Vb, starts, widths, max_width)
 
-        def objective(V_stack):
-            V64 = V_stack.to(torch.float64)
-            z = y64 * (V64 @ X64.T)  # [S, n]
-            loss = torch.logaddexp(torch.zeros_like(z), -z).mean(dim=1)
-            return loss + 0.5 * lam * (V64 * V64).sum(dim=1)
+        def objective(V):
+            V64 = V.to(F64)
+            z = y64 * (X64 @ V64)  # [n]
+            loss = torch.logaddexp(torch.zeros_like(z), -z).mean()
+            return loss + 0.5 * lam * (V64 * V64).sum()
 
         # the optimum's objective through the same float64 expression, so
         # the suboptimality of the optimum itself is ~0, not a device offset
-        opt_obj = objective(torch.as_tensor(self.optimum, device=device)[None])[0]
+        opt_obj = objective(torch.as_tensor(self.optimum, device=device))
 
-        def suboptimality(V_stack):
-            return torch.clamp_min(objective(V_stack) - opt_obj, 1e-16)
+        def suboptimality_one(V):
+            return torch.clamp_min(objective(V) - opt_obj, 1e-16)
 
         return FusedKernels(
             device=device,
@@ -289,9 +405,14 @@ class LogisticRegressionProblem(FiniteSumProblem):
             cost_per_row=self.cost_per_row,
             kernel=kernel,
             plain=plain,
-            suboptimality=suboptimality,
+            suboptimality=_map_rows(suboptimality_one),
             project=lambda V_stack: V_stack,  # G = identity
             # lam * V stays in V's float32, as the reference's weakly typed
             # python-float product does
             regularizer_grad=lambda V_stack: lam * V_stack,
         )
+
+    def regularizer_grad(self, V: np.ndarray) -> np.ndarray:
+        # float32 stays float32: numpy takes the python float lam as weakly
+        # typed, as torch does in the device engine's lam * V
+        return float(self.lam) * V

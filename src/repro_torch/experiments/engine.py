@@ -1,8 +1,9 @@
-"""Execution configuration and capability codes of the device engine.
+"""Execution configuration and capability codes of the engines.
 
 Counterpart of ``repro.experiments.engine``.  :class:`EngineConfig` names the
-torch device and the kernel backend; :func:`engine_capability` reports, with
-a stable reason code, why a configuration cannot run, and the engine raises
+engine kind, the torch device and the kernel backend; :func:`engine_capability`
+reports, with a stable reason code, why a configuration cannot run, and the
+engines (device, host and the scalar simulator) raise
 :class:`EngineCapabilityError` carrying that report.  Nothing falls back: a
 missing card, CUDA kernels asked for on the CPU, and the parts of the
 reference not ported yet are all refused.
@@ -33,21 +34,30 @@ CAP_ARCH = "arch-not-ported"
 CAP_CUDA_SHAPE = "cuda-shape-unsupported"
 
 _KERNEL_BACKENDS = ("torch", "cuda")
+_KINDS = ("auto", "scan", "host")
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Execution configuration of one convergence-batch run.
 
-    ``device`` is the torch device holding the engine state (default
+    ``kind`` selects the engine of ``run_convergence_batch``: ``"scan"`` —
+    the device engine (``experiments.fused``: every iteration's state and
+    arithmetic on the device), ``"host"`` — the numpy loop over iterations
+    with batched kernel calls inside (``experiments.convergence``), ``"auto"``
+    (default) — ``"scan"``, which runs every configuration the port runs.
+    ``device`` is the torch device of the state and the kernels (default
     ``"cuda"``).  ``kernel_backend`` selects how the §3 block subgradients and
     the §5 grid-cache walk run: ``"cuda"`` — the hand-written kernels
-    (default), ``"torch"`` — their plain-torch versions (what the CPU tests
-    ask for; also runs on the card).
+    (default; the host engine and the scalar simulator call K1/K2 too),
+    ``"torch"`` — their plain-torch versions (what the CPU tests ask for; also
+    runs on the card).  ``eval_every`` is the suboptimality cadence.
     """
 
     device: str = "cuda"
     kernel_backend: str = "cuda"
+    kind: str = "auto"
+    eval_every: int = 1
 
     def __post_init__(self):
         if self.kernel_backend not in _KERNEL_BACKENDS:
@@ -55,6 +65,10 @@ class EngineConfig:
                 f"unknown kernel_backend {self.kernel_backend!r}; expected "
                 f"one of {_KERNEL_BACKENDS}"
             )
+        if self.kind not in _KINDS:
+            raise ValueError(f"unknown engine kind {self.kind!r}; expected one of {_KINDS}")
+        if self.eval_every < 1:
+            raise ValueError("eval_every must be >= 1")
         torch.device(self.device)  # raises on a malformed device string
 
 
@@ -68,7 +82,7 @@ class EngineCapability:
 
 
 class EngineCapabilityError(ValueError):
-    """Raised by the device engine for configurations it cannot run.
+    """Raised by the engines for configurations they cannot run.
 
     Carries the structured :class:`EngineCapability` as ``.capability`` so
     callers branch on ``capability.code`` instead of the message text.
@@ -85,7 +99,8 @@ def refuse(code: str, detail: str) -> EngineCapabilityError:
 
 
 def engine_capability(engine: EngineConfig, config=None, traces=None) -> EngineCapability:
-    """Whether ``engine`` can run ``config`` (a MethodConfig) on ``traces``."""
+    """Whether ``engine`` can run ``config`` (a MethodConfig) on ``traces``
+    (any engine kind: they run the same configurations)."""
     dev = torch.device(engine.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         return EngineCapability(

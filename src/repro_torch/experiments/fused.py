@@ -19,16 +19,22 @@ never reads a device value (no ``.item()``, no ``.cpu()``) until the results
 are copied out at the end.  The lat table and the per-iteration outputs are
 updated in place; the cache tables are replaced by the walk's outputs.
 
-Exactness (held against the reference by ``tests/test_torch_parity.py``):
-event times, fresh counts, per-worker latencies and rejects do not depend on
-the iterate, so they equal the reference exactly.  That needs float64 event
-state with explicit dtypes (torch's default float is float32, and an int64
-tensor combined with a python float gives float32), and the §3 latency chain
+Exactness: event times, fresh counts, per-worker latencies and rejects do
+not depend on the iterate, so they equal the reference exactly
+(``tests/test_torch_parity.py``).  That needs float64 event state with
+explicit dtypes (torch's default float is float32, and an int64 tensor
+combined with a python float gives float32), and the §3 latency chain
 evaluated one rounding per operator, left to right.  Eager torch launches
-one kernel per operator and contracts nothing into an FMA, so the reference's
-``max(x, 0)`` seam against contraction is not needed here.  Subgradients,
-iterates and suboptimality differ from the reference by float32 rounding of
-other summation orders and agree within a stated tolerance.
+one kernel per operator and contracts nothing into an FMA, so the
+reference's ``max(x, 0)`` seam against contraction is not needed here; do
+not fuse the chain (``torch.compile``, a custom kernel) without a seam of
+the same kind.  Subgradients, iterates and suboptimality differ from the
+reference by float32 rounding of other summation orders and agree within a
+stated tolerance.  Against the port's host engine and scalar simulator every
+output is equal bit for bit (``tests/test_torch_engines.py``): each task's
+subgradient is padded to the run's ``task_pad_width``, the iterates are
+projected and evaluated one at a time (``core.problems``), and the coverage
+is divided as numpy divides (:func:`exact_div`).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from repro_torch.cluster.simulator import (
     effective_w,
     margin_deadline,
     task_finish_time,
+    task_pad_width,
 )
 from repro_torch.core.problems import FiniteSumProblem, FusedKernels
 from repro_torch.experiments.engine import (
@@ -52,23 +59,12 @@ from repro_torch.experiments.engine import (
     kernel_dtype_capability,
     kernel_shape_capability,
 )
+from repro_torch.experiments.sweep import task_latency_parts, trace_tensors
 from repro_torch.kernels import block_sub, cache_events
-from repro_torch.latency.model import FleetTraces, comp_latency_expr
+from repro_torch.latency.model import FleetTraces
 from repro_torch.lb.partitioner import p_start, p_stop
 
 F64, I64 = torch.float64, torch.int64
-
-
-def guarded_comp_latency(comp_unit_draw, load, slowdown, factor):
-    """The §3 latency product, evaluated left to right.
-
-    The reference wraps it in ``max(x, 0)`` so that XLA's CPU backend cannot
-    contract the last multiply into the finish-time add.  Eager torch runs
-    each operator as its own kernel and contracts nothing, so the chain is
-    used as it is; do not fuse it (``torch.compile``, a custom kernel)
-    without a seam of the same kind.
-    """
-    return comp_latency_expr(comp_unit_draw, load, slowdown, factor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,14 +88,8 @@ class _StaticSpec:
     slot_offsets: tuple[int, ...]  # per-worker first slot (grid cache)
     slot_width: tuple[int, ...]  # per-slot interval width (grid cache)
     num_slots: int
-    max_width: int  # widest task window (static pad of the plain versions)
+    max_width: int  # the run's static pad width (task_pad_width)
     kernel_backend: str  # "cuda" | "torch"
-
-
-def _possible_widths(n_local: int, p: int, full: bool) -> set:
-    if full:
-        return {n_local}
-    return {k * n_local // p - (k - 1) * n_local // p for k in range(1, p + 1)}
 
 
 def _static_spec(
@@ -118,9 +108,6 @@ def _static_spec(
     n_local = [b - a + 1 for a, b in zip(base_start, base_stop)]
     process_full = cfg.name in ("gd", "coded")
     sub_p = tuple(min(cfg.subpartitions, nl) for nl in n_local)
-    widths = set()
-    for nl, p in zip(n_local, sub_p):
-        widths |= _possible_widths(nl, p, process_full)
     if cfg.uses_cache:
         offsets = np.concatenate([[0], np.cumsum(sub_p)])
         slot_offsets = tuple(int(o) for o in offsets[:-1])
@@ -152,7 +139,7 @@ def _static_spec(
         slot_offsets=slot_offsets,
         slot_width=slot_width,
         num_slots=num_slots,
-        max_width=max(widths),
+        max_width=task_pad_width(cfg, n, N),
         kernel_backend=kernel_backend,
     )
 
@@ -173,6 +160,14 @@ def _kernel_shape_errors(spec: _StaticSpec, kernels: FusedKernels, S: int, N: in
     return errors
 
 
+def exact_div(a, n: int):
+    """``a / n`` in float64 with one rounding, as numpy divides: a CUDA
+    tensor divided by a python number is multiplied by its reciprocal
+    instead, which can be an ulp off, so the divisor goes in as a tensor
+    (filled on the device: no copy, no sync)."""
+    return a.to(F64) / torch.full((), float(n), dtype=F64, device=a.device)
+
+
 def _bcast(mask, value_ndim: int):
     """Reshape a mask so it broadcasts over trailing value dimensions."""
     return mask.reshape(mask.shape + (1,) * value_ndim)
@@ -183,7 +178,9 @@ def _subgradients(kernels: FusedKernels, spec: _StaticSpec, V, lo, hi):
 
     The reference loops over its static width-bucket ladder (one dispatch
     per bucket); the kernels here loop over each task's exact width, so one
-    call covers all widths.
+    call covers all widths.  Every task of the call is padded to the run's
+    ``task_pad_width``, as in the host engine and the scalar simulator, so
+    each task's value equals theirs bit for bit.
     """
     S, N = lo.shape
     vshape = kernels.value_shape
@@ -284,11 +281,7 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
     rejected [S])``.
     """
     dev = kernels.device
-    comm, comp_unit = tr["comm"], tr["comp_unit"]
-    burst_start, burst_end, burst_factor = (
-        tr["burst_start"], tr["burst_end"], tr["burst_factor"]
-    )
-    S, N, _K = comm.shape
+    S, N, _K = tr["comm"].shape
     T = spec.num_iterations
     n = kernels.num_samples
     vshape = kernels.value_shape
@@ -300,16 +293,8 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
     offsets = torch.tensor(spec.slot_offsets, dtype=I64, device=dev)
     slot_width = torch.tensor(spec.slot_width, dtype=I64, device=dev)
     E = spec.num_slots
-    slowdown = tr["slowdown"][None, :]
     s_idx2 = torch.arange(S, device=dev)[:, None]
     w_idx2 = torch.arange(N, device=dev)[None, :]
-
-    def burst_factor_at(start):
-        if burst_start.shape[2] == 0:
-            return torch.ones_like(start)
-        tt = start[:, :, None]
-        active = (burst_start <= tt) & (tt < burst_end)
-        return torch.where(active, burst_factor, 1.0).amax(dim=2)
 
     # -- carry (explicit dtypes throughout: torch's default float is f32) --
     V = V0
@@ -351,11 +336,9 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
         # int64 rows to float64 first: int64 * python float is float32 in torch
         cost = (kernels.cost_per_row * (hi - lo + 1).to(F64)) * spec.comp_scale
 
-        # -- §3 trace replay (THE shared latency expression) ----------------
+        # -- §3 trace replay (the latency lookups of replay_batch) ----------
         start = torch.where(idle, assign[:, None], free_at)
-        comm_d = comm.gather(2, draw_idx[:, :, None])[:, :, 0]
-        unit = comp_unit.gather(2, draw_idx[:, :, None])[:, :, 0]
-        comp_d = guarded_comp_latency(unit, cost, slowdown, burst_factor_at(start))
+        comm_d, comp_d = task_latency_parts(tr, draw_idx, start, cost)
 
         # -- event resolution (the shared method-semantics helpers) ---------
         finish = task_finish_time(start, comp_d, comm_d)
@@ -402,7 +385,7 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
             cache = _apply_cache_events(
                 spec, slot_width, cache, ev_valid, ev_time, ev_slot, ev_tag, ev_vals
             )
-            xi = torch.clamp_min(cache["covered"].to(F64) / n, 1e-12)
+            xi = torch.clamp_min(exact_div(cache["covered"], n), 1e-12)
             grad = cache["sums"] / _bcast(xi, vdim) + kernels.regularizer_grad(V)
         elif spec.name == "coded":
             # idealized MDS bound: exact gradient at full-range width (the
@@ -422,7 +405,7 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
         else:  # sgd: scale the partial sum by observed coverage
             grad_acc = _fresh_accumulate(kernels, fresh, finish, vals)
             covered_f = torch.where(fresh, hi - lo + 1, 0).sum(dim=1)
-            xi = torch.clamp_min(covered_f.to(F64) / n, 1e-12)
+            xi = torch.clamp_min(exact_div(covered_f, n), 1e-12)
             grad = grad_acc / _bcast(xi, vdim) + kernels.regularizer_grad(V)
 
         # -- iterate update + suboptimality ---------------------------------
@@ -451,6 +434,40 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
     return times, subopt, fresh_counts, lat, cache["rejected"]
 
 
+def check_run(
+    problem: FiniteSumProblem,
+    traces: FleetTraces,
+    config: MethodConfig,
+    num_iterations: int,
+    cost_scale: float,
+    engine: EngineConfig,
+):
+    """The capability checks of a convergence run, shared by the device and
+    host engines, before any launch: ``(spec, kernels)`` or
+    :class:`~repro_torch.experiments.engine.EngineCapabilityError`."""
+    cap = engine_capability(engine, config, traces)
+    if not cap.supported:
+        raise EngineCapabilityError(cap)
+    if num_iterations > traces.horizon:
+        raise ValueError(
+            f"traces hold {traces.horizon} draws/worker but {num_iterations} "
+            "iterations requested"
+        )
+    kernels = problem.fused_kernels(engine.device)
+    dcap = kernel_dtype_capability(engine, kernels.value_dtype)
+    if not dcap.supported:
+        raise EngineCapabilityError(dcap)
+    spec = _static_spec(
+        problem, config, traces.num_workers, num_iterations, cost_scale,
+        engine.kernel_backend,
+    )
+    errors = _kernel_shape_errors(spec, kernels, traces.num_scenarios, traces.num_workers)
+    scap = kernel_shape_capability(engine, errors)
+    if not scap.supported:
+        raise EngineCapabilityError(scap)
+    return spec, kernels
+
+
 def prepare_scan_inputs(
     problem: FiniteSumProblem,
     traces: FleetTraces,
@@ -470,25 +487,9 @@ def prepare_scan_inputs(
     problem's initial iterate (numpy; broadcast over scenarios).
     """
     eng = EngineConfig() if engine is None else engine
-    cap = engine_capability(eng, config, traces)
-    if not cap.supported:
-        raise EngineCapabilityError(cap)
     T = num_iterations
-    if T > traces.horizon:
-        raise ValueError(
-            f"traces hold {traces.horizon} draws/worker but {T} iterations requested"
-        )
-    kernels = problem.fused_kernels(eng.device)
-    dcap = kernel_dtype_capability(eng, kernels.value_dtype)
-    if not dcap.supported:
-        raise EngineCapabilityError(dcap)
-    spec = _static_spec(
-        problem, config, traces.num_workers, T, cost_scale, eng.kernel_backend
-    )
+    spec, kernels = check_run(problem, traces, config, T, cost_scale, eng)
     S = traces.num_scenarios
-    scap = kernel_shape_capability(eng, _kernel_shape_errors(spec, kernels, S, traces.num_workers))
-    if not scap.supported:
-        raise EngineCapabilityError(scap)
     dev = kernels.device
     v0 = problem.init(seed) if V0 is None else np.asarray(V0)
     V0_stack = torch.as_tensor(np.repeat(v0[None], S, axis=0), device=dev)
@@ -496,18 +497,7 @@ def prepare_scan_inputs(
     eval_mask[::eval_every] = True
     eval_mask[T - 1] = True
 
-    def f64(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
-
-    tr = dict(
-        comm=f64(traces.comm),
-        comp_unit=f64(traces.comp_unit),
-        slowdown=f64(traces.slowdown),
-        burst_start=f64(traces.burst_start),
-        burst_end=f64(traces.burst_end),
-        burst_factor=f64(traces.burst_factor),
-    )
-    return spec, kernels, tr, V0_stack, eval_mask
+    return spec, kernels, trace_tensors(traces, dev), V0_stack, eval_mask
 
 
 def run_convergence_scan(

@@ -4,14 +4,14 @@
 The live trainer (:mod:`repro_torch.launch.train`) feeds the Tier-1
 ``dsag_update`` from :class:`repro_torch.ft.runtime.DeadlineController`.
 This module replays one pre-sampled :class:`FleetTraces` scenario through the
-controller's event machine and packages the resulting (mask, flush, evict)
-streams, so tests and ``chip_smoke.py`` can hold them equal to the JAX
-package's controller and scalar simulator (whose streams the tests take from
-the reference subprocess) and to the trainer's own logged streams.
+controller's event machine and through the port's scalar
+:class:`~repro_torch.cluster.simulator.TrainingSimulator`, and packages the
+resulting (mask, flush, evict) streams, so tests and ``chip_smoke.py`` can
+hold them equal to each other (:func:`pin_streams`), to the JAX package's
+and to the trainer's own logged streams.
 
 The equivalence holds for ``subpartitions=1`` methods (one sample range per
-group, the live trainer's regime).  ``simulator_streams`` / ``pin_streams``
-need the scalar ``TrainingSimulator``, which this package does not port yet.
+group, the live trainer's regime).
 """
 
 from __future__ import annotations
@@ -20,7 +20,15 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.cluster.simulator import (
+    MethodConfig,
+    RunHistory,
+    TraceLatencySource,
+    TrainingSimulator,
+    effective_w,
+)
 from repro_torch.core.problems import FiniteSumProblem
+from repro_torch.experiments.engine import EngineConfig
 from repro_torch.ft.runtime import DeadlineController, LatencyFn
 from repro_torch.latency.model import FleetTraces
 from repro_torch.lb.partitioner import p_start, p_stop
@@ -129,3 +137,71 @@ def controller_streams(
         times[t] = ctrl.now
         elapsed[t] = si.elapsed
     return ControlStreams(mask=mask, flush=flush, evict=evict, times=times, elapsed=elapsed)
+
+
+def simulator_streams(
+    problem: FiniteSumProblem,
+    cluster,
+    traces: FleetTraces,
+    scenario: int,
+    config: MethodConfig,
+    num_iterations: int,
+    *,
+    seed: int = 0,
+    engine: EngineConfig | None = None,
+) -> tuple[ControlStreams, RunHistory]:
+    """Run the scalar simulator on the same trace; return its streams and
+    its :class:`RunHistory` (whose ``times`` are the predicted virtual
+    schedule of the live run)."""
+    sim = TrainingSimulator(
+        problem,
+        cluster,
+        config,
+        seed=seed,
+        latency_source=TraceLatencySource(traces, scenario),
+        engine=engine,
+    )
+    hist = sim.run(num_iterations)
+    streams = ControlStreams(
+        mask=hist.mask_stream,
+        flush=hist.flush_stream,
+        evict=hist.evict_stream,
+        times=hist.times,
+        elapsed=np.diff(np.concatenate(([0.0], hist.times))),
+    )
+    return streams, hist
+
+
+def pin_streams(
+    problem: FiniteSumProblem,
+    cluster,
+    traces: FleetTraces,
+    scenario: int,
+    config: MethodConfig,
+    num_iterations: int,
+    *,
+    seed: int = 0,
+    engine: EngineConfig | None = None,
+) -> tuple[ControlStreams, ControlStreams, RunHistory]:
+    """(controller, simulator) streams of one shared trace, and the
+    simulator's history: the caller asserts ``ctrl == sim``, the cross-layer
+    pin.  Requires ``subpartitions == 1`` (the live trainer's regime) and a
+    cache method without load balancing."""
+    if config.subpartitions != 1 or config.load_balance:
+        raise ValueError("the Tier-2 pin covers the live regime: subpartitions=1, no LB")
+    if config.name not in ("sag", "dsag"):
+        raise ValueError("the live trainer runs cache methods (sag/dsag)")
+    loads = group_loads(problem, traces.num_workers)
+    ctrl = controller_streams(
+        traces,
+        scenario,
+        w=effective_w(config, traces.num_workers),
+        num_iterations=num_iterations,
+        loads=loads,
+        margin=config.margin,
+        accepts_stale=config.accepts_stale,
+    )
+    sim, hist = simulator_streams(
+        problem, cluster, traces, scenario, config, num_iterations, seed=seed, engine=engine
+    )
+    return ctrl, sim, hist

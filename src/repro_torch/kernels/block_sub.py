@@ -47,8 +47,23 @@ def _window(starts, widths, n: int, max_width: int | None):
     return idx, mask
 
 
+def _task_sigmoid(z):
+    """``sigmoid`` of each task's row of ``z`` [G, W].  On the CPU torch runs
+    a call's elements through a vector body and a scalar tail with different
+    ``exp`` code, so an element's bits would follow its place in the batch:
+    there each task's row gets a call of its own, which keeps a task's
+    result independent of the tasks beside it (what the scalar simulator,
+    the host engine and the device engine need to agree bit for bit).  CUDA
+    evaluates every element alike."""
+    if z.is_cuda:
+        return torch.sigmoid(z)
+    return torch.stack([torch.sigmoid(row) for row in z])
+
+
 def logreg_block_sub_plain(X, y, Vb, starts, widths, max_width=None):
-    """``[G, d]`` logreg block subgradients, reduce form (plain torch)."""
+    """``[G, d]`` logreg block subgradients, reduce form (plain torch).
+    A task's result depends on its window and ``W`` only (``max_width``, else
+    the widest task)."""
     n = X.shape[0]
     if Vb.shape[0] == 0:
         return torch.zeros_like(Vb)
@@ -56,7 +71,7 @@ def logreg_block_sub_plain(X, y, Vb, starts, widths, max_width=None):
     xg = X[idx]  # [G, W, d]
     yg = y[idx] * mask.to(y.dtype)
     z = yg * (xg * Vb[:, None, :]).sum(2)
-    s = torch.sigmoid(-z)
+    s = _task_sigmoid(-z)
     return -(xg * (yg * s)[:, :, None]).sum(1) / n
 
 

@@ -49,6 +49,14 @@ class GammaParams:
         var = max(var, 1e-18)  # degenerate -> near-deterministic
         return GammaParams(shape=mean * mean / var, scale=var / mean)
 
+    @property
+    def mean(self) -> float:
+        return self.shape * self.scale
+
+    @property
+    def var(self) -> float:
+        return self.shape * self.scale**2
+
     def sample(self, rng: np.random.Generator, size=None) -> np.ndarray:
         return rng.gamma(self.shape, self.scale, size=size)
 
@@ -153,6 +161,10 @@ class ClusterLatencyModel:
             [w.sample_total(c, self.rng, now) for w in self.workers], dtype=np.float64
         )
 
+    def sample_matrix(self, c: float, iters: int) -> np.ndarray:
+        """[iters, N] latency draws (steady state, no cross-iteration state)."""
+        return np.stack([self.sample_all(c) for _ in range(iters)])
+
 
 #: Approximate latency ranges from paper Table 1 (AWS logistic regression):
 #: comm 1e-4..6e-4 s, comp 1.1e-3..1.3e-3 s.
@@ -187,6 +199,45 @@ def make_heterogeneous_cluster(
             )
         )
     return ClusterLatencyModel(workers=workers, seed=seed + 1)
+
+
+def make_paper_artificial_cluster(
+    num_workers: int = 49,
+    *,
+    comp_mean: float = 2.0e-3,
+    comm_mean: float = 1.0e-5,
+    cv_comm: float = 0.3,
+    cv_comp: float = 0.1,
+    load_unit: float = 1.0,
+    seed: int = 0,
+) -> ClusterLatencyModel:
+    """The paper's §7.2 artificial scenario on eX3: worker ``i`` (1-based) is
+    slowed by a factor ``1 + (i/N)*0.4``; a timed event of the scalar
+    ``TrainingSimulator`` (:func:`clear_slowdowns`) removes the slowdown of
+    the last 10 workers after 1 s.
+
+    ``load_unit`` calibrates the model: a task with computational load
+    ``c = load_unit`` has expected computation latency ``comp_mean`` (the
+    paper's Table-1 eX3 values) — pass the typical per-task ops count."""
+    e_z = comp_mean / load_unit
+    workers = [
+        WorkerLatencyModel(
+            comm=GammaParams.from_mean_var(comm_mean, (cv_comm * comm_mean) ** 2),
+            comp_per_unit=GammaParams.from_mean_var(e_z, (cv_comp * e_z) ** 2),
+            burst_rate=0.0,
+            slowdown=1.0 + (i / num_workers) * 0.4,
+        )
+        for i in range(1, num_workers + 1)
+    ]
+    return ClusterLatencyModel(workers=workers, seed=seed + 1)
+
+
+def clear_slowdowns(cluster: ClusterLatencyModel, worker_indices) -> None:
+    """Remove the artificial slowdown of the given workers (paper §7.2:
+    'we remove this artificial latency for workers 40 through 49 after one
+    second')."""
+    for i in worker_indices:
+        cluster.workers[i].slowdown = 1.0
 
 
 @dataclasses.dataclass
@@ -247,6 +298,11 @@ class ChurnSchedule:
         """Liveness row(s) at time(s) ``t`` (scalar -> [N], [S] -> [S, N])."""
         return self.alive[self.row_at(t)]
 
+    def slowdown_at(self, start: np.ndarray) -> np.ndarray:
+        """Per-task slowdown at start times ``start`` ([S, N] -> [S, N])."""
+        rows = self.row_at(np.asarray(start, dtype=np.float64))
+        return self.slowdown[rows, np.arange(self.slowdown.shape[1])[None, :]]
+
 
 @dataclasses.dataclass
 class FleetTraces:
@@ -292,8 +348,17 @@ class FleetTraces:
             )
         return dataclasses.replace(self, churn=churn)
 
+    def burst_factor_at(self, t: np.ndarray) -> np.ndarray:
+        """Active burst factor at times ``t`` ([S, N] -> [S, N])."""
+        if not self.has_bursts:
+            return np.ones_like(t, dtype=np.float64)
+        tt = np.asarray(t, dtype=np.float64)[:, :, None]
+        active = (self.burst_start <= tt) & (tt < self.burst_end)
+        # windows are non-overlapping, so at most one factor is selected
+        return np.where(active, self.burst_factor, 1.0).max(axis=2)
+
     def _scalar_burst_factor(self, s: int, i: int, t: float) -> float:
-        """Burst factor of worker ``i`` of scenario ``s`` at time ``t``."""
+        """Same lookup as :meth:`burst_factor_at` for one (scenario, worker)."""
         if not self.has_bursts:
             return 1.0
         starts = self.burst_start[s, i]
@@ -301,6 +366,43 @@ class FleetTraces:
         if idx >= 0 and t < self.burst_end[s, i, idx]:
             return float(self.burst_factor[s, i, idx])
         return 1.0
+
+    def task_latency_parts(self, k: np.ndarray, start: np.ndarray, loads) -> tuple:
+        """(comm, comp) latency of each worker's next task across scenarios.
+
+        ``k`` [S, N] is the per-(scenario, worker) draw index, ``start``
+        [S, N] the task start time, ``loads`` a scalar / [N] / [S, N]
+        computational load.  The product goes through
+        :func:`comp_latency_expr`, as in :meth:`scalar_task_latency`, so the
+        batched and scalar replays agree bit for bit.
+        """
+        S, N, K = self.comm.shape
+        k = np.asarray(k)
+        if k.size and int(k.max()) >= K:
+            # same invariant as scalar_task_latency: silently reusing the
+            # last draw would fake a deterministic worker
+            raise ValueError(
+                f"trace draws exhausted (draw {int(k.max())} of horizon {K}); "
+                "sample a longer fleet"
+            )
+        s_idx = np.arange(S)[:, None]
+        n_idx = np.arange(N)[None, :]
+        factor = self.burst_factor_at(start)
+        slowdown = (
+            self.slowdown[None, :] if self.churn is None else self.churn.slowdown_at(start)
+        )
+        comp = comp_latency_expr(
+            self.comp_unit[s_idx, n_idx, k],
+            np.asarray(loads, dtype=np.float64),
+            slowdown,
+            factor,
+        )
+        return self.comm[s_idx, n_idx, k], comp
+
+    def task_latency(self, k: np.ndarray, start: np.ndarray, loads) -> np.ndarray:
+        """Total latency (comm + comp) of each worker's next task."""
+        comm, comp = self.task_latency_parts(k, start, loads)
+        return comm + comp
 
     def scalar_task_latency(
         self, scenario: int, worker: int, k: int, start: float, load: float
@@ -327,6 +429,27 @@ class FleetTraces:
             self.comp_unit[scenario, worker, k], load, slowdown, factor
         )
         return self.comm[scenario, worker, k], comp
+
+    def scalar_latency_provider(self, scenario: int, loads):
+        """A ``(worker, start_time) -> latency`` closure consuming this
+        scenario's draws in per-worker order — plug into
+        :class:`~repro_torch.latency.event_sim.EventDrivenSimulator` to
+        replay a pre-sampled trace through the scalar event loop."""
+        if np.ndim(loads) <= 1:
+            loads_arr = np.broadcast_to(
+                np.asarray(loads, dtype=np.float64), (self.num_workers,)
+            ).copy()
+        else:
+            loads_arr = np.asarray(loads[scenario], dtype=np.float64)
+        counters = np.zeros(self.num_workers, dtype=np.int64)
+
+        def provider(i: int, start: float) -> float:
+            k = int(counters[i])
+            counters[i] += 1
+            comm, comp = self.scalar_task_latency(scenario, i, k, start, loads_arr[i])
+            return comm + comp
+
+        return provider
 
 
 def sample_fleet(

@@ -151,9 +151,8 @@ class PaperJob:
         the ``sign(diag(R))`` fix (PCA only)."""
         if self.name != "pca":
             return params
-        # torch.linalg.qr returns a column-major Q (on the card too), and the
-        # sign fix keeps its strides: K5 takes a row-major V
-        return self._fk.project(params).contiguous()
+        # the problem's projection returns a row-major Q, as K5 takes it
+        return self._fk.project(params[None])[0]
 
     def batch_iterator(self) -> Iterator[dict[str, Any]]:
         """Full-partition batches: every step re-evaluates group g on its
