@@ -25,9 +25,14 @@ Phases (any failure raises and the script exits non-zero):
    at d = 1100 and at k = 12), held and timed the same way; K4 on its other
    path too (staged or streaming), equal to the plain version, device time
    beside the chosen one's; K1 and K2 at the scalar simulator's single task
-   and the host engine's median batch (:data:`HOST_BATCH`); last, K3 at
-   10000 events per scenario (its plain version's launches, like phases
-   4-7, leave the profiler without device times for later calls);
+   and the host engine's median batch (:data:`HOST_BATCH`), and at the §6
+   launch shapes (every task padded to the widest window of any ladder
+   rung: 82 rows for ``lb_scan``, the 1000-row local range for PCA); K7
+   (the §6 what-if replay, no TPU counterpart: it replaces an XLA scan) at
+   the ``lb_scan`` batch, its scalar call and PCA's batch, equal to its
+   plain version (``torch.equal``); last, K3 at 10000 events per scenario
+   (its plain version's launches, like phases 4-8, leave the profiler
+   without device times for later calls);
 4. slice 1, the convergence sweep: run the ``grid`` (logreg, n=16384, 100
    workers x 10 scenarios) and ``pca_paper_scale`` (n=50000, 50 workers x 4
    scenarios) recipes at full size through the kernels, all four methods,
@@ -77,7 +82,26 @@ Phases (any failure raises and the script exits non-zero):
    10 seeds x 100 iterations, 3 regimes) on the card, every cell and the
    three orderings equal to the committed file, beside the scalar event
    loop's seconds;
-8. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+8. slice 8, §6 load balancing, with the counters set to 0 just before each
+   path and read just after: (a) the ``lb_scan`` recipe (the ``grid``
+   recipe's dsag with the balancer, ``GRID_LB``) through the device and
+   host engines on the card, through K1 and K7: bit-equal to each other
+   (times, suboptimality, fresh counts, per-worker latencies, publication
+   times, evictions, rejects), and the column (median time-to-gap,
+   ``repartitions_mean``, reached fraction, the orderings against phase
+   4's medians) equal to the committed ``BENCH_convergence.json``
+   ``lb_scan``; wall clocks beside the reference's committed CPU seconds,
+   and Algorithm 1's calls and h estimates timed; (b) the scalar simulator
+   on scenario 0, equal to row 0 of (a); (c) the slot budget: (a) ran the
+   tiled cache (the device engine's only §6 cache), which the tightest
+   budget holding its resident entries still takes, and one entry less
+   makes ``kind="scan"`` refuse with ``active-slots-exceed-budget`` before
+   any launch;
+   (d) ``pca_paper_scale``'s dsag with the balancer at
+   :data:`PCA_LB_DEPTH` iterations, scalar == host == device through K2;
+   (e) (a)'s first Algorithm-1 call again, timed through K7 and through
+   its plain version on the card (not counted);
+9. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -201,6 +225,24 @@ def grid_tasks(n: int, N: int, p: int, S: int, rng) -> tuple[np.ndarray, np.ndar
     return lo.reshape(-1).astype(np.int64), (hi - lo + 1).reshape(-1).astype(np.int64)
 
 
+def lb_tasks(n: int, N: int, p0: int, S: int, rng) -> tuple[np.ndarray, np.ndarray, int]:
+    """Per-task (start, width) of S*N tasks under §6 load balancing: each
+    worker at a random rung of the run's p-ladder and a random sub-block;
+    and the run's pad width (every rung's widest window)."""
+    from repro_torch.cluster.simulator import MethodConfig, lb_ladder_for, task_pad_width
+    from repro_torch.lb.partitioner import p_start, p_stop
+
+    base = np.array([p_start(n, N, i + 1) for i in range(N)])
+    n_loc = np.array([p_stop(n, N, i + 1) for i in range(N)]) - base + 1
+    ladder = np.array(lb_ladder_for(MethodConfig("dsag", subpartitions=p0), n_loc))
+    p = np.minimum(ladder[rng.integers(0, ladder.size, size=(S, N))], n_loc[None, :])
+    k = 1 + np.floor(rng.random((S, N)) * p).astype(np.int64)
+    lo = base[None, :] + (k - 1) * n_loc[None, :] // p
+    hi = base[None, :] + k * n_loc[None, :] // p - 1
+    pad = task_pad_width(MethodConfig("dsag", subpartitions=p0, load_balance=True), n, N)
+    return lo.reshape(-1).astype(np.int64), (hi - lo + 1).reshape(-1).astype(np.int64), pad
+
+
 def device_ms(torch, fn, calls: int) -> tuple[float | None, str]:
     """Device time per call of ``fn`` under ``torch.profiler``: the CUDA
     kernels' time in ``key_averages()`` over ``calls`` calls, divided by
@@ -234,7 +276,8 @@ def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> lis
     and coded calls) at the main paths' shapes, or at ``shapes`` (call ->
     grid layout (N, p, S), or (N, p, S, G): the first G tasks of that layout
     padded to its widest window, as the scalar simulator and the host engine
-    call the kernels) with ``X``'s width and, for K2, ``k`` columns."""
+    call the kernels; or ("lb", N, p0, S): the §6 layout of :func:`lb_tasks`)
+    with ``X``'s width and, for K2, ``k`` columns."""
     from repro_torch.cluster.simulator import MethodConfig, task_pad_width
     from repro_torch.core.problems import make_higgs_like
     from repro_torch.kernels import block_sub
@@ -263,6 +306,9 @@ def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> lis
             Xc, yc = torch.as_tensor(Xl, device=dev), torch.as_tensor(yl, device=dev)
             starts = 1 + (n // G) * np.arange(G, dtype=np.int64)
             widths = np.full(G, n // G, dtype=np.int64)
+        elif shp[0] == "lb":
+            n = X.shape[0]
+            starts, widths, pad = lb_tasks(n, *shp[1:], rng)
         else:
             n = X.shape[0]
             N, p, S = shp[:3]
@@ -331,6 +377,53 @@ def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> lis
               f"plain {p_ms:.4f} ms, bmm pair {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
     return rows
+
+
+def check_what_if(torch, S: int, N: int, w: int, margin: float, rng) -> dict:
+    """Phase 3 for K7 at one §6 shape: what-if draws made from the shipped
+    normals and profiler-like moments (as estimate_h makes them); exact
+    equality with the plain version."""
+    from repro_torch.kernels import what_if
+    from repro_torch.lb import jit_optimizer as jlb
+    from repro_torch.lb.optimizer import what_if_normals
+
+    dev = torch.device("cuda")
+    K = jlb.SIM_ITERATIONS
+
+    def f64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    e_comm = f64(rng.uniform(1e-4, 1e-3, (S, N)))
+    e_comp = f64(rng.uniform(1e-3, 5e-3, (S, N)))
+    v_comm = (f64(rng.uniform(0.05, 0.3, (S, N))) * e_comm) ** 2
+    v_comp = (f64(rng.uniform(0.05, 0.3, (S, N))) * e_comp) ** 2
+    comm, comp = jlb._draw_what_if(what_if_normals(0, N, K, dev), e_comm, v_comm, e_comp, v_comp)
+    total = (comp + comm).contiguous()
+
+    def kernel():
+        return what_if.what_if_replay(total, w, margin)
+
+    def plain():
+        return what_if.what_if_replay_plain(total, w, margin)
+
+    got, want, again = kernel(), plain(), kernel()
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        fail(f"what_if_replay S={S} N={N}: differs from its plain version "
+             f"(max |diff| {float((got - want).abs().max()):.3e}) or does not repeat")
+    k_ms, p_ms = timed_pair(torch, kernel, plain, reps=50, plain_reps=5)
+    dev_ms, dev_kernels = device_ms(torch, kernel, 20)
+    # bytes: total read once, u written once; operations: per iteration ~6
+    # float64 ops per worker and one selection of the w-th smallest of N
+    # finishes, linear work (N compares); the kernel's N-wide rank count per
+    # worker is its own choice, not work the function needs
+    nbytes = total.numel() * 8 + S * N * 8
+    ops = S * K * (6 * N + N)
+    b_ms, b_by = bound_ms(nbytes, ops, PEAK_F64)
+    print(f"  what_if_replay S={S} N={N} K={K} w={w} margin={margin}: equal to its plain "
+          f"version, repeats its bits; kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)}: "
+          f"{dev_kernels}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(call=f"S={S} N={N} w={w}", max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
+                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
@@ -1050,6 +1143,197 @@ def run_engines(torch, outcomes: dict) -> dict:
     return counts
 
 
+#: phase 8 (d): iterations of pca_paper_scale's dsag with the §6 balancer
+#: (the recipe runs 80; the scalar simulator walks one event at a time)
+PCA_LB_DEPTH = 40
+#: the lb_scan column's values held for equality with the committed file
+LB_KEYS = ("median_time_to_gap_dsag_lb", "reached_gap_frac_dsag_lb", "dsag_lb_fastest_to_gap",
+           "sag_over_dsag_lb", "coded_over_dsag_lb", "sgd_over_dsag_lb")
+
+
+def counting(jlb, name: str, log: list):
+    """``mock.patch`` of an optimizer function that logs each call's
+    seconds (ending in a synchronize) and first arguments."""
+    import torch
+
+    real = getattr(jlb, name)
+
+    def wrapper(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, args, kw))
+        return out
+
+    return mock.patch.object(jlb, name, wrapper)
+
+
+def run_lb(torch, outcomes: dict) -> dict:
+    """Phase 8: §6 load balancing through the three engines on the card."""
+    import dataclasses
+
+    from repro_torch.cluster.simulator import TraceLatencySource, TrainingSimulator
+    from repro_torch.experiments.convergence import (
+        GRID_LB,
+        run_convergence_batch,
+    )
+    from repro_torch.experiments.engine import (
+        CAP_ACTIVE_SET,
+        CAP_TILED,
+        EngineCapabilityError,
+        EngineConfig,
+    )
+    from repro_torch.experiments.fused import scan_capability
+    from repro_torch.experiments.results import run_lb_scan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.lb import jit_optimizer as jlb
+    from repro_torch.lb.optimizer import what_if_source
+
+    card = EngineConfig(device="cuda", kernel_backend="cuda")
+    committed = json.loads((ROOT / "BENCH_convergence.json").read_text())["lb_scan"]
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def add_counts() -> dict:
+        now = launch_counts()
+        for k, v in now.items():
+            counts[k] += v
+        return now
+
+    # (a) the lb_scan recipe through the device and host engines
+    out, gap = outcomes["grid"]
+    N, S, T = out.traces.num_workers, out.traces.num_scenarios, out.num_iterations
+    if what_if_source(out.seed, N) != "reference":
+        fail(f"the what-if draws of seed {out.seed}, N={N} are not the reference's")
+    dsag = dataclasses.replace(out.methods["dsag"], **GRID_LB)
+    calls, hs = [], []
+    reset_launch_counts()
+    with counting(jlb, "lb_update", calls), counting(jlb, "estimate_h", hs):
+        run = run_lb_scan(out.problem, out.traces, dsag, num_iterations=T,
+                          eval_every=out.eval_every, seed=out.seed, engine=card)
+    n_a = add_counts()
+    if n_a["logreg_block_sub"] == 0 or n_a["what_if_replay"] == 0:
+        fail(f"lb_scan ran without logreg_block_sub or what_if_replay: {n_a}")
+    bad = run.mismatches()
+    if bad:
+        fail(f"lb_scan: the host and device engines differ in {bad}")
+    base = {m: float(np.median(r.time_to_gap(gap))) for m, r in out.results.items()}
+    col = run.column(gap, base)
+    print(f"  lb_scan (grid recipe's dsag, load_balance, {GRID_LB}; {N} workers x {S} "
+          f"scenarios x {T} iterations): host == device bit for bit (times, suboptimality, "
+          f"fresh counts, per-worker latencies, repartition events, evictions, rejects); "
+          f"launches over both engines: {n_a['logreg_block_sub']} logreg_block_sub, "
+          f"{n_a['what_if_replay']} what_if_replay")
+    print(f"    {'value':>28} {'port (card)':>22} {'committed':>22} equal")
+    mine = dict(col["ordering"], repartitions_mean=col["repartitions_mean"])
+    for key in LB_KEYS + ("repartitions_mean",):
+        theirs = committed["ordering"].get(key, committed.get(key))
+        print(f"    {key:>28} {mine[key]!r:>22} {theirs!r:>22} {mine[key] == theirs}")
+        if mine[key] != theirs:
+            fail(f"lb_scan: {key} {mine[key]!r} differs from the committed {theirs!r}")
+    opt_s = [c[0] for c in calls]
+    print(f"    wall clock (host, synchronized): device engine {run.scan_seconds:.2f} s, host "
+          f"engine {run.host_seconds:.2f} s; the reference's CPU figures (JAX on the CPU, "
+          f"committed): scan {committed['scan_seconds']:.2f} s, host "
+          f"{committed['host_seconds']:.2f} s")
+    # the engines are bit-equal, so each made the same calls
+    print(f"    Algorithm 1 (lb_update): {len(calls) // 2} batched calls per engine, "
+          f"{sum(opt_s):.2f} s over both, {np.median(opt_s):.3f} s median per call; "
+          f"{len(hs)} h estimates (K={jlb.SIM_ITERATIONS} what-if iterations each), "
+          f"{np.median([h[0] for h in hs]) * 1e3:.2f} ms median each")
+
+    # (b) the scalar simulator on scenario 0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = TrainingSimulator(out.problem, out.cluster, run.config, eval_every=out.eval_every,
+                             seed=out.seed, latency_source=TraceLatencySource(out.traces, 0),
+                             engine=card).run(T)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    n_b = add_counts()
+    engines_equal("lb_scan scalar/scenario 0", hist, {"scan": run.scan})
+    print(f"  lb_scan scalar simulator, scenario 0: == row 0 of the device engine bit for bit "
+          f"({len(hist.repartition_events)} repartitions) in {wall_b:.2f} s "
+          f"({n_b['logreg_block_sub']} logreg_block_sub, {n_b['what_if_replay']} "
+          f"what_if_replay launches)")
+
+    # (c) the slot budget: (a) ran the tiled cache; the tightest budget that
+    # holds its resident entries takes the recipe, one entry less refuses it
+    cap = scan_capability(out.problem, run.config, N)
+    tight = scan_capability(out.problem, run.config, N, slot_budget=cap.slots_resident)
+    if cap.code != CAP_TILED or tight.code != CAP_TILED:
+        fail(f"lb_scan: scan_capability reports {cap.code} (default budget) and {tight.code} "
+             f"(budget {cap.slots_resident}), not {CAP_TILED}")
+    reset_launch_counts()
+    try:
+        run_convergence_batch(out.problem, out.traces, run.config, T, eval_every=out.eval_every,
+                              seed=out.seed,
+                              engine=dataclasses.replace(card, kind="scan",
+                                                         slot_budget=cap.slots_resident - 1))
+    except EngineCapabilityError as e:
+        code = e.capability.code
+    else:
+        fail(f"lb_scan ran on the device engine past a slot budget of {cap.slots_resident - 1}")
+    refused_launches = sum(launch_counts().values())
+    if code != CAP_ACTIVE_SET or refused_launches:
+        fail(f"lb_scan past its slot budget: refused with {code}, after {refused_launches} "
+             f"launches (expected {CAP_ACTIVE_SET}, before any)")
+    print(f"  lb_scan slot budget: (a) ran the tiled cache ({cap.code}, <= "
+          f"{cap.slots_resident} resident entries of a {cap.slots_total}-slot universe); "
+          f"budget {cap.slots_resident} -> {tight.code}; budget {cap.slots_resident - 1} -> "
+          f"kind='scan' refused with {code} before any launch")
+
+    # (d) PCA with §6 through K2 at reduced depth
+    out_p, _ = outcomes["pca_paper_scale"]
+    cfg_p = dataclasses.replace(out_p.methods["dsag"], load_balance=True, **GRID_LB)
+    Tp = PCA_LB_DEPTH
+    runs, walls = {}, {}
+    reset_launch_counts()
+    for kind in ("scan", "host"):
+        t0 = time.perf_counter()
+        runs[kind] = run_convergence_batch(out_p.problem, out_p.traces, cfg_p, Tp,
+                                           eval_every=out_p.eval_every, seed=out_p.seed,
+                                           engine=dataclasses.replace(card, kind=kind))
+        torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hist_p = TrainingSimulator(out_p.problem, out_p.cluster, cfg_p, eval_every=out_p.eval_every,
+                               seed=out_p.seed,
+                               latency_source=TraceLatencySource(out_p.traces, 0),
+                               engine=card).run(Tp)
+    torch.cuda.synchronize()
+    walls["scalar"] = time.perf_counter() - t0
+    n_d = add_counts()
+    if n_d["pca_block_sub"] == 0 or n_d["what_if_replay"] == 0:
+        fail(f"PCA with §6 ran without pca_block_sub or what_if_replay: {n_d}")
+    engines_equal("pca_paper_scale dsag+lb", hist_p, runs)
+    reps = [len(e) for e in runs["scan"].repartition_events]
+    if sum(reps) == 0:
+        fail("PCA with §6: no scenario published a repartition")
+    print(f"  pca_paper_scale dsag, load_balance ({GRID_LB}), {Tp} of 80 iterations, "
+          f"{out_p.traces.num_scenarios} scenarios: scalar == host == device bit for bit "
+          f"(repartitions per scenario {reps}, evictions {runs['scan'].evictions.tolist()}); "
+          f"device {walls['scan']:.2f} s, host {walls['host']:.2f} s, scalar scenario 0 "
+          f"{walls['scalar']:.2f} s; {n_d['pca_block_sub']} pca_block_sub, "
+          f"{n_d['what_if_replay']} what_if_replay launches")
+
+    # (e) (a)'s first Algorithm-1 call again, through K7 and through its plain
+    # version on the card (comparison runs: their launches are not counted)
+    args, kw = calls[0][1], calls[0][2]
+    for backend in ("cuda", "torch"):
+        hs_e = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting(jlb, "estimate_h", hs_e):
+            jlb.lb_update(*args, **dict(kw, kernel_backend=backend))
+        torch.cuda.synchronize()
+        print(f"  lb_scan's first Algorithm-1 call, replay through "
+              f"{'K7' if backend == 'cuda' else 'its plain version'}: "
+              f"{time.perf_counter() - t0:.3f} s, {len(hs_e)} h estimates, "
+              f"{np.median([h[0] for h in hs_e]) * 1e3:.2f} ms median each")
+    reset_launch_counts()
+    return counts
+
+
 def logit_diff(torch, got, want) -> tuple[float, float]:
     """(max |got - want| / max |want|, ||got - want|| / ||want||), float32."""
     got, want = got.float(), want.float()
@@ -1490,6 +1774,20 @@ def main() -> None:
     per_kernel["pca_block_sub"] += check_block_sub(
         torch, "pca", Xg, None, rng,
         shapes={"scalar G=1": (50, 5, 4, 1), f"host G={G_pca}": (50, 5, 4, G_pca)})
+    # K1 and K2 at the §6 launch shapes (phase 8): every task padded to the
+    # widest window of any ladder rung, 82 rows for the lb_scan recipe, the
+    # whole 1000-row local range (rung 1) for pca_paper_scale
+    per_kernel["logreg_block_sub"] += check_block_sub(
+        torch, "logreg", Xh, yh, rng, shapes={"lb_scan": ("lb", 100, 10, 10)})
+    per_kernel["pca_block_sub"] += check_block_sub(
+        torch, "pca", Xg, None, rng, shapes={"pca lb": ("lb", 50, 5, 4)})
+    # K7 at the §6 shapes: the lb_scan recipe's batched call (the device and
+    # host engines) and its scalar call, and pca_paper_scale's batched call
+    per_kernel["what_if_replay"] = [
+        check_what_if(torch, 10, 100, 80, 0.02, rng),
+        check_what_if(torch, 1, 100, 80, 0.02, rng),
+        check_what_if(torch, 4, 50, 40, 0.02, rng),
+    ]
     # K3 at a dsag sweep of 5000 workers (p = 10): five windows of ranks, one
     # walk block per scenario; last, as its plain version's many launches
     # leave the profiler without device times for the kernels after it (so do
@@ -1515,8 +1813,12 @@ def main() -> None:
     t0 = time.perf_counter()
     engine_launches = run_engines(torch, outcomes)
     print(f"  phase 7 took {time.perf_counter() - t0:.1f} s")
+    print("phase 8: §6 load balancing through the device, host and scalar engines")
+    t0 = time.perf_counter()
+    lb_launches = run_lb(torch, outcomes)
+    print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
-                + engine_launches.get(k, 0) for k in sweep_launches}
+                + engine_launches.get(k, 0) + lb_launches.get(k, 0) for k in sweep_launches}
     launches["flash_attention"] = serving["launches"]
 
     meta = {
@@ -1532,6 +1834,9 @@ def main() -> None:
                         "src/repro/kernels/gram_matvec.py:41"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:78"),
+        # no TPU kernel: the XLA scan it replaces
+        "what_if_replay": ("src/repro_torch/kernels/csrc/what_if.cu",
+                           "src/repro/lb/jit_optimizer.py:157"),
     }
     kernels = []
     for name, rows in per_kernel.items():
@@ -1543,6 +1848,7 @@ def main() -> None:
             launches_wide_sweep=wide_launches.get(name, 0),
             launches_live=live_launches.get(name, 0),
             launches_engines=engine_launches.get(name, 0),
+            launches_lb=lb_launches.get(name, 0),
             launches_serve=serving["launches"] if name == "flash_attention" else 0,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],

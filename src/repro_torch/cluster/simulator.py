@@ -15,9 +15,14 @@ written for numpy arrays and torch tensors alike (plain operators only), so
 the scalar :class:`TrainingSimulator`, the host engine and the device engine
 evaluate the exact same float expressions, one rounding per operator.
 
-§6 load balancing (``load-balance-not-ported``) and traces carrying a
-``ChurnSchedule`` (``churn-not-ported``) are refused when the simulator is
-built, before any step.
+§6 load balancing plugs in as in the reference: every completion is
+recorded into a task-slot :class:`~repro_torch.latency.profiler.
+MomentBuffer`; Algorithm 1 (:class:`~repro_torch.lb.optimizer.
+LoadBalanceOptimizer`) runs every ``lb_interval`` simulated seconds after a
+``lb_startup_delay``, and a published p reaches each worker with its next
+task, where Algorithm 2 aligns it.  Traces carrying a ``ChurnSchedule``
+(``churn-not-ported``) are refused when the simulator is built, before any
+step.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ from repro_torch.experiments.engine import (
     kernel_dtype_capability,
 )
 from repro_torch.latency.model import ClusterLatencyModel, FleetTraces
-from repro_torch.latency.profiler import LatencyProfiler, LatencySample
-from repro_torch.lb.partitioner import Subpartitioner, p_start, p_stop
+from repro_torch.latency.profiler import LatencyProfiler, LatencySample, MomentBuffer
+from repro_torch.lb.optimizer import LoadBalanceOptimizer, OptimizerInputs
+from repro_torch.lb.partitioner import Subpartitioner, build_p_ladder, p_start, p_stop
 
 
 def task_finish_time(start, comp, comm):
@@ -66,6 +72,31 @@ def effective_w(config: MethodConfig, num_workers: int) -> int:
     return min(config.w if config.w > 0 else num_workers, num_workers)
 
 
+def lb_ladder_for(config: MethodConfig, n_local) -> tuple:
+    """The §6 p-ladder of a run: every engine climbs the same rungs.
+
+    Built from the configured initial subpartition count and the largest
+    per-worker sample count; the scalar simulator, the host engine and the
+    device engine (and its slot universe) all take their ladder from here.
+    """
+    return build_p_ladder(max(int(config.subpartitions), 1), int(np.max(n_local)))
+
+
+def make_optimizer_inputs(e_comm, v_comm, e_comp, v_comp, samples_per_worker, w: int,
+                          margin: float) -> OptimizerInputs:
+    """§6.1 profiler moments -> Algorithm-1 inputs (variance floors applied);
+    ``[N]`` arrays (scalar simulator) or ``[S, N]`` (host engine)."""
+    return OptimizerInputs(
+        e_comm=np.asarray(e_comm, dtype=np.float64),
+        v_comm=np.maximum(np.asarray(v_comm, dtype=np.float64), 1e-18),
+        e_comp=np.asarray(e_comp, dtype=np.float64),
+        v_comp=np.maximum(np.asarray(v_comp, dtype=np.float64), 1e-18),
+        samples_per_worker=np.asarray(samples_per_worker, dtype=np.float64),
+        w=w,
+        margin=margin,
+    )
+
+
 def _local_widths(n_local: int, p: int, full: bool) -> set:
     if full:
         return {n_local}
@@ -78,15 +109,20 @@ def task_pad_width(config: MethodConfig, num_samples: int, num_workers: int) -> 
     Every engine passes this one width to the §3 block-subgradient call of
     every task (K1's slab count and warps and the plain versions' gather
     width follow it), so a task's value does not depend on how many tasks
-    share its call.  The coded bound's full-range call pads to
-    ``num_samples``.
+    share its call.  Under §6 load balancing every ladder rung's widths
+    count (any of them can appear once repartitions start).  The coded
+    bound's full-range call pads to ``num_samples``.
     """
     n, N = num_samples, num_workers
     full = config.name in ("gd", "coded")
+    n_locals = [p_stop(n, N, i) - p_start(n, N, i) + 1 for i in range(1, N + 1)]
+    rungs = [config.subpartitions]
+    if config.load_balance and not full:
+        rungs += list(lb_ladder_for(config, n_locals))
     widths: set = set()
-    for i in range(1, N + 1):
-        n_local = p_stop(n, N, i) - p_start(n, N, i) + 1
-        widths |= _local_widths(n_local, min(config.subpartitions, n_local), full)
+    for n_local in n_locals:
+        for p in rungs:
+            widths |= _local_widths(n_local, min(p, n_local), full)
     return max(widths)
 
 
@@ -186,7 +222,7 @@ class RunHistory:
     suboptimality: np.ndarray  # [T] gap after each iteration (subsampled = nan)
     fresh_counts: np.ndarray  # [T]
     per_worker_latency: np.ndarray  # [T, N] latency of the task started at t
-    repartition_events: list[float]  # sim times of §6 publications (none yet)
+    repartition_events: list[float]  # sim times at which a new p was published
     evictions: int = 0
     rejected_stale: int = 0
     #: [T, N] bool coordinator decision streams, the step inputs the live
@@ -218,9 +254,13 @@ class _SimWorker:
         self.sub = sub
         self.busy_until = 0.0
         self.queued: _Task | None = None
+        self.pending_p: int | None = None  # §6 update, applied at the next task
 
     def start_task(self, task: _Task, now: float, sim: TrainingSimulator, comp_scale: float):
         """Begin processing; returns (finish_time, result tuple)."""
+        if self.pending_p is not None:
+            self.sub.repartition(self.pending_p)  # Algorithm-2 alignment
+            self.pending_p = None
         if sim.process_full:
             interval = (self.sub.base_start, self.sub.base_stop)
         else:
@@ -248,9 +288,12 @@ class TrainingSimulator:
 
     ``engine`` (default ``EngineConfig()``: the card, CUDA kernels) names the
     device and kernel backend of the subgradients, projections and
-    suboptimality.  Raises :class:`~repro_torch.experiments.engine.
-    EngineCapabilityError` at construction for what the port does not run
-    (§6 load balancing, churn traces, a missing card).
+    suboptimality, and the device of the §6 optimizer's float64 arithmetic.
+    ``what_if_normals`` (``[2, N, K]``) overrides the §6 what-if draws
+    (:func:`~repro_torch.lb.optimizer.what_if_normals`).  Raises
+    :class:`~repro_torch.experiments.engine.EngineCapabilityError` at
+    construction for what the port does not run (churn traces, a missing
+    card).
     """
 
     def __init__(
@@ -265,6 +308,7 @@ class TrainingSimulator:
         seed: int = 0,
         latency_source: LatencySource | None = None,
         engine: EngineConfig | None = None,
+        what_if_normals=None,
     ):
         self.problem = problem
         self.cluster = cluster
@@ -280,7 +324,7 @@ class TrainingSimulator:
             if isinstance(self.latency_source, TraceLatencySource)
             else None
         )
-        # §6 load balancing and churn traces are refused here, before any step
+        # churn traces are refused here, before any step
         cap = engine_capability(self.engine, config, traces)
         if cap.supported:
             cap = kernel_dtype_capability(
@@ -321,6 +365,17 @@ class TrainingSimulator:
             for i in range(N)
         ]
         self.profiler = LatencyProfiler(N, window=10.0)
+        if config.load_balance:
+            n_local = np.array([w.sub.n_local for w in self.workers])
+            self.lb_optimizer = LoadBalanceOptimizer(
+                seed=seed, ladder=lb_ladder_for(config, n_local),
+                what_if_normals=what_if_normals, device=self.engine.device,
+                kernel_backend=self.engine.kernel_backend,
+            )
+        else:
+            self.lb_optimizer = None
+        self._next_lb_time = config.lb_startup_delay if config.load_balance else math.inf
+        self._lb_buffer: MomentBuffer | None = None  # allocated per run()
 
     def run(self, num_iterations: int) -> RunHistory:
         cfg = self.config
@@ -345,7 +400,12 @@ class TrainingSimulator:
         mask_stream = np.zeros((num_iterations, N), dtype=bool)
         flush_stream = np.zeros((num_iterations, N), dtype=bool)
         evict_stream = np.zeros((num_iterations, N), dtype=bool)
+        repartition_events: list[float] = []
         event_ptr = 0
+        current_p = np.full(N, cfg.subpartitions, dtype=np.int64)
+        self._lb_buffer = (
+            MomentBuffer(1, N, num_iterations, device=eng.device) if cfg.load_balance else None
+        )
 
         for t in range(num_iterations):
             # fire timed environment events (e.g. the §7.2 slowdown removal)
@@ -384,6 +444,9 @@ class TrainingSimulator:
                         load=problem.compute_cost(*interval) * comp_scale,
                     )
                 )
+                if self._lb_buffer is not None:
+                    # the task-slot twin of the sample above (the §6 view)
+                    self._lb_buffer.record(0, widx, titer, now, now - assigned_at, comp_lat)
                 # start the queued task at once (FILO queue of length 1)
                 if wk.queued is not None:
                     qt, wk.queued = wk.queued, None
@@ -437,15 +500,48 @@ class TrainingSimulator:
             if t % self.eval_every == 0 or t == num_iterations - 1:
                 subopt[t] = problem.suboptimality(V, engine=eng)
 
+            # ---- load balancing (the background loop, simulated) ----------
+            if cfg.load_balance and now >= self._next_lb_time:
+                published = self._run_load_balancer(now, current_p, w_wait)
+                if published is not None:
+                    current_p = published
+                    repartition_events.append(now)
+                self._next_lb_time = now + cfg.lb_interval
+
         return RunHistory(
             times=times,
             suboptimality=subopt,
             fresh_counts=fresh_counts,
             per_worker_latency=lat_matrix,
-            repartition_events=[],
+            repartition_events=repartition_events,
             evictions=cache.evictions if cache else 0,
             rejected_stale=cache.rejected_stale if cache else 0,
             mask_stream=mask_stream,
             flush_stream=flush_stream,
             evict_stream=evict_stream,
         )
+
+    def _run_load_balancer(self, now: float, current_p: np.ndarray,
+                           w_wait: int) -> np.ndarray | None:
+        """One Algorithm-1 call on the window at ``now``; the published p, or
+        None (a worker without a sample in the window, or no publication)."""
+        e_comm, v_comm, e_comp, v_comp, cnt = self._lb_buffer.moments(np.array([now]))
+        if not (cnt[0] >= 1).all():
+            return None  # every worker needs a sample in the window
+        n_i = np.array([w.sub.n_local for w in self.workers], dtype=np.float64)
+        inputs = make_optimizer_inputs(
+            e_comm[0], v_comm[0], e_comp[0], v_comp[0], n_i, w_wait, self.config.margin
+        )
+        lb = self.lb_optimizer
+        hm = np.array([np.nan if lb.h_min is None else lb.h_min])
+        p_new, h_min, last_h, publish = lb.update_batch(
+            np.asarray(current_p, np.int64)[None, :], inputs.as_batch(), hm
+        )
+        lb.h_min = float(h_min[0])
+        lb.last_h = float(last_h[0])
+        if not publish[0]:
+            return None
+        for i, wk in enumerate(self.workers):
+            if p_new[0, i] != current_p[i]:
+                wk.pending_p = int(p_new[0, i])
+        return p_new[0]

@@ -8,6 +8,8 @@ engine and print each method's time-to-gap across scenarios.
   python -m repro_torch.convergence_sweep --device cpu --kernel-backend torch \\
       --workers 8 --scenarios 2 --iters 10 --samples 1024
   python -m repro_torch.convergence_sweep --engine host --check-scalar
+  python -m repro_torch.convergence_sweep --load-balance [--slot-budget 8000]
+  python -m repro_torch.convergence_sweep --lb-column --out lb.json
 
 Runs DSAG, SAG (w = N), SGD and the idealized coded bound through the full
 training loop on one shared heavy-burst trace draw, like
@@ -16,11 +18,23 @@ table and the same ``sag/dsag``, ``coded/dsag`` line.  ``--engine host``
 runs the numpy host loop instead of the device engine; ``--check-scalar``
 replays scenario 0 of every method through the scalar ``TrainingSimulator``
 on the same device and kernels and fails unless it is bit-exact.
+``--load-balance`` runs DSAG with the §6 load balancer; ``--slot-budget``
+caps the device engine's densely resident §6 cache slots (above it the
+tiled cache runs; past even that, ``--engine auto`` runs the host engine).
+``--lb-column`` runs the ``grid`` recipe and then its dsag with the §6
+balancer through both engines (the ``lb_scan`` column of
+``BENCH_convergence.json``), fails unless the two are bit-equal, and prints
+the column.  ``--out`` writes the ordering (and the column) as JSON there;
+nothing writes the committed ``BENCH_*.json``.  The §6 what-if draws are
+the reference's where the package ships them (seed 0 at 100 and 50
+workers); otherwise torch's generator draws them, and the run then differs
+from the reference by its draws alone (the output says which).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -33,8 +47,11 @@ from repro_torch.core.problems import (
     make_higgs_like,
 )
 from repro_torch.experiments.convergence import (
+    GRID_LB,
+    GRID_LOGREG,
     PAPER_SCALE_PCA,
     default_convergence_methods,
+    grid_logreg_sweep,
     history_mismatches,
     paper_scale_pca_sweep,
     run_convergence_sweep,
@@ -42,8 +59,9 @@ from repro_torch.experiments.convergence import (
 )
 from repro_torch.experiments.engine import EngineConfig
 from repro_torch.experiments.grid import HEAVY_BURSTS
-from repro_torch.experiments.results import convergence_ordering
+from repro_torch.experiments.results import convergence_ordering, run_lb_scan, write_json
 from repro_torch.latency.model import make_heterogeneous_cluster
+from repro_torch.lb.optimizer import what_if_source
 
 
 def run(argv=None):
@@ -77,12 +95,26 @@ def run(argv=None):
     ap.add_argument("--check-scalar", action="store_true",
                     help="replay scenario 0 of every method through the scalar "
                     "TrainingSimulator and fail unless it is bit-exact")
+    ap.add_argument("--load-balance", action="store_true",
+                    help="run DSAG with the §6 load balancer in the loop")
+    ap.add_argument("--slot-budget", type=int, default=None,
+                    help="the device engine's budget of resident §6 cache entries "
+                    "(default fused.LB_MAX_SLOTS); past it --engine auto runs the host "
+                    "engine and --engine scan refuses")
+    ap.add_argument("--lb-column", action="store_true",
+                    help="run the grid recipe, then its dsag with the §6 balancer "
+                    "through the host and device engines (the lb_scan column)")
+    ap.add_argument("--out", default=None, help="write the ordering (and column) as JSON here")
     args = ap.parse_args(argv)
     engine = EngineConfig(
-        device=args.device, kernel_backend=args.kernel_backend, kind=args.engine
+        device=args.device, kernel_backend=args.kernel_backend, kind=args.engine,
+        slot_budget=args.slot_budget,
     )
 
-    if args.paper_scale:
+    if args.lb_column:
+        out, default_gap = grid_logreg_sweep(seed=0, engine=engine)
+        print(f"grid recipe: {GRID_LOGREG}")
+    elif args.paper_scale:
         out, default_gap = paper_scale_pca_sweep(seed=0, engine=engine)
         N = out.traces.num_workers
         print(
@@ -106,7 +138,8 @@ def run(argv=None):
         c_task = prob.compute_cost(1, max(prob.num_samples // (N * sp), 1))
         cluster = make_heterogeneous_cluster(N, seed=0, burst_rate=0.0, load_unit=c_task)
         w = min(max(round(args.w_frac * N), 1), N)
-        methods = default_convergence_methods(N, w=w, eta=eta, subpartitions=sp)
+        methods = default_convergence_methods(N, w=w, eta=eta, subpartitions=sp,
+                                              load_balance_dsag=args.load_balance)
         out = run_convergence_sweep(
             prob, cluster, methods,
             n_scenarios=args.scenarios, num_iterations=args.iters,
@@ -130,15 +163,43 @@ def check_scalar(out, engine: EngineConfig) -> tuple[float, float]:
     return measured, measured * out.traces.num_scenarios
 
 
+def draws_note(seed: int, num_workers: int) -> str:
+    """What the output says about the §6 what-if draws of a run."""
+    if what_if_source(seed, num_workers) == "reference":
+        return f"§6 what-if draws: the reference's (seed {seed}, N={num_workers})"
+    return (f"§6 what-if draws: torch's generator (seed {seed}, N={num_workers}); the run "
+            "differs from the reference by its draws alone")
+
+
+def lb_column(out, gap: float, engine: EngineConfig) -> dict:
+    """The ``lb_scan`` column on ``out``'s traces: its dsag with the §6
+    balancer (the recipe's schedule) through both engines, which must agree
+    bit for bit; the ratios are against ``out``'s medians."""
+    run_ = run_lb_scan(
+        out.problem, out.traces, dataclasses.replace(out.methods["dsag"], **GRID_LB),
+        num_iterations=out.num_iterations, eval_every=out.eval_every, seed=out.seed,
+        engine=EngineConfig(device=engine.device, kernel_backend=engine.kernel_backend,
+                            slot_budget=engine.slot_budget),
+    )
+    bad = run_.mismatches()
+    if bad:
+        raise AssertionError(f"lb_scan: the host and device engines differ in {bad}")
+    base = {m: float(np.median(r.time_to_gap(gap))) for m, r in out.results.items()}
+    return run_.column(gap, base)
+
+
 def main(argv=None) -> dict:
     out, gap, args = run(argv)
     N = out.traces.num_workers
-    engine = EngineConfig(device=args.device, kernel_backend=args.kernel_backend)
+    engine = EngineConfig(device=args.device, kernel_backend=args.kernel_backend,
+                          slot_budget=args.slot_budget)
     print(
         f"{len(out.methods)} methods x {out.traces.num_scenarios} scenarios x "
         f"{out.num_iterations} iterations in {out.engine_seconds:.2f}s "
         f"({args.engine} engine, device {args.device}, {args.kernel_backend} kernels)"
     )
+    if args.load_balance or args.lb_column:
+        print(draws_note(out.seed, N))
     if args.check_scalar:
         measured, scaled = check_scalar(out, engine)
         print(f"scalar TrainingSimulator replay of scenario 0: bit-exact for "
@@ -161,6 +222,23 @@ def main(argv=None) -> dict:
         f"coded/dsag={o['coded_over_dsag']:.2f}x "
         f"dsag_fastest={bool(o['dsag_fastest_to_gap'])}"
     )
+    payload = {"ordering": o}
+    if args.lb_column:
+        col = lb_column(out, gap, engine)
+        lo = col["ordering"]
+        print(
+            f"lb_scan: host == device bit for bit; host {col['host_seconds']:.2f}s, device "
+            f"{col['scan_seconds']:.2f}s; median t->gap dsag+lb "
+            f"{lo['median_time_to_gap_dsag_lb']!r}, repartitions_mean "
+            f"{col['repartitions_mean']!r}, sag/dsag_lb={lo['sag_over_dsag_lb']:.3f} "
+            f"coded/dsag_lb={lo['coded_over_dsag_lb']:.3f} "
+            f"fastest={bool(lo['dsag_lb_fastest_to_gap'])}"
+        )
+        payload["lb_scan"] = col
+        o = dict(o, lb_scan=col)
+    if args.out:
+        write_json(payload, args.out)
+        print(f"wrote {args.out}")
     return o
 
 

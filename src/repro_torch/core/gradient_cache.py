@@ -22,9 +22,9 @@ updated in place (paper remark: the update then degrades to SAG's).
 Everything here is numpy float64: the scalar ``TrainingSimulator`` keeps a
 :class:`GradientCache`, the host engine a :class:`BatchedGradientCache`, and
 both add in the order the device engine's cache walk (kernel K3) adds, so
-the three agree bit for bit.  The §6 slot universe of the reference
-(``SlotUniverse``, ``build_slot_universe``, ``active_slot_capacity``) comes
-with the load balancer, which is not ported yet.
+the three agree bit for bit.  The §6 slot universes (:class:`SlotUniverse`,
+:func:`build_slot_universe`, :func:`active_slot_capacity`) are integer numpy
+tables the device engine's §6 cache walks index.
 
 Example — staleness dominance and overlap eviction (paper §5):
 
@@ -51,6 +51,8 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.lb.partitioner import p_start, p_stop
+
 
 def scenario_ranks(ev_s: np.ndarray) -> np.ndarray:
     """Position of each event within its scenario's subsequence.
@@ -72,6 +74,106 @@ def scenario_ranks(ev_s: np.ndarray) -> np.ndarray:
         sorted_s, sorted_s, side="left"
     )
     return ranks
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotUniverse:
+    """The pre-allocated interval universe of a fused §6 run.
+
+    With Algorithm 1 restricted to the p-ladder
+    (:func:`repro_torch.lb.partitioner.build_p_ladder`), the set of intervals a
+    repartition can ever produce is finite and known before the run:
+    every (worker, ladder entry, cyclic index) triple, ``E ≈ N *
+    sum(ladder)`` slots.  The device engine's tiled cache names its
+    entries by these slots, so a §6 repartition changes table entries at
+    static shapes instead of growing the slot table mid-run.
+
+    ``slot_table[i, l, k-1]`` maps worker ``i``'s k-th subpartition at
+    ladder entry ``l`` to its slot.  The reference's ``overlap_idx``
+    tables (per-slot overlap lists for its dense cache walk) are left out:
+    the port's device engine keeps only the tiled cache, which tests
+    overlaps against its active entries at run time.
+    """
+
+    starts: np.ndarray  # [E] 1-based inclusive
+    stops: np.ndarray  # [E]
+    widths: np.ndarray  # [E]
+    slot_table: np.ndarray  # [N, L, Pmax] int64, -1 where k > p
+    owners: np.ndarray  # [E] worker index whose base range contains the slot
+
+    @property
+    def num_slots(self) -> int:
+        return int(self.starts.size)
+
+
+def build_slot_universe(base_start, base_stop, ladder: tuple[int, ...]) -> SlotUniverse:
+    """Enumerate the p-ladder's reachable intervals (see :class:`SlotUniverse`)."""
+    base_start = np.asarray(base_start, dtype=np.int64)
+    base_stop = np.asarray(base_stop, dtype=np.int64)
+    N, L = base_start.size, len(ladder)
+    n_local = base_stop - base_start + 1
+    pmax = int(min(max(ladder), int(n_local.max())))
+    slot_of: dict = {}
+    starts: list[int] = []
+    stops: list[int] = []
+    owner: list[int] = []
+    slot_table = np.full((N, L, pmax), -1, dtype=np.int64)
+    for i in range(N):
+        nl = int(n_local[i])
+        for li, raw in enumerate(ladder):
+            p = min(int(raw), nl)
+            for k in range(1, p + 1):
+                lo = int(base_start[i]) + p_start(nl, p, k) - 1
+                hi = int(base_start[i]) + p_stop(nl, p, k) - 1
+                slot = slot_of.get((lo, hi))
+                if slot is None:
+                    slot = len(starts)
+                    slot_of[(lo, hi)] = slot
+                    starts.append(lo)
+                    stops.append(hi)
+                    owner.append(i)
+                slot_table[i, li, k - 1] = slot
+    starts_a = np.asarray(starts, dtype=np.int64)
+    stops_a = np.asarray(stops, dtype=np.int64)
+    owner_a = np.asarray(owner, dtype=np.int64)
+    return SlotUniverse(
+        starts=starts_a,
+        stops=stops_a,
+        widths=stops_a - starts_a + 1,
+        slot_table=slot_table,
+        owners=owner_a,
+    )
+
+
+def active_slot_capacity(universe: SlotUniverse) -> np.ndarray:
+    """Per-worker hard cap on simultaneously *active* cache entries.
+
+    A worker's active entries are pairwise-disjoint intervals drawn from
+    its slot universe, so no run can ever hold more of them than the
+    largest disjoint subset of that universe — the classic greedy
+    interval-scheduling count (sort by stop, take every interval starting
+    after the last taken stop).  The fused engine's tiled cache sizes its
+    per-worker entry tables with this bound, which also guarantees a free
+    entry always exists at insert time: after evictions the active set
+    plus the incoming interval is again disjoint, hence within the cap.
+    """
+    slot_table = universe.slot_table
+    N = slot_table.shape[0]
+    caps = np.zeros(N, dtype=np.int64)
+    for i in range(N):
+        sl = np.unique(slot_table[i][slot_table[i] >= 0])
+        if sl.size == 0:
+            continue
+        a, b = universe.starts[sl], universe.stops[sl]
+        order = np.argsort(b, kind="stable")
+        count = 0
+        last = np.iinfo(np.int64).min
+        for j in order:
+            if a[j] > last:
+                count += 1
+                last = b[j]
+        caps[i] = count
+    return caps
 
 
 @dataclasses.dataclass

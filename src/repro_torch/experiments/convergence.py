@@ -11,7 +11,16 @@ runs one of two engines (``EngineConfig.kind``):
 * ``"host"`` — the numpy loop below: the §4.2 event algebra as ``[S, N]``
   numpy arrays, the §5 cache in a :class:`~repro_torch.core.
   gradient_cache.BatchedGradientCache`, and one masked-batch subgradient
-  call per iteration through the problem's kernels (K1/K2 on the card).
+  call per iteration through the problem's kernels (K1/K2 on the card);
+  under §6 load balancing a :class:`~repro_torch.latency.profiler.
+  MomentBuffer` ``[S, N, T]`` and one batched Algorithm-1 call
+  (:class:`~repro_torch.lb.optimizer.LoadBalanceOptimizer`, on the engine's
+  device) over the scenarios that are due.
+
+``"auto"`` runs the device engine unless
+:func:`~repro_torch.experiments.fused.scan_capability` reports that it
+cannot hold a §6 config's cache within ``EngineConfig.slot_budget``; then
+it runs the host engine (which still calls K1/K2 on the card).
 
 For every scenario ``s`` both equal the scalar :class:`~repro_torch.cluster.
 simulator.TrainingSimulator` replaying ``TraceLatencySource(traces, s)``
@@ -35,6 +44,8 @@ from repro_torch.cluster.simulator import (
     TraceLatencySource,
     TrainingSimulator,
     effective_w,
+    lb_ladder_for,
+    make_optimizer_inputs,
     margin_deadline,
     task_finish_time,
 )
@@ -42,6 +53,9 @@ from repro_torch.core.gradient_cache import BatchedGradientCache, scenario_ranks
 from repro_torch.core.problems import FiniteSumProblem
 from repro_torch.experiments.engine import EngineConfig
 from repro_torch.latency.model import ClusterLatencyModel, FleetTraces, sample_fleet
+from repro_torch.latency.profiler import MomentBuffer
+from repro_torch.lb.optimizer import LoadBalanceOptimizer
+from repro_torch.lb.partitioner import _align
 
 
 @dataclasses.dataclass
@@ -94,6 +108,7 @@ def run_convergence_batch(
     seed: int = 0,
     engine: EngineConfig | None = None,
     V0: np.ndarray | None = None,
+    what_if_normals=None,
 ) -> ConvergenceBatchResult:
     """Train ``config`` on every scenario of ``traces`` simultaneously.
 
@@ -103,18 +118,27 @@ def run_convergence_batch(
     ``engine`` (default ``EngineConfig()``: the card, CUDA kernels, kind
     ``"auto"``) names the engine kind, the device and the kernel backend;
     ``eval_every`` defaults to ``engine.eval_every``; ``V0`` (numpy)
-    overrides the problem's initial iterate.  Raises
+    overrides the problem's initial iterate; ``what_if_normals`` (``[2, N,
+    K]``) the §6 what-if draws.  Raises
     :class:`~repro_torch.experiments.engine.EngineCapabilityError` for
-    configurations the engines cannot run (§6 load balancing, churn), before
-    any launch.
+    configurations the engines cannot run (churn; ``kind="scan"`` with a §6
+    cache past the slot budget), before any launch.
     """
+    from repro_torch.experiments.fused import run_convergence_scan, scan_capability
+
     eng = EngineConfig() if engine is None else engine
     if eval_every is None:
         eval_every = eng.eval_every
-    kwargs = dict(cost_scale=cost_scale, eval_every=eval_every, seed=seed, engine=eng, V0=V0)
-    if eng.kind == "host":
+    kwargs = dict(cost_scale=cost_scale, eval_every=eval_every, seed=seed, engine=eng,
+                  V0=V0, what_if_normals=what_if_normals)
+    host = eng.kind == "host" or (
+        eng.kind == "auto"
+        and not scan_capability(
+            problem, config, traces.num_workers, slot_budget=eng.slot_budget
+        ).supported
+    )
+    if host:
         return _run_host(problem, traces, config, num_iterations, **kwargs)
-    from repro_torch.experiments.fused import run_convergence_scan
 
     return run_convergence_scan(problem, traces, config, num_iterations, **kwargs)
 
@@ -130,10 +154,11 @@ def _run_host(
     seed: int,
     engine: EngineConfig,
     V0: np.ndarray | None,
+    what_if_normals=None,
 ) -> ConvergenceBatchResult:
     """The host engine: one numpy pass per iteration over ``[S, N]`` arrays,
     batched kernel calls inside (``repro.experiments.convergence``'s host
-    branch without §6 and churn)."""
+    branch without churn)."""
     from repro_torch.experiments.fused import check_run
 
     S, N = traces.num_scenarios, traces.num_workers
@@ -160,8 +185,9 @@ def _run_host(
     base_start = np.array(spec.base_start, dtype=np.int64)
     base_stop = np.array(spec.base_stop, dtype=np.int64)
     n_local = base_stop - base_start + 1
-    sub_p = np.array(spec.sub_p, dtype=np.int64)[None, :]
+    sub_p = np.broadcast_to(np.array(spec.sub_p, dtype=np.int64), (S, N)).copy()
     sub_k = np.ones((S, N), dtype=np.int64)
+    pending_p = np.full((S, N), -1, dtype=np.int64)
 
     free_at = np.zeros((S, N))
     iter_end = np.zeros(S)
@@ -175,21 +201,50 @@ def _run_host(
     flight_val: np.ndarray | None = None  # allocated at the first evaluation
     flight_comp = np.zeros((S, N))
     flight_comm = np.zeros((S, N))
+    flight_assigned = np.zeros((S, N))
 
     times = np.zeros((S, T))
     subopt = np.full((S, T), np.nan)
     fresh_counts = np.zeros((S, T), dtype=np.int64)
     lat_matrix = np.full((S, T, N), np.nan)
+    repartition_events: list[list[float]] = [[] for _ in range(S)]
+
+    # §6: the task-slot profiler view and the optimizer, on the engine's device
+    lbbuf = MomentBuffer(S, N, T, device=engine.device) if cfg.load_balance else None
+    lb = (
+        LoadBalanceOptimizer(seed=seed, ladder=lb_ladder_for(cfg, n_local),
+                             what_if_normals=what_if_normals, device=engine.device,
+                             kernel_backend=engine.kernel_backend)
+        if cfg.load_balance
+        else None
+    )
+    h_min = np.full(S, np.nan)
+    next_lb = np.full(S, cfg.lb_startup_delay if cfg.load_balance else np.inf)
+    current_p = np.full((S, N), cfg.subpartitions, dtype=np.int64)
+    n_i = n_local.astype(np.float64)
 
     for t in range(T):
         assign = iter_end.copy()
         idle = free_at <= assign[:, None]
+
+        # -- Algorithm-2 alignment of pending repartitions (tentative: the new
+        # (p, k) is committed only for workers that start a task) ----------
+        cand_p, cand_k = sub_p, sub_k
+        pend = pending_p >= 0
+        if pend.any():
+            cand_p, cand_k = sub_p.copy(), sub_k.copy()
+            for s, i in zip(*np.nonzero(pend)):
+                p_req = int(min(max(1, pending_p[s, i]), n_local[i]))
+                if p_req != sub_p[s, i]:
+                    _, k_new = _align(int(n_local[i]), int(sub_p[s, i]), p_req, int(sub_k[s, i]))
+                    cand_p[s, i] = p_req
+                    cand_k[s, i] = k_new
         if process_full:
             lo = np.broadcast_to(base_start, (S, N))
             hi = np.broadcast_to(base_stop, (S, N))
         else:
-            lo = base_start[None, :] + (sub_k - 1) * n_local[None, :] // sub_p
-            hi = base_start[None, :] + sub_k * n_local[None, :] // sub_p - 1
+            lo = base_start[None, :] + (cand_k - 1) * n_local[None, :] // cand_p
+            hi = base_start[None, :] + cand_k * n_local[None, :] // cand_p - 1
         cost = problem.compute_cost_batch(lo, hi) * comp_scale
 
         # -- event resolution (the [S, N] algebra of replay_batch) ----------
@@ -218,6 +273,14 @@ def _run_host(
             flight_comp[st_s, st_w] + flight_comm[st_s, st_w]
         )
         lat_matrix[f_s, t, f_w] = comp_d[f_s, f_w] + comm_d[f_s, f_w]
+
+        # -- §6.1 profiler feed (before the flight state is overwritten) -----
+        if cfg.load_balance:
+            lbbuf.record(st_s, st_w, flight_titer[st_s, st_w], free_at[st_s, st_w],
+                         free_at[st_s, st_w] - flight_assigned[st_s, st_w],
+                         flight_comp[st_s, st_w])
+            lbbuf.record(f_s, f_w, np.full(f_s.size, t, np.int64), finish[f_s, f_w],
+                         finish[f_s, f_w] - assign[f_s], comp_d[f_s, f_w])
 
         # -- one masked-batch subgradient call: dsag consumes every started
         # task's value (stale ones later), sag/sgd/gd the fresh ones, coded
@@ -277,8 +340,13 @@ def _run_host(
             np.add.at(covered, f_s, hi[f_s, f_w] - lo[f_s, f_w] + 1)
 
         # -- commit worker state for started tasks --------------------------
-        if not process_full:
-            sub_k = np.where(started, sub_k % sub_p + 1, sub_k)
+        sub_p = np.where(started, cand_p, sub_p)
+        if process_full:
+            sub_k = np.where(started, cand_k, sub_k)
+        else:
+            sub_k = np.where(started, cand_k % cand_p + 1, sub_k)
+        pending_p = np.where(started, -1, pending_p)
+        flight_assigned = np.where(started, assign[:, None], flight_assigned)
         free_at = np.where(started, finish, free_at)
         draw_idx += started
         flight_lo = np.where(started, lo, flight_lo)
@@ -311,12 +379,33 @@ def _run_host(
         if t % eval_every == 0 or t == T - 1:
             subopt[:, t] = problem.suboptimality_batch(V, engine=engine)
 
+        # -- §6 load balancing (the batched background loop) ----------------
+        if cfg.load_balance:
+            due = iter_end >= next_lb
+            if due.any():
+                e_cm, v_cm, e_cp, v_cp, cnt = lbbuf.moments(iter_end)
+                ready = (cnt >= 1).all(axis=1)
+                next_lb = np.where(due, iter_end + cfg.lb_interval, next_lb)
+                act = due & ready
+                if act.any():
+                    inputs = make_optimizer_inputs(
+                        e_cm, v_cm, e_cp, v_cp, np.broadcast_to(n_i, (S, N)), w_wait,
+                        cfg.margin,
+                    )
+                    p_new, h_min, _, publish = lb.update_batch(current_p, inputs, h_min,
+                                                               active=act)
+                    for s in np.flatnonzero(publish):
+                        changed = p_new[s] != current_p[s]
+                        pending_p[s, changed] = p_new[s, changed]
+                        current_p[s] = p_new[s]
+                        repartition_events[s].append(float(iter_end[s]))
+
     return ConvergenceBatchResult(
         times=times,
         suboptimality=subopt,
         fresh_counts=fresh_counts,
         per_worker_latency=lat_matrix,
-        repartition_events=[[] for _ in range(S)],
+        repartition_events=repartition_events,
         evictions=cache.evictions.copy() if cache is not None else np.zeros(S, np.int64),
         rejected_stale=(
             cache.rejected_stale.copy() if cache is not None else np.zeros(S, np.int64)
@@ -349,10 +438,13 @@ def default_convergence_methods(
     w: int,
     eta: float = 0.25,
     subpartitions: int = 10,
+    load_balance_dsag: bool = False,
 ) -> dict[str, MethodConfig]:
-    """The paper's §7 time-to-gap columns: DSAG, SAG (w = N), SGD, coded."""
+    """The paper's §7 time-to-gap columns: DSAG (with the §6 load balancer
+    when ``load_balance_dsag``), SAG (w = N), SGD, coded."""
     return {
-        "dsag": MethodConfig(name="dsag", w=w, eta=eta, subpartitions=subpartitions),
+        "dsag": MethodConfig(name="dsag", w=w, eta=eta, subpartitions=subpartitions,
+                             load_balance=load_balance_dsag),
         "sag": MethodConfig(name="sag", w=n_workers, eta=eta,
                             subpartitions=subpartitions),
         "sgd": MethodConfig(name="sgd", w=w, eta=eta, subpartitions=subpartitions),
@@ -443,6 +535,10 @@ GRID_LOGREG = dict(
     num_iterations=60,
     eval_every=5,
 )
+
+#: the §6 schedule of the ``lb_scan`` column (``BENCH_convergence.json``'s
+#: ``recipe.lb``): the grid recipe's dsag with the load balancer on
+GRID_LB = dict(lb_startup_delay=0.05, lb_interval=0.1)
 
 #: Calibrated parameters of the paper-scale PCA convergence sweep (the
 #: ``pca_paper_scale`` recipe of ``BENCH_convergence.json``).
@@ -567,9 +663,10 @@ def scalar_convergence_run(
 
 def history_mismatches(hist: RunHistory, result: ConvergenceBatchResult, s: int) -> list[str]:
     """The fields in which scenario ``s`` of a batched result differs from a
-    scalar run's history, bit for bit (NaN equal to NaN); empty when equal."""
+    scalar run's history, bit for bit (NaN equal to NaN; the §6 publication
+    times too); empty when equal."""
     other = result.history(s)
-    return [
+    bad = [
         f
         for f in (
             "times", "suboptimality", "fresh_counts", "per_worker_latency",
@@ -577,6 +674,25 @@ def history_mismatches(hist: RunHistory, result: ConvergenceBatchResult, s: int)
         )
         if not np.array_equal(getattr(hist, f), getattr(other, f), equal_nan=True)
     ]
+    if list(hist.repartition_events) != list(other.repartition_events):
+        bad.append("repartition_events")
+    return bad
+
+
+#: the fields in which two batched runs of one config must agree bit for bit
+RESULT_FIELDS = ("times", "suboptimality", "fresh_counts", "per_worker_latency",
+                 "evictions", "rejected_stale")
+
+
+def result_mismatches(a: ConvergenceBatchResult, b: ConvergenceBatchResult) -> list[str]:
+    """The fields in which two batched results differ on any scenario, bit
+    for bit (NaN equal to NaN; the §6 publication times too); empty when
+    equal."""
+    bad = [f for f in RESULT_FIELDS
+           if not np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True)]
+    if a.repartition_events != b.repartition_events:
+        bad.append("repartition_events")
+    return bad
 
 
 def scalar_convergence_seconds(

@@ -4,9 +4,12 @@ Counterpart of ``repro.experiments.engine``.  :class:`EngineConfig` names the
 engine kind, the torch device and the kernel backend; :func:`engine_capability`
 reports, with a stable reason code, why a configuration cannot run, and the
 engines (device, host and the scalar simulator) raise
-:class:`EngineCapabilityError` carrying that report.  Nothing falls back: a
-missing card, CUDA kernels asked for on the CPU, and the parts of the
-reference not ported yet are all refused.
+:class:`EngineCapabilityError` carrying that report.  Nothing falls back
+silently: a missing card, CUDA kernels asked for on the CPU, and the parts
+of the reference not ported yet are all refused.  The one documented route
+is ``kind="auto"`` sending a §6 configuration whose resident cache entries
+exceed ``slot_budget`` to the host engine
+(:func:`repro_torch.experiments.fused.scan_capability`).
 """
 
 from __future__ import annotations
@@ -23,8 +26,12 @@ CAP_CUDA_UNAVAILABLE = "cuda-device-unavailable"
 CAP_CUDA_KERNELS_OFF_DEVICE = "cuda-kernels-need-cuda-device"
 #: kernel_backend="cuda" for a problem whose in-flight values are not float32
 CAP_CUDA_DTYPE = "cuda-unsupported-dtype"
-#: §6 load balancing is not ported yet
-CAP_LOAD_BALANCE = "load-balance-not-ported"
+#: a §6 cache: the device engine holds it in tiled per-worker active-slot
+#: tables within the slot budget (supported, informational)
+CAP_TILED = "slot-universe-tiled"
+#: the tiled cache's resident entries exceed the budget: the device engine
+#: cannot hold the config (kind="auto" runs the host engine)
+CAP_ACTIVE_SET = "active-slots-exceed-budget"
 #: traces carrying a ChurnSchedule are not ported yet
 CAP_CHURN = "churn-not-ported"
 #: a model architecture (or a model feature) the port does not run yet
@@ -45,19 +52,27 @@ class EngineConfig:
     the device engine (``experiments.fused``: every iteration's state and
     arithmetic on the device), ``"host"`` — the numpy loop over iterations
     with batched kernel calls inside (``experiments.convergence``), ``"auto"``
-    (default) — ``"scan"``, which runs every configuration the port runs.
+    (default) — ``"scan"``, unless
+    :func:`~repro_torch.experiments.fused.scan_capability` reports that the
+    device engine cannot hold the config's §6 cache within ``slot_budget``
+    (then ``"host"``).
     ``device`` is the torch device of the state and the kernels (default
     ``"cuda"``).  ``kernel_backend`` selects how the §3 block subgradients and
     the §5 grid-cache walk run: ``"cuda"`` — the hand-written kernels
     (default; the host engine and the scalar simulator call K1/K2 too),
     ``"torch"`` — their plain-torch versions (what the CPU tests ask for; also
     runs on the card).  ``eval_every`` is the suboptimality cadence.
+    ``slot_budget`` caps how many §6 cache entries the device engine keeps
+    resident per scenario (default ``fused.LB_MAX_SLOTS``); a config whose
+    tiled cache needs more is refused (``kind="scan"``) or runs on the
+    host engine (``kind="auto"``).
     """
 
     device: str = "cuda"
     kernel_backend: str = "cuda"
     kind: str = "auto"
     eval_every: int = 1
+    slot_budget: int | None = None
 
     def __post_init__(self):
         if self.kernel_backend not in _KERNEL_BACKENDS:
@@ -69,16 +84,25 @@ class EngineConfig:
             raise ValueError(f"unknown engine kind {self.kind!r}; expected one of {_KINDS}")
         if self.eval_every < 1:
             raise ValueError("eval_every must be >= 1")
+        if self.slot_budget is not None and self.slot_budget < 1:
+            raise ValueError("slot_budget must be >= 1")
         torch.device(self.device)  # raises on a malformed device string
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineCapability:
-    """Structured report of whether the device engine can run a config."""
+    """Structured report of whether the device engine can run a config.
+
+    For §6 configs, ``slots_total`` is the ladder universe's slot count,
+    ``slots_resident`` how many entries the chosen cache layout keeps per
+    scenario, ``slot_budget`` the budget they were held against."""
 
     supported: bool
     code: str
     detail: str = ""
+    slots_total: int = 0
+    slots_resident: int = 0
+    slot_budget: int = 0
 
 
 class EngineCapabilityError(ValueError):
@@ -100,7 +124,8 @@ def refuse(code: str, detail: str) -> EngineCapabilityError:
 
 def engine_capability(engine: EngineConfig, config=None, traces=None) -> EngineCapability:
     """Whether ``engine`` can run ``config`` (a MethodConfig) on ``traces``
-    (any engine kind: they run the same configurations)."""
+    (any engine kind; the device engine's §6 slot budget is
+    :func:`~repro_torch.experiments.fused.scan_capability`'s)."""
     dev = torch.device(engine.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         return EngineCapability(
@@ -116,12 +141,6 @@ def engine_capability(engine: EngineConfig, config=None, traces=None) -> EngineC
             CAP_CUDA_KERNELS_OFF_DEVICE,
             f"kernel_backend='cuda' launches CUDA kernels and needs a CUDA "
             f"device, got device={engine.device!r}; use kernel_backend='torch'",
-        )
-    if config is not None and config.load_balance:
-        return EngineCapability(
-            False,
-            CAP_LOAD_BALANCE,
-            "§6 load balancing is not ported to the torch engine yet",
         )
     if traces is not None and traces.churn is not None:
         return EngineCapability(

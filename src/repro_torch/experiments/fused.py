@@ -1,23 +1,36 @@
-"""The fused convergence engine's grid-cache body, on a torch device.
+"""The fused convergence engine's body, on a torch device.
 
-Counterpart of ``repro.experiments.fused`` for ``cache_mode`` ``"grid"``
-(sag, dsag) and ``"none"`` (sgd, gd, coded), without §6 load balancing and
-without churn (both refused with a reason code, see
-:mod:`repro_torch.experiments.engine`).  Each training iteration does, on
-``[S, N]`` scenario x worker tensors:
+Counterpart of ``repro.experiments.fused`` without churn (refused with a
+reason code, see :mod:`repro_torch.experiments.engine`).  Each training
+iteration does, on ``[S, N]`` scenario x worker tensors:
 
+* under §6 load balancing, the Algorithm-2 alignment of pending
+  repartitions at assignment (the (lo, hi, slot) source is then the
+  aligned candidate instead of the fixed subpartition grid);
 * §3 trace replay and the §4.2 event algebra with the §5.1 margin;
 * §3 block subgradients for every task, in one call (kernel K1/K2);
-* the iteration's §5 cache events in event-time order (kernel K3), or the
+* the iteration's §5 cache events in event-time order, by
+  ``spec.cache_mode``: ``"grid"`` (no §6: kernel K3) or ``"tiled"`` (§6:
+  per-worker active-entry tables over the ladder's slot universe); or the
   sgd/gd fresh-result accumulation;
 * the iterate update, the projection and, where ``eval_mask`` says so, the
-  suboptimality.
+  suboptimality;
+* under §6, the profiler feed into task slots and, when a scenario is due,
+  one batched Algorithm-1 call (:mod:`repro_torch.lb.jit_optimizer`).
 
 State lives on the device and a Python loop over iterations replaces
 ``lax.scan``.  The grid body has no data-dependent host branch, so the loop
 never reads a device value (no ``.item()``, no ``.cpu()``) until the results
-are copied out at the end.  The lat table and the per-iteration outputs are
-updated in place; the cache tables are replaced by the walk's outputs.
+are copied out at the end.  The §6 body reads a few (whether a scenario is
+due, the walks' rank counts, Algorithm 1's loop conditions): the
+reference's ``while_loop``s and ``lax.cond``s are host branches here.  The
+tiled walk is plain torch (the reference has no TPU kernel for it); like
+the reference's it keeps the big value table write-only inside the rank
+loop and reads live values from the ranked event table or a frozen copy of
+the loop-entry table.  The reference also has a dense walk over the whole
+slot universe for universes within its slot budget; the port keeps only
+the tiled one, which holds every config the dense one does (a worker's
+active entries never outnumber its universe) in fewer resident entries.
 
 Exactness: event times, fresh counts, per-worker latencies and rejects do
 not depend on the iterate, so they equal the reference exactly
@@ -47,12 +60,22 @@ import torch
 from repro_torch.cluster.simulator import (
     MethodConfig,
     effective_w,
+    lb_ladder_for,
     margin_deadline,
     task_finish_time,
     task_pad_width,
 )
+from repro_torch.core.gradient_cache import (
+    SlotUniverse,
+    active_slot_capacity,
+    build_slot_universe,
+)
 from repro_torch.core.problems import FiniteSumProblem, FusedKernels
 from repro_torch.experiments.engine import (
+    CAP_ACTIVE_SET,
+    CAP_OK,
+    CAP_TILED,
+    EngineCapability,
     EngineCapabilityError,
     EngineConfig,
     engine_capability,
@@ -60,18 +83,25 @@ from repro_torch.experiments.engine import (
     kernel_shape_capability,
 )
 from repro_torch.experiments.sweep import task_latency_parts, trace_tensors
-from repro_torch.kernels import block_sub, cache_events
+from repro_torch.kernels import block_sub, cache_events, what_if
 from repro_torch.latency.model import FleetTraces
+from repro_torch.lb import jit_optimizer as jlb
+from repro_torch.lb.optimizer import what_if_normals as default_what_if_normals
 from repro_torch.lb.partitioner import p_start, p_stop
 
 F64, I64 = torch.float64, torch.int64
+_IMAX = torch.iinfo(torch.int64).max
+
+#: default budget on the tiled §6 cache's resident entries per scenario:
+#: configs whose active-entry footprint exceeds it are unsupported by the
+#: device engine.  Override per run with ``EngineConfig(slot_budget=...)``.
+LB_MAX_SLOTS = 250_000
 
 
 @dataclasses.dataclass(frozen=True)
 class _StaticSpec:
     """Static configuration of one run (``repro.experiments.fused._StaticSpec``
-    restricted to the grid and none cache modes: ``uses_cache`` selects the
-    grid cache)."""
+    without churn)."""
 
     name: str
     w_wait: int
@@ -90,6 +120,15 @@ class _StaticSpec:
     num_slots: int
     max_width: int  # the run's static pad width (task_pad_width)
     kernel_backend: str  # "cuda" | "torch"
+    cache_mode: str = "none"  # "none" | "grid" | "tiled"
+    active_cap: int = 0  # per-worker entry capacity of the tiled cache
+    # §6 load balancing (empty/zero without it)
+    load_balance: bool = False
+    ladder: tuple[int, ...] = ()  # the p-ladder Algorithm 1 climbs
+    lb_interval: float = 0.0
+    lb_startup_delay: float = 0.0
+    lb_margin: float = 0.0  # optimizer-input margin (= config.margin)
+    lb_p0: int = 0  # the optimizer-facing initial p (config.subpartitions)
 
 
 def _static_spec(
@@ -99,6 +138,8 @@ def _static_spec(
     num_iterations: int,
     cost_scale: float,
     kernel_backend: str,
+    universe: SlotUniverse | None = None,
+    active_cap: int = 0,
 ) -> _StaticSpec:
     n = problem.num_samples
     N = num_workers
@@ -108,7 +149,14 @@ def _static_spec(
     n_local = [b - a + 1 for a, b in zip(base_start, base_stop)]
     process_full = cfg.name in ("gd", "coded")
     sub_p = tuple(min(cfg.subpartitions, nl) for nl in n_local)
-    if cfg.uses_cache:
+    if cfg.uses_cache and cfg.load_balance:
+        # slots come from the universe tables (the host engine builds none)
+        slot_offsets = (0,) * N
+        num_slots = 0 if universe is None else universe.num_slots
+        slot_width = ()
+        cache_mode = "tiled"
+    elif cfg.uses_cache:
+        cache_mode = "grid"
         offsets = np.concatenate([[0], np.cumsum(sub_p)])
         slot_offsets = tuple(int(o) for o in offsets[:-1])
         num_slots = int(offsets[-1])
@@ -120,6 +168,7 @@ def _static_spec(
         slot_offsets = (0,) * N
         num_slots = 0
         slot_width = ()
+        cache_mode = "none"
     margin_eff = cfg.margin if (cfg.uses_margin and cfg.margin > 0) else 0.0
     return _StaticSpec(
         name=cfg.name,
@@ -141,6 +190,14 @@ def _static_spec(
         num_slots=num_slots,
         max_width=task_pad_width(cfg, n, N),
         kernel_backend=kernel_backend,
+        cache_mode=cache_mode,
+        active_cap=int(active_cap),
+        load_balance=bool(cfg.load_balance),
+        ladder=lb_ladder_for(cfg, np.asarray(n_local)) if cfg.load_balance else (),
+        lb_interval=float(cfg.lb_interval),
+        lb_startup_delay=float(cfg.lb_startup_delay),
+        lb_margin=float(cfg.margin),
+        lb_p0=int(cfg.subpartitions),
     )
 
 
@@ -148,15 +205,19 @@ def _kernel_shape_errors(spec: _StaticSpec, kernels: FusedKernels, S: int, N: in
     """What K1/K2 and K3 report of this run's launch shapes (None where
     they take them): the per-iteration subgradient call over S*N tasks, the
     coded call's S full-width tasks, and the cache walk over the events of
-    an iteration (in-flight and fresh results for dsag, fresh ones for sag)."""
+    an iteration (in-flight and fresh results for dsag, fresh ones for sag;
+    the grid cache only: the §6 walks are plain torch), and under §6 K7's
+    what-if replay over the fleet."""
     n = kernels.num_samples
     vshape = kernels.value_shape
     d, k = vshape[0], (vshape[1] if len(vshape) == 2 else None)
     calls = [(S * N, spec.max_width)] + ([(S, n)] if spec.name == "coded" else [])
     errors = [block_sub.shape_error(G, n, d, k, W) for G, W in calls]
-    if spec.uses_cache:
+    if spec.cache_mode == "grid":
         R = 2 * N if spec.accepts_stale else N
         errors.append(cache_events.shape_error(S, R, spec.num_slots, int(np.prod(vshape))))
+    if spec.load_balance:
+        errors.append(what_if.shape_error(N, spec.w_wait))
     return errors
 
 
@@ -197,6 +258,19 @@ def _subgradients(kernels: FusedKernels, spec: _StaticSpec, V, lo, hi):
     return out.reshape((S, N) + vshape)
 
 
+def _rank_events(ev_valid, ev_time, ev_slot, ev_tag, ev_vals, E: int):
+    """The event tables in per-scenario event-time rank order (a stable
+    argsort on time, +inf where invalid): valid, slot, tag, float64 values."""
+    S, R = ev_time.shape
+    vdim = ev_vals.dim() - 2
+    order = torch.argsort(torch.where(ev_valid, ev_time, torch.inf), dim=1, stable=True)
+    valid_r = ev_valid.gather(1, order)
+    slot_r = ev_slot.gather(1, order).clamp(0, E - 1)
+    tag_r = ev_tag.gather(1, order)
+    vals_r = ev_vals.gather(1, _bcast(order, vdim).expand(ev_vals.shape)).to(F64)
+    return order, valid_r, slot_r, tag_r, vals_r
+
+
 def _apply_cache_events(
     spec: _StaticSpec,
     slot_width,
@@ -221,17 +295,8 @@ def _apply_cache_events(
     E = spec.num_slots
     vshape = st["values"].shape[2:]
     F = int(np.prod(vshape))
-    order = torch.argsort(
-        torch.where(ev_valid, ev_time, torch.inf), dim=1, stable=True
-    )
-    valid_r = ev_valid.gather(1, order)
-    slot_r = ev_slot.gather(1, order).clamp(0, E - 1)
-    tag_r = ev_tag.gather(1, order)
-    vals_r = (
-        ev_vals.reshape(S, R, F)
-        .gather(1, order[:, :, None].expand(S, R, F))
-        .to(F64)
-    )
+    _, valid_r, slot_r, tag_r, vals_r = _rank_events(
+        ev_valid, ev_time, ev_slot, ev_tag, ev_vals, E)
     walk = (
         cache_events.grid_cache_update
         if spec.kernel_backend == "cuda"
@@ -241,7 +306,7 @@ def _apply_cache_events(
         valid_r,
         slot_r,
         tag_r,
-        vals_r,
+        vals_r.reshape(S, R, F),
         st["sums"].reshape(S, F),
         st["values"].reshape(S, E, F),
         st["iters"],
@@ -258,6 +323,91 @@ def _apply_cache_events(
     )
 
 
+def _apply_cache_events_tiled(spec: _StaticSpec, tabs: dict, ev_worker, cache_state,
+                              ev_valid, ev_time, ev_slot, ev_tag, ev_vals):
+    """The §5 update over per-worker active-entry tables, the tiled §6 cache
+    (``repro.experiments.fused._apply_cache_events_tiled``).
+
+    Each worker owns ``spec.active_cap`` entry rows (``slots``, ``iters``,
+    values): the greedy bound on simultaneously active disjoint intervals
+    of its universe.  Overlaps are tested at run time against the event
+    worker's own entries from the universe's start/stop tables; eviction
+    subtraction runs in interval-start order, and the insert lands in the
+    exact active entry (in-place delta) or the first free row.  The value
+    table ``[S, N, A, ...]`` is only written inside the rank loop: the live
+    value of an entry is the ranked event row of its last accepted write
+    this iteration (``wmap``), or the frozen loop-entry table ``values0``.
+    """
+    st = cache_state
+    S, R = ev_time.shape
+    E = spec.num_slots
+    starts, stops, widths = tabs["starts"], tabs["stops"], tabs["widths"]
+    values0 = st["values"]  # [S, N, A, *vshape], frozen (read-only below)
+    values = values0.clone()
+    N, A = values.shape[1], values.shape[2]
+    vdim = values.dim() - 3
+    dev = ev_time.device
+    order, valid_r, slot_r, tag_r, vals_r = _rank_events(
+        ev_valid, ev_time, ev_slot, ev_tag, ev_vals, E)
+    worker_r = ev_worker[None, :].expand(S, R).gather(1, order)
+    sums, iters, slots = st["sums"], st["iters"].clone(), st["slots"].clone()
+    covered, rejected, evictions = st["covered"], st["rejected"], st["evictions"]
+    wmap = torch.full((S, N, A), -1, dtype=I64, device=dev)
+    s_idx = torch.arange(S, device=dev)
+    s_col = s_idx[:, None]
+    a_idx = torch.arange(A, device=dev)
+    n_ranks = int(valid_r.sum(dim=1).max())
+    for j in range(n_ranks):
+        valid, slot, tag, v64 = valid_r[:, j], slot_r[:, j], tag_r[:, j], vals_r[:, j]
+        w_e = worker_r[:, j]
+        # the event worker's entry rows: [S, A] gathers of small tables
+        es = slots[s_idx, w_e]
+        ei = iters[s_idx, w_e]
+        wm = wmap[s_idx, w_e]
+        active = ei >= 0
+        es_safe = es.clamp(0, E - 1)
+        e_lo, e_hi = starts[es_safe], stops[es_safe]
+        ev_lo, ev_hi = starts[slot][:, None], stops[slot][:, None]
+        ovl = active & (e_lo <= ev_hi) & (ev_lo <= e_hi)
+        exact = ovl & (es == slot[:, None])
+        dom = (ovl & (ei >= tag[:, None])).any(dim=1)
+        acc = valid & ~dom
+        rej = valid & dom
+        evict = ovl & ~exact & acc[:, None]
+        # live entry values, reconstructed (write-only table discipline)
+        v_live = torch.where(_bcast(wm >= 0, vdim), vals_r[s_col, wm.clamp(0, R - 1)],
+                             values0[s_col, w_e[:, None], a_idx[None, :]])  # [S, A, ...]
+        # eviction subtraction in interval-start order (distinct starts)
+        ord_e = torch.argsort(torch.where(evict, e_lo, _IMAX), dim=1, stable=True)
+        n_sub = int(evict.sum(dim=1).max())
+        for o in range(n_sub):
+            eidx = ord_e[:, o]
+            m = evict[s_idx, eidx]
+            sums = torch.where(_bcast(m, vdim), sums - v_live[s_idx, eidx], sums)
+        ei = torch.where(evict, -1, ei)
+        removed = torch.where(evict, widths[es_safe], 0).sum(dim=1)
+        evictions = evictions + evict.sum(dim=1)
+        # insert target: the exact active entry, else the first free row
+        exact_any = exact.any(dim=1)
+        tgt = torch.where(exact_any, torch.argmax(exact.to(torch.int8), dim=1),
+                          torch.argmax((ei < 0).to(torch.int8), dim=1))
+        own_live = v_live[s_idx, tgt]
+        delta = v64 - torch.where(_bcast(exact_any, vdim), own_live, 0.0)
+        sums = torch.where(_bcast(acc, vdim), sums + delta, sums)
+        values[s_idx, w_e, tgt] = torch.where(_bcast(acc, vdim), v64, own_live)
+        ei[s_idx, tgt] = torch.where(acc, tag, ei[s_idx, tgt])
+        es[s_idx, tgt] = torch.where(acc, slot, es[s_idx, tgt])
+        wm[s_idx, tgt] = torch.where(acc, j, wm[s_idx, tgt])
+        iters[s_idx, w_e] = ei
+        slots[s_idx, w_e] = es
+        wmap[s_idx, w_e] = wm
+        covered = covered + torch.where(
+            acc, torch.where(exact_any, 0, widths[slot]) - removed, 0)
+        rejected = rejected + rej
+    return dict(sums=sums, values=values, iters=iters, slots=slots, covered=covered,
+                rejected=rejected, evictions=evictions)
+
+
 def _fresh_accumulate(kernels, fresh, finish, vals):
     """gd/sgd: sum fresh values per scenario in event-time order."""
     S, N = fresh.shape
@@ -271,14 +421,39 @@ def _fresh_accumulate(kernels, fresh, finish, vals):
     return grad
 
 
-def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask):
-    """THE per-iteration body and its driver loop (grid / none cache modes).
+def _cache_state0(spec: _StaticSpec, S: int, N: int, vshape, dev) -> dict:
+    E = max(spec.num_slots, 1)
+
+    def zeros(shape, dtype=F64):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def empty_tags(shape):
+        return torch.full(shape, -1, dtype=I64, device=dev)
+
+    counters = dict(covered=zeros((S,), I64), rejected=zeros((S,), I64))
+    if spec.cache_mode == "grid":
+        return dict(sums=zeros((S,) + vshape), values=zeros((S, E) + vshape),
+                    iters=empty_tags((S, E)), **counters)
+    if spec.cache_mode == "tiled":
+        A = max(spec.active_cap, 1)
+        return dict(sums=zeros((S,) + vshape), values=zeros((S, N, A) + vshape),
+                    iters=empty_tags((S, N, A)), slots=empty_tags((S, N, A)),
+                    evictions=zeros((S,), I64), **counters)
+    return dict(rejected=zeros((S,), I64))
+
+
+def _run_scan(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask,
+              tabs: dict, normals):
+    """THE per-iteration body and its loop over iterations, for every configuration.
 
     ``tr`` holds the trace tensors (``comm``, ``comp_unit`` [S, N, K],
     ``slowdown`` [N], ``burst_start``/``burst_end``/``burst_factor``
-    [S, N, M]) on the engine's device, all float64.  Returns device tensors
-    ``(times [S, T], subopt [S, T], fresh_counts [S, T], lat [S, T, N],
-    rejected [S])``.
+    [S, N, M]) on the engine's device, all float64; ``tabs`` the §6 slot
+    universe's tables (``slot_table`` [N, L, Pmax], ``widths``, ``starts``,
+    ``stops`` [E]; empty without §6) and
+    ``normals`` the what-if draws' ``[2, N, K]`` base (None without §6).
+    Returns device tensors ``(times [S, T], subopt [S, T], fresh_counts
+    [S, T], lat [S, T, N], rejected [S], evictions [S], published [S, T])``.
     """
     dev = kernels.device
     S, N, _K = tr["comm"].shape
@@ -292,9 +467,23 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
     sub_p = torch.tensor(spec.sub_p, dtype=I64, device=dev)
     offsets = torch.tensor(spec.slot_offsets, dtype=I64, device=dev)
     slot_width = torch.tensor(spec.slot_width, dtype=I64, device=dev)
-    E = spec.num_slots
     s_idx2 = torch.arange(S, device=dev)[:, None]
     w_idx2 = torch.arange(N, device=dev)[None, :]
+    ev_worker = torch.arange(N, device=dev).repeat(2 if spec.accepts_stale else 1)
+
+    lb = spec.load_balance
+    if lb:
+        L = len(spec.ladder)
+        raw = torch.tensor(spec.ladder, dtype=I64, device=dev)
+        # the per-worker effective ladder (the int twin of ladder_tables)
+        eff = torch.minimum(raw[None, :], n_local[:, None])  # [N, L]
+        idx_cap = torch.clamp_max((raw[None, :] < n_local[:, None]).sum(dim=1), L - 1)
+        n_j_b = n_local.to(F64).expand(S, N)
+
+        def snap_int(p_vals):
+            """Ladder index of exact-member p values ([S, N] int)."""
+            cnt = (eff[None, :, :] <= p_vals[:, :, None]).sum(dim=-1)
+            return torch.minimum(torch.clamp_min(cnt - 1, 0), idx_cap[None, :])
 
     # -- carry (explicit dtypes throughout: torch's default float is f32) --
     V = V0
@@ -307,32 +496,54 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
     flight_comp = torch.zeros((S, N), dtype=F64, device=dev)
     flight_comm = torch.zeros((S, N), dtype=F64, device=dev)
     flight_val = torch.zeros((S, N) + vshape, dtype=kernels.value_dtype, device=dev)
-    if spec.uses_cache:  # the grid cache
-        cache = dict(
-            sums=torch.zeros((S,) + vshape, dtype=F64, device=dev),
-            values=torch.zeros((S, max(E, 1)) + vshape, dtype=F64, device=dev),
-            iters=torch.full((S, max(E, 1)), -1, dtype=I64, device=dev),
-            covered=torch.zeros((S,), dtype=I64, device=dev),
-            rejected=torch.zeros((S,), dtype=I64, device=dev),
-        )
-    else:
-        cache = dict(rejected=torch.zeros((S,), dtype=I64, device=dev))
+    cache = _cache_state0(spec, S, N, vshape, dev)
     lat = torch.full((S, T, N), torch.nan, dtype=F64, device=dev)
     times = torch.zeros((S, T), dtype=F64, device=dev)
     subopt = torch.full((S, T), torch.nan, dtype=F64, device=dev)
     fresh_counts = torch.zeros((S, T), dtype=I64, device=dev)
+    published = torch.zeros((S, T), dtype=torch.bool, device=dev)
+    if lb:
+        idx0 = torch.clamp(
+            (eff <= sub_p[:, None]).sum(dim=1) - 1, min=0
+        ).minimum(idx_cap)
+        sub_idx = idx0.expand(S, N).clone()
+        pending_p = torch.full((S, N), -1, dtype=I64, device=dev)
+        # current_p is the optimizer's view of the published p
+        current_p = torch.full((S, N), spec.lb_p0, dtype=I64, device=dev)
+        h_min = torch.full((S,), torch.nan, dtype=F64, device=dev)
+        next_lb = torch.full((S,), spec.lb_startup_delay, dtype=F64, device=dev)
+        flight_assigned = torch.zeros((S, N), dtype=F64, device=dev)
+        prof_t = torch.zeros((S, N, T), dtype=F64, device=dev)
+        prof_comm = torch.zeros((S, N, T), dtype=F64, device=dev)
+        prof_comp = torch.zeros((S, N, T), dtype=F64, device=dev)
+        prof_valid = torch.zeros((S, N, T), dtype=torch.bool, device=dev)
 
     for t in range(T):
         assign = iter_end
         idle = free_at <= assign[:, None]
 
-        # -- the (lo, hi, slot) source: the fixed subpartition grid ---------
+        # -- the (lo, hi, slot) source --------------------------------------
+        if lb:
+            # Algorithm-2 alignment of pending repartitions (tentative: the
+            # new (p, k) is committed only for workers that start a task)
+            cur_p = eff[w_idx2, sub_idx]
+            p_req = torch.minimum(torch.clamp_min(pending_p, 1), n_local[None, :])
+            needs = (pending_p >= 0) & (p_req != cur_p)
+            if bool(needs.any()):
+                _, k_new = jlb.align_batch(n_local[None, :], cur_p, p_req, sub_k, needs)
+                cand_idx = torch.where(needs, snap_int(p_req), sub_idx)
+                cand_k = torch.where(needs, k_new, sub_k)
+                cand_p = torch.where(needs, p_req, cur_p)
+            else:
+                cand_idx, cand_k, cand_p = sub_idx, sub_k, cur_p
+        else:
+            cand_k, cand_p = sub_k, sub_p[None, :]
         if spec.process_full:
             lo = base_start.expand(S, N)
             hi = base_stop.expand(S, N)
         else:
-            lo = base_start[None, :] + (sub_k - 1) * n_local[None, :] // sub_p[None, :]
-            hi = base_start[None, :] + sub_k * n_local[None, :] // sub_p[None, :] - 1
+            lo = base_start[None, :] + (cand_k - 1) * n_local[None, :] // cand_p
+            hi = base_start[None, :] + cand_k * n_local[None, :] // cand_p - 1
         # int64 rows to float64 first: int64 * python float is float32 in torch
         cost = (kernels.cost_per_row * (hi - lo + 1).to(F64)) * spec.comp_scale
 
@@ -364,13 +575,29 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
         )
         lat[:, t, :] = torch.where(fresh, comp_d + comm_d, lat[:, t, :])
 
+        if lb:
+            # -- §6.1 profiler feed: one task-slot sample per observed
+            # completion (the MomentBuffer's slots and expressions)
+            stale_comm = torch.clamp_min((free_at - flight_assigned) - flight_comp, 0.0)
+            for buf, val in ((prof_t, free_at), (prof_comm, stale_comm), (prof_comp, flight_comp)):
+                buf[s_idx2, w_idx2, titer_safe] = torch.where(
+                    stale_done, val, buf[s_idx2, w_idx2, titer_safe])
+            prof_valid[s_idx2, w_idx2, titer_safe] |= stale_done
+            fresh_comm = torch.clamp_min((finish - assign[:, None]) - comp_d, 0.0)
+            for buf, val in ((prof_t, finish), (prof_comm, fresh_comm), (prof_comp, comp_d)):
+                buf[:, :, t] = torch.where(fresh, val, buf[:, :, t])
+            prof_valid[:, :, t] |= fresh
+
         # -- batched subgradients (skipped entirely for coded) --------------
         vals = _subgradients(kernels, spec, V, lo, hi) if spec.name != "coded" else None
 
         # -- §5 cache / gradient accumulation -------------------------------
         slot_cur = None
         if spec.uses_cache:
-            slot_cur = offsets[None, :] + sub_k - 1
+            if lb:
+                slot_cur = tabs["slot_table"][w_idx2, cand_idx, cand_k - 1]
+            else:
+                slot_cur = offsets[None, :] + sub_k - 1
             tag_now = torch.full((S, N), t, dtype=I64, device=dev)
             if spec.accepts_stale:  # dsag: stale half then fresh half
                 ev_valid = torch.cat([stale_done, fresh], dim=1)
@@ -382,9 +609,11 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
                 ev_valid, ev_time, ev_slot, ev_tag, ev_vals = (
                     fresh, finish, slot_cur, tag_now, vals
                 )
-            cache = _apply_cache_events(
-                spec, slot_width, cache, ev_valid, ev_time, ev_slot, ev_tag, ev_vals
-            )
+            events = (ev_valid, ev_time, ev_slot, ev_tag, ev_vals)
+            if spec.cache_mode == "tiled":
+                cache = _apply_cache_events_tiled(spec, tabs, ev_worker, cache, *events)
+            else:
+                cache = _apply_cache_events(spec, slot_width, cache, *events)
             xi = torch.clamp_min(exact_div(cache["covered"], n), 1e-12)
             grad = cache["sums"] / _bcast(xi, vdim) + kernels.regularizer_grad(V)
         elif spec.name == "coded":
@@ -415,8 +644,14 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
             subopt[:, t] = kernels.suboptimality(V_new)
 
         # -- commit worker state for started tasks --------------------------
+        if lb:
+            sub_idx = torch.where(started, cand_idx, sub_idx)
+            pending_p = torch.where(started, -1, pending_p)
+            flight_assigned = torch.where(started, assign[:, None], flight_assigned)
+            if spec.process_full:
+                sub_k = torch.where(started, cand_k, sub_k)
         if not spec.process_full:
-            sub_k = torch.where(started, sub_k % sub_p[None, :] + 1, sub_k)
+            sub_k = torch.where(started, cand_k % cand_p + 1, sub_k)
         free_at = torch.where(started, finish, free_at)
         draw_idx = draw_idx + started.to(I64)
         if spec.uses_cache:
@@ -431,7 +666,85 @@ def _run_grid(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask)
         times[:, t] = iter_end_new
         fresh_counts[:, t] = fresh.sum(dim=1)
 
-    return times, subopt, fresh_counts, lat, cache["rejected"]
+        # -- §6 background load balancer (Algorithm 1) ----------------------
+        if lb:
+            due = iter_end_new >= next_lb
+            if bool(due.any()):
+                e_cm, v_cm, e_cp, v_cp, cnt = jlb.window_moments(
+                    prof_t, prof_comm, prof_comp, prof_valid, iter_end_new,
+                    jlb.PROFILER_WINDOW,
+                )
+                ready = (cnt >= 1).all(dim=1)
+                next_lb = torch.where(due, iter_end_new + spec.lb_interval, next_lb)
+                act = due & ready
+                if bool(act.any()):
+                    # the make_optimizer_inputs variance floors
+                    p_new, h_min, _, publish = jlb.lb_update(
+                        current_p.to(F64), e_cm, torch.clamp_min(v_cm, 1e-18), e_cp,
+                        torch.clamp_min(v_cp, 1e-18), n_j_b, h_min, act,
+                        ladder=spec.ladder, w=spec.w_wait, margin=spec.lb_margin,
+                        normals=normals, kernel_backend=spec.kernel_backend,
+                    )
+                    changed = publish[:, None] & (p_new != current_p)
+                    pending_p = torch.where(changed, p_new, pending_p)
+                    current_p = torch.where(publish[:, None], p_new, current_p)
+                    published[:, t] = publish
+
+    evictions = cache.get("evictions", torch.zeros((S,), dtype=I64, device=dev))
+    return times, subopt, fresh_counts, lat, cache["rejected"], evictions, published
+
+
+def scan_capability(problem: FiniteSumProblem, config: MethodConfig, num_workers: int, *,
+                    slot_budget: int | None = None) -> EngineCapability:
+    """How the device engine would hold this config's §6 cache
+    (``repro.experiments.fused.scan_capability``).
+
+    * ``ok`` — supported, no §6 cache (no load balancing, or sgd/gd);
+    * ``slot-universe-tiled`` — supported; the §6 cache is held in
+      per-worker active-entry tables whose resident entries fit
+      ``slot_budget`` (default :data:`LB_MAX_SLOTS`);
+    * ``active-slots-exceed-budget`` — unsupported: the tiled cache's
+      resident entries exceed the budget (``kind="auto"`` runs the host
+      engine; ``kind="scan"`` raises).
+
+    The bounds are cheap overestimates (no universe is built): the slot
+    universe ``N * sum(min(rung, max n_local))`` (``slots_total``, reported
+    only); the resident entries, per worker, the count of its narrowest
+    intervals that fit its range, which the exact greedy capacity never
+    exceeds.  Unlike the reference, the port keeps no dense cache over the
+    whole universe for small universes: the tiled one holds every config
+    the dense one would, so the budget only decides whether the device
+    engine runs the config at all.
+    """
+    budget = int(LB_MAX_SLOTS if slot_budget is None else slot_budget)
+    if not (config.load_balance and config.uses_cache):
+        return EngineCapability(True, CAP_OK, "the device engine runs this config",
+                                slot_budget=budget)
+    n = problem.num_samples
+    N = num_workers
+    n_local = np.array([p_stop(n, N, i + 1) - p_start(n, N, i + 1) + 1 for i in range(N)])
+    ladder = lb_ladder_for(config, n_local)
+    total = int(sum(min(int(r), int(n_local.max())) for r in ladder)) * N
+    p_top = max(int(r) for r in ladder)
+    cap = 0
+    for nl in n_local:
+        w_min = max(int(nl) // min(p_top, int(nl)), 1)
+        cap = max(cap, int(nl) // w_min)
+    resident = N * cap
+    if resident <= budget:
+        return EngineCapability(
+            True, CAP_TILED,
+            f"§6 cache: the tiled active-slot tables hold <= {resident} resident "
+            f"entries (slot budget {budget}) of a slot universe of up to {total}",
+            slots_total=total, slots_resident=resident, slot_budget=budget,
+        )
+    return EngineCapability(
+        False, CAP_ACTIVE_SET,
+        f"the tiled active-slot cache needs up to {resident} resident entries "
+        f"(> slot budget {budget}); the device engine cannot hold this config: use "
+        f"EngineConfig(kind='host') or raise slot_budget",
+        slots_total=total, slots_resident=resident, slot_budget=budget,
+    )
 
 
 def check_run(
@@ -441,6 +754,8 @@ def check_run(
     num_iterations: int,
     cost_scale: float,
     engine: EngineConfig,
+    universe: SlotUniverse | None = None,
+    active_cap: int = 0,
 ):
     """The capability checks of a convergence run, shared by the device and
     host engines, before any launch: ``(spec, kernels)`` or
@@ -459,7 +774,7 @@ def check_run(
         raise EngineCapabilityError(dcap)
     spec = _static_spec(
         problem, config, traces.num_workers, num_iterations, cost_scale,
-        engine.kernel_backend,
+        engine.kernel_backend, universe=universe, active_cap=active_cap,
     )
     errors = _kernel_shape_errors(spec, kernels, traces.num_scenarios, traces.num_workers)
     scap = kernel_shape_capability(engine, errors)
@@ -479,16 +794,35 @@ def prepare_scan_inputs(
     seed: int = 0,
     engine: EngineConfig | None = None,
     V0: np.ndarray | None = None,
+    what_if_normals=None,
 ):
-    """Capability checks, static spec, kernels, and the device operands.
+    """Capability checks, static spec, kernels, and the device operands:
+    ``(spec, kernels, trace tensors, V0 [S, ...], eval_mask, slot tables,
+    what-if normals)``.
 
     Raises :class:`~repro_torch.experiments.engine.EngineCapabilityError`
-    for configurations the engine cannot run.  ``V0`` overrides the
-    problem's initial iterate (numpy; broadcast over scenarios).
+    for configurations the engine cannot run (a §6 cache past the slot
+    budget included).  ``V0`` overrides the problem's initial iterate
+    (numpy; broadcast over scenarios); ``what_if_normals`` the §6 what-if
+    draws (:func:`~repro_torch.lb.optimizer.what_if_normals`).
     """
     eng = EngineConfig() if engine is None else engine
     T = num_iterations
-    spec, kernels = check_run(problem, traces, config, T, cost_scale, eng)
+    N = traces.num_workers
+    cap = scan_capability(problem, config, N, slot_budget=eng.slot_budget)
+    if not cap.supported:
+        raise EngineCapabilityError(cap)
+    universe = None
+    active_cap = 0
+    if config.load_balance and config.uses_cache:
+        n = problem.num_samples
+        base_start = [p_start(n, N, i + 1) for i in range(N)]
+        base_stop = [p_stop(n, N, i + 1) for i in range(N)]
+        n_local = np.asarray(base_stop) - np.asarray(base_start) + 1
+        universe = build_slot_universe(base_start, base_stop, lb_ladder_for(config, n_local))
+        active_cap = int(active_slot_capacity(universe).max())
+    spec, kernels = check_run(problem, traces, config, T, cost_scale, eng,
+                              universe=universe, active_cap=active_cap)
     S = traces.num_scenarios
     dev = kernels.device
     v0 = problem.init(seed) if V0 is None else np.asarray(V0)
@@ -496,8 +830,20 @@ def prepare_scan_inputs(
     eval_mask = np.zeros(T, dtype=bool)
     eval_mask[::eval_every] = True
     eval_mask[T - 1] = True
-
-    return spec, kernels, trace_tensors(traces, dev), V0_stack, eval_mask
+    tabs = {}
+    if universe is not None:
+        tabs = {
+            name: torch.as_tensor(getattr(universe, name), dtype=I64, device=dev)
+            for name in ("slot_table", "widths", "starts", "stops")
+        }
+    normals = None
+    if config.load_balance:
+        normals = (
+            default_what_if_normals(seed, N, jlb.SIM_ITERATIONS, dev)
+            if what_if_normals is None
+            else torch.as_tensor(np.asarray(what_if_normals), dtype=F64, device=dev)
+        )
+    return spec, kernels, trace_tensors(traces, dev), V0_stack, eval_mask, tabs, normals
 
 
 def run_convergence_scan(
@@ -511,6 +857,7 @@ def run_convergence_scan(
     seed: int = 0,
     engine: EngineConfig | None = None,
     V0: np.ndarray | None = None,
+    what_if_normals=None,
 ):
     """Train ``config`` on every scenario of ``traces`` on the engine's device.
 
@@ -519,7 +866,7 @@ def run_convergence_scan(
     """
     from repro_torch.experiments.convergence import ConvergenceBatchResult
 
-    spec, kernels, tr, V0_stack, eval_mask = prepare_scan_inputs(
+    spec, kernels, tr, V0_stack, eval_mask, tabs, normals = prepare_scan_inputs(
         problem,
         traces,
         config,
@@ -529,9 +876,11 @@ def run_convergence_scan(
         seed=seed,
         engine=engine,
         V0=V0,
+        what_if_normals=what_if_normals,
     )
-    times, subopt, fresh, lat, rejected = (
-        o.cpu().numpy() for o in _run_grid(kernels, spec, tr, V0_stack, eval_mask)
+    times, subopt, fresh, lat, rejected, evictions, published = (
+        o.cpu().numpy()
+        for o in _run_scan(kernels, spec, tr, V0_stack, eval_mask, tabs, normals)
     )
     S = traces.num_scenarios
     return ConvergenceBatchResult(
@@ -539,7 +888,9 @@ def run_convergence_scan(
         suboptimality=subopt,
         fresh_counts=fresh.astype(np.int64),
         per_worker_latency=lat,
-        repartition_events=[[] for _ in range(S)],
-        evictions=np.zeros(S, dtype=np.int64),
+        repartition_events=[
+            [float(times[s, t]) for t in np.flatnonzero(published[s])] for s in range(S)
+        ],
+        evictions=evictions.astype(np.int64),
         rejected_stale=rejected.astype(np.int64),
     )

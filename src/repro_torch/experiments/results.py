@@ -1,15 +1,19 @@
 """Results layer of the §7 sweeps: ordering verdicts, the §6.1 profiler feed
-from batched traces, the ``BENCH_sweep.json`` payload, and the time-to-gap
-verdict of the convergence sweeps (``repro.experiments.results``).
+from batched traces, the ``BENCH_sweep.json`` payload, the time-to-gap
+verdict of the convergence sweeps (``repro.experiments.results``), and the
+§6 ``lb_scan`` column (:func:`run_lb_scan`, then :meth:`LbScanRun.column`:
+``benchmarks/bench_regression.run_lb_scan_column``).
 
-:func:`write_bench_sweep` writes wherever it is told; the port's CLI never
-points it at the committed ``BENCH_sweep.json``.
+:func:`write_bench_sweep` and :func:`write_json` write wherever they are
+told; the port's CLIs never point them at the committed ``BENCH_*.json``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 
@@ -150,7 +154,7 @@ def _json_safe(obj):
     return obj
 
 
-def _write_json(payload: dict, path: str) -> dict:
+def write_json(payload: dict, path: str) -> dict:
     payload = _json_safe(payload)
     tmp = path + ".tmp"
     with open(tmp, "w") as fh:
@@ -169,7 +173,7 @@ def write_bench_sweep(
 ) -> dict:
     """Write the sweep summary (the ``BENCH_sweep.json`` payload) to ``path``."""
     payload = outcome_to_dict(outcome, scalar_seconds=scalar_seconds, extra=extra)
-    return _write_json(payload, path)
+    return write_json(payload, path)
 
 
 
@@ -206,3 +210,79 @@ def convergence_ordering(outcome, gap: float) -> dict[str, float]:
                 np.isfinite(t_dsag) and t_dsag < sag_t <= coded_t
             )
     return out
+
+
+@dataclasses.dataclass
+class LbScanRun:
+    """One §6 DSAG config through the host and the device engine."""
+
+    config: object  # the MethodConfig, load_balance=True
+    host: object  # ConvergenceBatchResult
+    scan: object
+    host_seconds: float
+    scan_seconds: float
+    what_if_draws: str  # "reference" or "torch-generator"
+
+    def mismatches(self) -> list[str]:
+        """The fields in which the two engines differ (empty when bit-equal)."""
+        from repro_torch.experiments.convergence import result_mismatches
+
+        return result_mismatches(self.host, self.scan)
+
+    def column(self, gap: float, base_medians: dict[str, float] | None = None) -> dict:
+        """The ``lb_scan`` column: bit-equality, the publication count, and
+        the DSAG-with-§6 time-to-gap verdict against the non-§6 methods'
+        medians on the same traces (``base_medians``)."""
+        ttg = self.scan.time_to_gap(gap)
+        t_lb = float(np.median(ttg))
+        ordering = {
+            "gap": gap,
+            "median_time_to_gap_dsag_lb": t_lb,
+            "reached_gap_frac_dsag_lb": float(np.isfinite(ttg).mean()),
+        }
+        if base_medians:
+            for name, t in base_medians.items():
+                if name != "dsag" and t and t > 0:
+                    ordering[f"{name}_over_dsag_lb"] = t / t_lb
+            sag_t, coded_t = base_medians.get("sag"), base_medians.get("coded")
+            if sag_t is not None and coded_t is not None:
+                ordering["dsag_lb_fastest_to_gap"] = float(t_lb < sag_t and t_lb < coded_t)
+        cfg = self.config
+        return {
+            "config": {
+                "w": cfg.w, "subpartitions": cfg.subpartitions, "eta": cfg.eta,
+                "lb_startup_delay": cfg.lb_startup_delay, "lb_interval": cfg.lb_interval,
+            },
+            "host_seconds": self.host_seconds,
+            "scan_seconds": self.scan_seconds,
+            "bitexact_scan_vs_host": not self.mismatches(),
+            "repartitions_mean": float(np.mean([len(ev) for ev in self.scan.repartition_events])),
+            "what_if_draws": self.what_if_draws,
+            "ordering": ordering,
+        }
+
+
+def run_lb_scan(problem, traces, dsag_config, *, num_iterations: int, eval_every: int,
+                seed: int, engine=None, what_if_normals=None) -> LbScanRun:
+    """Run ``dsag_config`` with the §6 load balancer through the host and
+    the device engine (host wall clocks ending in a synchronize)."""
+    import torch
+
+    from repro_torch.experiments.convergence import run_convergence_batch
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.lb.optimizer import what_if_source
+
+    eng = EngineConfig() if engine is None else engine
+    cfg = dataclasses.replace(dsag_config, load_balance=True)
+    out, secs = {}, {}
+    for kind in ("host", "scan"):
+        t0 = time.perf_counter()
+        out[kind] = run_convergence_batch(
+            problem, traces, cfg, num_iterations, eval_every=eval_every, seed=seed,
+            engine=dataclasses.replace(eng, kind=kind), what_if_normals=what_if_normals,
+        )
+        if torch.device(eng.device).type == "cuda":
+            torch.cuda.synchronize()
+        secs[kind] = time.perf_counter() - t0
+    draws = "given" if what_if_normals is not None else what_if_source(seed, traces.num_workers)
+    return LbScanRun(cfg, out["host"], out["scan"], secs["host"], secs["scan"], draws)

@@ -9,9 +9,12 @@ wrapper                    TPU kernel it replaces                 CUDA source
 ``dsag_cache_update`` (K4) ``repro/kernels/dsag_update.py``       ``csrc/dsag_update.cu``
 ``gram_matvec`` (K5)       ``repro/kernels/gram_matvec.py``       ``csrc/gram_matvec.cu``
 ``flash_attention`` (K6)   ``repro/kernels/flash_attention.py``   ``csrc/flash_attention.cu``
+``what_if_replay`` (K7)    none: XLA, ``repro/lb/jit_optimizer``  ``csrc/what_if.cu``
 =========================  =====================================  =================================
 
-K1, K2 and K5 share a second, wide path (``csrc/rows_wide.cuh``) for feature
+K7 is the §6 what-if replay behind Algorithm 1's h estimate: the reference
+runs it in XLA, not Pallas, and the port's eager form took ~2000 launches
+per estimate.  K1, K2 and K5 share a second, wide path (``csrc/rows_wide.cuh``) for feature
 widths past their fast paths' caps, so every width runs on the card.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
@@ -27,9 +30,10 @@ from repro_torch.kernels import (
     dsag_update,
     flash_attention,
     gram_matvec,
+    what_if,
 )
 
-_MODULES = (block_sub, cache_events, dsag_update, gram_matvec, flash_attention)
+_MODULES = (block_sub, cache_events, dsag_update, gram_matvec, flash_attention, what_if)
 
 
 def launch_counts() -> dict[str, int]:

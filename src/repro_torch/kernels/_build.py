@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+_F64 = ctypes.c_double
 #: C entry point -> argument types (each returns an int CUDA error code)
 SIGNATURES = {
     "dsag_logreg_block_sub": (_P,) * 7 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
@@ -45,6 +46,7 @@ SIGNATURES = {
     "dsag_gram_matvec_wide": (_P,) * 5 + (_I64, _I64, _I32, _I32, _I32, _I64, _I32, _P),
     "dsag_flash_attention": (_P,) * 4 + (_I64,) * 4 + (_I32,) * 4 + (_F32,) + (_I64,) * 12
     + (_I32, _P),
+    "dsag_what_if_replay": (_P, _P, _I64, _I32, _I32, _I32, _I32, _F64, _F64, _I32, _P),
 }
 #: the kernels' integer limits, mirrored from the sources so that the
 #: wrappers' launch plans and the engines' capability checks are pure
@@ -65,6 +67,7 @@ LIMITS = {
     "dsag_cache_window": 2048,
     "dsag_flash_block_q": 64,
     "dsag_flash_block_k": 64,
+    "dsag_what_if_max_workers": 1024,
 }
 #: integer constants the library exports
 CONSTANTS = tuple(LIMITS)

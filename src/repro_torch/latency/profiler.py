@@ -8,7 +8,8 @@ as a computation-latency sample and the difference as a
 communication-latency sample, and gives mean and variance over a moving time
 window (samples older than ``window`` seconds are dropped).  The scalar
 ``TrainingSimulator`` records every completion here.  The task-slot
-``MomentBuffer`` that feeds the §6 load balancer is not ported yet.
+:class:`MomentBuffer` is the view the §6 load balancer reads, in every
+engine.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import dataclasses
 from collections import deque
 
 import numpy as np
+import torch
+
+from repro_torch.lb.jit_optimizer import PROFILER_WINDOW, window_moments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +52,52 @@ class ProfilerMoments:
     v_comp: np.ndarray
     mean_load: np.ndarray
     num_samples: np.ndarray
+
+
+class MomentBuffer:
+    """Task-slot sample buffers behind the engines' §6.1 profiler view.
+
+    Dense ``[S, N, T]`` numpy arrays indexed by the *iteration that started
+    the task* (each (scenario, worker, iteration) starts at most one task,
+    observed at most once, so the slot is unique).  The moments come from
+    :func:`repro_torch.lb.jit_optimizer.window_moments`, which the device
+    engine also calls on its own slot tensors, so the §6 optimizer sees the
+    same moments, bit for bit, in the scalar simulator (``S = 1``), the host
+    engine and the device engine.  ``device`` is where they are computed.
+    """
+
+    def __init__(self, num_scenarios: int, num_workers: int, capacity: int, *,
+                 device="cpu"):
+        shape = (num_scenarios, num_workers, capacity)
+        self.t_rec = np.zeros(shape)
+        self.comm = np.zeros(shape)
+        self.comp = np.zeros(shape)
+        self.valid = np.zeros(shape, dtype=bool)
+        self.device = device
+
+    def record(self, s, workers, titers, t_recorded, round_trip, compute) -> None:
+        """Record observed completions (parallel arrays; ``s`` broadcastable).
+        The communication sample is ``max(round_trip - compute, 0)``."""
+        self.t_rec[s, workers, titers] = t_recorded
+        self.comm[s, workers, titers] = np.maximum(
+            np.asarray(round_trip, np.float64) - np.asarray(compute, np.float64), 0.0
+        )
+        self.comp[s, workers, titers] = compute
+        self.valid[s, workers, titers] = True
+
+    def moments(self, now, *, window: float | None = None):
+        """``(e_comm, v_comm, e_comp, v_comp, counts)`` numpy arrays at the
+        per-scenario times ``now``; a worker with no in-window sample
+        reports count 0."""
+        def t(a):
+            return torch.as_tensor(a, device=self.device)
+
+        out = window_moments(
+            t(self.t_rec), t(self.comm), t(self.comp), t(self.valid),
+            t(np.asarray(now, np.float64)),
+            float(PROFILER_WINDOW if window is None else window),
+        )
+        return tuple(o.cpu().numpy() for o in out)
 
 
 class LatencyProfiler:

@@ -11,8 +11,8 @@ All indices are 1-based inclusive, matching the paper:
 uses to keep surviving cache entries aligned when the group count changes);
 :class:`Subpartitioner` is one worker's cyclic walk over its subpartitions
 (what the scalar ``TrainingSimulator`` advances per task).  The §6 p-ladder
-(:func:`build_p_ladder`, :func:`ladder_intervals`) is here for the load
-balancer, which is not ported yet.
+(:func:`build_p_ladder`, :func:`ladder_intervals`) is the set of
+subpartition counts Algorithm 1 climbs (:mod:`repro_torch.lb.jit_optimizer`).
 
 >>> p_start(10, 2, 2), p_stop(10, 2, 2)
 (6, 10)

@@ -57,7 +57,6 @@ from repro_torch.experiments.convergence import (
 )
 from repro_torch.experiments.engine import (
     CAP_CHURN,
-    CAP_LOAD_BALANCE,
     EngineCapabilityError,
     EngineConfig,
 )
@@ -533,15 +532,40 @@ def test_iterate_batch_rows_equal_single_iterates(slices):
 
 
 def test_load_balance_refused_by_every_engine(slices):
+    """Where §6 is still refused: with churn (``churn-not-ported``) by every
+    engine and the scalar simulator, and in the live pin, as the reference's
+    ``pin_streams`` refuses it."""
     prob, cluster, tr = slices["logreg"]
-    cfg = MethodConfig(name="dsag", w=W, subpartitions=SUBPARTS, load_balance=True)
+    tch = tr.with_churn(ChurnSchedule.static(tr.slowdown))
+    cfg = MethodConfig(name="dsag", w=W, subpartitions=SUBPARTS, load_balance=True,
+                       lb_startup_delay=0.002, lb_interval=0.004)
     for kind in ("auto", "scan", "host"):
         with pytest.raises(EngineCapabilityError) as e:
-            run_convergence_batch(prob, tr, cfg, N_ITERS, engine=dataclasses.replace(CPU, kind=kind))
-        assert e.value.capability.code == CAP_LOAD_BALANCE
+            run_convergence_batch(prob, tch, cfg, N_ITERS, engine=dataclasses.replace(CPU, kind=kind))
+        assert e.value.capability.code == CAP_CHURN
     with pytest.raises(EngineCapabilityError) as e:
-        TrainingSimulator(prob, cluster, cfg, engine=CPU, latency_source=TraceLatencySource(tr, 0))
-    assert e.value.capability.code == CAP_LOAD_BALANCE
+        TrainingSimulator(prob, cluster, cfg, engine=CPU, latency_source=TraceLatencySource(tch, 0))
+    assert e.value.capability.code == CAP_CHURN
+    with pytest.raises(ValueError, match="no LB"):
+        pin_streams(prob, cluster, tr, 0, dataclasses.replace(cfg, subpartitions=1), N_ITERS,
+                    engine=CPU)
+
+
+def test_load_balance_runs_on_every_engine(slices):
+    """§6 load balancing runs on every engine, and all agree bit for bit
+    (``tests/test_torch_lb.py`` holds §6 against the reference)."""
+    prob, cluster, tr = slices["logreg"]
+    cfg = MethodConfig(name="dsag", w=W, subpartitions=SUBPARTS, load_balance=True,
+                       lb_startup_delay=0.002, lb_interval=0.004)
+    res = {kind: run_convergence_batch(prob, tr, cfg, N_ITERS,
+                                       engine=dataclasses.replace(CPU, kind=kind))
+           for kind in ("auto", "scan", "host")}
+    h = TrainingSimulator(prob, cluster, cfg, engine=CPU,
+                          latency_source=TraceLatencySource(tr, 0)).run(N_ITERS)
+    for kind, r in res.items():
+        assert history_mismatches(h, r, 0) == [], kind
+        assert r.repartition_events == res["scan"].repartition_events
+    assert sum(len(e) for e in res["scan"].repartition_events) > 0
 
 
 def test_churn_refused_by_every_engine(slices):

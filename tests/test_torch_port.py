@@ -12,6 +12,7 @@ another order); K3 and every event stream exactly.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -48,7 +49,6 @@ from repro_torch.experiments.engine import (
     CAP_CUDA_KERNELS_OFF_DEVICE,
     CAP_CUDA_SHAPE,
     CAP_CUDA_UNAVAILABLE,
-    CAP_LOAD_BALANCE,
     CAP_OK,
     EngineCapabilityError,
     EngineConfig,
@@ -65,6 +65,7 @@ from repro_torch.kernels import (
     gram_matvec,
     launch_counts,
     reset_launch_counts,
+    what_if,
 )
 from repro_torch.latency.model import ChurnSchedule, make_heterogeneous_cluster, sample_fleet
 
@@ -171,11 +172,27 @@ def test_default_engine_runs_on_the_card_or_refuses():
 
 
 def test_load_balance_is_refused():
+    """§6 load balancing is refused where it is not ported yet: with churn,
+    before any step (``churn-not-ported``)."""
     prob, tr = _small()
-    cfg = MethodConfig("dsag", w=3, subpartitions=2, load_balance=True)
+    cfg = MethodConfig("dsag", w=3, subpartitions=2, load_balance=True,
+                       lb_startup_delay=0.0, lb_interval=0.0)
+    tch = tr.with_churn(ChurnSchedule.static(tr.slowdown))
     with pytest.raises(EngineCapabilityError) as ei:
-        run_convergence_batch(prob, tr, cfg, 4, engine=CPU)
-    assert ei.value.capability.code == CAP_LOAD_BALANCE
+        run_convergence_batch(prob, tch, cfg, 4, engine=CPU)
+    assert ei.value.capability.code == CAP_CHURN
+
+
+def test_load_balance_runs_on_the_device_engine():
+    """The device engine runs §6 and equals the host engine bit for bit."""
+    prob, tr = _small()
+    cfg = MethodConfig("dsag", w=3, subpartitions=2, load_balance=True,
+                       lb_startup_delay=0.0, lb_interval=0.0)
+    scan = run_convergence_batch(prob, tr, cfg, 4, engine=CPU)
+    host = run_convergence_batch(prob, tr, cfg, 4, engine=dataclasses.replace(CPU, kind="host"))
+    assert np.array_equal(scan.times, host.times)
+    assert np.array_equal(scan.suboptimality, host.suboptimality, equal_nan=True)
+    assert scan.repartition_events == host.repartition_events
 
 
 def test_churn_is_refused():
@@ -326,8 +343,10 @@ def test_launch_counters_stay_zero_on_cpu():
     block_sub.logreg_block_sub(torch.randn(50, 5), torch.ones(50), torch.randn(3, 5),
                                *_tasks(rng, 50, 3, 9))
     cache_events.grid_cache_update(*_cache_inputs(rng))
+    what_if.what_if_replay(torch.rand(2, 5, 7, dtype=torch.float64), 3, 0.02)
     assert launch_counts() == {"logreg_block_sub": 0, "pca_block_sub": 0, "grid_cache_update": 0,
-                               "dsag_cache_update": 0, "gram_matvec": 0, "flash_attention": 0}
+                               "dsag_cache_update": 0, "gram_matvec": 0, "flash_attention": 0,
+                               "what_if_replay": 0}
 
 
 def test_wrappers_on_cpu_take_the_plain_versions():
@@ -467,7 +486,7 @@ def test_cache_plain_equals_a_scalar_walk(seed):
 
 def test_kernel_sources_define_every_entry_point():
     text = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
-    assert len(list(_build.CSRC.glob("*.cu"))) == 5
+    assert len(list(_build.CSRC.glob("*.cu"))) == 6
     for name in list(_build.SIGNATURES) + list(_build.CONSTANTS) + ["dsag_cuda_error_string"]:
         assert f" {name}(" in text, name
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
