@@ -29,10 +29,14 @@ Phases (any failure raises and the script exits non-zero):
    launch shapes (every task padded to the widest window of any ladder
    rung: 82 rows for ``lb_scan``, the 1000-row local range for PCA); K7
    (the §6 what-if replay, no TPU counterpart: it replaces an XLA scan) at
-   the ``lb_scan`` batch, its scalar call and PCA's batch, equal to its
-   plain version (``torch.equal``); last, K3 at 10000 events per scenario
-   (its plain version's launches, like phases 4-8, leave the profiler
-   without device times for later calls);
+   the ``lb_scan`` batch, its scalar call and PCA's batch, and with a
+   liveness mask (phase 9's calls: dead workers' draws +inf, per-scenario
+   waits ``w_eff`` of 80 in nine scenarios and 75 in one, and at S = 1),
+   equal to its plain version (``torch.equal``); K3 at the ``grid`` shape
+   on a state a churn clear leaves (200 slots per scenario with tag -1 and
+   stale non-zero values), ``torch.equal``; last, K3 at 10000 events per
+   scenario (its plain version's launches, like phases 4-9, leave the
+   profiler without device times for later calls);
 4. slice 1, the convergence sweep: run the ``grid`` (logreg, n=16384, 100
    workers x 10 scenarios) and ``pca_paper_scale`` (n=50000, 50 workers x 4
    scenarios) recipes at full size through the kernels, all four methods,
@@ -101,7 +105,26 @@ Phases (any failure raises and the script exits non-zero):
    :data:`PCA_LB_DEPTH` iterations, scalar == host == device through K2;
    (e) (a)'s first Algorithm-1 call again, timed through K7 and through
    its plain version on the card (not counted);
-9. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+9. slice 9, elastic-fleet churn, with the counters set to 0 just before each
+   path and read just after: (a) the committed ``BENCH_convergence.json``
+   ``churn`` column from its recipe (dsag, sag, coded through the host and
+   device engines, K1 and K3): the schedule, medians, reached fractions,
+   ordering and ``bitexact_scan_vs_host`` equal to the committed values,
+   and the scalar simulator on scenario 0 equal to row 0; (b) the ``grid``
+   recipe at full width under the column's schedule rule (the slowest
+   fifth dies at 30% of the churn-free run, half of it rejoins at 70%):
+   dsag, sag, sgd, coded device == host bit for bit, scalar == row 0 for
+   dsag and sag, wall clocks beside phase 4's, the ordering reported; (c)
+   the ``lb_scan`` recipe under the same schedule, device == host ==
+   scalar (publication times included) through K1 and K7 with the mask,
+   at least one Algorithm-1 call with a dead worker; (d) §7.2: the scalar
+   simulator with ``SlowdownRemoval`` timed events on a replayed trace
+   equal to the engines on ``paper_artificial_churn``'s schedule; (e)
+   ``pca_paper_scale``'s dsag and sag under the schedule rule at
+   :data:`PCA_ENGINE_DEPTH` iterations, scalar == host == device through K2
+   and K3; (f) the live pin under churn (the port's controller == the
+   port's simulator on ``live_validation``, groups dying and rejoining);
+10. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -379,10 +402,13 @@ def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> lis
     return rows
 
 
-def check_what_if(torch, S: int, N: int, w: int, margin: float, rng) -> dict:
+def check_what_if(torch, S: int, N: int, w: int, margin: float, rng,
+                  dead: list | None = None) -> dict:
     """Phase 3 for K7 at one §6 shape: what-if draws made from the shipped
     normals and profiler-like moments (as estimate_h makes them); exact
-    equality with the plain version."""
+    equality with the plain version.  With ``dead`` (dead workers per
+    scenario), the churn call: those workers' draws +inf (random ones of
+    each scenario) and per-scenario waits ``w_eff = min(w, #alive)``."""
     from repro_torch.kernels import what_if
     from repro_torch.lb import jit_optimizer as jlb
     from repro_torch.lb.optimizer import what_if_normals
@@ -398,13 +424,22 @@ def check_what_if(torch, S: int, N: int, w: int, margin: float, rng) -> dict:
     v_comm = (f64(rng.uniform(0.05, 0.3, (S, N))) * e_comm) ** 2
     v_comp = (f64(rng.uniform(0.05, 0.3, (S, N))) * e_comp) ** 2
     comm, comp = jlb._draw_what_if(what_if_normals(0, N, K, dev), e_comm, v_comm, e_comp, v_comp)
+    wait, n_live = w, S * N
+    if dead is not None:
+        alive = np.ones((S, N), bool)
+        for s, n_dead in enumerate(dead):
+            alive[s, rng.choice(N, n_dead, replace=False)] = False
+        alive_t = torch.as_tensor(alive, device=dev)
+        comm = torch.where(alive_t[:, :, None], comm, torch.inf)
+        wait = torch.clamp_max(alive_t.sum(dim=1), w)
+        n_live = int(alive.sum())
     total = (comp + comm).contiguous()
 
     def kernel():
-        return what_if.what_if_replay(total, w, margin)
+        return what_if.what_if_replay(total, wait, margin)
 
     def plain():
-        return what_if.what_if_replay_plain(total, w, margin)
+        return what_if.what_if_replay_plain(total, wait, margin)
 
     got, want, again = kernel(), plain(), kernel()
     if not (torch.equal(got, want) and torch.equal(got, again)):
@@ -412,23 +447,43 @@ def check_what_if(torch, S: int, N: int, w: int, margin: float, rng) -> dict:
              f"(max |diff| {float((got - want).abs().max()):.3e}) or does not repeat")
     k_ms, p_ms = timed_pair(torch, kernel, plain, reps=50, plain_reps=5)
     dev_ms, dev_kernels = device_ms(torch, kernel, 20)
-    # bytes: total read once, u written once; operations: per iteration ~6
-    # float64 ops per worker and one selection of the w-th smallest of N
-    # finishes, linear work (N compares); the kernel's N-wide rank count per
-    # worker is its own choice, not work the function needs
-    nbytes = total.numel() * 8 + S * N * 8
-    ops = S * K * (6 * N + N)
+    # bytes: total read once, u written once (and the waits); operations: per
+    # iteration ~6 float64 ops per living worker and one selection of the
+    # w-th smallest of the finishes, linear work (one compare each); the
+    # kernel's N-wide rank count per worker is its own choice, not work the
+    # function needs
+    nbytes = total.numel() * 8 + S * N * 8 + (S * 8 if dead is not None else 0)
+    ops = K * 7 * n_live
     b_ms, b_by = bound_ms(nbytes, ops, PEAK_F64)
-    print(f"  what_if_replay S={S} N={N} K={K} w={w} margin={margin}: equal to its plain "
-          f"version, repeats its bits; kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)}: "
-          f"{dev_kernels}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    return dict(call=f"S={S} N={N} w={w}", max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
-                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    mask, extra = "", {}
+    if dead is not None:
+        # the wrapper's device time includes its range check of the waits (a
+        # reduction and a copy to the host); K7's own, launched directly
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.block_sub import _stream
+
+        u = torch.empty((S, N), dtype=torch.float64, device=dev)
+        k7_ms, _ = device_ms(torch, lambda: _build.launch(
+            "dsag_what_if_replay", total.data_ptr(), u.data_ptr(), wait.data_ptr(), S, N, K, 0,
+            int(margin > 0.0), float(margin), 1.0 / K, total.device.index,
+            _stream(total.device)), 20)
+        mask = f" dead={sorted(set(dead))} w_eff={sorted(set(wait.tolist()))}"
+        extra = dict(kernel_alone_device_ms=k7_ms)
+        if not (got[~alive_t] == 0).all():
+            fail(f"what_if_replay S={S} N={N}: a dead worker took part in the replay")
+    alone = f"; K7 alone: device {fmt_ms(extra['kernel_alone_device_ms'])}" if extra else ""
+    print(f"  what_if_replay S={S} N={N} K={K} w={w}{mask} margin={margin}: equal to its "
+          f"plain version, repeats its bits; kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)}: "
+          f"{dev_kernels}{alone}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(call=f"S={S} N={N} w={w}{mask}", max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
+                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
 def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
-                     plain_reps: int = 3) -> dict:
-    """Phase 3 for K3 at one dsag shape; exact equality."""
+                     plain_reps: int = 3, cleared: int = 0) -> dict:
+    """Phase 3 for K3 at one dsag shape; exact equality.  ``cleared`` slots
+    of every scenario are in the state a churn clear leaves them: tag -1 and
+    a stale non-zero value row, which the walk must take as empty."""
     from repro_torch.kernels import cache_events
 
     dev = torch.device("cuda")
@@ -441,11 +496,14 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
         vals_r=torch.as_tensor(rng.normal(size=(S, R, F)), device=dev),
         sums=torch.as_tensor(rng.normal(size=(S, F)), device=dev),
         values=torch.as_tensor(rng.normal(size=(S, E, F)), device=dev),
-        iters=torch.as_tensor(rng.integers(-1, T, size=(S, E)), device=dev),
+        iters=torch.as_tensor(rng.integers(0 if cleared else -1, T, size=(S, E)), device=dev),
         covered=torch.as_tensor(rng.integers(0, 1000, size=S), device=dev),
         rejected=torch.as_tensor(rng.integers(0, 10, size=S), device=dev),
         slot_width=torch.as_tensor(rng.integers(1, 300, size=E), device=dev),
     )
+    if cleared:
+        gone = np.stack([rng.choice(E, cleared, replace=False) for _ in range(S)])
+        args["iters"][torch.arange(S, device=dev)[:, None], torch.as_tensor(gone, device=dev)] = -1
     a = tuple(args.values())
     got = cache_events.grid_cache_update(*a)
     # the device time before the plain version runs: after its ~10^5 small
@@ -467,11 +525,23 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
               + S * E * 8 + 2 * S * 8) + E * 8)
     flops = accepted * F * 2  # one float64 sub and one add per accepted feature
     b_ms, b_by = bound_ms(nbytes, flops, PEAK_F64)
-    print(f"  grid_cache_update S={S} R={R} E={E} F={F}: equal (accepted {accepted}, "
+    state = ""
+    if cleared:
+        slot_r = args["slot_r"].cpu().numpy()
+        hits = int(sum(np.isin(slot_r[s][args["valid_r"][s].cpu().numpy()], gone[s]).sum()
+                       for s in range(S)))
+        nonzero = bool((args["values"][torch.arange(S, device=dev)[:, None],
+                                        torch.as_tensor(gone, device=dev)] != 0).all())
+        if not hits or not nonzero:
+            fail(f"grid_cache_update cleared state: {hits} events on cleared slots, "
+                 f"stale values non-zero {nonzero}")
+        state = f", {cleared} cleared slots with stale values per scenario ({hits} events on them)"
+    print(f"  grid_cache_update S={S} R={R} E={E} F={F}{state}: equal (accepted {accepted}, "
           f"rejected {n_rej}); kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), "
           f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    return dict(call=f"S{S}_R{R}_E{E}_F{F}", max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
-                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return dict(call=f"S{S}_R{R}_E{E}_F{F}" + (f"_cleared{cleared}" if cleared else ""),
+                max_abs_err=0.0, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def k4_launch(torch, g, c, h, mask, streaming: bool):
@@ -1334,6 +1404,312 @@ def run_lb(torch, outcomes: dict) -> dict:
     return counts
 
 
+#: the §7.2 run of phase 9 (d): the paper's 49 workers, slowed by
+#: 1 + (i/N) 0.4, the last 10 relieved halfway through the churn-free run
+ART72 = dict(n_workers=49, n_scenarios=4, num_iterations=60, w=40, removed=10)
+
+
+def churn_of(out, committed_recipe: dict, T: int | None = None):
+    """``out``'s traces under the churn column's schedule rule (its
+    fractions from the committed recipe), waiting for the recipe's dsag w:
+    ``(churned traces, schedule dict)``."""
+    from repro_torch.cluster.simulator import effective_w
+    from repro_torch.experiments.results import fleet_churn
+
+    r = committed_recipe
+    churn, sch = fleet_churn(
+        out.traces, effective_w(out.methods["dsag"], out.traces.num_workers),
+        T or out.num_iterations, death_frac=r["death_frac"], death_at_frac=r["death_at_frac"],
+        revive_frac=r["revive_frac"], revive_at_frac=r["revive_at_frac"], device="cuda")
+    return out.traces.with_churn(churn), sch
+
+
+def run_churn(torch, outcomes: dict) -> dict:
+    """Phase 9: elastic-fleet churn through the three engines on the card."""
+    import dataclasses
+
+    from repro_torch.cluster.simulator import (
+        MethodConfig,
+        TraceLatencySource,
+        TrainingSimulator,
+    )
+    from repro_torch.core.problems import LogisticRegressionProblem, make_higgs_like
+    from repro_torch.experiments.convergence import (
+        GRID_LB,
+        result_mismatches,
+        run_convergence_batch,
+        scalar_convergence_run,
+    )
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.experiments.grid import HEAVY_BURSTS
+    from repro_torch.experiments.results import run_churn_column
+    from repro_torch.ft.validation import controller_streams, group_loads, pin_streams
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.latency.model import (
+        ChurnSchedule,
+        SlowdownRemoval,
+        make_heterogeneous_cluster,
+        make_paper_artificial_cluster,
+        paper_artificial_churn,
+        sample_fleet,
+    )
+    from repro_torch.lb import jit_optimizer as jlb
+
+    card = EngineConfig(device="cuda", kernel_backend="cuda")
+    bench = json.loads((ROOT / "BENCH_convergence.json").read_text())
+    committed = bench["churn"]
+    counts = dict.fromkeys(launch_counts(), 0)
+
+    def add_counts() -> dict:
+        now = launch_counts()
+        for k, v in now.items():
+            counts[k] += v
+        return now
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def batched(prob, traces, methods, T, eval_every, seed) -> tuple[dict, dict]:
+        """Each method through the device and the host engine: results and
+        wall clocks; fails unless the engines agree bit for bit."""
+        runs, walls = {}, {}
+        for m, cfg in methods.items():
+            for kind in ("scan", "host"):
+                runs[m, kind], walls[m, kind] = timed(lambda: run_convergence_batch(
+                    prob, traces, cfg, T, eval_every=eval_every, seed=seed,
+                    engine=dataclasses.replace(card, kind=kind)))
+            bad = result_mismatches(runs[m, "scan"], runs[m, "host"])
+            if bad:
+                fail(f"churn {m}: the device and host engines differ in {bad}")
+        return runs, walls
+
+    def sch_text(sch) -> str:
+        return (f"workers {sch['dead_workers']} die at {sch['death_at']!r} s, "
+                f"{sch['revived_workers']} rejoin at {sch['revive_at']!r} s")
+
+    # (a) the committed churn column, host and device engines through K1 and K3
+    reset_launch_counts()
+    col_run, wall_a = timed(lambda: run_churn_column(committed["recipe"], engine=card))
+    n_a = add_counts()
+    col = col_run.column
+    if n_a["logreg_block_sub"] == 0 or n_a["grid_cache_update"] == 0:
+        fail(f"the churn column ran without logreg_block_sub or grid_cache_update: {n_a}")
+    print(f"  churn column (committed recipe: {committed['recipe']['n_workers']} workers x "
+          f"{committed['recipe']['n_scenarios']} scenarios x "
+          f"{committed['recipe']['num_iterations']} iterations; {sch_text(col['schedule'])}): "
+          f"{wall_a:.2f} s for dsag, sag, coded through both engines; launches "
+          f"{n_a['logreg_block_sub']} logreg_block_sub, {n_a['grid_cache_update']} "
+          f"grid_cache_update")
+    print(f"    {'value':>34} {'port (card)':>22} {'committed':>22} equal")
+    rows = [("bitexact_scan_vs_host", col["bitexact_scan_vs_host"],
+             committed["bitexact_scan_vs_host"])]
+    rows += [(f"schedule.{k}", v, committed["schedule"][k]) for k, v in col["schedule"].items()]
+    rows += [(f"{m}.{k}", v, committed["methods"][m][k])
+             for m in col["methods"] for k, v in col["methods"][m].items()]
+    rows += [(f"ordering.{k}", v, committed["ordering"].get(k)) for k, v in col["ordering"].items()]
+    for key, mine, theirs in rows:
+        print(f"    {key:>34} {mine!r:>22} {theirs!r:>22} {mine == theirs}")
+    for key in ("bitexact_scan_vs_host", "schedule", "methods", "ordering"):
+        if col[key] != committed[key]:
+            fail(f"churn column: {key} {col[key]!r} differs from the committed {committed[key]!r}")
+    reset_launch_counts()
+    wall_s = {}
+    for m, cfg in col_run.methods.items():
+        if m not in col_run.runs:
+            continue
+        hist, wall_s[m] = timed(lambda: TrainingSimulator(
+            col_run.problem, col_run.cluster, cfg, eval_every=committed["recipe"]["eval_every"],
+            seed=committed["recipe"]["seed"],
+            latency_source=TraceLatencySource(col_run.traces, 0), engine=card).run(
+                committed["recipe"]["num_iterations"]))
+        engines_equal(f"churn column {m}", hist, col_run.runs[m])
+    n_as = add_counts()
+    print(f"    scalar simulator, scenario 0: == row 0 for dsag, sag, coded "
+          f"({', '.join(f'{m} {w:.2f} s' for m, w in wall_s.items())}; "
+          f"{n_as['logreg_block_sub']} logreg_block_sub launches)")
+
+    # (b) the grid recipe at full width under the column's schedule rule
+    out, gap = outcomes["grid"]
+    churned, sch = churn_of(out, committed["recipe"])
+    methods = {m: out.methods[m] for m in ("dsag", "sag", "sgd", "coded")}
+    T = out.num_iterations
+    # the churn-free device runs again, warm, beside the churned ones: what
+    # the liveness algebra and the clears (a host read per iteration) cost
+    # (a comparison run: its launches are not counted)
+    _, wall_free = timed(lambda: [run_convergence_batch(
+        out.problem, out.traces, cfg, T, eval_every=out.eval_every, seed=out.seed,
+        engine=dataclasses.replace(card, kind="scan")) for cfg in methods.values()])
+    reset_launch_counts()
+    runs, walls = batched(out.problem, churned, methods, T, out.eval_every, out.seed)
+    n_b = add_counts()
+    if n_b["logreg_block_sub"] == 0 or n_b["grid_cache_update"] == 0:
+        fail(f"the grid recipe under churn ran without K1 or K3: {n_b}")
+    reset_launch_counts()
+    churned_out = dataclasses.replace(out, traces=churned)
+    for m in ("dsag", "sag"):
+        hist, walls[m, "scalar"] = timed(lambda: scalar_convergence_run(churned_out, m, 0,
+                                                                        engine=card))
+        engines_equal(f"grid/{m} under churn", hist, {"scan": runs[m, "scan"]})
+    n_bs = add_counts()
+    med = {m: float(np.median(runs[m, "scan"].time_to_gap(gap))) for m in methods}
+    base = {m: float(np.median(r.time_to_gap(gap))) for m, r in out.results.items()}
+    print(f"  grid recipe under churn ({out.traces.num_workers} workers x "
+          f"{out.traces.num_scenarios} scenarios x {T} iterations, w {methods['dsag'].w}; "
+          f"{sch_text(sch)}): dsag, sag, sgd, coded device == host bit for bit on every "
+          f"scenario; scalar == row 0 for dsag and sag")
+    print(f"    wall clock: device engine {sum(walls[m, 'scan'] for m in methods):.2f} s, host "
+          f"engine {sum(walls[m, 'host'] for m in methods):.2f} s (4 methods; churn-free "
+          f"device run, warm, in this call {wall_free:.2f} s; phase 4's "
+          f"{out.engine_seconds:.2f} s); scalar scenario 0 dsag "
+          f"{walls['dsag', 'scalar']:.2f} s, sag {walls['sag', 'scalar']:.2f} s; launches "
+          f"{n_b['logreg_block_sub']} logreg_block_sub, {n_b['grid_cache_update']} "
+          f"grid_cache_update (+{n_bs['logreg_block_sub']} scalar)")
+    n_alive = out.traces.num_workers - len(sch["dead_workers"])
+    print(f"    median t->gap under churn {med}; churn-free {base}; dsag < sag < coded "
+          f"{med['dsag'] < med['sag'] < med['coded']} (reported, not required: with "
+          f"{len(sch['dead_workers'])} dead and w = {methods['dsag'].w}, dsag waits for "
+          f"min(w, {n_alive}) living workers)")
+
+    # (c) §6 under churn at full width: the lb_scan recipe with the same schedule
+    dsag_lb = dataclasses.replace(out.methods["dsag"], load_balance=True, **GRID_LB)
+    calls = []
+    reset_launch_counts()
+    with counting(jlb, "lb_update", calls):
+        runs_c, walls_c = batched(out.problem, churned, {"dsag_lb": dsag_lb}, T,
+                                  out.eval_every, out.seed)
+    n_c = add_counts()
+    if n_c["logreg_block_sub"] == 0 or n_c["what_if_replay"] == 0:
+        fail(f"§6 under churn ran without K1 or K7: {n_c}")
+    with_dead = sum(1 for _, args, kw in calls if kw.get("alive") is not None
+                    and bool((~kw["alive"] & args[7][:, None]).any()))
+    if with_dead == 0:
+        fail("§6 under churn: no Algorithm-1 call was made with a dead worker")
+    reset_launch_counts()
+    hist_c, wall_cs = timed(lambda: TrainingSimulator(
+        out.problem, out.cluster, dsag_lb, eval_every=out.eval_every, seed=out.seed,
+        latency_source=TraceLatencySource(churned, 0), engine=card).run(T))
+    n_cs = add_counts()
+    engines_equal("lb_scan under churn, scalar/scenario 0", hist_c,
+                  {"scan": runs_c["dsag_lb", "scan"]})
+    reps = [len(e) for e in runs_c["dsag_lb", "scan"].repartition_events]
+    med_c = float(np.median(runs_c["dsag_lb", "scan"].time_to_gap(gap)))
+    opt_s = [c[0] for c in calls]
+    print(f"  lb_scan recipe under churn ({GRID_LB}; same schedule): device == host bit for bit "
+          f"on all {out.traces.num_scenarios} scenarios (publication times included), scalar == "
+          f"row 0 ({len(hist_c.repartition_events)} repartitions); repartitions per scenario "
+          f"{reps}; median t->gap {med_c!r}")
+    print(f"    wall clock: device engine {walls_c['dsag_lb', 'scan']:.2f} s, host engine "
+          f"{walls_c['dsag_lb', 'host']:.2f} s, scalar scenario 0 {wall_cs:.2f} s; Algorithm 1: "
+          f"{len(calls)} batched calls over both engines, {with_dead} with a dead worker in an "
+          f"active scenario, {sum(opt_s):.2f} s, {np.median(opt_s):.3f} s median per call; "
+          f"launches {n_c['logreg_block_sub']} logreg_block_sub, {n_c['what_if_replay']} "
+          f"what_if_replay (+{n_cs['what_if_replay']} scalar)")
+
+    # (d) §7.2: SlowdownRemoval events on a replayed trace through the scalar
+    # simulator, against the engines on the folded schedule
+    a = ART72
+    X, y = make_higgs_like(16_384, seed=0)
+    prob = LogisticRegressionProblem(X=X, y=y)
+    N = a["n_workers"]
+    cluster = make_paper_artificial_cluster(
+        num_workers=N, load_unit=prob.compute_cost(1, 16_384 // (N * 10)), seed=1)
+    traces = sample_fleet(cluster, a["n_scenarios"], a["num_iterations"], seed=7)
+    methods = {"dsag": MethodConfig(name="dsag", w=a["w"], eta=0.25, subpartitions=10),
+               "sag": MethodConfig(name="sag", w=N, eta=0.25, subpartitions=10)}
+    base_d = run_convergence_batch(prob, traces, methods["sag"], a["num_iterations"],
+                                   eval_every=5, engine=card)
+    remove_at = float(np.median(base_d.times[:, -1])) / 2
+    paper = paper_artificial_churn(num_workers=N, remove_at=remove_at,
+                                   num_removed=a["removed"])
+    removal = SlowdownRemoval(time=remove_at, workers=tuple(range(N - a["removed"], N)))
+    reset_launch_counts()
+    runs_d, walls_d = batched(prob, traces.with_churn(paper), methods, a["num_iterations"], 5, 0)
+    for m, cfg in methods.items():
+        src = TraceLatencySource(traces, 0)
+        hist_d, walls_d[m, "scalar"] = timed(lambda: TrainingSimulator(
+            prob, cluster, cfg, eval_every=5, latency_source=src,
+            timed_events=[(remove_at, removal)], engine=card).run(a["num_iterations"]))
+        folded = src.traces.churn
+        if not (np.array_equal(folded.times, paper.times)
+                and np.array_equal(folded.slowdown, paper.slowdown)):
+            fail("§7.2: the folded timed event is not paper_artificial_churn's schedule")
+        engines_equal(f"§7.2 {m}", hist_d, {"scan": runs_d[m, "scan"], "host": runs_d[m, "host"]})
+    n_d = add_counts()
+    before = base_d.times[:, -1]
+    print(f"  §7.2 ({N} workers slowed by 1 + (i/N) 0.4, the last {a['removed']} relieved at "
+          f"{remove_at!r} s, {a['n_scenarios']} scenarios x {a['num_iterations']} iterations): "
+          f"the scalar simulator with SlowdownRemoval timed events == the device and host "
+          f"engines on paper_artificial_churn's schedule, bit for bit, dsag and sag; sag's run "
+          f"{np.median(before):.4f} s without the removal, "
+          f"{np.median(runs_d['sag', 'scan'].times[:, -1]):.4f} s with it; wall clock "
+          f"device {sum(walls_d[m, 'scan'] for m in methods):.2f} s, host "
+          f"{sum(walls_d[m, 'host'] for m in methods):.2f} s, scalar scenario 0 dsag "
+          f"{walls_d['dsag', 'scalar']:.2f} s, sag {walls_d['sag', 'scalar']:.2f} s; "
+          f"{n_d['logreg_block_sub']} logreg_block_sub launches")
+
+    # (e) PCA: pca_paper_scale's dsag and sag under the schedule rule, K2 and K3
+    out_p, _ = outcomes["pca_paper_scale"]
+    Tp = PCA_ENGINE_DEPTH
+    churned_p, sch_p = churn_of(out_p, committed["recipe"], Tp)
+    methods_p = {m: out_p.methods[m] for m in ("dsag", "sag")}
+    reset_launch_counts()
+    runs_e, walls_e = batched(out_p.problem, churned_p, methods_p, Tp, out_p.eval_every,
+                              out_p.seed)
+    out_pc = dataclasses.replace(out_p, traces=churned_p, num_iterations=Tp)
+    for m in methods_p:
+        hist_e, walls_e[m, "scalar"] = timed(lambda: scalar_convergence_run(out_pc, m, 0,
+                                                                            engine=card))
+        engines_equal(f"pca_paper_scale/{m} under churn", hist_e, {"scan": runs_e[m, "scan"]})
+    n_e = add_counts()
+    if n_e["pca_block_sub"] == 0 or n_e["grid_cache_update"] == 0:
+        fail(f"PCA under churn ran without K2 or K3: {n_e}")
+    print(f"  pca_paper_scale dsag and sag under churn ({Tp} of 80 iterations; "
+          f"{sch_text(sch_p)}): scalar == host == device bit for bit; "
+          f"{n_e['pca_block_sub']} pca_block_sub, {n_e['grid_cache_update']} grid_cache_update "
+          f"launches; device {sum(walls_e[m, 'scan'] for m in methods_p):.2f} s, host "
+          f"{sum(walls_e[m, 'host'] for m in methods_p):.2f} s")
+
+    # (f) the live pin under churn: the port's controller == the port's simulator
+    live = bench["live_validation"]
+    r = live["recipe"]
+    n, G, T = r["num_samples"], r["n_workers"], r["num_iterations"]
+    X, y = make_higgs_like(n, seed=r["seed"])
+    prob = LogisticRegressionProblem(X=X, y=y)
+    cluster = make_heterogeneous_cluster(G, seed=r["seed"] + 3, burst_rate=0.0,
+                                         load_unit=prob.compute_cost(1, n // G))
+    traces = sample_fleet(cluster, r["n_scenarios"], 4 * T, burst_rate=HEAVY_BURSTS.rate,
+                          burst_factor_mean=HEAVY_BURSTS.factor_mean,
+                          burst_duration_mean=HEAVY_BURSTS.duration_mean, seed=r["seed"] + 7)
+    scen = r["scenario"]
+    base_f = controller_streams(traces, scen, w=r["w"], num_iterations=T,
+                                loads=group_loads(prob, G))
+    alive = np.ones((3, G), dtype=bool)
+    alive[1, [2, 5]] = False
+    alive[2, 5] = False
+    tch = traces.with_churn(ChurnSchedule(
+        times=np.array([float(base_f.times[T // 3]), float(base_f.times[2 * T // 3])]),
+        slowdown=np.tile(traces.slowdown, (3, 1)), alive=alive))
+    reset_launch_counts()
+    for m in ("dsag", "sag"):
+        cfg = MethodConfig(name=m, w=r["w"], eta=r["eta"], margin=r["margin"], subpartitions=1)
+        (ctrl, sim, _), wall = timed(lambda: pin_streams(prob, cluster, tch, scen, cfg, T,
+                                                         seed=r["seed"], engine=card))
+        if not (ctrl == sim and np.array_equal(ctrl.times, sim.times)):
+            fail(f"pin live_validation/{m} under churn: {ctrl.mismatch_summary(sim)}")
+        if not sim.evict.any():
+            fail(f"pin live_validation/{m} under churn: no death cleared a cache slot")
+        print(f"  pin live_validation/{m} under churn (groups 2 and 5 die at step {T // 3}, "
+              f"2 rejoins at step {2 * T // 3}): controller == simulator (mask, flush, evict, "
+              f"virtual times; Σ fresh {int(sim.mask.sum())}, Σ evict {int(sim.evict.sum())}) "
+              f"in {wall:.2f} s")
+    add_counts()
+    reset_launch_counts()
+    return counts
+
+
 def logit_diff(torch, got, want) -> tuple[float, float]:
     """(max |got - want| / max |want|, ||got - want|| / ||want||), float32."""
     got, want = got.float(), want.float()
@@ -1787,7 +2163,15 @@ def main() -> None:
         check_what_if(torch, 10, 100, 80, 0.02, rng),
         check_what_if(torch, 1, 100, 80, 0.02, rng),
         check_what_if(torch, 4, 50, 40, 0.02, rng),
+        # under churn (phase 9): dead workers' draws +inf and per-scenario
+        # waits w_eff = min(w, #alive), 80 in nine scenarios and 75 in one
+        check_what_if(torch, 10, 100, 80, 0.02, rng, dead=[20] * 9 + [25]),
+        check_what_if(torch, 1, 100, 80, 0.02, rng, dead=[20]),
     ]
+    # K3 at the grid shape on a state a churn clear leaves: 200 slots of each
+    # scenario with tag -1 and stale non-zero values
+    per_kernel["grid_cache_update"].append(
+        check_cache_walk(torch, 10, 200, 1000, 29, 60, rng, cleared=200))
     # K3 at a dsag sweep of 5000 workers (p = 10): five windows of ranks, one
     # walk block per scenario; last, as its plain version's many launches
     # leave the profiler without device times for the kernels after it (so do
@@ -1817,8 +2201,13 @@ def main() -> None:
     t0 = time.perf_counter()
     lb_launches = run_lb(torch, outcomes)
     print(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+    print("phase 9: elastic-fleet churn through the device, host and scalar engines")
+    t0 = time.perf_counter()
+    churn_launches = run_churn(torch, outcomes)
+    print(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
-                + engine_launches.get(k, 0) + lb_launches.get(k, 0) for k in sweep_launches}
+                + engine_launches.get(k, 0) + lb_launches.get(k, 0)
+                + churn_launches.get(k, 0) for k in sweep_launches}
     launches["flash_attention"] = serving["launches"]
 
     meta = {
@@ -1849,6 +2238,7 @@ def main() -> None:
             launches_live=live_launches.get(name, 0),
             launches_engines=engine_launches.get(name, 0),
             launches_lb=lb_launches.get(name, 0),
+            launches_churn=churn_launches.get(name, 0),
             launches_serve=serving["launches"] if name == "flash_attention" else 0,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],

@@ -20,9 +20,16 @@ recorded into a task-slot :class:`~repro_torch.latency.profiler.
 MomentBuffer`; Algorithm 1 (:class:`~repro_torch.lb.optimizer.
 LoadBalanceOptimizer`) runs every ``lb_interval`` simulated seconds after a
 ``lb_startup_delay``, and a published p reaches each worker with its next
-task, where Algorithm 2 aligns it.  Traces carrying a ``ChurnSchedule``
-(``churn-not-ported``) are refused when the simulator is built, before any
-step.
+task, where Algorithm 2 aligns it.
+
+Churn comes in through replayed traces that carry a ``ChurnSchedule`` (or
+through §7.2 ``SlowdownRemoval`` timed events, which fold into one): at
+each assignment a dead worker's queued heap event is invalidated by a
+per-worker generation counter, its cache entries are cleared in worker
+order (``evict_stream``), it starts nothing and consumes no draws, and the
+wait is for ``min(w, #alive)`` fresh results; at a change of churn row the
+§6 contribution floor is dropped and the profiler window restarts at the
+boundary.
 """
 
 from __future__ import annotations
@@ -42,7 +49,12 @@ from repro_torch.experiments.engine import (
     engine_capability,
     kernel_dtype_capability,
 )
-from repro_torch.latency.model import ClusterLatencyModel, FleetTraces
+from repro_torch.latency.model import (
+    ClusterLatencyModel,
+    FleetTraces,
+    SlowdownRemoval,
+    churn_from_removals,
+)
 from repro_torch.latency.profiler import LatencyProfiler, LatencySample, MomentBuffer
 from repro_torch.lb.optimizer import LoadBalanceOptimizer, OptimizerInputs
 from repro_torch.lb.partitioner import Subpartitioner, build_p_ladder, p_start, p_stop
@@ -292,8 +304,11 @@ class TrainingSimulator:
     ``what_if_normals`` (``[2, N, K]``) overrides the §6 what-if draws
     (:func:`~repro_torch.lb.optimizer.what_if_normals`).  Raises
     :class:`~repro_torch.experiments.engine.EngineCapabilityError` at
-    construction for what the port does not run (churn traces, a missing
-    card).
+    construction for a missing card.  ``timed_events`` on a replayed trace
+    must all be :class:`~repro_torch.latency.model.SlowdownRemoval`: they
+    are folded into a churn schedule on the trace source (other callables
+    mutate the cluster, which a replayed trace never reads, and are
+    refused).
     """
 
     def __init__(
@@ -324,8 +339,7 @@ class TrainingSimulator:
             if isinstance(self.latency_source, TraceLatencySource)
             else None
         )
-        # churn traces are refused here, before any step
-        cap = engine_capability(self.engine, config, traces)
+        cap = engine_capability(self.engine)
         if cap.supported:
             cap = kernel_dtype_capability(
                 self.engine, problem.fused_kernels(self.engine.device).value_dtype
@@ -333,14 +347,26 @@ class TrainingSimulator:
         if not cap.supported:
             raise EngineCapabilityError(cap)
         if timed_events and traces is not None:
-            # timed events mutate the cluster model, which a pre-sampled
-            # trace never re-reads: ignoring them would fake the §7.2
-            # scenarios (the reference's replayable form is a churn schedule,
-            # not ported yet)
-            raise ValueError(
-                "timed_events require live model sampling; a replayed trace "
-                "cannot react to cluster mutations"
-            )
+            if not all(isinstance(fn, SlowdownRemoval) for _, fn in timed_events):
+                # opaque events mutate the cluster model, which a pre-sampled
+                # trace never re-reads: ignoring them would fake the §7.2
+                # scenarios
+                raise ValueError(
+                    "timed_events require live model sampling; a replayed trace "
+                    "cannot react to cluster mutations (use SlowdownRemoval events "
+                    "or traces.with_churn for the replayable §7.2 path)"
+                )
+            if traces.churn is not None:
+                raise ValueError(
+                    "traces already carry a churn schedule; fold the slowdown "
+                    "removals into it instead of passing timed_events"
+                )
+            # the §7.2 scenario replays exactly as a churn schedule whose
+            # rows replace the static slowdowns at each task's start
+            removals = [SlowdownRemoval(time=t, workers=fn.workers) for t, fn in timed_events]
+            traces = traces.with_churn(churn_from_removals(traces.slowdown, removals))
+            self.latency_source.traces = traces
+            timed_events = []
         if traces is not None and traces.num_workers != cluster.num_workers:
             raise ValueError(
                 f"trace has {traces.num_workers} workers but the cluster has "
@@ -390,9 +416,20 @@ class TrainingSimulator:
         cache = (
             GradientCache(n, np.zeros_like(V, dtype=np.float64)) if cfg.uses_cache else None
         )
+        # churn comes in through the replayed traces (live sampling models
+        # fleet changes as timed_events mutating the cluster instead)
+        churn = (
+            self.latency_source.traces.churn
+            if isinstance(self.latency_source, TraceLatencySource)
+            else None
+        )
         now = 0.0
-        heap: list[tuple[float, int, tuple]] = []  # (finish, seq, result)
+        # (finish, seq, generation, result): a death bumps the worker's
+        # generation, which invalidates its queued event without disturbing
+        # the (finish, seq) pop order
+        heap: list[tuple[float, int, int, tuple]] = []
         seq = 0
+        gen = np.zeros(N, dtype=np.int64)
         times = np.zeros(num_iterations)
         subopt = np.full(num_iterations, np.nan)
         fresh_counts = np.zeros(num_iterations, dtype=np.int64)
@@ -406,6 +443,8 @@ class TrainingSimulator:
         self._lb_buffer = (
             MomentBuffer(1, N, num_iterations, device=eng.device) if cfg.load_balance else None
         )
+        prev_row = int(churn.row_at(now)) if churn is not None else 0
+        lb_since = float(churn.boundary_before(prev_row)) if churn is not None else None
 
         for t in range(num_iterations):
             # fire timed environment events (e.g. the §7.2 slowdown removal)
@@ -413,11 +452,41 @@ class TrainingSimulator:
                 self.timed_events[event_ptr][1](self.cluster)
                 event_ptr += 1
 
+            alive, w_eff = None, w_wait
+            if churn is not None:
+                # liveness sampled once per iteration, at the assignment
+                alive = churn.alive_at(now)
+                row = int(churn.row_at(now))
+                if row != prev_row:
+                    # the fleet changed: the §6 optimizer re-baselines its
+                    # contribution floor and re-profiles from the boundary
+                    if self.lb_optimizer is not None:
+                        self.lb_optimizer.h_min = None
+                    lb_since = float(churn.boundary_before(row))
+                    prev_row = row
+                for i, wk in enumerate(self.workers):
+                    if alive[i]:
+                        continue
+                    if wk.busy_until > now or wk.queued is not None:
+                        # dead at the assignment: the in-flight completion
+                        # never happens and the queued task is dropped
+                        gen[i] += 1
+                        wk.busy_until = now
+                        wk.queued = None
+                    # worker order is interval-start order (base ranges are
+                    # disjoint and worker-ordered); clearing is idempotent
+                    if cache is not None and cache.clear_range(wk.sub.base_start,
+                                                               wk.sub.base_stop):
+                        evict_stream[t, i] = True
+                w_eff = min(w_wait, int(alive.sum()))
+
             task = _Task(iteration=t, iterate=V, assigned_at=now)
             for wk in self.workers:
+                if alive is not None and not alive[wk.idx]:
+                    continue  # dead workers start nothing and consume no draws
                 if wk.busy_until <= now:
                     fin, result = wk.start_task(task, now, self, comp_scale)
-                    heapq.heappush(heap, (fin, seq, result))
+                    heapq.heappush(heap, (fin, seq, int(gen[wk.idx]), result))
                     seq += 1
                 else:
                     wk.queued = task
@@ -426,10 +495,13 @@ class TrainingSimulator:
             fresh_values: list[tuple[tuple[int, int], np.ndarray]] = []  # gd / sgd
             deadline = math.inf
             iter_start = now
-            while heap and (fresh < w_wait or heap[0][0] <= deadline):
-                if heap[0][0] > deadline:
+            while heap and (fresh < w_eff or heap[0][0] <= deadline):
+                fin, sq, g, result = heapq.heappop(heap)
+                if g != gen[result[0]]:
+                    continue  # discarded by a death: must not move `now`
+                if fin > deadline:
+                    heapq.heappush(heap, (fin, sq, g, result))
                     break
-                fin, _, result = heapq.heappop(heap)
                 now = fin
                 widx, interval, titer, value, comp_lat, comm_lat, assigned_at = result
                 wk = self.workers[widx]
@@ -451,7 +523,7 @@ class TrainingSimulator:
                 if wk.queued is not None:
                     qt, wk.queued = wk.queued, None
                     nfin, nresult = wk.start_task(qt, now, self, comp_scale)
-                    heapq.heappush(heap, (nfin, seq, nresult))
+                    heapq.heappush(heap, (nfin, seq, int(gen[widx]), nresult))
                     seq += 1
                 else:
                     wk.busy_until = now
@@ -467,7 +539,7 @@ class TrainingSimulator:
                 if is_fresh:
                     mask_stream[t, widx] = True
                     fresh += 1
-                    if fresh == w_wait:
+                    if fresh == w_eff:
                         if cfg.uses_margin and cfg.margin > 0:
                             # paper §5.1: wait `margin` longer than the w-th
                             # fresh result took this iteration
@@ -502,7 +574,8 @@ class TrainingSimulator:
 
             # ---- load balancing (the background loop, simulated) ----------
             if cfg.load_balance and now >= self._next_lb_time:
-                published = self._run_load_balancer(now, current_p, w_wait)
+                published = self._run_load_balancer(now, current_p, w_wait, alive=alive,
+                                                     since=lb_since)
                 if published is not None:
                     current_p = published
                     repartition_events.append(now)
@@ -521,13 +594,19 @@ class TrainingSimulator:
             evict_stream=evict_stream,
         )
 
-    def _run_load_balancer(self, now: float, current_p: np.ndarray,
-                           w_wait: int) -> np.ndarray | None:
-        """One Algorithm-1 call on the window at ``now``; the published p, or
-        None (a worker without a sample in the window, or no publication)."""
-        e_comm, v_comm, e_comp, v_comp, cnt = self._lb_buffer.moments(np.array([now]))
-        if not (cnt[0] >= 1).all():
-            return None  # every worker needs a sample in the window
+    def _run_load_balancer(self, now: float, current_p: np.ndarray, w_wait: int, *,
+                           alive: np.ndarray | None = None,
+                           since: float | None = None) -> np.ndarray | None:
+        """One Algorithm-1 call on the window at ``now`` (samples from
+        ``since`` on); the published p, or None (a living worker without a
+        sample in the window, or no publication)."""
+        e_comm, v_comm, e_comp, v_comp, cnt = self._lb_buffer.moments(
+            np.array([now]), since=None if since is None else np.array([since]))
+        ready = cnt[0] >= 1
+        if alive is not None:
+            ready = ready | ~alive  # dead workers produce no samples
+        if not ready.all():
+            return None  # every living worker needs a sample in the window
         n_i = np.array([w.sub.n_local for w in self.workers], dtype=np.float64)
         inputs = make_optimizer_inputs(
             e_comm[0], v_comm[0], e_comp[0], v_comp[0], n_i, w_wait, self.config.margin
@@ -535,7 +614,8 @@ class TrainingSimulator:
         lb = self.lb_optimizer
         hm = np.array([np.nan if lb.h_min is None else lb.h_min])
         p_new, h_min, last_h, publish = lb.update_batch(
-            np.asarray(current_p, np.int64)[None, :], inputs.as_batch(), hm
+            np.asarray(current_p, np.int64)[None, :], inputs.as_batch(), hm,
+            alive=None if alive is None else np.asarray(alive, bool)[None, :],
         )
         lb.h_min = float(h_min[0])
         lb.last_h = float(last_h[0])

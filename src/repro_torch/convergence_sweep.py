@@ -10,6 +10,7 @@ engine and print each method's time-to-gap across scenarios.
   python -m repro_torch.convergence_sweep --engine host --check-scalar
   python -m repro_torch.convergence_sweep --load-balance [--slot-budget 8000]
   python -m repro_torch.convergence_sweep --lb-column --out lb.json
+  python -m repro_torch.convergence_sweep --churn-column [--device cpu --kernel-backend torch]
 
 Runs DSAG, SAG (w = N), SGD and the idealized coded bound through the full
 training loop on one shared heavy-burst trace draw, like
@@ -24,8 +25,13 @@ tiled cache runs; past even that, ``--engine auto`` runs the host engine).
 ``--lb-column`` runs the ``grid`` recipe and then its dsag with the §6
 balancer through both engines (the ``lb_scan`` column of
 ``BENCH_convergence.json``), fails unless the two are bit-equal, and prints
-the column.  ``--out`` writes the ordering (and the column) as JSON there;
-nothing writes the committed ``BENCH_*.json``.  The §6 what-if draws are
+the column.  ``--churn-column`` runs the ``churn`` column instead (dsag,
+sag and coded through the host and device engines on an elastic fleet:
+the slowest fifth dies mid-run, half of it rejoins), with the recipe read
+from the committed ``BENCH_convergence.json``, fails unless the engines
+agree bit for bit, and prints the column beside the committed one.
+``--out`` writes the ordering (and the column) as JSON there; nothing
+writes the committed ``BENCH_*.json``.  The §6 what-if draws are
 the reference's where the package ships them (seed 0 at 100 and 50
 workers); otherwise torch's generator draws them, and the run then differs
 from the reference by its draws alone (the output says which).
@@ -35,7 +41,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -59,13 +67,22 @@ from repro_torch.experiments.convergence import (
 )
 from repro_torch.experiments.engine import EngineConfig
 from repro_torch.experiments.grid import HEAVY_BURSTS
-from repro_torch.experiments.results import convergence_ordering, run_lb_scan, write_json
+from repro_torch.experiments.results import (
+    convergence_ordering,
+    run_churn_column,
+    run_lb_scan,
+    write_json,
+)
 from repro_torch.latency.model import make_heterogeneous_cluster
 from repro_torch.lb.optimizer import what_if_source
 
+#: the committed convergence artifact (read only): the churn recipe's source
+BENCH_FILE = Path(__file__).resolve().parents[2] / "BENCH_convergence.json"
+
 
 def run(argv=None):
-    """Parse ``argv`` and run the sweep it names: ``(outcome, gap, args)``."""
+    """Parse ``argv`` and run the sweep it names: ``(outcome, gap, args)``
+(``(None, None, args)`` for ``--churn-column``, which :func:`main` runs)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--problem", choices=("logreg", "pca"), default="logreg")
@@ -104,6 +121,10 @@ def run(argv=None):
     ap.add_argument("--lb-column", action="store_true",
                     help="run the grid recipe, then its dsag with the §6 balancer "
                     "through the host and device engines (the lb_scan column)")
+    ap.add_argument("--churn-column", action="store_true",
+                    help="run the churn column (dsag, sag, coded through the host and "
+                    "device engines under worker death and rejoin) from the committed "
+                    "recipe, and print it beside the committed values")
     ap.add_argument("--out", default=None, help="write the ordering (and column) as JSON here")
     args = ap.parse_args(argv)
     engine = EngineConfig(
@@ -111,6 +132,8 @@ def run(argv=None):
         slot_budget=args.slot_budget,
     )
 
+    if args.churn_column:  # its own recipe: main runs it
+        return None, None, args
     if args.lb_column:
         out, default_gap = grid_logreg_sweep(seed=0, engine=engine)
         print(f"grid recipe: {GRID_LOGREG}")
@@ -147,6 +170,29 @@ def run(argv=None):
             engine=engine,
         )
     return out, default_gap if args.gap is None else args.gap, args
+
+
+def churn_column(engine: EngineConfig) -> dict:
+    """The ``churn`` column from the recipe committed in
+    ``BENCH_convergence.json`` (read only); raise unless the host and
+    device engines agree bit for bit.  Prints the column's values beside
+    the committed ones."""
+    committed = json.loads(BENCH_FILE.read_text())["churn"]
+    col = run_churn_column(committed["recipe"], engine=engine).column
+    if not col["bitexact_scan_vs_host"]:
+        raise AssertionError("churn: the host and device engines differ")
+    sch = col["schedule"]
+    print(f"churn: deaths {sch['dead_workers']} at {sch['death_at']!r} s, rejoins "
+          f"{sch['revived_workers']} at {sch['revive_at']!r} s; host == device bit for bit")
+    for m, v in col["methods"].items():
+        theirs = committed["methods"][m]
+        print(f"{m:>6} median t->gap {v['median_time_to_gap']!r} (committed "
+              f"{theirs['median_time_to_gap']!r}), reached {v['reached_gap_frac']} "
+              f"(committed {theirs['reached_gap_frac']})")
+    same = {k: col[k] == committed[k] for k in ("schedule", "methods", "ordering")}
+    print(f"ordering_dsag_sag_coded {col['ordering']['ordering_dsag_sag_coded']}; equal to "
+          f"the committed column: {same}")
+    return col
 
 
 def check_scalar(out, engine: EngineConfig) -> tuple[float, float]:
@@ -190,6 +236,12 @@ def lb_column(out, gap: float, engine: EngineConfig) -> dict:
 
 def main(argv=None) -> dict:
     out, gap, args = run(argv)
+    if args.churn_column:
+        col = churn_column(EngineConfig(device=args.device, kernel_backend=args.kernel_backend))
+        if args.out:
+            write_json({"churn": col}, args.out)
+            print(f"wrote {args.out}")
+        return col
     N = out.traces.num_workers
     engine = EngineConfig(device=args.device, kernel_backend=args.kernel_backend,
                           slot_budget=args.slot_budget)

@@ -121,8 +121,10 @@ def run_convergence_batch(
     overrides the problem's initial iterate; ``what_if_normals`` (``[2, N,
     K]``) the §6 what-if draws.  Raises
     :class:`~repro_torch.experiments.engine.EngineCapabilityError` for
-    configurations the engines cannot run (churn; ``kind="scan"`` with a §6
-    cache past the slot budget), before any launch.
+    configurations the engines cannot run (``kind="scan"`` with a §6 cache
+    past the slot budget, a missing card), before any launch.  Traces that
+    carry a ``ChurnSchedule`` replay its deaths, rejoins and slowdown rows
+    in every engine.
     """
     from repro_torch.experiments.fused import run_convergence_scan, scan_capability
 
@@ -158,7 +160,7 @@ def _run_host(
 ) -> ConvergenceBatchResult:
     """The host engine: one numpy pass per iteration over ``[S, N]`` arrays,
     batched kernel calls inside (``repro.experiments.convergence``'s host
-    branch without churn)."""
+    branch)."""
     from repro_torch.experiments.fused import check_run
 
     S, N = traces.num_scenarios, traces.num_workers
@@ -223,8 +225,35 @@ def _run_host(
     current_p = np.full((S, N), cfg.subpartitions, dtype=np.int64)
     n_i = n_local.astype(np.float64)
 
+    churn = traces.churn
+    alive: np.ndarray | None = None
+    lb_since = None
+    if churn is not None:
+        prev_row = churn.row_at(np.zeros(S))
+        lb_since = np.asarray(churn.boundary_before(prev_row), dtype=np.float64)
+
     for t in range(T):
         assign = iter_end.copy()
+        if churn is not None:
+            # liveness sampled once per iteration, at the assignment (as in
+            # the scalar simulator and replay_batch)
+            alive = churn.alive_at(assign)
+            rows_now = churn.row_at(assign)
+            changed = rows_now != prev_row
+            if changed.any() and cfg.load_balance:
+                # the fleet changed: the §6 optimizer re-baselines its
+                # contribution floor and re-profiles from the boundary
+                h_min = np.where(changed, np.nan, h_min)
+                lb_since = np.where(changed, churn.boundary_before(rows_now), lb_since)
+            prev_row = rows_now
+            # dead at the assignment: the in-flight completion never happens
+            # (no stale event, cache write, profiler sample or attribution)
+            free_at = np.where(alive, free_at, assign[:, None])
+            if cache is not None:
+                # np.nonzero is row-major: within a scenario the clears run in
+                # worker order, which is interval-start order
+                for s, i in zip(*np.nonzero(~alive)):
+                    cache.clear_range(int(s), int(base_start[i]), int(base_stop[i]))
         idle = free_at <= assign[:, None]
 
         # -- Algorithm-2 alignment of pending repartitions (tentative: the new
@@ -251,12 +280,20 @@ def _run_host(
         start = np.where(idle, assign[:, None], free_at)
         comm_d, comp_d = traces.task_latency_parts(draw_idx, start, cost)
         finish = task_finish_time(start, comp_d, comm_d)
-        tau_w = np.partition(finish, w_wait - 1, axis=1)[:, w_wait - 1]
+        if churn is None:
+            tau_w = np.partition(finish, w_wait - 1, axis=1)[:, w_wait - 1]
+        else:
+            # dead workers contribute no finish; wait for min(w, #alive) of
+            # the living fleet (a sort and a gather: partition's element)
+            w_eff = np.minimum(w_wait, alive.sum(axis=1))
+            tau_w = np.sort(np.where(alive, finish, np.inf), axis=1)[np.arange(S), w_eff - 1]
         if spec.margin > 0.0:
             deadline = margin_deadline(tau_w, assign, spec.margin)
         else:
             deadline = tau_w
         started = idle | (free_at <= deadline[:, None])
+        if churn is not None:
+            started &= alive
         fresh = started & (finish <= deadline[:, None])
         stale_done = (~idle) & (free_at <= deadline[:, None])
         fresh_counts[:, t] = fresh.sum(axis=1)
@@ -383,8 +420,11 @@ def _run_host(
         if cfg.load_balance:
             due = iter_end >= next_lb
             if due.any():
-                e_cm, v_cm, e_cp, v_cp, cnt = lbbuf.moments(iter_end)
-                ready = (cnt >= 1).all(axis=1)
+                e_cm, v_cm, e_cp, v_cp, cnt = lbbuf.moments(iter_end, since=lb_since)
+                ready = cnt >= 1
+                if churn is not None:
+                    ready = ready | ~alive  # dead workers produce no samples
+                ready = ready.all(axis=1)
                 next_lb = np.where(due, iter_end + cfg.lb_interval, next_lb)
                 act = due & ready
                 if act.any():
@@ -393,7 +433,7 @@ def _run_host(
                         cfg.margin,
                     )
                     p_new, h_min, _, publish = lb.update_batch(current_p, inputs, h_min,
-                                                               active=act)
+                                                               active=act, alive=alive)
                     for s in np.flatnonzero(publish):
                         changed = p_new[s] != current_p[s]
                         pending_p[s, changed] = p_new[s, changed]

@@ -32,8 +32,6 @@ CAP_TILED = "slot-universe-tiled"
 #: the tiled cache's resident entries exceed the budget: the device engine
 #: cannot hold the config (kind="auto" runs the host engine)
 CAP_ACTIVE_SET = "active-slots-exceed-budget"
-#: traces carrying a ChurnSchedule are not ported yet
-CAP_CHURN = "churn-not-ported"
 #: a model architecture (or a model feature) the port does not run yet
 CAP_ARCH = "arch-not-ported"
 #: kernel_backend="cuda" for shapes past a CUDA kernel's remaining limits
@@ -122,9 +120,22 @@ def refuse(code: str, detail: str) -> EngineCapabilityError:
     return EngineCapabilityError(EngineCapability(False, code, detail))
 
 
-def engine_capability(engine: EngineConfig, config=None, traces=None) -> EngineCapability:
-    """Whether ``engine`` can run ``config`` (a MethodConfig) on ``traces``
-    (any engine kind; the device engine's §6 slot budget is
+def checked_device(device) -> torch.device:
+    """``device`` as a torch device; refuses (``cuda-device-unavailable``) a
+    CUDA device when torch sees no card, as the engines do."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise refuse(
+            CAP_CUDA_UNAVAILABLE,
+            f"device={device!r} requested but torch sees no CUDA device; pass "
+            "device='cpu' to run on the CPU",
+        )
+    return dev
+
+
+def engine_capability(engine: EngineConfig) -> EngineCapability:
+    """Whether ``engine``'s device and kernel backend can run (any engine
+    kind; the device engine's §6 slot budget is
     :func:`~repro_torch.experiments.fused.scan_capability`'s)."""
     dev = torch.device(engine.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -141,12 +152,6 @@ def engine_capability(engine: EngineConfig, config=None, traces=None) -> EngineC
             CAP_CUDA_KERNELS_OFF_DEVICE,
             f"kernel_backend='cuda' launches CUDA kernels and needs a CUDA "
             f"device, got device={engine.device!r}; use kernel_backend='torch'",
-        )
-    if traces is not None and traces.churn is not None:
-        return EngineCapability(
-            False,
-            CAP_CHURN,
-            "traces with a ChurnSchedule are not ported to the torch engine yet",
         )
     return EngineCapability(True, CAP_OK, "supported")
 

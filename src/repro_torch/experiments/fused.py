@@ -1,13 +1,19 @@
 """The fused convergence engine's body, on a torch device.
 
-Counterpart of ``repro.experiments.fused`` without churn (refused with a
-reason code, see :mod:`repro_torch.experiments.engine`).  Each training
-iteration does, on ``[S, N]`` scenario x worker tensors:
+Counterpart of ``repro.experiments.fused``.  Each training iteration does,
+on ``[S, N]`` scenario x worker tensors:
 
+* under churn (traces carrying a ``ChurnSchedule``), the liveness at
+  assignment: dead workers' in-flight tasks are discarded and their §5
+  cache entries cleared (:func:`_clear_dead_dense`,
+  :func:`_clear_dead_tiled`), and under §6 a change of churn row drops the
+  contribution floor and restarts the profiler window at the boundary;
 * under §6 load balancing, the Algorithm-2 alignment of pending
   repartitions at assignment (the (lo, hi, slot) source is then the
   aligned candidate instead of the fixed subpartition grid);
-* §3 trace replay and the §4.2 event algebra with the §5.1 margin;
+* §3 trace replay (under churn, the slowdown row at each task's start) and
+  the §4.2 event algebra with the §5.1 margin (under churn, the wait is for
+  ``min(w, #alive)`` of the living fleet, by a sort and a gather);
 * §3 block subgradients for every task, in one call (kernel K1/K2);
 * the iteration's §5 cache events in event-time order, by
   ``spec.cache_mode``: ``"grid"`` (no §6: kernel K3) or ``"tiled"`` (§6:
@@ -21,9 +27,11 @@ iteration does, on ``[S, N]`` scenario x worker tensors:
 State lives on the device and a Python loop over iterations replaces
 ``lax.scan``.  The grid body has no data-dependent host branch, so the loop
 never reads a device value (no ``.item()``, no ``.cpu()``) until the results
-are copied out at the end.  The §6 body reads a few (whether a scenario is
-due, the walks' rank counts, Algorithm 1's loop conditions): the
-reference's ``while_loop``s and ``lax.cond``s are host branches here.  The
+are copied out at the end; under churn with deaths it reads one per
+iteration, the clears' trip count (the deepest per-scenario clear).  The §6
+body reads a few (whether a scenario is due, the walks' rank counts,
+Algorithm 1's loop conditions): the reference's ``while_loop``s and
+``lax.cond``s are host branches here.  The
 tiled walk is plain torch (the reference has no TPU kernel for it); like
 the reference's it keeps the big value table write-only inside the rank
 loop and reads live values from the ranked event table or a frozen copy of
@@ -82,7 +90,7 @@ from repro_torch.experiments.engine import (
     kernel_dtype_capability,
     kernel_shape_capability,
 )
-from repro_torch.experiments.sweep import task_latency_parts, trace_tensors
+from repro_torch.experiments.sweep import churn_rows, task_latency_parts, trace_tensors, wait_for
 from repro_torch.kernels import block_sub, cache_events, what_if
 from repro_torch.latency.model import FleetTraces
 from repro_torch.lb import jit_optimizer as jlb
@@ -100,8 +108,7 @@ LB_MAX_SLOTS = 250_000
 
 @dataclasses.dataclass(frozen=True)
 class _StaticSpec:
-    """Static configuration of one run (``repro.experiments.fused._StaticSpec``
-    without churn)."""
+    """Static configuration of one run (``repro.experiments.fused._StaticSpec``)."""
 
     name: str
     w_wait: int
@@ -129,6 +136,8 @@ class _StaticSpec:
     lb_startup_delay: float = 0.0
     lb_margin: float = 0.0  # optimizer-input margin (= config.margin)
     lb_p0: int = 0  # the optimizer-facing initial p (config.subpartitions)
+    # elastic-fleet churn: the traces carry a ChurnSchedule
+    has_churn: bool = False
 
 
 def _static_spec(
@@ -140,6 +149,7 @@ def _static_spec(
     kernel_backend: str,
     universe: SlotUniverse | None = None,
     active_cap: int = 0,
+    has_churn: bool = False,
 ) -> _StaticSpec:
     n = problem.num_samples
     N = num_workers
@@ -198,6 +208,7 @@ def _static_spec(
         lb_startup_delay=float(cfg.lb_startup_delay),
         lb_margin=float(cfg.margin),
         lb_p0=int(cfg.subpartitions),
+        has_churn=bool(has_churn),
     )
 
 
@@ -421,6 +432,70 @@ def _fresh_accumulate(kernels, fresh, finish, vals):
     return grad
 
 
+def _subtract_in_order(sums, values_f, clear_f, order_key):
+    """``sums`` minus every cleared entry of ``values_f`` ``[S, E, ...]``
+    (``clear_f`` ``[S, E]``), one entry at a time in ascending
+    ``order_key``, the host caches' float grouping.  Reads the trip count,
+    the deepest per-scenario clear, on the host (0: nothing to do)."""
+    S = clear_f.shape[0]
+    vdim = values_f.dim() - 2
+    n_clear = int(clear_f.sum(dim=1).max())
+    if n_clear:
+        s_idx = torch.arange(S, device=clear_f.device)
+        order = torch.argsort(torch.where(clear_f, order_key, _IMAX), dim=1, stable=True)
+        for j in range(n_clear):
+            e = order[:, j]
+            sums = torch.where(_bcast(clear_f[s_idx, e], vdim), sums - values_f[s_idx, e], sums)
+    return sums, n_clear
+
+
+def _clear_dead_dense(slot_width, cache_state, clear, order_key):
+    """Drop dead workers' active §5 entries from the grid cache ``[S, E]``
+    (``repro.experiments.fused._clear_dead_dense``, an XLA ``fori_loop``
+    there, eager torch here: no TPU kernel to port).
+
+    The churn twin of ``GradientCache.clear_range``: ``clear`` marks the
+    entries to remove, and the sums subtract them one at a time in interval
+    start order (``order_key``: the slot index, which is start order in the
+    grid).  The host caches clear per dead worker in worker order over
+    disjoint, worker-ordered base ranges, each worker's entries start
+    ascending, so one start-ascending walk has their float grouping.  A
+    batched sum would not.  Clearing is not an eviction.  Cleared slots
+    keep their stale values: tag -1 makes them empty to the next walk (K3
+    takes an inactive slot's old value as 0).
+    """
+    st = cache_state
+    sums, n_clear = _subtract_in_order(st["sums"], st["values"], clear, order_key[None, :])
+    if not n_clear:
+        return st
+    return dict(st, sums=sums,
+                covered=st["covered"] - torch.where(clear, slot_width[None, :], 0).sum(dim=1),
+                iters=torch.where(clear, -1, st["iters"]))
+
+
+def _clear_dead_tiled(spec: _StaticSpec, tabs: dict, cache_state, dead):
+    """Dead workers' §5 clear in the tiled §6 cache's per-worker entry
+    tables (``repro.experiments.fused._clear_dead_tiled``): the order
+    contract of :func:`_clear_dead_dense`, with each entry's interval start
+    from the universe tables as the key.  Cleared rows keep their stale
+    slot and value; ``iters == -1`` hides them from the overlap test and
+    the free-row search."""
+    st = cache_state
+    iters = st["iters"]  # [S, N, A]
+    S, N, A = iters.shape
+    clear = dead[:, :, None] & (iters >= 0)
+    es_safe = st["slots"].clamp(0, spec.num_slots - 1)
+    values_f = st["values"].reshape((S, N * A) + st["values"].shape[3:])
+    sums, n_clear = _subtract_in_order(st["sums"], values_f, clear.reshape(S, N * A),
+                                       tabs["starts"][es_safe].reshape(S, N * A))
+    if not n_clear:
+        return st
+    return dict(st, sums=sums,
+                covered=st["covered"] - torch.where(clear, tabs["widths"][es_safe], 0)
+                .sum(dim=(1, 2)),
+                iters=torch.where(clear, -1, iters))
+
+
 def _cache_state0(spec: _StaticSpec, S: int, N: int, vshape, dev) -> dict:
     E = max(spec.num_slots, 1)
 
@@ -448,7 +523,9 @@ def _run_scan(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask,
 
     ``tr`` holds the trace tensors (``comm``, ``comp_unit`` [S, N, K],
     ``slowdown`` [N], ``burst_start``/``burst_end``/``burst_factor``
-    [S, N, M]) on the engine's device, all float64; ``tabs`` the §6 slot
+    [S, N, M], float64; under churn the schedule's tables, see
+    :func:`~repro_torch.experiments.sweep.trace_tensors`) on the engine's
+    device; ``tabs`` the §6 slot
     universe's tables (``slot_table`` [N, L, Pmax], ``widths``, ``starts``,
     ``stops`` [E]; empty without §6) and
     ``normals`` the what-if draws' ``[2, N, K]`` base (None without §6).
@@ -472,6 +549,19 @@ def _run_scan(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask,
     ev_worker = torch.arange(N, device=dev).repeat(2 if spec.accepts_stale else 1)
 
     lb = spec.load_balance
+    churn = spec.has_churn
+    if churn:
+        # boundary_before: the time that opened each churn row (-inf for row
+        # 0), the §6 re-profiling cutoff after a fleet change
+        churn_bound = torch.cat([torch.full((1,), -torch.inf, dtype=F64, device=dev),
+                                 tr["churn_times"]])
+        # a schedule without deaths (a §7.2 slowdown removal) clears nothing
+        deaths = not bool(tr["churn_alive"].all())
+        if spec.cache_mode == "grid":
+            # per-worker contiguous slot blocks: index order is start order
+            owner_of_slot = torch.repeat_interleave(
+                torch.arange(N, device=dev), torch.tensor(spec.sub_p, device=dev))
+            clear_key = torch.arange(spec.num_slots, dtype=I64, device=dev)
     if lb:
         L = len(spec.ladder)
         raw = torch.tensor(spec.ladder, dtype=I64, device=dev)
@@ -517,9 +607,33 @@ def _run_scan(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask,
         prof_comm = torch.zeros((S, N, T), dtype=F64, device=dev)
         prof_comp = torch.zeros((S, N, T), dtype=F64, device=dev)
         prof_valid = torch.zeros((S, N, T), dtype=torch.bool, device=dev)
+        if churn:
+            # churn times are > 0, so row 0 is active at t = 0, opened at -inf
+            prev_row = torch.zeros((S,), dtype=I64, device=dev)
+            lb_since = torch.full((S,), -torch.inf, dtype=F64, device=dev)
 
     for t in range(T):
         assign = iter_end
+        if churn:
+            # liveness sampled once per iteration, at the assignment: a worker
+            # dead now has its in-flight completion discarded (idle, with no
+            # stale event, cache write or profiler sample)
+            rows_assign = churn_rows(tr, assign)
+            alive = tr["churn_alive"][rows_assign]
+            free_at = torch.where(alive, free_at, assign[:, None])
+            if lb:
+                # the fleet changed: drop the contribution floor so Algorithm
+                # 1 re-baselines, and re-profile from the churn boundary
+                changed = rows_assign != prev_row
+                h_min = torch.where(changed, torch.nan, h_min)
+                lb_since = torch.where(changed, churn_bound[rows_assign], lb_since)
+                prev_row = rows_assign
+            if spec.uses_cache and deaths:
+                if spec.cache_mode == "tiled":
+                    cache = _clear_dead_tiled(spec, tabs, cache, ~alive)
+                else:
+                    clear = (~alive)[:, owner_of_slot] & (cache["iters"] >= 0)
+                    cache = _clear_dead_dense(slot_width, cache, clear, clear_key)
         idle = free_at <= assign[:, None]
 
         # -- the (lo, hi, slot) source --------------------------------------
@@ -553,12 +667,17 @@ def _run_scan(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask,
 
         # -- event resolution (the shared method-semantics helpers) ---------
         finish = task_finish_time(start, comp_d, comm_d)
-        tau_w = torch.sort(finish, dim=1).values[:, spec.w_wait - 1]
+        if churn:  # the w_eff-th finish of the living fleet
+            tau_w = wait_for(finish, spec.w_wait, alive)
+        else:
+            tau_w = torch.sort(finish, dim=1).values[:, spec.w_wait - 1]
         if spec.margin > 0.0:
             deadline = margin_deadline(tau_w, assign, spec.margin)
         else:
             deadline = tau_w
         started = idle | (free_at <= deadline[:, None])
+        if churn:
+            started = started & alive
         fresh = started & (finish <= deadline[:, None])
         stale_done = (~idle) & (free_at <= deadline[:, None])
         stale_ev = torch.where(stale_done, free_at, -torch.inf)
@@ -672,9 +791,12 @@ def _run_scan(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask,
             if bool(due.any()):
                 e_cm, v_cm, e_cp, v_cp, cnt = jlb.window_moments(
                     prof_t, prof_comm, prof_comp, prof_valid, iter_end_new,
-                    jlb.PROFILER_WINDOW,
+                    jlb.PROFILER_WINDOW, since=lb_since if churn else None,
                 )
-                ready = (cnt >= 1).all(dim=1)
+                ready = cnt >= 1
+                if churn:
+                    ready = ready | ~alive  # dead workers produce no samples
+                ready = ready.all(dim=1)
                 next_lb = torch.where(due, iter_end_new + spec.lb_interval, next_lb)
                 act = due & ready
                 if bool(act.any()):
@@ -684,6 +806,7 @@ def _run_scan(kernels: FusedKernels, spec: _StaticSpec, tr: dict, V0, eval_mask,
                         torch.clamp_min(v_cp, 1e-18), n_j_b, h_min, act,
                         ladder=spec.ladder, w=spec.w_wait, margin=spec.lb_margin,
                         normals=normals, kernel_backend=spec.kernel_backend,
+                        alive=alive if churn else None,
                     )
                     changed = publish[:, None] & (p_new != current_p)
                     pending_p = torch.where(changed, p_new, pending_p)
@@ -760,7 +883,7 @@ def check_run(
     """The capability checks of a convergence run, shared by the device and
     host engines, before any launch: ``(spec, kernels)`` or
     :class:`~repro_torch.experiments.engine.EngineCapabilityError`."""
-    cap = engine_capability(engine, config, traces)
+    cap = engine_capability(engine)
     if not cap.supported:
         raise EngineCapabilityError(cap)
     if num_iterations > traces.horizon:
@@ -775,6 +898,7 @@ def check_run(
     spec = _static_spec(
         problem, config, traces.num_workers, num_iterations, cost_scale,
         engine.kernel_backend, universe=universe, active_cap=active_cap,
+        has_churn=traces.churn is not None,
     )
     errors = _kernel_shape_errors(spec, kernels, traces.num_scenarios, traces.num_workers)
     scap = kernel_shape_capability(engine, errors)

@@ -18,13 +18,13 @@ from collections.abc import Sequence
 
 import numpy as np
 
+from repro_torch.experiments.engine import checked_device
 from repro_torch.experiments.sweep import (
     BatchedRunResult,
     replay_batch,
     scalar_reference,
     scalar_sync_reference,
     synchronous_times_batch,
-    sweep_device,
 )
 from repro_torch.latency.model import (
     ClusterLatencyModel,
@@ -185,7 +185,7 @@ def run_sweep(
     is host wall clock around the grid; each method's results are copied to
     the host inside it.
     """
-    sweep_device(device)
+    checked_device(device)
     ws = sorted(
         {min(max(int(v), 1), n_workers) for v in w_values}
         | {min(max(round(f * n_workers), 1), n_workers) for f in w_fracs}

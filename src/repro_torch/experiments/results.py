@@ -2,7 +2,9 @@
 from batched traces, the ``BENCH_sweep.json`` payload, the time-to-gap
 verdict of the convergence sweeps (``repro.experiments.results``), and the
 §6 ``lb_scan`` column (:func:`run_lb_scan`, then :meth:`LbScanRun.column`:
-``benchmarks/bench_regression.run_lb_scan_column``).
+``benchmarks/bench_regression.run_lb_scan_column``) and the elastic-fleet
+``churn`` column (:func:`run_churn_column`: ``benchmarks/bench_regression.
+run_churn_column``).
 
 :func:`write_bench_sweep` and :func:`write_json` write wherever they are
 told; the port's CLIs never point them at the committed ``BENCH_*.json``.
@@ -286,3 +288,140 @@ def run_lb_scan(problem, traces, dsag_config, *, num_iterations: int, eval_every
         secs[kind] = time.perf_counter() - t0
     draws = "given" if what_if_normals is not None else what_if_source(seed, traces.num_workers)
     return LbScanRun(cfg, out["host"], out["scan"], secs["host"], secs["scan"], draws)
+
+
+#: every parameter of the ``churn`` column's run
+#: (``benchmarks/bench_regression.CHURN_RECIPE``; the committed column
+#: carries the same dict as its ``recipe``)
+CHURN_RECIPE = {
+    "problem": "logreg_higgs",
+    "num_samples": 4096,
+    "n_workers": 40,
+    "subpartitions": 4,
+    "w": 32,
+    "eta": 0.25,
+    "n_scenarios": 5,
+    "num_iterations": 40,
+    "eval_every": 5,
+    "regime": "heavy_bursts",
+    "seed": 0,
+    "gap": 0.2,
+    # the elastic-fleet schedule, in fractions of the churn-free run: the
+    # slowest fifth of the fleet dies at 30% of the run and half of the dead
+    # rejoin at 70%
+    "death_frac": 0.2,
+    "death_at_frac": 0.3,
+    "revive_frac": 0.5,
+    "revive_at_frac": 0.7,
+}
+
+
+def fleet_churn(traces, w: int, num_iterations: int, *, death_frac: float,
+                death_at_frac: float, revive_frac: float, revive_at_frac: float,
+                device="cuda"):
+    """The churn column's schedule rule on ``traces``: ``(ChurnSchedule,
+    schedule dict)``.  The run length is the median over scenarios of a
+    churn-free latency replay (``replay_batch``, no gradients); the slowest
+    ``death_frac`` of the fleet (by static slowdown, ties by index) dies at
+    ``death_at_frac`` of it, and the first ``revive_frac`` of the dead
+    rejoin at ``revive_at_frac``.  Deterministic given the traces."""
+    from repro_torch.experiments.sweep import replay_batch
+    from repro_torch.latency.model import ChurnSchedule
+
+    base = replay_batch(traces, w, num_iterations, device=device)
+    total = float(np.median(base.iteration_times[:, -1]))
+    death_at, revive_at = death_at_frac * total, revive_at_frac * total
+    N = traces.num_workers
+    sd = np.asarray(traces.slowdown)
+    dead = np.argsort(-sd, kind="stable")[:max(1, int(round(death_frac * N)))]
+    revived = dead[:int(round(revive_frac * dead.size))]
+    alive = np.ones((3, N), bool)
+    alive[1:, dead] = False
+    alive[2, revived] = True
+    churn = ChurnSchedule(times=np.array([death_at, revive_at]),
+                          slowdown=np.stack([sd, sd, sd]), alive=alive)
+    return churn, {"death_at": death_at, "revive_at": revive_at,
+                   "dead_workers": [int(i) for i in dead],
+                   "revived_workers": [int(i) for i in revived]}
+
+
+@dataclasses.dataclass
+class ChurnColumnRun:
+    """The ``churn`` column's run: the column, and what it was made from."""
+
+    column: dict
+    problem: object
+    cluster: object
+    traces: object  # the churned FleetTraces
+    methods: dict  # name -> MethodConfig
+    runs: dict  # name -> {"host": ConvergenceBatchResult, "scan": ...}
+    seconds: dict  # name -> {"host": s, "scan": s}, host wall clocks
+
+
+def run_churn_column(recipe: dict | None = None, *, engine=None) -> ChurnColumnRun:
+    """DSAG, SAG and coded through the column's churn schedule, host and
+    device engines (``benchmarks/bench_regression.run_churn_column``).
+
+    The heterogeneous heavy-burst fleet of the ``grid`` recipe at the
+    recipe's N, S and T; the schedule from :func:`fleet_churn`; every method
+    through both engines on the churned traces.  The column holds the
+    schedule, whether the engines agree bit for bit, each method's median
+    time-to-gap and reached fraction, and the dsag < sag < coded verdict.
+    Writes nothing.
+    """
+    import torch
+
+    from repro_torch.core.problems import LogisticRegressionProblem, make_higgs_like
+    from repro_torch.experiments.convergence import (
+        default_convergence_methods,
+        result_mismatches,
+        run_convergence_batch,
+    )
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.experiments.grid import DEFAULT_REGIMES
+    from repro_torch.latency.model import make_heterogeneous_cluster, sample_fleet
+
+    eng = EngineConfig() if engine is None else engine
+    r = dict(CHURN_RECIPE, **(recipe or {}))
+    if r["problem"] != "logreg_higgs":
+        raise ValueError(f"churn recipe problem {r['problem']!r} is not reproducible here")
+    regime = {reg.name: reg for reg in DEFAULT_REGIMES}[r["regime"]]
+    X, y = make_higgs_like(r["num_samples"], seed=r["seed"])
+    prob = LogisticRegressionProblem(X=X, y=y)
+    N, sp, T = r["n_workers"], r["subpartitions"], r["num_iterations"]
+    c_task = prob.compute_cost(1, max(prob.num_samples // (N * sp), 1))
+    cluster = make_heterogeneous_cluster(N, seed=r["seed"], burst_rate=0.0, load_unit=c_task)
+    traces = sample_fleet(cluster, r["n_scenarios"], T, burst_rate=regime.rate,
+                          burst_factor_mean=regime.factor_mean,
+                          burst_duration_mean=regime.duration_mean, seed=r["seed"] + 1)
+    churn, schedule = fleet_churn(
+        traces, r["w"], T, death_frac=r["death_frac"], death_at_frac=r["death_at_frac"],
+        revive_frac=r["revive_frac"], revive_at_frac=r["revive_at_frac"], device=eng.device)
+    churned = traces.with_churn(churn)
+    methods = default_convergence_methods(N, w=r["w"], eta=r["eta"], subpartitions=sp)
+    bitexact = True
+    cols, runs, secs = {}, {}, {}
+    for name in ("dsag", "sag", "coded"):
+        runs[name], secs[name] = {}, {}
+        for kind in ("host", "scan"):
+            t0 = time.perf_counter()
+            runs[name][kind] = run_convergence_batch(
+                prob, churned, methods[name], T, eval_every=r["eval_every"], seed=r["seed"],
+                engine=dataclasses.replace(eng, kind=kind))
+            if torch.device(eng.device).type == "cuda":
+                torch.cuda.synchronize()
+            secs[name][kind] = time.perf_counter() - t0
+        bitexact = bitexact and not result_mismatches(runs[name]["host"], runs[name]["scan"])
+        ttg = runs[name]["scan"].time_to_gap(r["gap"])
+        med = float(np.median(ttg))
+        cols[name] = {"median_time_to_gap": med if np.isfinite(med) else None,
+                      "reached_gap_frac": float(np.isfinite(ttg).mean())}
+    t = [cols[m]["median_time_to_gap"] for m in ("dsag", "sag", "coded")]
+    finite = all(v is not None for v in t)
+    ordering = {"gap": r["gap"], "ordering_dsag_sag_coded": float(finite and t[0] < t[1] < t[2])}
+    if finite and t[0] > 0:
+        ordering["sag_over_dsag"] = t[1] / t[0]
+        ordering["coded_over_dsag"] = t[2] / t[0]
+    column = {"recipe": r, "schedule": schedule, "bitexact_scan_vs_host": bitexact,
+              "methods": cols, "ordering": ordering}
+    return ChurnColumnRun(column, prob, cluster, churned, methods, runs, secs)

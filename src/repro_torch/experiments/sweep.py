@@ -20,15 +20,21 @@ engine bit for bit (``tests/test_torch_sweep.py``).  That holds because
   operator (eager torch launches one kernel per operator: nothing is fused
   into an FMA), through :func:`~repro_torch.latency.model.comp_latency_expr`;
 * ``np.partition(x, w - 1)[w - 1]`` becomes ``torch.kthvalue(x, w)``: both
-  select the same element;
+  select the same element (under churn, a sort and a gather at the
+  per-scenario ``w_eff``, as the reference's sort and gather);
 * sums over iterations are folded in order: the burst loop adds on the
   device one iteration at a time, the burst-free cumulative sum is taken on
   the host from the exact per-iteration array (a CUDA ``cumsum`` would add
   in another order), and means are formed on the host from integer counts.
 
-Traces carrying a ``ChurnSchedule`` are refused (``churn-not-ported``).
-The device engine of the convergence sweep takes its latency lookups from
-here (:func:`trace_tensors`, :func:`task_latency_parts`).
+Traces carrying a ``ChurnSchedule`` replay its fleet changes: the
+slowdown row at each task's start, and in :func:`replay_batch` the liveness
+at each assignment (a dead worker's in-flight task is discarded, it starts
+nothing, and the wait is for ``min(w, #alive)`` of the living fleet).  The
+synchronous fast path, like the reference's, reads the schedule's slowdown
+rows on bursty traces only and no liveness.  The device engine of the
+convergence sweep takes its latency lookups from here
+(:func:`trace_tensors`, :func:`task_latency_parts`, :func:`churn_rows`).
 """
 
 from __future__ import annotations
@@ -39,11 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.cluster.simulator import margin_deadline, task_finish_time
-from repro_torch.experiments.engine import (
-    CAP_CHURN,
-    CAP_CUDA_UNAVAILABLE,
-    refuse,
-)
+from repro_torch.experiments.engine import checked_device
 from repro_torch.latency.event_sim import EventDrivenSimulator, SimResult
 from repro_torch.latency.model import FleetTraces, comp_latency_expr
 
@@ -76,27 +78,17 @@ class BatchedRunResult:
         return t[:, -1] / t.shape[1]
 
 
-def sweep_device(device) -> torch.device:
-    """The torch device of a sweep; refuses a missing card."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise refuse(
-            CAP_CUDA_UNAVAILABLE,
-            f"device={device!r} requested but torch sees no CUDA device; pass "
-            "device='cpu' to run on the CPU",
-        )
-    return dev
-
-
 def trace_tensors(traces: FleetTraces, device) -> dict:
-    """The trace arrays as float64 tensors on ``device``: ``comm`` and
+    """The trace arrays as tensors on ``device``: float64 ``comm`` and
     ``comp_unit`` [S, N, K], ``slowdown`` [N], ``burst_start`` /
-    ``burst_end`` / ``burst_factor`` [S, N, M]."""
+    ``burst_end`` / ``burst_factor`` [S, N, M]; with a churn schedule also
+    ``churn_times`` [C], ``churn_slowdown`` [C+1, N] and bool
+    ``churn_alive`` [C+1, N]."""
 
     def f64(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
 
-    return dict(
+    tr = dict(
         comm=f64(traces.comm),
         comp_unit=f64(traces.comp_unit),
         slowdown=f64(traces.slowdown),
@@ -104,6 +96,17 @@ def trace_tensors(traces: FleetTraces, device) -> dict:
         burst_end=f64(traces.burst_end),
         burst_factor=f64(traces.burst_factor),
     )
+    if traces.churn is not None:
+        tr.update(churn_times=f64(traces.churn.times),
+                  churn_slowdown=f64(traces.churn.slowdown),
+                  churn_alive=torch.as_tensor(traces.churn.alive, device=device))
+    return tr
+
+
+def churn_rows(tr: dict, t):
+    """The churn row active at times ``t`` (any shape, int64):
+    ``ChurnSchedule.row_at``, a right-sided search of the boundaries."""
+    return torch.searchsorted(tr["churn_times"], t.contiguous(), right=True)
 
 
 def burst_factor_at(tr: dict, start):
@@ -122,21 +125,32 @@ def task_latency_parts(tr: dict, k, start, loads):
     ``FleetTraces.task_latency_parts``, the same product order."""
     comm = tr["comm"].gather(2, k[:, :, None])[:, :, 0]
     unit = tr["comp_unit"].gather(2, k[:, :, None])[:, :, 0]
-    comp = comp_latency_expr(unit, loads, tr["slowdown"][None, :], burst_factor_at(tr, start))
+    if "churn_times" in tr:  # the schedule's slowdown row at each task's start
+        sd = tr["churn_slowdown"].gather(0, churn_rows(tr, start))
+    else:
+        sd = tr["slowdown"][None, :]
+    comp = comp_latency_expr(unit, loads, sd, burst_factor_at(tr, start))
     return comm, comp
+
+
+def wait_for(finish, w: int, alive):
+    """The ``w_eff``-th smallest finish of the living fleet per scenario,
+    ``w_eff = min(w, #alive)``: dead workers' finishes count as +inf, then a
+    sort and a gather (the element ``kthvalue`` picks when all are alive)."""
+    w_eff = torch.clamp_max(alive.sum(dim=1), w)
+    finish_eff = torch.where(alive, finish, torch.inf)
+    return torch.sort(finish_eff, dim=1).values.gather(1, w_eff[:, None] - 1)[:, 0]
 
 
 def _checked(traces: FleetTraces, w: int, num_iterations: int, device) -> torch.device:
     S, N, K = traces.comm.shape
-    if traces.churn is not None:
-        raise refuse(CAP_CHURN, "traces with a ChurnSchedule are not ported yet")
     if not (1 <= w <= N):
         raise ValueError(f"w={w} not in 1..{N}")
     if num_iterations > K:
         raise ValueError(
             f"traces hold {K} draws/worker but {num_iterations} iterations requested"
         )
-    return sweep_device(device)
+    return checked_device(device)
 
 
 def _loads(loads, S: int, N: int, dev):
@@ -159,7 +173,8 @@ def replay_batch(
 
     Equal bit for bit (up to measure-zero event-time ties) to running
     :class:`EventDrivenSimulator` per scenario with
-    ``traces.scalar_latency_provider`` (:func:`scalar_reference`).
+    ``traces.scalar_latency_provider`` (:func:`scalar_reference`), churn
+    included.
     """
     S, N, _ = traces.comm.shape
     T = num_iterations
@@ -181,18 +196,29 @@ def replay_batch(
             comp=torch.zeros((S, T, N), dtype=F64, device=dev),
         )
 
+    churn = "churn_times" in tr
     for t in range(T):
         assign = iter_end  # idle workers start now; busy ones queue
+        if churn:
+            # liveness at the assignment: a dead worker discards its
+            # in-flight task (no stale event, no draw), a revived one is idle
+            alive = tr["churn_alive"][churn_rows(tr, assign)]
+            free_at = torch.where(alive, free_at, assign[:, None])
         idle = free_at <= assign[:, None]
         start = torch.where(idle, assign[:, None], free_at)
         comm_d, comp_d = task_latency_parts(tr, draw_idx, start, loads_b)
         finish = task_finish_time(start, comp_d, comm_d)
         # the w-th fresh arrival: a busy worker among the first w has
         # free_at < finish <= tau_w, so its queued task provably started
-        tau_w = torch.kthvalue(finish, w, dim=1).values
+        if churn:
+            tau_w = wait_for(finish, w, alive)
+        else:
+            tau_w = torch.kthvalue(finish, w, dim=1).values
         # paper §5.1: keep collecting `margin` longer than the first w took
         deadline = margin_deadline(tau_w, assign, margin) if margin > 0.0 else tau_w
         started = idle | (free_at <= deadline[:, None])
+        if churn:
+            started = started & alive
         fresh = started & (finish <= deadline[:, None])
         fresh_counts[:, t] = fresh.sum(dim=1)
         part_accum += fresh

@@ -46,7 +46,7 @@ SIGNATURES = {
     "dsag_gram_matvec_wide": (_P,) * 5 + (_I64, _I64, _I32, _I32, _I32, _I64, _I32, _P),
     "dsag_flash_attention": (_P,) * 4 + (_I64,) * 4 + (_I32,) * 4 + (_F32,) + (_I64,) * 12
     + (_I32, _P),
-    "dsag_what_if_replay": (_P, _P, _I64, _I32, _I32, _I32, _I32, _F64, _F64, _I32, _P),
+    "dsag_what_if_replay": (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _F64, _F64, _I32, _P),
 }
 #: the kernels' integer limits, mirrored from the sources so that the
 #: wrappers' launch plans and the engines' capability checks are pure

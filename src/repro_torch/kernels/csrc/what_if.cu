@@ -12,7 +12,8 @@
 //
 //   idle    = free_at <= iter_end
 //   finish  = (idle ? iter_end : free_at) + total[s, i, draw_i]
-//   tau_w   = the w-th smallest finish of the block
+//   tau_w   = the w-th smallest finish of the block (w = w_eff[s] under a
+//             liveness mask, else the scalar w)
 //   dead    = tau_w + margin * (tau_w - iter_end)        (or tau_w)
 //   started = idle | free_at <= dead;  fresh = started & finish <= dead
 //   iter_end = max(last stale or fresh event, tau_w)
@@ -21,8 +22,18 @@
 // and u[s, i] = part_i * (1/K).  The w-th smallest is found by rank: each
 // thread counts the finishes below its own (ties broken by worker index),
 // so exactly one thread holds rank w-1 and publishes its value, the value
-// torch.kthvalue returns.  The iteration end is a block max (exact in any
-// order).
+// torch.kthvalue (or a sort and gather) returns.  The iteration end is a
+// block max (exact in any order).
+//
+// Under churn a dead worker's draws are +inf (the caller masks them) and the
+// block waits for w_eff[s] = min(w, #alive) <= #alive.  A dead worker is
+// idle at iteration 0, starts, finishes at +inf, and never starts again
+// (free_at = inf is past every finite deadline), so it is never fresh and
+// never stale.  No NaN can arise: the w_eff-th finish has rank below #alive,
+// so it is a living worker's and finite (infinities tie only among
+// themselves, ordered by index), hence the deadline is finite; inf - inf
+// and 0 * inf are never formed (finish = start + total adds two values that
+// are each finite or +inf, and the margin multiplies a finite tau - iter_end).
 //
 // Exactness: every add, subtract and multiply is __dadd_rn / __dsub_rn /
 // __dmul_rn, so nvcc contracts nothing into an FMA and each operator rounds
@@ -40,13 +51,14 @@ namespace {
 constexpr int kMaxWorkers = 1024;
 
 __global__ void what_if_kernel(const double* __restrict__ total, double* __restrict__ u,
-                               int N, int K, int w, int use_margin, double margin,
-                               double inv_k) {
+                               const int64_t* __restrict__ w_eff, int N, int K, int w_all,
+                               int use_margin, double margin, double inv_k) {
   extern __shared__ double s_fin[];          // [N] this iteration's finishes
   __shared__ double s_tau, s_end;
   __shared__ double s_warp_max[kMaxWorkers / 32];
   const int s = blockIdx.x;
   const int i = threadIdx.x;
+  const int w = w_eff != nullptr ? (int)w_eff[s] : w_all;
   const bool live = i < N;
   const double* tot = total + ((int64_t)s * N + (live ? i : 0)) * K;
   double free_at = 0.0, iter_end = 0.0;
@@ -99,17 +111,18 @@ __global__ void what_if_kernel(const double* __restrict__ total, double* __restr
 
 extern "C" {
 
-// total: [S, N, K] float64 (the draws' comp + comm); u: [S, N] float64.
-// Needs 1 <= w <= N <= 1024 (the wrapper checks).
-int dsag_what_if_replay(const double* total, double* u, int64_t S, int N, int K, int w,
-                        int use_margin, double margin, double inv_k, int device,
-                        void* stream) {
+// total: [S, N, K] float64 (the draws' comp + comm); u: [S, N] float64;
+// w_eff: [S] int64 per-scenario waits, or null for the scalar w of every
+// scenario.  Needs 1 <= w (each w_eff[s]) <= N <= 1024 (the wrapper checks).
+int dsag_what_if_replay(const double* total, double* u, const int64_t* w_eff, int64_t S,
+                        int N, int K, int w, int use_margin, double margin, double inv_k,
+                        int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (S <= 0 || N <= 0) return (int)cudaGetLastError();
   const int threads = ((N + 31) / 32) * 32;
   what_if_kernel<<<(unsigned)S, threads, N * sizeof(double), (cudaStream_t)stream>>>(
-      total, u, N, K, w, use_margin, margin, inv_k);
+      total, u, w_eff, N, K, w, use_margin, margin, inv_k);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Sequence
 
 import numpy as np
 
@@ -244,13 +245,27 @@ def clear_slowdowns(cluster: ClusterLatencyModel, worker_indices) -> None:
 class ChurnSchedule:
     """Piecewise-constant fleet state over time: slowdowns and liveness.
 
-    ``times`` ([C], strictly increasing, all > 0) are the change boundaries;
-    row ``r`` of ``slowdown`` / ``alive`` ([C+1, N]) applies on
-    ``[times[r-1], times[r])``.  The device engine of this package does not
-    replay churn yet: traces that carry a schedule are refused with
-    ``CAP_CHURN`` (see :mod:`repro_torch.experiments.engine`).  The live
-    trainer's controller does replay it (``alive_at`` at each assignment,
-    the slowdown row at each task start).
+    ``times`` ([C], strictly increasing, all > 0) are the change boundaries,
+    shared across scenarios; row ``r`` of ``slowdown`` / ``alive``
+    ([C+1, N]) applies on ``[times[r-1], times[r])`` (row 0 before the
+    first boundary).  When a :class:`FleetTraces` carries a schedule, its
+    slowdown rows replace the static ``traces.slowdown`` field, looked up at
+    each task's start time (the burst factor's query time).
+
+    Liveness is sampled once per iteration at assignment time: a worker
+    dead at the iteration's assignment discards any in-flight task (no
+    stale completion, no cache write, no profiler sample, no latency
+    attribution), starts nothing, consumes no draws, and has its §5 cache
+    entries cleared; the wait-for-w order statistic uses
+    ``w_eff = min(w, #alive)``.  A revived or late-joining worker re-enters
+    idle with empty cache slots at its next assignment.  Every row must keep
+    at least one worker alive.  Every engine of this package replays it (the
+    scalar simulator, the host engine, the device engine, the batched
+    sweeps) and so does the live trainer's controller.
+
+    A trivial schedule (:meth:`static`) gathers the same float64 slowdowns
+    through the same :func:`comp_latency_expr`, so its replay is bit for bit
+    the replay without a schedule.
     """
 
     times: np.ndarray  # [C] float64, strictly increasing, > 0
@@ -302,6 +317,57 @@ class ChurnSchedule:
         """Per-task slowdown at start times ``start`` ([S, N] -> [S, N])."""
         rows = self.row_at(np.asarray(start, dtype=np.float64))
         return self.slowdown[rows, np.arange(self.slowdown.shape[1])[None, :]]
+
+    def boundary_before(self, row) -> np.ndarray:
+        """Time of the boundary that opened ``row`` (-inf for row 0): the
+        ``since`` cutoff from which the §6 profiler re-reads its window after
+        a fleet change (samples of the previous fleet state are left out)."""
+        padded = np.concatenate(([-np.inf], self.times))
+        return padded[np.asarray(row)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SlowdownRemoval:
+    """The §7.2 timed event: clear some workers' slowdown at ``time``.
+
+    Callable on a :class:`ClusterLatencyModel` (live sampling), and folded
+    into a :class:`ChurnSchedule` by :func:`churn_from_removals` (trace
+    replay): that fold is how the scalar ``TrainingSimulator`` replays the
+    paper's artificial-slowdown scenario from pre-sampled traces.
+    """
+
+    time: float
+    workers: tuple  # 0-based worker indices
+
+    def __call__(self, cluster: ClusterLatencyModel) -> None:
+        clear_slowdowns(cluster, self.workers)
+
+
+def churn_from_removals(slowdown: np.ndarray,
+                        removals: Sequence[SlowdownRemoval]) -> ChurnSchedule:
+    """The churn schedule equivalent to applying ``removals`` to a fleet
+    with static per-worker ``slowdown`` (all workers alive)."""
+    sd = np.asarray(slowdown, dtype=np.float64)
+    events = sorted(removals, key=lambda e: e.time)
+    rows = [sd.copy()]
+    for ev in events:
+        nxt = rows[-1].copy()
+        nxt[list(ev.workers)] = 1.0
+        rows.append(nxt)
+    sd_rows = np.stack(rows)
+    return ChurnSchedule(times=np.array([e.time for e in events], dtype=np.float64),
+                         slowdown=sd_rows, alive=np.ones_like(sd_rows, dtype=bool))
+
+
+def paper_artificial_churn(num_workers: int = 49, *, remove_at: float = 60.0,
+                           num_removed: int = 10) -> ChurnSchedule:
+    """The §7.2 artificial scenario as a churn schedule: worker ``i``
+    (1-based) slowed by ``1 + (i/N)*0.4``, the last ``num_removed`` workers'
+    slowdown removed at ``remove_at`` (the paper: after one minute)."""
+    sd = 1.0 + (np.arange(1, num_workers + 1) / num_workers) * 0.4
+    removal = SlowdownRemoval(time=remove_at,
+                              workers=tuple(range(num_workers - num_removed, num_workers)))
+    return churn_from_removals(sd, [removal])
 
 
 @dataclasses.dataclass

@@ -20,6 +20,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.experiments.engine import checked_device
 from repro_torch.lb.jit_optimizer import PROFILER_WINDOW, window_moments
 
 
@@ -63,17 +64,19 @@ class MomentBuffer:
     :func:`repro_torch.lb.jit_optimizer.window_moments`, which the device
     engine also calls on its own slot tensors, so the §6 optimizer sees the
     same moments, bit for bit, in the scalar simulator (``S = 1``), the host
-    engine and the device engine.  ``device`` is where they are computed.
+    engine and the device engine.  ``device`` is where they are computed
+    (default the card, as ``EngineConfig``'s; a missing card is refused with
+    ``cuda-device-unavailable``).
     """
 
     def __init__(self, num_scenarios: int, num_workers: int, capacity: int, *,
-                 device="cpu"):
+                 device="cuda"):
         shape = (num_scenarios, num_workers, capacity)
         self.t_rec = np.zeros(shape)
         self.comm = np.zeros(shape)
         self.comp = np.zeros(shape)
         self.valid = np.zeros(shape, dtype=bool)
-        self.device = device
+        self.device = checked_device(device)
 
     def record(self, s, workers, titers, t_recorded, round_trip, compute) -> None:
         """Record observed completions (parallel arrays; ``s`` broadcastable).
@@ -85,10 +88,11 @@ class MomentBuffer:
         self.comp[s, workers, titers] = compute
         self.valid[s, workers, titers] = True
 
-    def moments(self, now, *, window: float | None = None):
+    def moments(self, now, *, window: float | None = None, since=None):
         """``(e_comm, v_comm, e_comp, v_comp, counts)`` numpy arrays at the
         per-scenario times ``now``; a worker with no in-window sample
-        reports count 0."""
+        reports count 0.  ``since`` (per scenario, optional) drops samples
+        recorded before it: the churn re-profiling cutoff."""
         def t(a):
             return torch.as_tensor(a, device=self.device)
 
@@ -96,6 +100,7 @@ class MomentBuffer:
             t(self.t_rec), t(self.comm), t(self.comp), t(self.valid),
             t(np.asarray(now, np.float64)),
             float(PROFILER_WINDOW if window is None else window),
+            since=None if since is None else t(np.asarray(since, np.float64)),
         )
         return tuple(o.cpu().numpy() for o in out)
 

@@ -40,6 +40,14 @@ The what-if replay runs in kernel K7 on the card (one launch per h
 estimate) and in its plain version on the CPU (:mod:`repro_torch.kernels.
 what_if`); the two are bit-equal.
 
+Churn: ``window_moments`` takes the re-profiling cutoff ``since``, and
+``estimate_h``, ``algorithm1``, ``should_publish`` and ``lb_update`` the
+liveness mask ``alive`` (``[S, N]`` bool), as the reference does: dead
+workers' what-if draws are +inf, the replay waits for ``w_eff = min(w,
+#alive)`` per scenario, the max/argmax reductions and the publication gate
+see the living fleet only, and dead workers keep their rung.  An all-True
+mask takes the same float path as ``alive=None``.
+
 The what-if draws: the reference draws one ``[N, K]`` standard-normal base
 per component with ``jax.random.normal`` under the optimizer's seed.  Torch
 cannot reproduce threefry, so the base is an input here, ``normals``
@@ -155,16 +163,20 @@ def exact_sqrt(x):
 # ---------------------------------------------------------------------------
 
 
-def window_moments(t_rec, comm, comp, valid, now, window: float):
+def window_moments(t_rec, comm, comp, valid, now, window: float, since=None):
     """Moving-window mean and variance per worker (the §6.1 profiler view).
 
     ``t_rec``/``comm``/``comp``/``valid`` are ``[..., N, T]`` buffers indexed
     by the iteration that started the task; ``now`` is ``[...]`` per
-    scenario.  A sample is in the window iff ``t_rec >= now - window``.
-    Returns ``(e_comm, v_comm, e_comp, v_comp, counts)``, the single-sample
-    variance floored to 1e-12.
+    scenario.  A sample is in the window iff ``t_rec >= now - window``;
+    ``since`` (``[...]``, optional) also drops samples recorded before it:
+    the churn re-profiling cutoff, the latest fleet change (``-inf`` keeps
+    every sample).  Returns ``(e_comm, v_comm, e_comp, v_comp, counts)``,
+    the single-sample variance floored to 1e-12.
     """
     cutoff = (now - window)[..., None, None]
+    if since is not None:
+        cutoff = torch.maximum(cutoff, since[..., None, None])
     in_win = valid & (t_rec >= cutoff)
     cnt = in_win.sum(dim=-1)
     cnt_f = torch.clamp_min(cnt, 1).to(comm.dtype)
@@ -224,22 +236,31 @@ def _draw_what_if(normals, e_y, v_y, e_z, v_z):
 
 def estimate_h(e_comm, v_comm, e_comp, v_comp, n_j, p_cur, p_new, *, w: int,
                margin: float, normals, K: int = SIM_ITERATIONS,
-               kernel_backend: str = "cuda"):
+               kernel_backend: str = "cuda", alive=None):
     """h(p') for every scenario via linearised what-if trace replay: the
     share of the data each worker is expected to contribute fresh per
     iteration, summed over workers (``[S]``).  ``kernel_backend="torch"``
-    takes the replay's plain version on the card too."""
+    takes the replay's plain version on the card too.
+
+    With ``alive``, dead workers' what-if comm draws are +inf: they never
+    finish and contribute nothing, and the replay waits for ``w_eff =
+    min(w, #alive)`` of the living fleet.  The denominator keeps the whole
+    dataset: a death lowers h, the signal Algorithm 1 reacts to."""
     e_y = torch.clamp_min(e_comm, 1e-12)
     v_y = torch.clamp_min(v_comm, 1e-18)
     ratio = p_cur / p_new
     e_z = torch.clamp_min(e_comp * ratio, 1e-12)
     v_z = torch.clamp_min(v_comp * ratio * ratio, 1e-18)
     comm, comp = _draw_what_if(normals[:, :, :K], e_y, v_y, e_z, v_z)
+    w_arg = w
+    if alive is not None:
+        comm = torch.where(alive[:, :, None], comm, torch.inf)
+        w_arg = torch.clamp_max(alive.sum(dim=1), w)
     # the replay: kernel K7 on the card, its plain version on the CPU (the
     # tasks' comp + comm added once for every draw, as task_finish_time adds)
     replay = (what_if.what_if_replay if kernel_backend == "cuda"
               else what_if.what_if_replay_plain)
-    u = replay(comp + comm, w, margin)
+    u = replay(comp + comm, w_arg, margin)
     n_tot = ordered_sum(n_j)
     return ordered_sum(u * n_j / (p_new * n_tot[:, None]))
 
@@ -284,13 +305,18 @@ def _add_at(idx, rows, cols, delta):
 def algorithm1(p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active, *,
                ladder: tuple[int, ...], w: int, margin: float, normals,
                K: int = SIM_ITERATIONS, h_tol: float = H_TOLERANCE,
-               max_rounds: int = MAX_ROUNDS, kernel_backend: str = "cuda"):
+               max_rounds: int = MAX_ROUNDS, kernel_backend: str = "cuda",
+               alive=None):
     """Equalize / restore contribution / spend slack (paper Algorithm 1).
 
     All tensors are ``[S, N]`` float64 (``h_min`` ``[S]`` float64,
     ``active`` ``[S]`` bool); rows with ``active`` False pass through.
     Returns ``(idx_new, p_new, h_min, last_h)``: ladder indices, their
     float values, the contribution floor, and h at the returned vector.
+    ``alive`` (``[S, N]`` bool) restricts the hill-climb to the living
+    fleet: dead workers are left out of the equalize target and the
+    restore/slack picks, keep their current rung, and never finish in the
+    what-if replay.
     """
     S, N = p_cur.shape
     rows = torch.arange(S, device=p_cur.device)
@@ -299,7 +325,10 @@ def algorithm1(p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active, *,
     def h_of(p_new):
         return estimate_h(e_comm, v_comm, e_comp, v_comp, n_j, p_cur, p_new,
                           w=w, margin=margin, normals=normals, K=K,
-                          kernel_backend=kernel_backend)
+                          kernel_backend=kernel_backend, alive=alive)
+
+    def only_alive(x):  # the living fleet, for the max/argmax reductions
+        return x if alive is None else torch.where(alive, x, -torch.inf)
 
     # h_min = h(p_0) where not yet established (NaN)
     unset = torch.isnan(h_min) & active
@@ -308,7 +337,7 @@ def algorithm1(p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active, *,
 
     # --- equalize total latency against the slowest worker ---
     e_x = e_total(e_comm, e_comp, p_cur, p_cur)
-    slowest = torch.argmax(e_x, dim=1)
+    slowest = torch.argmax(only_alive(e_x), dim=1)
     p_s = p_cur[rows, slowest]
     target = e_comm[rows, slowest] + e_comp[rows, slowest] * p_s / p_s
     denom = target[:, None] - e_comm
@@ -318,6 +347,8 @@ def algorithm1(p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active, *,
     cand = torch.where(denom <= 0, ladder_value(eff, idx_cap), balanced)
     cand = torch.minimum(torch.clamp_min(cand, 1.0), n_j)
     idx = snap_to_ladder(eff, idx_cap, cand)
+    if alive is not None:  # dead workers keep their current rung
+        idx = torch.where(alive, idx, snap_to_ladder(eff, idx_cap, p_cur))
     h = h_of(ladder_value(eff, idx))
 
     # --- restore contribution: give the fastest workers more work ---
@@ -326,6 +357,8 @@ def algorithm1(p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active, *,
     while r < max_rounds and bool(act.any()):
         e_now = e_total(e_comm, e_comp, p_cur, ladder_value(eff, idx))
         valid = idx > 0  # one rung down = strictly more work per task
+        if alive is not None:
+            valid = valid & alive
         order = torch.argsort(e_now, dim=1, stable=True)
         valid_ord = valid.gather(1, order)
         movable = valid_ord.any(dim=1)
@@ -341,7 +374,7 @@ def algorithm1(p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active, *,
     r = 0
     while r < max_rounds and bool(act.any()):
         e_now = e_total(e_comm, e_comp, p_cur, ladder_value(eff, idx))
-        slowest = torch.argmax(e_now, dim=1)
+        slowest = torch.argmax(only_alive(e_now), dim=1)
         act = act & (idx[rows, slowest] < idx_cap[rows, slowest])
         prev_idx, prev_h = idx, h
         idx = _add_at(idx, rows, slowest, torch.where(act, 1, 0))
@@ -355,11 +388,20 @@ def algorithm1(p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active, *,
     return idx, ladder_value(eff, idx), h_min, h
 
 
-def should_publish(p_cur, p_new, e_comm, e_comp, threshold: float):
+def should_publish(p_cur, p_new, e_comm, e_comp, threshold: float, alive=None):
     """``[S]`` bool: the Eq.-(7) objective improves by more than
-    ``threshold`` (paper §6.3)."""
-    cur = objective(e_total(e_comm, e_comp, p_cur, p_cur))
-    new = objective(e_total(e_comm, e_comp, p_cur, p_new))
+    ``threshold`` (paper §6.3).  With ``alive``, the max/min latency ratio
+    is taken over the living fleet only."""
+
+    def ratio(e_x):
+        if alive is None:
+            return objective(e_x)
+        hi = torch.where(alive, e_x, -torch.inf).amax(dim=-1)
+        lo = torch.where(alive, e_x, torch.inf).amin(dim=-1)
+        return hi / torch.clamp_min(lo, 1e-12)
+
+    cur = ratio(e_total(e_comm, e_comp, p_cur, p_cur))
+    new = ratio(e_total(e_comm, e_comp, p_cur, p_new))
     return new < cur * (1.0 - threshold)
 
 
@@ -367,22 +409,25 @@ def lb_update(p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active, *,
               ladder: tuple[int, ...], w: int, margin: float, normals,
               K: int = SIM_ITERATIONS, h_tol: float = H_TOLERANCE,
               max_rounds: int = MAX_ROUNDS, threshold: float = IMPROVEMENT_THRESHOLD,
-              kernel_backend: str = "cuda"):
+              kernel_backend: str = "cuda", alive=None):
     """One §6 optimizer round: Algorithm 1, then the publication gate.
 
     Returns ``(p_new [S, N] int64, h_min [S], last_h [S], publish [S])``,
     ``h_min`` updated for active rows only and ``publish`` False for
-    inactive ones.
+    inactive ones.  ``alive`` masks as in :func:`algorithm1`; dead workers'
+    published p is their current p.
     """
     _, p_new_f, h_min_out, last_h = algorithm1(
         p_cur, e_comm, v_comm, e_comp, v_comp, n_j, h_min, active,
         ladder=ladder, w=w, margin=margin, normals=normals, K=K, h_tol=h_tol,
-        max_rounds=max_rounds, kernel_backend=kernel_backend,
+        max_rounds=max_rounds, kernel_backend=kernel_backend, alive=alive,
     )
     h_min_out = torch.where(active, h_min_out, h_min)
-    pub = should_publish(p_cur, p_new_f, e_comm, e_comp, threshold) & active
+    pub = should_publish(p_cur, p_new_f, e_comm, e_comp, threshold, alive=alive) & active
     p_out = torch.clamp_min(p_new_f, 1.0).to(I64)
     p_out = torch.where(active[:, None], p_out, p_cur.to(I64))
+    if alive is not None:
+        p_out = torch.where(alive, p_out, p_cur.to(I64))
     return p_out, h_min_out, last_h, pub
 
 

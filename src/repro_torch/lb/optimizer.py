@@ -38,6 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.experiments.engine import checked_device
 from repro_torch.lb import jit_optimizer as jlb
 from repro_torch.lb.partitioner import build_p_ladder
 
@@ -109,9 +110,11 @@ class LoadBalanceOptimizer:
     call's p and sample counts when omitted); the engines pass theirs so all
     climb the same rungs.  ``what_if_normals`` (``[2, N, K]``) overrides the
     draws :func:`what_if_normals` would pick for ``seed``; ``device`` is
-    where the float64 arithmetic runs, ``kernel_backend`` whether the
-    what-if replay launches kernel K7 there (``"cuda"``) or its plain
-    version (``"torch"``; the CPU always takes the plain version).
+    where the float64 arithmetic runs (default the card, as
+    ``EngineConfig``'s; a missing card is refused with
+    ``cuda-device-unavailable``), ``kernel_backend`` whether the what-if
+    replay launches kernel K7 there (``"cuda"``) or its plain version
+    (``"torch"``; the CPU always takes the plain version).
     """
 
     def __init__(
@@ -124,7 +127,7 @@ class LoadBalanceOptimizer:
         seed: int = 0,
         ladder: tuple[int, ...] | None = None,
         what_if_normals=None,
-        device="cpu",
+        device="cuda",
         kernel_backend: str = "cuda",
     ):
         self.h_tolerance = h_tolerance
@@ -135,7 +138,7 @@ class LoadBalanceOptimizer:
         self.improvement_threshold = improvement_threshold
         self.seed = seed
         self.ladder = tuple(ladder) if ladder is not None else None
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.kernel_backend = kernel_backend
         self._normals = (
             None if what_if_normals is None
@@ -184,12 +187,16 @@ class LoadBalanceOptimizer:
         inputs: OptimizerInputs,
         h_min: np.ndarray | None = None,
         active: np.ndarray | None = None,
+        alive: np.ndarray | None = None,
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Algorithm 1 and the §6.3 publish gate for S scenarios at once.
 
         ``p`` is ``[S, N]`` int, ``inputs`` holds ``[S, N]`` arrays, ``h_min``
         the per-scenario contribution floor carried across calls (NaN = not
-        yet established), ``active`` which scenarios balance this round.
+        yet established), ``active`` which scenarios balance this round,
+        ``alive`` (``[S, N]`` bool, optional) the churn liveness mask (dead
+        workers are left out of the hill-climb and keep their p; see
+        :func:`repro_torch.lb.jit_optimizer.algorithm1`).
         Returns ``(p_new [S, N] int64, h_min [S], last_h [S], publish [S])``.
         """
         p = np.asarray(p, dtype=np.int64)
@@ -208,6 +215,7 @@ class LoadBalanceOptimizer:
             normals=self.normals(N), K=int(self.sim_iterations),
             h_tol=float(self.h_tolerance), max_rounds=int(self.max_rounds),
             threshold=float(self.improvement_threshold), kernel_backend=self.kernel_backend,
+            alive=None if alive is None else self._t(alive, torch.bool),
         )
         return (
             p_new.cpu().numpy().astype(np.int64),

@@ -51,15 +51,12 @@ from repro_torch.core.problems import make_genomics_like_matrix, make_higgs_like
 from repro_torch.experiments.convergence import (
     ConvergenceSweepOutcome,
     history_mismatches,
+    result_mismatches,
     run_convergence_batch,
     scalar_convergence_run,
     scalar_convergence_seconds,
 )
-from repro_torch.experiments.engine import (
-    CAP_CHURN,
-    EngineCapabilityError,
-    EngineConfig,
-)
+from repro_torch.experiments.engine import EngineConfig
 from repro_torch.ft.validation import pin_streams
 from repro_torch.latency.model import (
     ChurnSchedule,
@@ -531,21 +528,35 @@ def test_iterate_batch_rows_equal_single_iterates(slices):
 # -- capability refusals: up front, by every engine ------------------------------------
 
 
+def _death_and_rejoin(tr, t_die: float, t_back: float):
+    """Worker 1 dies at ``t_die`` and rejoins at ``t_back``; worker 3 dies
+    at ``t_back`` for good."""
+    n = tr.num_workers
+    alive = np.ones((3, n), bool)
+    alive[1, 1] = False
+    alive[2, 3] = False
+    return tr.with_churn(ChurnSchedule(times=np.array([t_die, t_back]),
+                                       slowdown=np.tile(tr.slowdown, (3, 1)), alive=alive))
+
+
 def test_load_balance_refused_by_every_engine(slices):
-    """Where §6 is still refused: with churn (``churn-not-ported``) by every
-    engine and the scalar simulator, and in the live pin, as the reference's
-    ``pin_streams`` refuses it."""
+    """§6 under churn, once refused by every engine, runs on every engine and
+    the scalar simulator, all equal bit for bit; the live pin still refuses
+    §6, as the reference's ``pin_streams`` does."""
     prob, cluster, tr = slices["logreg"]
-    tch = tr.with_churn(ChurnSchedule.static(tr.slowdown))
     cfg = MethodConfig(name="dsag", w=W, subpartitions=SUBPARTS, load_balance=True,
                        lb_startup_delay=0.002, lb_interval=0.004)
-    for kind in ("auto", "scan", "host"):
-        with pytest.raises(EngineCapabilityError) as e:
-            run_convergence_batch(prob, tch, cfg, N_ITERS, engine=dataclasses.replace(CPU, kind=kind))
-        assert e.value.capability.code == CAP_CHURN
-    with pytest.raises(EngineCapabilityError) as e:
-        TrainingSimulator(prob, cluster, cfg, engine=CPU, latency_source=TraceLatencySource(tch, 0))
-    assert e.value.capability.code == CAP_CHURN
+    base = run_convergence_batch(prob, tr, cfg, N_ITERS, engine=CPU)
+    tch = _death_and_rejoin(tr, float(base.times[0, 2]), float(base.times[0, 8]))
+    res = {kind: run_convergence_batch(prob, tch, cfg, N_ITERS,
+                                       engine=dataclasses.replace(CPU, kind=kind))
+           for kind in ("auto", "scan", "host")}
+    h = TrainingSimulator(prob, cluster, cfg, engine=CPU,
+                          latency_source=TraceLatencySource(tch, 0)).run(N_ITERS)
+    for kind, r in res.items():
+        assert history_mismatches(h, r, 0) == [], kind
+        assert result_mismatches(r, res["scan"]) == [], kind
+    assert h.evict_stream.any()  # the deaths cleared cache entries
     with pytest.raises(ValueError, match="no LB"):
         pin_streams(prob, cluster, tr, 0, dataclasses.replace(cfg, subpartitions=1), N_ITERS,
                     engine=CPU)
@@ -569,16 +580,22 @@ def test_load_balance_runs_on_every_engine(slices):
 
 
 def test_churn_refused_by_every_engine(slices):
+    """Churn, once refused by every engine, runs on every engine and the
+    scalar simulator, all equal bit for bit (``tests/test_torch_churn.py``
+    holds it against the reference)."""
     prob, cluster, tr = slices["logreg"]
-    tch = tr.with_churn(ChurnSchedule.static(tr.slowdown))
     cfg = MethodConfig(name="dsag", w=W, subpartitions=SUBPARTS)
-    for kind in ("auto", "scan", "host"):
-        with pytest.raises(EngineCapabilityError) as e:
-            run_convergence_batch(prob, tch, cfg, N_ITERS, engine=dataclasses.replace(CPU, kind=kind))
-        assert e.value.capability.code == CAP_CHURN
-    with pytest.raises(EngineCapabilityError) as e:
-        TrainingSimulator(prob, cluster, cfg, engine=CPU, latency_source=TraceLatencySource(tch, 0))
-    assert e.value.capability.code == CAP_CHURN
+    base = run_convergence_batch(prob, tr, cfg, N_ITERS, engine=CPU)
+    tch = _death_and_rejoin(tr, float(base.times[0, 2]), float(base.times[0, 8]))
+    res = {kind: run_convergence_batch(prob, tch, cfg, N_ITERS,
+                                       engine=dataclasses.replace(CPU, kind=kind))
+           for kind in ("auto", "scan", "host")}
+    for s in range(tch.num_scenarios):
+        h = TrainingSimulator(prob, cluster, cfg, engine=CPU,
+                              latency_source=TraceLatencySource(tch, s)).run(N_ITERS)
+        for kind, r in res.items():
+            assert history_mismatches(h, r, s) == [], (kind, s)
+    assert not np.array_equal(res["scan"].times, base.times)  # the churn bit
 
 
 def test_engine_config_kind_and_cadence():

@@ -59,7 +59,6 @@ from repro_torch.experiments.convergence import (
 )
 from repro_torch.experiments.engine import (
     CAP_ACTIVE_SET,
-    CAP_CHURN,
     CAP_OK,
     CAP_TILED,
     EngineCapabilityError,
@@ -334,7 +333,7 @@ def test_estimate_h_row_independent_of_batch():
     for s in range(S):
         one = jlb.estimate_h(*[a[s:s + 1] for a in args], w=30, margin=0.02, normals=nz)
         assert one.item() == full[s].item()
-    opt = LoadBalanceOptimizer(seed=0, ladder=(2, 4, 8), sim_iterations=30)
+    opt = LoadBalanceOptimizer(seed=0, ladder=(2, 4, 8), sim_iterations=30, device="cpu")
     inp = OptimizerInputs(*(a.numpy() for a in args[:5]), w=30)
     p = np.full((S, N), 4)
     sub = OptimizerInputs(*(a.numpy()[1:] for a in args[:5]), w=30)
@@ -485,18 +484,27 @@ def test_scan_capability_codes_and_auto_routing(logreg_small, monkeypatch):
 
 
 def test_lb_with_churn_refused(logreg_small):
+    """§6 with churn, once refused, runs: an all-alive schedule is bit for
+    bit the static run on every engine, and a death mid-run goes through
+    Algorithm 1 with the liveness mask, engines equal."""
     cluster, tr = artificial_fleet(logreg_small, horizon=10)
-    tch = tr.with_churn(ChurnSchedule.static(tr.slowdown))
     cfg = lb_config("dsag")
+    static = run_convergence_batch(logreg_small, tr, cfg, 10, engine=CPU)
+    tch = tr.with_churn(ChurnSchedule.static(tr.slowdown))
+    alive = np.ones((2, N_W), bool)
+    alive[1, 2] = False
+    dead = tr.with_churn(ChurnSchedule(times=np.array([float(static.times[0, 3])]),
+                                       slowdown=np.tile(tr.slowdown, (2, 1)), alive=alive))
     for kind in ("auto", "scan", "host"):
-        with pytest.raises(EngineCapabilityError) as e:
-            run_convergence_batch(logreg_small, tch, cfg, 10,
-                                  engine=dataclasses.replace(CPU, kind=kind))
-        assert e.value.capability.code == CAP_CHURN
-    with pytest.raises(EngineCapabilityError) as e:
-        TrainingSimulator(logreg_small, cluster, cfg, engine=CPU,
-                          latency_source=TraceLatencySource(tch, 0))
-    assert e.value.capability.code == CAP_CHURN
+        eng = dataclasses.replace(CPU, kind=kind)
+        assert_results_equal(run_convergence_batch(logreg_small, tch, cfg, 10, engine=eng),
+                             static)
+        assert_results_equal(run_convergence_batch(logreg_small, dead, cfg, 10, engine=eng),
+                             run_convergence_batch(logreg_small, dead, cfg, 10, engine=CPU))
+    h = TrainingSimulator(logreg_small, cluster, cfg, engine=CPU,
+                          latency_source=TraceLatencySource(dead, 0)).run(10)
+    assert history_mismatches(h, run_convergence_batch(logreg_small, dead, cfg, 10,
+                                                       engine=CPU), 0) == []
 
 
 def test_lb_scan_column_on_a_small_slice(logreg_small):
@@ -588,7 +596,8 @@ def test_lb_functions_match_reference(ref, case):
     pub = jlb.should_publish(g["p_cur"], g["p_new"], g["e_comm"], g["e_comp"], 0.10)
     assert np.array_equal(pub.numpy(), ref[pre + "publish"])
     # the LoadBalanceOptimizer wrapper gives the same
-    opt = LoadBalanceOptimizer(seed=0, ladder=LADDER, what_if_normals=ref[pre + "normals"])
+    opt = LoadBalanceOptimizer(seed=0, ladder=LADDER, what_if_normals=ref[pre + "normals"],
+                               device="cpu")
     inp = OptimizerInputs(*(ref[pre + k] for k in ("e_comm", "v_comm", "e_comp", "v_comp",
                                                    "n_j")), w=w, margin=margin)
     out = opt.update_batch(ref[pre + "p_cur"].astype(np.int64), inp, ref[pre + "h_min"],
@@ -610,7 +619,7 @@ def test_moment_buffer_matches_reference(ref, case):
     pre = f"fn/{name}/buf/"
     t_rec, rt, cp, valid = ref[pre + "in"]
     valid = valid.astype(bool)
-    buf = MomentBuffer(S, N, T)
+    buf = MomentBuffer(S, N, T, device="cpu")
     s_i, n_i, t_i = np.nonzero(valid)
     buf.record(s_i, n_i, t_i, t_rec[valid], rt[valid], cp[valid])
     for k, got in zip(("e_comm", "v_comm", "e_comp", "v_comp", "cnt"),

@@ -44,7 +44,6 @@ from repro_torch.experiments.convergence import (
     run_convergence_batch,
 )
 from repro_torch.experiments.engine import (
-    CAP_CHURN,
     CAP_CUDA_DTYPE,
     CAP_CUDA_KERNELS_OFF_DEVICE,
     CAP_CUDA_SHAPE,
@@ -172,15 +171,17 @@ def test_default_engine_runs_on_the_card_or_refuses():
 
 
 def test_load_balance_is_refused():
-    """§6 load balancing is refused where it is not ported yet: with churn,
-    before any step (``churn-not-ported``)."""
+    """§6 load balancing with churn, once refused before any step, runs on
+    the device engine and equals the host engine bit for bit."""
     prob, tr = _small()
     cfg = MethodConfig("dsag", w=3, subpartitions=2, load_balance=True,
                        lb_startup_delay=0.0, lb_interval=0.0)
     tch = tr.with_churn(ChurnSchedule.static(tr.slowdown))
-    with pytest.raises(EngineCapabilityError) as ei:
-        run_convergence_batch(prob, tch, cfg, 4, engine=CPU)
-    assert ei.value.capability.code == CAP_CHURN
+    scan = run_convergence_batch(prob, tch, cfg, 4, engine=CPU)
+    host = run_convergence_batch(prob, tch, cfg, 4, engine=dataclasses.replace(CPU, kind="host"))
+    assert np.array_equal(scan.times, host.times)
+    assert np.array_equal(scan.suboptimality, host.suboptimality, equal_nan=True)
+    assert scan.repartition_events == host.repartition_events
 
 
 def test_load_balance_runs_on_the_device_engine():
@@ -196,11 +197,15 @@ def test_load_balance_runs_on_the_device_engine():
 
 
 def test_churn_is_refused():
+    """Churn, once refused, runs: a static schedule replays bit for bit the
+    run without one."""
     prob, tr = _small()
-    tr = tr.with_churn(ChurnSchedule.static(tr.slowdown))
-    with pytest.raises(EngineCapabilityError) as ei:
-        run_convergence_batch(prob, tr, MethodConfig("sag", w=4, subpartitions=2), 4, engine=CPU)
-    assert ei.value.capability.code == CAP_CHURN
+    cfg = MethodConfig("sag", w=4, subpartitions=2)
+    static = run_convergence_batch(prob, tr, cfg, 4, engine=CPU)
+    churned = run_convergence_batch(prob, tr.with_churn(ChurnSchedule.static(tr.slowdown)),
+                                    cfg, 4, engine=CPU)
+    assert np.array_equal(static.times, churned.times)
+    assert np.array_equal(static.suboptimality, churned.suboptimality, equal_nan=True)
 
 
 def test_cuda_kernels_take_float32_only():

@@ -29,7 +29,6 @@ import torch
 
 from repro_torch import interop, scenario_sweep
 from repro_torch.experiments.engine import (
-    CAP_CHURN,
     CAP_CUDA_UNAVAILABLE,
     EngineCapabilityError,
 )
@@ -253,12 +252,30 @@ def test_order_statistics_match_reference(ref):
 
 
 def test_churn_refused_by_the_batched_sweeps(ref):
-    tr = _traces(ref, "calm")
+    """The batched sweeps, which once refused churn, replay it: the batched
+    replay equals the scalar event loop under a death and a rejoin, and an
+    all-alive schedule is the static replay bit for bit in both sweeps."""
+    tr = _traces(ref, "bursty")
+    static = replay_batch(tr, 6, K, device="cpu")
     tch = tr.with_churn(ChurnSchedule.static(tr.slowdown))
-    for fn in (replay_batch, synchronous_times_batch):
-        with pytest.raises(EngineCapabilityError) as e:
-            fn(tch, 6, K, device="cpu")
-        assert e.value.capability.code == CAP_CHURN
+    same = replay_batch(tch, 6, K, device="cpu")
+    assert np.array_equal(same.iteration_times, static.iteration_times)
+    assert np.array_equal(synchronous_times_batch(tch, 6, K, device="cpu"),
+                          synchronous_times_batch(tr, 6, K, device="cpu"))
+    alive = np.ones((3, N), bool)
+    alive[1, [0, 5]] = False
+    alive[2, 5] = False
+    t = static.iteration_times[0]
+    dead = tr.with_churn(ChurnSchedule(times=np.array([t[K // 4], t[K // 2]]),
+                                       slowdown=np.tile(tr.slowdown, (3, 1)), alive=alive))
+    got = replay_batch(dead, 6, K, device="cpu", record_tasks=True)
+    for s in range(S):
+        want = scalar_reference(dead, s, 6, K)
+        assert np.array_equal(got.iteration_times[s], want.iteration_times)
+        assert np.array_equal(got.fresh_counts[s], want.fresh_counts)
+    # worker 5 starts nothing once it is dead at an assignment
+    late = got.task_assigned >= t[K // 4]
+    assert late.any() and np.isnan(got.task_start[:, :, 5][late]).all()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
