@@ -46,6 +46,7 @@ from repro_torch.core.problems import FiniteSumProblem
 from repro_torch.experiments.engine import (
     EngineCapabilityError,
     EngineConfig,
+    as_engine_config,
     engine_capability,
     kernel_dtype_capability,
 )
@@ -330,7 +331,7 @@ class TrainingSimulator:
         self.config = config
         self.cost_scale = cost_scale
         self.eval_every = eval_every
-        self.engine = EngineConfig() if engine is None else engine
+        self.engine = as_engine_config(engine, _stacklevel=3)
         #: live model sampling by default; a TraceLatencySource replays one
         #: pre-sampled scenario through the full training simulator
         self.latency_source = latency_source or ModelLatencySource(cluster)

@@ -30,11 +30,14 @@ sag and coded through the host and device engines on an elastic fleet:
 the slowest fifth dies mid-run, half of it rejoins), with the recipe read
 from the committed ``BENCH_convergence.json``, fails unless the engines
 agree bit for bit, and prints the column beside the committed one.
-``--out`` writes the ordering (and the column) as JSON there; nothing
-writes the committed ``BENCH_*.json``.  The §6 what-if draws are
-the reference's where the package ships them (seed 0 at 100 and 50
-workers); otherwise torch's generator draws them, and the run then differs
-from the reference by its draws alone (the output says which).
+``--out`` writes the sweep's payload there in the layout of
+``BENCH_convergence.json`` (what the reference's
+``examples/convergence_sweep.py --out`` writes: ``grid``, ``gap``,
+``methods``, ``ordering``, and with ``--check-scalar`` the scalar timing),
+with the ``lb_scan`` column nested under its name; ``--churn-column --out``
+writes ``{"churn": column}``.  Nothing writes the committed
+``BENCH_*.json``.  The §6 what-if draws are the reference's for every seed
+and fleet size (``repro_torch.lb.threefry``).
 """
 
 from __future__ import annotations
@@ -71,10 +74,10 @@ from repro_torch.experiments.results import (
     convergence_ordering,
     run_churn_column,
     run_lb_scan,
+    write_bench_convergence,
     write_json,
 )
 from repro_torch.latency.model import make_heterogeneous_cluster
-from repro_torch.lb.optimizer import what_if_source
 
 #: the committed convergence artifact (read only): the churn recipe's source
 BENCH_FILE = Path(__file__).resolve().parents[2] / "BENCH_convergence.json"
@@ -125,7 +128,8 @@ def run(argv=None):
                     help="run the churn column (dsag, sag, coded through the host and "
                     "device engines under worker death and rejoin) from the committed "
                     "recipe, and print it beside the committed values")
-    ap.add_argument("--out", default=None, help="write the ordering (and column) as JSON here")
+    ap.add_argument("--out", default=None,
+                    help="write the BENCH_convergence.json-layout payload here")
     args = ap.parse_args(argv)
     engine = EngineConfig(
         device=args.device, kernel_backend=args.kernel_backend, kind=args.engine,
@@ -209,14 +213,6 @@ def check_scalar(out, engine: EngineConfig) -> tuple[float, float]:
     return measured, measured * out.traces.num_scenarios
 
 
-def draws_note(seed: int, num_workers: int) -> str:
-    """What the output says about the §6 what-if draws of a run."""
-    if what_if_source(seed, num_workers) == "reference":
-        return f"§6 what-if draws: the reference's (seed {seed}, N={num_workers})"
-    return (f"§6 what-if draws: torch's generator (seed {seed}, N={num_workers}); the run "
-            "differs from the reference by its draws alone")
-
-
 def lb_column(out, gap: float, engine: EngineConfig) -> dict:
     """The ``lb_scan`` column on ``out``'s traces: its dsag with the §6
     balancer (the recipe's schedule) through both engines, which must agree
@@ -250,8 +246,7 @@ def main(argv=None) -> dict:
         f"{out.num_iterations} iterations in {out.engine_seconds:.2f}s "
         f"({args.engine} engine, device {args.device}, {args.kernel_backend} kernels)"
     )
-    if args.load_balance or args.lb_column:
-        print(draws_note(out.seed, N))
+    measured = scaled = None
     if args.check_scalar:
         measured, scaled = check_scalar(out, engine)
         print(f"scalar TrainingSimulator replay of scenario 0: bit-exact for "
@@ -274,7 +269,7 @@ def main(argv=None) -> dict:
         f"coded/dsag={o['coded_over_dsag']:.2f}x "
         f"dsag_fastest={bool(o['dsag_fastest_to_gap'])}"
     )
-    payload = {"ordering": o}
+    extra = {}
     if args.lb_column:
         col = lb_column(out, gap, engine)
         lo = col["ordering"]
@@ -286,10 +281,12 @@ def main(argv=None) -> dict:
             f"coded/dsag_lb={lo['coded_over_dsag_lb']:.3f} "
             f"fastest={bool(lo['dsag_lb_fastest_to_gap'])}"
         )
-        payload["lb_scan"] = col
+        extra["lb_scan"] = col
         o = dict(o, lb_scan=col)
     if args.out:
-        write_json(payload, args.out)
+        # the scalar replay covers every method (scenario 0, scaled to all)
+        write_bench_convergence(out, args.out, gap=gap, scalar_seconds=scaled,
+                                scalar_seconds_measured=measured, extra=extra)
         print(f"wrote {args.out}")
     return o
 

@@ -15,9 +15,12 @@ the cache.  The cache and H update runs through kernel K4
 
 The port's state holds one parameter tensor (the paper problems' iterate
 ``V``), so every slot is a tensor with a leading group dim, flattened to
-``[P, n]`` for K4.  What is not ported is refused with a capability code:
-an int8 cache (:data:`CAP_INT8_CACHE`), a mesh (:data:`CAP_MESH`), and a
-job that offers no per-group gradient (:data:`CAP_GROUP_GRAD`).
+``[P, n]`` for K4.  With ``dsag_cache_dtype="int8"`` a slot is a
+:class:`~repro_torch.optim.compression.Quantized` of the reference's layout
+(one bfloat16 scale per row of the parameter's last axis) and K4's int8
+entry updates it.  What is not ported is refused with a capability code: a
+mesh (:data:`CAP_MESH`) and a job that offers no per-group gradient
+(:data:`CAP_GROUP_GRAD`).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.experiments.engine import refuse
 from repro_torch.kernels import dsag_update as k4
+from repro_torch.optim.compression import Quantized
 from repro_torch.optim.optimizers import (
     apply_updates,
     clip_by_global_norm,
@@ -37,8 +41,6 @@ from repro_torch.optim.optimizers import (
     make_optimizer,
 )
 
-#: dsag_cache_dtype="int8" (optim/compression.py's quantized cache)
-CAP_INT8_CACHE = "int8-cache-not-ported"
 #: a device mesh (sharded groups, ZeRO slots)
 CAP_MESH = "mesh-not-ported"
 #: a job without ``group_value_and_grad`` (the reference's vmapped autodiff)
@@ -60,22 +62,29 @@ def make_group_spec(tc: TrainConfig, mesh=None) -> GroupSpec:
     return GroupSpec(num_groups=1 if not tc.dsag else 4, axes=())
 
 
-def _slot_dtype(tc: TrainConfig) -> torch.dtype:
-    """The cache / pending slots' dtype (float32 or bfloat16)."""
-    if tc.dsag_cache_dtype == "int8":
-        raise refuse(CAP_INT8_CACHE, "the int8 per-row-scaled DSAG cache is not ported yet")
-    if tc.dsag_cache_dtype not in _SLOT_DTYPES:
-        raise ValueError(f"unknown dsag_cache_dtype {tc.dsag_cache_dtype!r}")
-    return _SLOT_DTYPES[tc.dsag_cache_dtype]
+def _cache_like(params: torch.Tensor, gs: GroupSpec, dtype: str):
+    """An empty slot: a leading group dim on the parameter's shape; int8
+    slots carry one bfloat16 scale per row of the last axis (the
+    reference's ``_cache_like``)."""
+    shape = (gs.num_groups,) + tuple(params.shape)
+    dev = params.device
+    if dtype == "int8":
+        block = params.shape[-1] if params.dim() else 1
+        nblocks = max((shape[-1] + block - 1) // block, 1)
+        return Quantized(q=torch.zeros(shape, dtype=torch.int8, device=dev),
+                         scale=torch.zeros(shape[:-1] + (nblocks,), dtype=torch.bfloat16,
+                                           device=dev),
+                         block=block)
+    if dtype not in _SLOT_DTYPES:
+        raise ValueError(f"unknown dsag_cache_dtype {dtype!r}")
+    return torch.zeros(shape, dtype=_SLOT_DTYPES[dtype], device=dev)
 
 
 def init_dsag_state(params: torch.Tensor, gs: GroupSpec, tc: TrainConfig) -> dict:
-    dt = _slot_dtype(tc)
-    shape = (gs.num_groups,) + tuple(params.shape)
     dev = params.device
     return {
-        "cache": torch.zeros(shape, dtype=dt, device=dev),
-        "pending": torch.zeros(shape, dtype=dt, device=dev),
+        "cache": _cache_like(params, gs, tc.dsag_cache_dtype),
+        "pending": _cache_like(params, gs, tc.dsag_cache_dtype),
         "pending_valid": torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
         "filled": torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
         "h": torch.zeros(params.shape, dtype=torch.float32, device=dev),
@@ -87,6 +96,52 @@ def _bmask(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return m.reshape((-1,) + (1,) * (x.dim() - 1))
 
 
+def _update_slots(dsag, group_grads, mask, eff_flush, evict, take_new, backend):
+    """float32 / bfloat16 slots through K4: ``(cache, pending, h)``."""
+    p = mask.shape[0]
+    cache, pending = dsag["cache"], dsag["pending"]
+    dt = cache.dtype
+    g = group_grads.to(torch.float32)
+    g_slot = g.to(dt)
+    zero = torch.zeros((), dtype=dt, device=g.device)
+    g_in = torch.where(_bmask(mask, g), g_slot,
+                       torch.where(_bmask(eff_flush, g), pending, zero))
+    g_in = torch.where(_bmask(evict, g), zero, g_in)
+    m_in = (mask | eff_flush | evict).to(torch.float32)
+    update = k4.dsag_cache_update if backend == "cuda" else k4.dsag_cache_update_plain
+    new_c, new_h = update(g_in.reshape(p, -1), cache.reshape(p, -1),
+                          dsag["h"].reshape(-1), m_in)
+    new_pending = torch.where(_bmask(take_new, g), g_slot, pending)
+    return new_c.reshape(cache.shape), new_pending, new_h.reshape(dsag["h"].shape)
+
+
+def _update_int8(dsag, group_grads, mask, eff_flush, evict, take_new, backend):
+    """int8 slots through K4's int8 entry: ``(cache, pending, h)``.
+
+    Each group's cache row becomes ``evict ? 0 : mask ? g : flush ? pending
+    : cache`` (the reference's ``mf·g + ff·p + (1 − mf − ff)·c``, then
+    ``· (1 − evict)``: every product is by 0 or 1, so exact), requantized,
+    with H's delta taken from the stored, dequantized value; the pending
+    slot is requantized too.  Every row of every group is requantized each
+    step, as in the reference.
+    """
+    cache, pending = dsag["cache"], dsag["pending"]
+    p, b = mask.shape[0], cache.block
+    code = torch.where(evict, k4.ZERO, torch.where(
+        mask, k4.TAKE_G, torch.where(eff_flush, k4.TAKE_PENDING, k4.KEEP)))
+    code = (code + torch.where(take_new, k4.TAKE_NEW, 0)).to(torch.uint8)
+    update = (k4.dsag_cache_update_int8 if backend == "cuda"
+              else k4.dsag_cache_update_int8_plain)
+    cq, cs, pq, ps, new_h = update(
+        group_grads.to(torch.float32).reshape(p, -1, b).contiguous(),
+        cache.q.reshape(p, -1, b), cache.scale.reshape(p, -1),
+        pending.q.reshape(p, -1, b), pending.scale.reshape(p, -1),
+        dsag["h"].reshape(-1, b), code)
+    return (Quantized(cq.reshape(cache.q.shape), cs.reshape(cache.scale.shape), b),
+            Quantized(pq.reshape(pending.q.shape), ps.reshape(pending.scale.shape), b),
+            new_h.reshape(dsag["h"].shape))
+
+
 def dsag_update(dsag: dict, group_grads: torch.Tensor, mask, flush, evict=None,
                 backend: str = "cuda"):
     """Apply the DSAG cache rule; returns ``(new_dsag, h_hat, xi)``.
@@ -96,7 +151,8 @@ def dsag_update(dsag: dict, group_grads: torch.Tensor, mask, flush, evict=None,
     wrapper (the kernel on CUDA tensors, its plain version on CPU tensors),
     ``"torch"`` through the plain version everywhere.
 
-    The reference's rule is folded into K4's inputs:
+    For float32 / bfloat16 slots the reference's rule is folded into K4's
+    inputs (int8 slots: :func:`_update_int8`):
 
     * ``m' = mask | eff_flush | evict`` with ``mask`` excluding ``evict``
       and ``eff_flush = flush & ~mask & pending_valid``;
@@ -122,21 +178,14 @@ def dsag_update(dsag: dict, group_grads: torch.Tensor, mask, flush, evict=None,
     mask = mask & ~evict
     # a flush is only meaningful if the slot was pending and not fresh now
     eff_flush = flush & ~mask & dsag["pending_valid"]
-    cache, pending = dsag["cache"], dsag["pending"]
-    dt = cache.dtype
-    g = group_grads.to(torch.float32)
-    g_slot = g.to(dt)
-    zero = torch.zeros((), dtype=dt, device=g.device)
-    g_in = torch.where(_bmask(mask, g), g_slot,
-                       torch.where(_bmask(eff_flush, g), pending, zero))
-    g_in = torch.where(_bmask(evict, g), zero, g_in)
-    m_in = (mask | eff_flush | evict).to(torch.float32)
-    update = k4.dsag_cache_update if backend == "cuda" else k4.dsag_cache_update_plain
-    new_c, new_h = update(g_in.reshape(p, -1), cache.reshape(p, -1),
-                          dsag["h"].reshape(-1), m_in)
     # pending: keep the oldest in-flight gradient unless fresh/flushed now
     take_new = mask | eff_flush | ~dsag["pending_valid"]
-    new_pending = torch.where(_bmask(take_new, g), g_slot, pending)
+    if isinstance(dsag["cache"], Quantized):
+        new_cache, new_pending, new_h = _update_int8(
+            dsag, group_grads, mask, eff_flush, evict, take_new, backend)
+    else:
+        new_cache, new_pending, new_h = _update_slots(
+            dsag, group_grads, mask, eff_flush, evict, take_new, backend)
 
     arrived = mask | eff_flush
     new_filled = (dsag["filled"] | arrived) & ~evict
@@ -151,10 +200,9 @@ def dsag_update(dsag: dict, group_grads: torch.Tensor, mask, flush, evict=None,
     # the count times the float32 reciprocal of P, and so does this (a
     # division rounds differently, e.g. 5/6), so ξ equals the reference's
     xi = torch.clamp(new_filled.to(torch.float32).sum() * (1.0 / p), 1e-6, 1.0)
-    new_h = new_h.reshape(dsag["h"].shape)
     h_hat = new_h / (xi * p)
     new_dsag = {
-        "cache": new_c.reshape(cache.shape),
+        "cache": new_cache,
         "pending": new_pending,
         "pending_valid": new_pending_valid,
         "filled": new_filled,

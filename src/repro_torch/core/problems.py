@@ -43,7 +43,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from repro_torch.experiments.engine import EngineConfig
+from repro_torch.experiments.engine import as_engine_config
 from repro_torch.kernels import block_sub
 
 F64 = torch.float64
@@ -70,7 +70,10 @@ class FusedKernels:
     block subgradients at per-task windows: ``backend="cuda"`` calls the
     kernel wrapper (K1/K2), ``"torch"`` the plain version.
     ``suboptimality`` / ``project`` / ``regularizer_grad`` act on ``[S, ...]``
-    iterate stacks.  ``value_dtype`` is the dtype ``sub_blocks`` returns.
+    iterate stacks; so does ``value``, the float64 quantity the
+    suboptimality is measured on (logreg's objective, PCA's explained
+    variance), and ``optimum_value`` is its value at the optimum.
+    ``value_dtype`` is the dtype ``sub_blocks`` returns.
     """
 
     device: torch.device
@@ -83,6 +86,8 @@ class FusedKernels:
     suboptimality: Callable  # [S, ...] -> [S] float64
     project: Callable  # [S, ...] -> [S, ...]
     regularizer_grad: Callable  # [S, ...] -> [S, ...]
+    value: Callable  # [S, ...] -> [S] float64
+    optimum_value: float
 
     def sub_blocks(self, Vb, starts, widths, backend: str, max_width=None):
         fn = self.kernel if backend == "cuda" else self.plain
@@ -151,7 +156,7 @@ class FiniteSumProblem:
 
     # -- numpy-facing methods (scalar simulator, host engine) ---------------
     def _kernels_for(self, engine):
-        eng = EngineConfig() if engine is None else engine
+        eng = as_engine_config(engine, _stacklevel=3)
         return self.fused_kernels(eng.device), eng.kernel_backend
 
     def subgradient(self, V, start: int, stop: int, *, pad_width=None, engine=None):
@@ -219,6 +224,10 @@ class FiniteSumProblem:
         k, _ = self._kernels_for(engine)
         return k.suboptimality(torch.tensor(np.asarray(V_stack), device=k.device)).cpu().numpy()
 
+    def _value_batch(self, V_stack, engine) -> np.ndarray:
+        k, _ = self._kernels_for(engine)
+        return k.value(torch.tensor(np.asarray(V_stack), device=k.device)).cpu().numpy()
+
 
 # ---------------------------------------------------------------------------
 # PCA on a genomics-like sparse binary matrix
@@ -284,11 +293,14 @@ class PCAProblem(FiniteSumProblem):
         def plain(Vb, starts, widths, max_width=None):
             return block_sub.pca_block_sub_plain(X, Vb, starts, widths, max_width)
 
-        def suboptimality_one(V):
-            # (optimal explained variance - achieved) / total variance, in
-            # float64 (the reference's X64 @ V, outside any Pallas kernel)
+        def explained_one(V):
+            # float64, the reference's X64 @ V outside any Pallas kernel
             xv = X64 @ V.to(F64).contiguous()  # [n, k]
-            return torch.clamp_min((opt - (xv * xv).sum()) / total, 1e-16)
+            return (xv * xv).sum()
+
+        def suboptimality_one(V):
+            # (optimal explained variance - achieved) / total variance
+            return torch.clamp_min((opt - explained_one(V)) / total, 1e-16)
 
         return FusedKernels(
             device=device,
@@ -301,10 +313,17 @@ class PCAProblem(FiniteSumProblem):
             suboptimality=_map_rows(suboptimality_one),
             project=_map_rows(_sign_fixed_qr),
             regularizer_grad=lambda V_stack: V_stack,  # ∇ 1/2||V||_F^2
+            value=_map_rows(explained_one),
+            optimum_value=opt,
         )
 
     def regularizer_grad(self, V: np.ndarray) -> np.ndarray:
         return V  # ∇ 1/2||V||_F^2
+
+    def explained_variance(self, V, *, engine=None) -> float:
+        """``||X V||_F^2`` in float64 (what the suboptimality compares with
+        the top-k eigenvalues' sum)."""
+        return float(self._value_batch(np.asarray(V)[None], engine)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -410,7 +429,24 @@ class LogisticRegressionProblem(FiniteSumProblem):
             # lam * V stays in V's float32, as the reference's weakly typed
             # python-float product does
             regularizer_grad=lambda V_stack: lam * V_stack,
+            value=_map_rows(objective),
+            optimum_value=float(opt_obj),
         )
+
+    def objective(self, V, *, engine=None) -> float:
+        """The regularized logistic loss at ``V``, in float64."""
+        return float(self.objective_batch(np.asarray(V)[None], engine=engine)[0])
+
+    def objective_batch(self, V_stack, *, engine=None) -> np.ndarray:
+        """[S] float64 objectives, one iterate per call."""
+        return self._value_batch(V_stack, engine)
+
+    @property
+    def optimum_objective(self) -> float:
+        """The objective at the Newton optimum, through the kernels of the
+        first device they were built on (the CPU when none was)."""
+        k = next(iter(self._kernels.values()), None) or self.fused_kernels("cpu")
+        return k.optimum_value
 
     def regularizer_grad(self, V: np.ndarray) -> np.ndarray:
         # float32 stays float32: numpy takes the python float lam as weakly

@@ -51,7 +51,7 @@ from repro_torch.cluster.simulator import (
 )
 from repro_torch.core.gradient_cache import BatchedGradientCache, scenario_ranks
 from repro_torch.core.problems import FiniteSumProblem
-from repro_torch.experiments.engine import EngineConfig
+from repro_torch.experiments.engine import EngineConfig, as_engine_config
 from repro_torch.latency.model import ClusterLatencyModel, FleetTraces, sample_fleet
 from repro_torch.latency.profiler import MomentBuffer
 from repro_torch.lb.optimizer import LoadBalanceOptimizer
@@ -128,7 +128,7 @@ def run_convergence_batch(
     """
     from repro_torch.experiments.fused import run_convergence_scan, scan_capability
 
-    eng = EngineConfig() if engine is None else engine
+    eng = as_engine_config(engine, _stacklevel=3)
     if eval_every is None:
         eval_every = eng.eval_every
     kwargs = dict(cost_scale=cost_scale, eval_every=eval_every, seed=seed, engine=eng,

@@ -15,6 +15,7 @@ exceed ``slot_budget`` to the host engine
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -113,6 +114,24 @@ class EngineCapabilityError(ValueError):
     def __init__(self, capability: EngineCapability):
         super().__init__(capability.detail)
         self.capability = capability
+
+
+def as_engine_config(engine, *, _stacklevel: int = 2) -> EngineConfig:
+    """Coerce ``engine`` to an :class:`EngineConfig`: an :class:`EngineConfig`
+    (returned unchanged), ``None`` (the defaults), or a legacy
+    ``"auto"|"scan"|"host"`` string, the deprecated alias for
+    ``EngineConfig(kind=...)`` (with a ``DeprecationWarning`` attributed
+    ``_stacklevel`` frames up)."""
+    if engine is None:
+        return EngineConfig()
+    if isinstance(engine, EngineConfig):
+        return engine
+    if isinstance(engine, str):
+        warnings.warn(f"engine={engine!r} strings are deprecated; pass "
+                      f"EngineConfig(kind={engine!r}) instead",
+                      DeprecationWarning, stacklevel=_stacklevel)
+        return EngineConfig(kind=engine)
+    raise TypeError(f"engine must be an EngineConfig, None or a kind string, got {engine!r}")
 
 
 def refuse(code: str, detail: str) -> EngineCapabilityError:

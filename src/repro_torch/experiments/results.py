@@ -1,13 +1,16 @@
 """Results layer of the §7 sweeps: ordering verdicts, the §6.1 profiler feed
 from batched traces, the ``BENCH_sweep.json`` payload, the time-to-gap
-verdict of the convergence sweeps (``repro.experiments.results``), and the
+verdict of the convergence sweeps and their ``BENCH_convergence.json``
+payload (:func:`convergence_payload`, :func:`write_bench_convergence`;
+``repro.experiments.results``), and the
 §6 ``lb_scan`` column (:func:`run_lb_scan`, then :meth:`LbScanRun.column`:
 ``benchmarks/bench_regression.run_lb_scan_column``) and the elastic-fleet
 ``churn`` column (:func:`run_churn_column`: ``benchmarks/bench_regression.
 run_churn_column``).
 
-:func:`write_bench_sweep` and :func:`write_json` write wherever they are
-told; the port's CLIs never point them at the committed ``BENCH_*.json``.
+:func:`write_bench_sweep`, :func:`write_bench_convergence` and
+:func:`write_json` write wherever they are told; the port's CLIs never point
+them at the committed ``BENCH_*.json``.
 """
 
 from __future__ import annotations
@@ -214,6 +217,73 @@ def convergence_ordering(outcome, gap: float) -> dict[str, float]:
     return out
 
 
+
+def convergence_payload(outcome, gap: float) -> dict:
+    """JSON-serializable summary of one convergence sweep (grid, per-method
+    time-to-gap columns, and the ordering verdict): the building block of
+    ``BENCH_convergence.json``; extra workloads (e.g. the paper-scale PCA
+    column) nest their own payload beside the main one."""
+    methods = {}
+    for name, res in outcome.results.items():
+        ttg = res.time_to_gap(gap)
+        final_gap = res.suboptimality[:, -1]
+        methods[name] = {
+            "median_time_to_gap": float(np.median(ttg)),
+            "mean_total_time": float(res.times[:, -1].mean()),
+            "mean_final_gap": float(np.nanmean(final_gap)),
+            "mean_fresh": float(res.fresh_counts.mean()),
+            "w": outcome.methods[name].w,
+            "load_balance": bool(outcome.methods[name].load_balance),
+        }
+    return {
+        "grid": {
+            "n_workers": outcome.traces.num_workers,
+            "n_scenarios": outcome.traces.num_scenarios,
+            "num_iterations": outcome.num_iterations,
+            "problem": type(outcome.problem).__name__,
+            "num_samples": outcome.problem.num_samples,
+        },
+        "gap": gap,
+        "engine_seconds": outcome.engine_seconds,
+        "methods": methods,
+        "ordering": convergence_ordering(outcome, gap),
+    }
+
+
+def write_bench_convergence(
+    outcome,
+    path: str,
+    *,
+    gap: float,
+    scalar_seconds: float | None = None,
+    scalar_seconds_measured: float | None = None,
+    scalar_methods: list | None = None,
+    extra: dict | None = None,
+) -> dict:
+    """Write the convergence-sweep summary to ``path`` (no default: the
+    committed ``BENCH_convergence.json`` is the reference's).
+
+    ``scalar_seconds`` is the (possibly extrapolated) wall-clock through the
+    scalar ``TrainingSimulator``; ``scalar_seconds_measured`` the actually
+    timed subset.  When the scalar timing covers only a subset of the
+    engine's methods, pass ``scalar_methods``: the top-level
+    ``speedup_vs_scalar`` (scalar over ``engine_seconds``) is then omitted,
+    since a subset's scalar time over the full grid's engine time compares
+    unlike things.
+    """
+    payload = convergence_payload(outcome, gap)
+    if scalar_seconds is not None:
+        payload["scalar_seconds"] = scalar_seconds
+        if scalar_methods is None:
+            payload["speedup_vs_scalar"] = scalar_seconds / max(outcome.engine_seconds, 1e-12)
+        else:
+            payload["scalar_methods"] = list(scalar_methods)
+    if scalar_seconds_measured is not None:
+        payload["scalar_seconds_measured"] = scalar_seconds_measured
+    if extra:
+        payload.update(extra)
+    return write_json(payload, path)
+
 @dataclasses.dataclass
 class LbScanRun:
     """One §6 DSAG config through the host and the device engine."""
@@ -223,7 +293,6 @@ class LbScanRun:
     scan: object
     host_seconds: float
     scan_seconds: float
-    what_if_draws: str  # "reference" or "torch-generator"
 
     def mismatches(self) -> list[str]:
         """The fields in which the two engines differ (empty when bit-equal)."""
@@ -259,7 +328,6 @@ class LbScanRun:
             "scan_seconds": self.scan_seconds,
             "bitexact_scan_vs_host": not self.mismatches(),
             "repartitions_mean": float(np.mean([len(ev) for ev in self.scan.repartition_events])),
-            "what_if_draws": self.what_if_draws,
             "ordering": ordering,
         }
 
@@ -272,7 +340,6 @@ def run_lb_scan(problem, traces, dsag_config, *, num_iterations: int, eval_every
 
     from repro_torch.experiments.convergence import run_convergence_batch
     from repro_torch.experiments.engine import EngineConfig
-    from repro_torch.lb.optimizer import what_if_source
 
     eng = EngineConfig() if engine is None else engine
     cfg = dataclasses.replace(dsag_config, load_balance=True)
@@ -286,8 +353,7 @@ def run_lb_scan(problem, traces, dsag_config, *, num_iterations: int, eval_every
         if torch.device(eng.device).type == "cuda":
             torch.cuda.synchronize()
         secs[kind] = time.perf_counter() - t0
-    draws = "given" if what_if_normals is not None else what_if_source(seed, traces.num_workers)
-    return LbScanRun(cfg, out["host"], out["scan"], secs["host"], secs["scan"], draws)
+    return LbScanRun(cfg, out["host"], out["scan"], secs["host"], secs["scan"])
 
 
 #: every parameter of the ``churn`` column's run

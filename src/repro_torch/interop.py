@@ -23,6 +23,7 @@ from repro_torch.core.problems import (
 from repro_torch.latency.model import FleetTraces
 from repro_torch.models.layers import ParamDecl, torch_dtype
 from repro_torch.models.transformer import lm_decls
+from repro_torch.optim.compression import Quantized
 
 
 def problem_from_arrays(
@@ -71,24 +72,44 @@ def train_state_from_arrays(
 ) -> dict:
     """The live trainer's train state from numpy arrays of the reference's.
 
-    ``params``, ``h`` and the sgd momentum ``mu`` are float32; ``cache`` /
-    ``pending`` [P, ...] arrive as float32 arrays and are stored as
-    ``slot_dtype`` (bfloat16 slots travel as float32 holding bfloat16
-    values, so the conversion is exact); ``pending_valid`` / ``filled`` [P]
-    bool; ``step`` an int.
+    ``params`` and ``h`` are float32; ``cache`` / ``pending`` [P, ...] are
+    float32 arrays stored as ``slot_dtype`` (bfloat16 slots travel as
+    float32 holding bfloat16 values, so the conversion is exact), or the
+    reference's int8 slots as ``(q, scale)`` pairs (the bfloat16 scales as
+    float32 arrays; one block per row of the last axis); ``pending_valid`` /
+    ``filled`` [P] bool; ``step`` an int.  ``mu`` is the sgd momentum array,
+    or the reference's whole optimizer state as a dict of numpy arrays
+    (adamw's ``m``, ``v``, ``step``; adafactor's ``stats``, ``step``).
     """
     dev = torch.device(device)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
 
+    def slot(a):
+        if isinstance(a, (tuple, list)):
+            q, scale = a
+            q = torch.as_tensor(np.asarray(q, dtype=np.int8), device=dev)
+            return Quantized(q=q, scale=f32(scale).to(torch.bfloat16), block=q.shape[-1])
+        return f32(a).to(slot_dtype)
+
+    def opt_tree(t):
+        if isinstance(t, dict):
+            return {k: opt_tree(v) for k, v in t.items()}
+        a = np.asarray(t)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.as_tensor(a.astype(np.int32), device=dev)
+        return f32(a)
+
     step_t = torch.tensor(int(step), dtype=torch.int32, device=dev)
+    opt = (opt_tree(mu) if isinstance(mu, dict)
+           else {"mu": f32(mu), "step": step_t.clone()})
     return {
         "params": f32(params),
-        "opt": {"mu": f32(mu), "step": step_t.clone()},
+        "opt": opt,
         "dsag": {
-            "cache": f32(cache).to(slot_dtype),
-            "pending": f32(pending).to(slot_dtype),
+            "cache": slot(cache),
+            "pending": slot(pending),
             "pending_valid": torch.as_tensor(np.asarray(pending_valid, dtype=bool), device=dev),
             "filled": torch.as_tensor(np.asarray(filled, dtype=bool), device=dev),
             "h": f32(h),

@@ -38,6 +38,28 @@
 // bf16 slots are widened exactly and written back with __float2bfloat16_rn
 // (round to nearest even, as torch's .to()).  Every entry point returns
 // cudaGetLastError() after its launch.
+//
+// dsag_int8_kernel: int8 slots (optim/compression.py's per-row quantized
+// cache, the reference's int8 leaf update in core/dsag_pjit.py), which "the
+// int8 variant dequantizes/requantizes in the same pass" of
+// repro/kernels/dsag_update.py describes.  Per group i and row r of B
+// elements (the parameter's last axis; one bf16 scale per row):
+//
+//     c, p   <- q * scale                      (dequantized, exact)
+//     new    <- evict ? 0 : mask ? g : flush ? p : c
+//     scale' <- absmax(new) > 0 ? absmax(new) / 127 : 1        (float32)
+//     q'     <- clamp(rint(new / scale'), -127, 127); stored with bf16(scale')
+//     acc    += q' * bf16(scale') - c          (the stored value's delta)
+//     pend   <- take ? g : p, requantized the same way
+//
+// and h' = h + acc, the deltas summed over the groups in order first, as
+// the reference's sum over the group axis and then + h.  Every row of every
+// group is requantized, the untouched ones too, as in the reference: a
+// dequantized row need not requantize to itself.  One warp per row walks
+// the groups in order (so the sum keeps that order); its lanes split the
+// row, absmax is a warp-shuffle max, and each lane carries its elements'
+// running sums in new_h.  Rows are short on the live steps (B = 29 for
+// logreg, 3 for PCA's [64, 3] iterate), so it is bound by latency.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,9 +149,99 @@ cudaError_t launch(const void* g, const void* c, const float* h, const float* ma
   return cudaGetLastError();
 }
 
+constexpr int kInt8Warps = 4;  // rows per block of dsag_int8_kernel
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// the reference's float32 scale: absmax / 127, or 1 for an all-zero row
+__device__ __forceinline__ float row_scale(float amax) {
+  return amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+}
+
+// clip(round(v / scale), -127, 127), rounding half to even as jnp.round
+__device__ __forceinline__ int8_t quantize_one(float v, float scale) {
+  const float r = rintf(__fdiv_rn(v, scale));
+  return (int8_t)(int)fminf(fmaxf(r, -127.f), 127.f);
+}
+
+// the cache row's new value: 0 keep, 1 the gradient, 2 the pending slot, 3 zero
+__device__ __forceinline__ float cache_source(int src, float gv, float cf, float pf) {
+  return src == 1 ? gv : src == 2 ? pf : src == 3 ? 0.f : cf;
+}
+
+__global__ void __launch_bounds__(kInt8Warps * 32) dsag_int8_kernel(
+    const float* __restrict__ g, const int8_t* __restrict__ cq,
+    const __nv_bfloat16* __restrict__ cs, const int8_t* __restrict__ pq,
+    const __nv_bfloat16* __restrict__ ps, const float* __restrict__ h,
+    const uint8_t* __restrict__ code, int8_t* __restrict__ ncq,
+    __nv_bfloat16* __restrict__ ncs, int8_t* __restrict__ npq,
+    __nv_bfloat16* __restrict__ nps, float* __restrict__ nh, int64_t p, int64_t rows,
+    int64_t b) {
+  const int lane = threadIdx.x % 32;
+  const int64_t r = (int64_t)blockIdx.x * kInt8Warps + threadIdx.x / 32;
+  if (r >= rows) return;
+  float* acc = nh + r * b;  // each element's running sum, one lane each
+  for (int64_t i = 0; i < p; ++i) {
+    const int src = code[i] & 3;
+    const bool take = (code[i] >> 2) & 1;
+    const int64_t row = i * rows + r, at = row * b;
+    const float csf = __bfloat162float(cs[row]), psf = __bfloat162float(ps[row]);
+    float cmax = 0.f, pmax = 0.f;
+    for (int64_t e = lane; e < b; e += 32) {
+      const float gv = g[at + e];
+      const float cf = __fmul_rn((float)cq[at + e], csf);
+      const float pf = __fmul_rn((float)pq[at + e], psf);
+      cmax = fmaxf(cmax, fabsf(cache_source(src, gv, cf, pf)));
+      pmax = fmaxf(pmax, fabsf(take ? gv : pf));
+    }
+    const float sc = row_scale(warp_max(cmax)), sp = row_scale(warp_max(pmax));
+    const __nv_bfloat16 sc16 = __float2bfloat16_rn(sc);
+    const float scb = __bfloat162float(sc16);
+    if (lane == 0) {
+      ncs[row] = sc16;
+      nps[row] = __float2bfloat16_rn(sp);
+    }
+    for (int64_t e = lane; e < b; e += 32) {
+      const float gv = g[at + e];
+      const float cf = __fmul_rn((float)cq[at + e], csf);
+      const float pf = __fmul_rn((float)pq[at + e], psf);
+      const int8_t q = quantize_one(cache_source(src, gv, cf, pf), sc);
+      ncq[at + e] = q;
+      const float d = __fsub_rn(__fmul_rn((float)q, scb), cf);
+      acc[e] = __fadd_rn(i == 0 ? 0.f : acc[e], d);
+      npq[at + e] = quantize_one(take ? gv : pf, sp);
+    }
+  }
+  for (int64_t e = lane; e < b; e += 32) nh[r * b + e] = __fadd_rn(h[r * b + e], acc[e]);
+}
+
 }  // namespace
 
 extern "C" {
+
+int dsag_int8_rows_per_block() { return kInt8Warps; }
+
+// int8 slots: g [p, rows, b] float32; cq, pq [p, rows, b] int8 with cs, ps
+// [p, rows] bf16 scales; h [rows, b] float32; code [p] uint8 (bits 0-1 the
+// cache row's source as in cache_source, bit 2: pending takes g); outputs
+// of the same shapes.  p >= 1 (the wrapper returns h itself for p = 0).
+int dsag_dsag_cache_update_int8(const float* g, const int8_t* cq, const void* cs,
+                                const int8_t* pq, const void* ps, const float* h,
+                                const uint8_t* code, int8_t* ncq, void* ncs, int8_t* npq,
+                                void* nps, float* nh, int64_t p, int64_t rows, int64_t b,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (p <= 0 || rows <= 0 || b <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((rows + kInt8Warps - 1) / kInt8Warps);
+  dsag_int8_kernel<<<blocks, kInt8Warps * 32, 0, (cudaStream_t)stream>>>(
+      g, cq, (const __nv_bfloat16*)cs, pq, (const __nv_bfloat16*)ps, h, code, ncq,
+      (__nv_bfloat16*)ncs, npq, (__nv_bfloat16*)nps, nh, p, rows, b);
+  return (int)cudaGetLastError();
+}
 
 // g, c: [p, n] (float32 or bfloat16: g_bf16 / c_bf16 = 1 for bfloat16);
 // h: [n] float32; mask: [p] float32 0/1; new_c like c; new_h [n] float32;

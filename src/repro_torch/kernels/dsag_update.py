@@ -18,6 +18,18 @@ are bit-equal.  It is bound by bytes (each g and c element read once, c
 written once); at the live steps' shapes, by latency.  g and c are
 float32 or bfloat16; h and the mask are float32.  Unlike the Pallas kernel,
 n needs no padding to a block.
+
+``dsag_cache_update_int8`` is K4's int8-slot entry (the reference's int8
+leaf update in ``repro/core/dsag_pjit.py``, which the Pallas module's
+docstring describes as dequantizing and requantizing in the same pass):
+slots of ``rows`` rows of ``b`` int8 elements, one bfloat16 scale per row
+(``optim/compression.py`` with ``block = b``).  Per group it forms the new
+cache row (kept, the gradient, the pending slot, or zero), requantizes every
+row, takes H's delta from the stored, dequantized value, and requantizes the
+pending slot (kept or the gradient); ``h + Σ_i delta_i``, the groups summed
+in order first, as the reference does.  The plain version
+:func:`dsag_cache_update_int8_plain` quantizes through
+:func:`repro_torch.optim.compression.quantize`; the kernel is bit-equal to it.
 """
 
 from __future__ import annotations
@@ -28,7 +40,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
-launch_counts = {"dsag_cache_update": 0}
+launch_counts = {"dsag_cache_update": 0, "dsag_cache_update_int8": 0}
 
 _SLOT_DTYPES = (torch.float32, torch.bfloat16)
 #: elements from which K4 streams (one thread per element walks the groups):
@@ -107,3 +119,94 @@ def dsag_cache_update(g, c, h, mask):
     )
     launch_counts["dsag_cache_update"] += 1
     return new_c, new_h
+
+
+#: the int8 entry's cache-row sources (bits 0-1 of ``code``); bit 2 makes the
+#: pending slot take the gradient
+KEEP, TAKE_G, TAKE_PENDING, ZERO = 0, 1, 2, 3
+TAKE_NEW = 4
+
+
+def _requantize(x: torch.Tensor):
+    """``(q [p, rows, b] int8, scale [p, rows] bf16)``: each row one block."""
+    from repro_torch.optim.compression import quantize
+
+    qx = quantize(x, block=x.shape[-1])
+    return qx.q, qx.scale[..., 0]
+
+
+def dsag_cache_update_int8_plain(g, cq, cs, pq, ps, h, code):
+    """``(new_cq, new_cs, new_pq, new_ps, new_h)``: the int8 update in eager
+    torch (every select and quantization at once, then the deltas summed
+    over the groups in order and added to h)."""
+    cf = cq.to(torch.float32) * cs.to(torch.float32)[..., None]
+    pf = pq.to(torch.float32) * ps.to(torch.float32)[..., None]
+    src = (code & 3).reshape(-1, 1, 1)
+    zero = torch.zeros((), dtype=torch.float32, device=g.device)
+    new = torch.where(src == TAKE_G, g,
+                      torch.where(src == TAKE_PENDING, pf, torch.where(src == ZERO, zero, cf)))
+    new_cq, new_cs = _requantize(new)
+    delta = new_cq.to(torch.float32) * new_cs.to(torch.float32)[..., None] - cf
+    acc = torch.zeros_like(h)
+    for i in range(g.shape[0]):
+        acc = acc + delta[i]
+    take = (code & TAKE_NEW).reshape(-1, 1, 1) != 0
+    new_pq, new_ps = _requantize(torch.where(take, g, pf))
+    return new_cq, new_cs, new_pq, new_ps, h + acc
+
+
+#: rows per block of the int8 kernel (one warp per row)
+INT8_ROWS_PER_BLOCK = _build.LIMITS["dsag_int8_rows_per_block"]
+_MAX_GRID_X = 2**31 - 1
+
+
+def int8_shape_error(rows: int) -> str | None:
+    """Why the int8 kernel cannot take ``rows`` rows per group (its grid is
+    one block per 4 rows), or None."""
+    if -(-rows // INT8_ROWS_PER_BLOCK) > _MAX_GRID_X:
+        return (f"dsag_cache_update_int8: {rows} rows need more than {_MAX_GRID_X} blocks "
+                f"of {INT8_ROWS_PER_BLOCK}")
+    return None
+
+
+def _check_int8(g, cq, cs, pq, ps, h, code) -> None:
+    """Raise unless the operands are what the int8 entry takes: contiguous
+    ``[p, rows, b]`` float32 g and int8 slots, ``[p, rows]`` bfloat16
+    scales, ``[rows, b]`` float32 h and a ``[p]`` uint8 code, on one device."""
+    if g.dim() != 3:
+        raise ValueError(f"g: expected [p, rows, b], got {tuple(g.shape)}")
+    p, rows, b = g.shape
+    dev = g.device
+    _require(g, "g", torch.float32, (p, rows, b), dev)
+    for t, what in ((cq, "cache q"), (pq, "pending q")):
+        _require(t, what, torch.int8, (p, rows, b), dev)
+    for t, what in ((cs, "cache scale"), (ps, "pending scale")):
+        _require(t, what, torch.bfloat16, (p, rows), dev)
+    _require(h, "h", torch.float32, (rows, b), dev)
+    _require(code, "code", torch.uint8, (p,), dev)
+    err = int8_shape_error(rows)
+    if err:
+        raise ValueError(err)
+
+
+def dsag_cache_update_int8(g, cq, cs, pq, ps, h, code):
+    """K4 over int8 slots; see the module docstring and
+    :func:`dsag_cache_update_int8_plain` (what CPU tensors take).  Returns
+    new tensors; the inputs are not modified.  ``p == 0`` returns the slots
+    and ``h`` unchanged (copies)."""
+    if _on_cpu(g, cq, cs, pq, ps, h, code):
+        return dsag_cache_update_int8_plain(g, cq, cs, pq, ps, h, code)
+    _check_int8(g, cq, cs, pq, ps, h, code)
+    p, rows, b = g.shape
+    outs = (torch.empty_like(cq), torch.empty_like(cs), torch.empty_like(pq),
+            torch.empty_like(ps), torch.empty_like(h))
+    if p == 0 or rows == 0 or b == 0:
+        return cq.clone(), cs.clone(), pq.clone(), ps.clone(), h.clone()
+    dev = g.device
+    _build.launch(
+        "dsag_dsag_cache_update_int8",
+        *(t.data_ptr() for t in (g, cq, cs, pq, ps, h, code) + outs),
+        p, rows, b, dev.index or 0, _stream(dev),
+    )
+    launch_counts["dsag_cache_update_int8"] += 1
+    return outs

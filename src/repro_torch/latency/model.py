@@ -62,6 +62,16 @@ class GammaParams:
         return rng.gamma(self.shape, self.scale, size=size)
 
 
+def fit_gamma(samples: Sequence[float]) -> GammaParams:
+    """Method-of-moments gamma fit (what the profiler/optimizer use)."""
+    arr = np.asarray(samples, dtype=np.float64)
+    if arr.size == 0:
+        raise ValueError("cannot fit gamma to zero samples")
+    mean = float(arr.mean())
+    var = float(arr.var()) if arr.size > 1 else 1e-12
+    return GammaParams.from_mean_var(mean, max(var, 1e-18))
+
+
 @dataclasses.dataclass
 class BurstState:
     """Multiplicative latency burst (paper §3.2 / Fig. 4)."""
@@ -140,6 +150,10 @@ class WorkerLatencyModel:
 
     def sample_total(self, c: float, rng: np.random.Generator, now: float = 0.0) -> float:
         return self.sample_comm(rng) + self.sample_comp(c, rng, now)
+
+    def mean_total(self, c: float) -> float:
+        """Expected total latency at load ``c`` (the §6.2 e'_{X,i})."""
+        return self.comm.mean + self.comp_per_unit.mean * c * self.slowdown
 
 
 @dataclasses.dataclass

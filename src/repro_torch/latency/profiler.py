@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.experiments.engine import checked_device
+from repro_torch.latency.model import GammaParams
 from repro_torch.lb.jit_optimizer import PROFILER_WINDOW, window_moments
 
 
@@ -41,6 +42,20 @@ class WorkerStats:
     v_comp: float
     mean_load: float
     num_samples: int
+
+    @property
+    def e_total(self) -> float:
+        return self.e_comm + self.e_comp
+
+    def comm_gamma(self) -> GammaParams:
+        return GammaParams.from_mean_var(max(self.e_comm, 1e-12), max(self.v_comm, 1e-18))
+
+    def comp_gamma_per_unit(self) -> GammaParams:
+        """Gamma of the per-unit-load computation latency (for what-if
+        re-scaling by the optimizer, paper §6.2 linearisation)."""
+        e = max(self.e_comp / max(self.mean_load, 1e-12), 1e-12)
+        v = max(self.v_comp / max(self.mean_load, 1e-12) ** 2, 1e-18)
+        return GammaParams.from_mean_var(e, v)
 
 
 @dataclasses.dataclass(frozen=True)

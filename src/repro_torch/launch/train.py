@@ -4,8 +4,9 @@
 Wires together
 
     paper problem (logreg / pca) -> Tier-1 step (K1/K5 group gradients, K4
-    cache update, sgd, QR) -> Tier-2 deadline controller (mask/flush/evict)
-    -> failure detector -> (optional) straggler simulation
+    cache update, optimizer, QR) -> Tier-2 deadline controller
+    (mask/flush/evict) -> failure detector -> (optional) straggler simulation
+    -> (optional) checkpoints
 
 on the card by default.  Replaying a ``FleetTraces`` scenario through the
 controller (``TrainerOptions.traces``) gives the (mask, flush, evict)
@@ -14,14 +15,20 @@ streams of the JAX package's controller and scalar simulator bit for bit;
 The host syncs where the reference does: metrics are drained every
 ``log_every`` steps, and an evaluation pulls one float to the host.
 
+With ``checkpoint_dir`` set, the train state is saved every
+``checkpoint_every`` steps on a background thread and once more, blocking,
+after the last step (the reference's files: :mod:`repro_torch.checkpoint`);
+``restore`` resumes from the newest checkpoint there, at the step after it.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 20 --check
   PYTHONPATH=src python -m repro_torch.launch.train --arch pca --groups 8 \\
       --samples 512 --device cpu --kernel-backend torch
+  PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 40 \\
+      --checkpoint-dir ckpt [--restore]
 
 Not ported (refused with a capability code): the model-zoo archs
-(:data:`CAP_ARCH`), checkpoints and ``--restore`` (:data:`CAP_CHECKPOINT`),
-and, through the Tier-1 step, an int8 cache, adamw/adafactor and a mesh.
+(:data:`CAP_ARCH`) and, through the Tier-1 step, a mesh.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.dsag_pjit import GroupSpec, init_train_state, make_train_step
 from repro_torch.experiments.engine import CAP_ARCH, EngineConfig, refuse
@@ -41,9 +49,6 @@ from repro_torch.ft.runtime import DeadlineController, FailureDetector
 from repro_torch.ft.validation import trace_latency_fn
 from repro_torch.latency.model import make_heterogeneous_cluster
 from repro_torch.launch.paper_jobs import PAPER_ARCHES, make_paper_job, paper_train_config
-
-#: checkpoint_dir / --restore: the checkpoint manager is not ported
-CAP_CHECKPOINT = "checkpoint-not-ported"
 
 
 @dataclasses.dataclass
@@ -85,9 +90,6 @@ class Trainer:
             raise refuse(CAP_ARCH, f"--arch {opts.arch!r}: only the paper problems "
                                    f"{PAPER_ARCHES} are trained; training the model "
                                    f"zoo is not ported")
-        if opts.checkpoint_dir or opts.restore:
-            raise refuse(CAP_CHECKPOINT, "checkpoints (checkpoint_dir, --restore) "
-                                         "are not ported yet")
         G = opts.num_groups or 4
         self.gs = GroupSpec(num_groups=G, axes=())
         self.job = make_paper_job(opts.arch, G, samples=opts.samples, seed=opts.seed,
@@ -105,6 +107,11 @@ class Trainer:
             G, w=w, margin=tc.dsag_margin, accepts_stale=opts.method == "dsag"
         )
         self.failures = FailureDetector(G, max_misses=opts.failure_max_misses)
+        self.ckpt = (
+            CheckpointManager(opts.checkpoint_dir, keep=tc.keep_checkpoints)
+            if opts.checkpoint_dir
+            else None
+        )
         if opts.traces is not None:
             self._latency_of = trace_latency_fn(opts.traces, opts.scenario, self.job.loads)
             self._churn = opts.traces.churn
@@ -128,6 +135,17 @@ class Trainer:
     def init_state(self):
         params = self.job.init_params(self.opts.seed)
         return init_train_state(params, self.opts.train_config, self.gs)
+
+    def maybe_restore(self, state):
+        """``(state, first step)``: the newest checkpoint's state and the
+        step after it when ``restore`` is set and one exists."""
+        if self.ckpt is None or not self.opts.restore:
+            return state, 0
+        restored, step = self.ckpt.restore_latest(state)
+        if restored is None:
+            return state, 0
+        print(f"[train] restored checkpoint at step {step}")
+        return restored, step + 1
 
     def _group_latencies(self, step: int) -> np.ndarray:
         if self.straggler_sim is None:
@@ -162,11 +180,11 @@ class Trainer:
 
     # -- main loop ----------------------------------------------------------
     def run(self) -> dict[str, list]:
-        """Train ``opts.steps`` steps from a fresh state; the final train
-        state is kept as ``self.state``."""
+        """Train up to ``opts.steps`` steps from a fresh state (or the
+        restored one); the final train state is kept as ``self.state``."""
         opts = self.opts
         tc = opts.train_config
-        state = self.init_state()
+        state, start_step = self.maybe_restore(self.init_state())
         history: dict[str, list] = {
             "loss": [],
             "xi": [],
@@ -194,7 +212,7 @@ class Trainer:
         G = self.gs.num_groups
         dev = self.device
         wall0 = time.perf_counter()
-        for step in range(opts.steps):
+        for step in range(start_step, opts.steps):
             batch = next(self.data)
             if tc.dsag:
                 mask_np, flush_np, evict_np, elapsed = self._step_inputs(step)
@@ -232,7 +250,11 @@ class Trainer:
                     f"fresh {history['mask_count'][-1]}/{G} "
                     f"({history['step_time'][-1]*1e3:.0f} ms)"
                 )
+            if self.ckpt and (step + 1) % tc.checkpoint_every == 0:
+                self.ckpt.save(step, state)
         drain()
+        if self.ckpt and opts.steps > start_step:
+            self.ckpt.save(opts.steps - 1, state, blocking=True)
         history["wall_seconds"] = [time.perf_counter() - wall0]
         self.state = state
         return history

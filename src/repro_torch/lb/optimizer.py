@@ -18,14 +18,9 @@ The §6.2 linearisation:
     e'_{X,i} = e_{Y,i} + e'_{Z,i}          (total)
 
 **The what-if draws.**  h replays gamma draws made from one fixed ``[N, K]``
-standard-normal base per component.  The reference draws it with
-``jax.random.normal`` under the optimizer's seed (threefry), which torch
-cannot reproduce, so :func:`what_if_normals` reads the reference's draws
-from ``what_if_normals.npz`` (package data, keyed by ``(seed, N, K)``; the
-recipes the port reproduces).  For any other key it draws them from
-``torch.Generator(device="cpu").manual_seed(seed)`` in float64: such a run
-differs from the reference by its draws alone (:func:`what_if_source` says
-which applies).
+standard-normal base per component, drawn as the reference draws them:
+``jax.random.normal`` of the two halves of ``jax.random.split(PRNGKey(seed))``,
+computed bit for bit in numpy by :mod:`repro_torch.lb.threefry`.
 """
 
 from __future__ import annotations
@@ -33,45 +28,28 @@ from __future__ import annotations
 import dataclasses
 import functools
 from collections.abc import Sequence
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch.experiments.engine import checked_device
 from repro_torch.lb import jit_optimizer as jlb
+from repro_torch.lb import threefry
 from repro_torch.lb.partitioner import build_p_ladder
 
-#: the reference's what-if draws, ``[2, N, K]`` float64 per ``(seed, N, K)``
-NORMALS_FILE = Path(__file__).with_name("what_if_normals.npz")
 
-
-def normals_key(seed: int, num_workers: int, K: int) -> str:
-    return f"seed{int(seed)}_N{int(num_workers)}_K{int(K)}"
-
-
-@functools.lru_cache(maxsize=1)
-def _shipped() -> dict:
-    with np.load(NORMALS_FILE) as z:
-        return {k: z[k] for k in z.files}
-
-
-def what_if_source(seed: int, num_workers: int, K: int = jlb.SIM_ITERATIONS) -> str:
-    """Where the what-if draws of ``(seed, N, K)`` come from: ``"reference"``
-    (the shipped draws) or ``"torch-generator"`` (then a run differs from the
-    reference by its draws alone)."""
-    return "reference" if normals_key(seed, num_workers, K) in _shipped() else "torch-generator"
+@functools.lru_cache(maxsize=8)
+def _draws(seed: int, num_workers: int, K: int) -> np.ndarray:
+    keys = threefry.split(threefry.PRNGKey(seed))
+    return np.stack([threefry.normal(k, (num_workers, K)) for k in keys])
 
 
 def what_if_normals(seed: int, num_workers: int, K: int = jlb.SIM_ITERATIONS,
                     device="cpu") -> torch.Tensor:
     """The ``[2, N, K]`` float64 standard-normal bases (comm, comp) of the
-    what-if draws: the reference's where shipped, else torch's generator."""
-    arr = _shipped().get(normals_key(seed, num_workers, K))
-    if arr is not None:
-        return torch.as_tensor(arr, dtype=torch.float64, device=device)
-    g = torch.Generator(device="cpu").manual_seed(int(seed))
-    return torch.randn((2, num_workers, K), dtype=torch.float64, generator=g).to(device)
+    what-if draws, equal bit for bit to the reference's."""
+    arr = _draws(int(seed), int(num_workers), int(K))
+    return torch.tensor(arr, dtype=torch.float64, device=device)
 
 
 @dataclasses.dataclass

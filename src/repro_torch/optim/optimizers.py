@@ -2,13 +2,15 @@
 
 Optax-like ``(init, update)`` pairs over a single parameter tensor (the
 paper problems' iterate ``V``; the port's Tier-1 state holds one tensor per
-slot, not a pytree).  :func:`sgd` keeps the reference's operator order —
-``mu = momentum * mu + g`` then ``upd = -lr * (mu + weight_decay * p)`` — so
-with ``beta1 = 0`` and ``weight_decay = 0`` (``paper_train_config``) the
-iterate rule is ``V - η·Ĥ`` in the same float32 steps as the reference.
-``adamw`` and ``adafactor`` belong to the model zoo, which this package does
-not port yet: :func:`make_optimizer` refuses them with
-:data:`CAP_OPTIMIZER`.
+slot, not a pytree), each in the reference's float32 operator order.
+:func:`sgd` computes ``mu = momentum * mu + g`` then ``upd = -lr * (mu +
+weight_decay * p)``, so with ``beta1 = 0`` and ``weight_decay = 0``
+(``paper_train_config``) the iterate rule is ``V - η·Ĥ`` in the same float32
+steps as the reference.  :func:`adamw` is ``TrainConfig()``'s default, and so
+the live trainer's (its bias corrections ``1 - beta ** step`` in float32);
+:func:`adafactor` factors the second moment of a parameter of rank ≥ 2
+(PCA's ``[d, k]`` iterate; logreg's ``[d]`` keeps a full one) and clips the
+update by its RMS.
 """
 
 from __future__ import annotations
@@ -19,10 +21,6 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.experiments.engine import refuse
-
-#: adamw / adafactor asked for: they serve the model zoo, not ported yet
-CAP_OPTIMIZER = "optimizer-not-ported"
 
 
 class Optimizer(NamedTuple):
@@ -55,15 +53,83 @@ def sgd(lr: float, momentum: float = 0.9, weight_decay: float = 0.0) -> Optimize
     return Optimizer(init, update)
 
 
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def adamw(lr: float, beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1) -> Optimizer:
+    def init(params):
+        def z():
+            return torch.zeros(params.shape, dtype=torch.float32, device=params.device)
+
+        return {"m": z(), "v": z(),
+                "step": torch.zeros((), dtype=torch.int32, device=params.device)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        stepf = step.to(torch.float32)
+        b1c = 1.0 - torch.pow(_f32(beta1, stepf), stepf)
+        b2c = 1.0 - torch.pow(_f32(beta2, stepf), stepf)
+        g = grads.to(torch.float32)
+        m = beta1 * state["m"] + (1 - beta1) * g
+        v = beta2 * state["v"] + (1 - beta2) * torch.square(g)
+        upd = -lr * ((m / b1c) / (torch.sqrt(v / b2c) + eps)
+                     + weight_decay * params.to(torch.float32))
+        return upd, {"m": m, "v": v, "step": step}
+
+    return Optimizer(init, update)
+
+
+def adafactor(lr: float, decay: float = 0.99, eps: float = 1e-30, weight_decay: float = 0.0,
+              clip_threshold: float = 1.0) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern), no first moment."""
+
+    def _factored(shape) -> bool:
+        return len(shape) >= 2
+
+    def init(params):
+        def z(shape):
+            return torch.zeros(shape, dtype=torch.float32, device=params.device)
+
+        shape = tuple(params.shape)
+        stats = ({"vr": z(shape[:-1]), "vc": z(shape[:-2] + shape[-1:])}
+                 if _factored(shape) else {"v": z(shape)})
+        return {"stats": stats,
+                "step": torch.zeros((), dtype=torch.int32, device=params.device)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        g = grads.to(torch.float32)
+        g2 = torch.square(g) + eps
+        s = state["stats"]
+        if _factored(g.shape):
+            vr = decay * s["vr"] + (1 - decay) * g2.mean(dim=-1)
+            vc = decay * s["vc"] + (1 - decay) * g2.mean(dim=-2)
+            r_factor = torch.rsqrt(vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30))
+            c_factor = torch.rsqrt(vc)
+            u = g * r_factor[..., None] * c_factor[..., None, :]
+            new_s = {"vr": vr, "vc": vc}
+        else:
+            v = decay * s["v"] + (1 - decay) * g2
+            u = g * torch.rsqrt(v)
+            new_s = {"v": v}
+        # update clipping (RMS)
+        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        upd = -lr * (u + weight_decay * params.to(torch.float32))
+        return upd, {"stats": new_s, "step": step}
+
+    return Optimizer(init, update)
+
+
 def make_optimizer(tc: TrainConfig) -> Optimizer:
+    if tc.optimizer == "adamw":
+        return adamw(tc.learning_rate, tc.beta1, tc.beta2, tc.eps, tc.weight_decay)
+    if tc.optimizer == "adafactor":
+        return adafactor(tc.learning_rate, weight_decay=tc.weight_decay)
     if tc.optimizer == "sgd":
         return sgd(tc.learning_rate, momentum=tc.beta1, weight_decay=tc.weight_decay)
-    if tc.optimizer in ("adamw", "adafactor"):
-        raise refuse(
-            CAP_OPTIMIZER,
-            f"optimizer {tc.optimizer!r} serves the model zoo, which is not "
-            f"ported yet; the paper problems run optimizer='sgd'",
-        )
     raise ValueError(f"unknown optimizer {tc.optimizer}")
 
 

@@ -49,7 +49,6 @@ from repro_torch import interop
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.dsag_pjit import (
     CAP_GROUP_GRAD,
-    CAP_INT8_CACHE,
     CAP_MESH,
     GroupSpec,
     dsag_update,
@@ -71,9 +70,10 @@ from repro_torch.kernels import gram_matvec as k5
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.latency.model import ChurnSchedule
 from repro_torch.launch.paper_jobs import make_paper_job, paper_train_config
-from repro_torch.launch.train import CAP_ARCH, CAP_CHECKPOINT, Trainer, TrainerOptions
+from repro_torch.launch.train import CAP_ARCH, Trainer, TrainerOptions
 from repro_torch.lb.partitioner import align_partitions
-from repro_torch.optim.optimizers import CAP_OPTIMIZER, make_optimizer
+from repro_torch.optim.compression import Quantized, dequantize
+from repro_torch.optim.optimizers import make_optimizer
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = EngineConfig(device="cpu", kernel_backend="torch")
@@ -554,20 +554,27 @@ def _code(excinfo) -> str:
     return excinfo.value.capability.code
 
 
-def test_capability_codes():
+def test_capability_codes(tmp_path):
+    """What stays refused (a model-zoo arch, a mesh, a job without group
+    gradients, CUDA kernels off the card), and what now runs: checkpoints,
+    the int8 cache and adamw/adafactor each build and run one step."""
     with pytest.raises(EngineCapabilityError) as e:
         Trainer(TrainerOptions(arch="qwen1.5-0.5b", engine=CPU))
     assert _code(e) == CAP_ARCH
-    with pytest.raises(EngineCapabilityError) as e:
-        Trainer(TrainerOptions(checkpoint_dir="ckpt", engine=CPU))
-    assert _code(e) == CAP_CHECKPOINT
-    with pytest.raises(EngineCapabilityError) as e:
-        init_dsag_state(torch.zeros(3), GroupSpec(2, ()), TrainConfig(dsag_cache_dtype="int8"))
-    assert _code(e) == CAP_INT8_CACHE
+    trn = Trainer(TrainerOptions(checkpoint_dir=str(tmp_path), steps=1, engine=CPU))
+    assert len(trn.run()["loss"]) == 1 and (tmp_path / "step_00000000").is_dir()
+    st = init_dsag_state(torch.zeros(3), GroupSpec(2, ()), TrainConfig(dsag_cache_dtype="int8"))
+    assert isinstance(st["cache"], Quantized) and st["cache"].q.dtype == torch.int8
+    ones = torch.ones(2, dtype=torch.bool)
+    new, _, xi = dsag_update(st, torch.ones(2, 3), ones, ~ones, ~ones)
+    # H is the sum of the stored (dequantized) slots: 2 within the int8 step
+    assert float(xi) == 1.0
+    assert torch.equal(new["h"], dequantize(new["cache"], torch.float32).sum(0))
+    assert torch.allclose(new["h"], torch.full((3,), 2.0), rtol=1 / 127)
     for name in ("adamw", "adafactor"):
-        with pytest.raises(EngineCapabilityError) as e:
-            make_optimizer(TrainConfig(optimizer=name))
-        assert _code(e) == CAP_OPTIMIZER
+        opt = make_optimizer(TrainConfig(optimizer=name))
+        upd, state = opt.update(torch.ones(3), opt.init(torch.zeros(3)), torch.zeros(3))
+        assert upd.shape == (3,) and int(state["step"]) == 1 and bool((upd < 0).all())
     with pytest.raises(EngineCapabilityError) as e:
         make_group_spec(TrainConfig(), mesh=object())
     assert _code(e) == CAP_MESH

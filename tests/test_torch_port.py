@@ -349,9 +349,16 @@ def test_launch_counters_stay_zero_on_cpu():
                                *_tasks(rng, 50, 3, 9))
     cache_events.grid_cache_update(*_cache_inputs(rng))
     what_if.what_if_replay(torch.rand(2, 5, 7, dtype=torch.float64), 3, 0.02)
+    from repro_torch.kernels import dsag_update
+    from repro_torch.optim.compression import quantize
+
+    q = quantize(torch.randn(2, 1, 5), block=5)
+    dsag_update.dsag_cache_update_int8(torch.randn(2, 1, 5), q.q, q.scale[..., 0], q.q,
+                                       q.scale[..., 0], torch.zeros(1, 5),
+                                       torch.tensor([1, 6], dtype=torch.uint8))
     assert launch_counts() == {"logreg_block_sub": 0, "pca_block_sub": 0, "grid_cache_update": 0,
-                               "dsag_cache_update": 0, "gram_matvec": 0, "flash_attention": 0,
-                               "what_if_replay": 0}
+                               "dsag_cache_update": 0, "dsag_cache_update_int8": 0,
+                               "gram_matvec": 0, "flash_attention": 0, "what_if_replay": 0}
 
 
 def test_wrappers_on_cpu_take_the_plain_versions():
