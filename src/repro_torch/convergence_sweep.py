@@ -11,6 +11,7 @@ engine and print each method's time-to-gap across scenarios.
   python -m repro_torch.convergence_sweep --load-balance [--slot-budget 8000]
   python -m repro_torch.convergence_sweep --lb-column --out lb.json
   python -m repro_torch.convergence_sweep --churn-column [--device cpu --kernel-backend torch]
+  python -m repro_torch.convergence_sweep --scenarios 6 --load-balance --devices 2
 
 Runs DSAG, SAG (w = N), SGD and the idealized coded bound through the full
 training loop on one shared heavy-burst trace draw, like
@@ -30,7 +31,9 @@ sag and coded through the host and device engines on an elastic fleet:
 the slowest fifth dies mid-run, half of it rejoins), with the recipe read
 from the committed ``BENCH_convergence.json``, fails unless the engines
 agree bit for bit, and prints the column beside the committed one.
-``--out`` writes the sweep's payload there in the layout of
+``--devices N`` shards the device engine's scenario axis over the first N
+cards (``EngineConfig(num_devices=N)``); the results equal the unsharded
+run's bit for bit.  ``--out`` writes the sweep's payload there in the layout of
 ``BENCH_convergence.json`` (what the reference's
 ``examples/convergence_sweep.py --out`` writes: ``grid``, ``gap``,
 ``methods``, ``ordering``, and with ``--check-scalar`` the scalar timing),
@@ -112,6 +115,9 @@ def run(argv=None):
                     "versions")
     ap.add_argument("--engine", choices=("auto", "scan", "host"), default="auto",
                     help="the device engine (auto/scan) or the numpy host loop")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="shard the device engine's scenario axis over this many cards "
+                    "(the first N that torch sees)")
     ap.add_argument("--check-scalar", action="store_true",
                     help="replay scenario 0 of every method through the scalar "
                     "TrainingSimulator and fail unless it is bit-exact")
@@ -133,7 +139,7 @@ def run(argv=None):
     args = ap.parse_args(argv)
     engine = EngineConfig(
         device=args.device, kernel_backend=args.kernel_backend, kind=args.engine,
-        slot_budget=args.slot_budget,
+        slot_budget=args.slot_budget, num_devices=args.devices,
     )
 
     if args.churn_column:  # its own recipe: main runs it

@@ -7,7 +7,8 @@ counterpart of ``repro.experiments``).
   the sweeps and the scalar replays;
 * :mod:`repro_torch.experiments.fused`: the device convergence engine (the
   whole iteration body on the card, through the CUDA kernels), selected by
-  :class:`~repro_torch.experiments.engine.EngineConfig`;
+  :class:`~repro_torch.experiments.engine.EngineConfig`, whose ``mesh`` /
+  ``num_devices`` shard the scenario axis (:mod:`repro_torch.launch.mesh`);
 * :mod:`repro_torch.experiments.grid`: the (seeds x methods x w x regimes)
   driver;
 * :mod:`repro_torch.experiments.results`: ordering verdicts, the profiler
@@ -34,6 +35,7 @@ _EXPORTS = {
     "MethodSpec": "grid",
     "PAPER_BURSTS": "grid",
     "PAPER_SCALE_PCA": "convergence",
+    "ScenarioMesh": "repro_torch.launch.mesh",
     "SweepOutcome": "grid",
     "SweepRow": "grid",
     "as_engine_config": "engine",
@@ -43,6 +45,7 @@ _EXPORTS = {
     "default_methods": "grid",
     "feed_profiler": "results",
     "make_paper_scale_pca": "convergence",
+    "make_scenario_mesh": "repro_torch.launch.mesh",
     "outcome_to_dict": "results",
     "paper_ordering": "results",
     "paper_scale_pca_sweep": "convergence",
@@ -50,6 +53,7 @@ _EXPORTS = {
     "run_convergence_batch": "convergence",
     "run_convergence_scan": "fused",
     "run_convergence_sweep": "convergence",
+    "run_pca_grid_sharded_column": "results",
     "scan_capability": "fused",
     "run_sweep": "grid",
     "scalar_convergence_run": "convergence",

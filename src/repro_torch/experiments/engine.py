@@ -1,7 +1,8 @@
 """Execution configuration and capability codes of the engines.
 
 Counterpart of ``repro.experiments.engine``.  :class:`EngineConfig` names the
-engine kind, the torch device and the kernel backend; :func:`engine_capability`
+engine kind, the torch device, the kernel backend and the scenario mesh of
+the device engine; :func:`engine_capability`
 reports, with a stable reason code, why a configuration cannot run, and the
 engines (device, host and the scalar simulator) raise
 :class:`EngineCapabilityError` carrying that report.  Nothing falls back
@@ -18,6 +19,8 @@ import dataclasses
 import warnings
 
 import torch
+
+from repro_torch.launch.mesh import ScenarioMesh, make_scenario_mesh
 
 #: capability reason codes (stable API — tests compare these, not prose)
 CAP_OK = "ok"
@@ -65,6 +68,18 @@ class EngineConfig:
     resident per scenario (default ``fused.LB_MAX_SLOTS``); a config whose
     tiled cache needs more is refused (``kind="scan"``) or runs on the
     host engine (``kind="auto"``).
+
+    ``num_devices`` / ``mesh`` shard the device engine's scenario axis:
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.ScenarioMesh`, its devices
+    of ``device``'s type; it takes precedence) or the first ``num_devices``
+    cards (:func:`~repro_torch.launch.mesh.make_scenario_mesh`; CUDA only:
+    the CPU is one torch device, so pass ``mesh=ScenarioMesh((cpu,) * n)``
+    there).  Each shard runs on its device, in a thread of its own (shards
+    of one device take turns), and the per-scenario results equal the
+    unsharded run's bit for bit; a batch
+    that does not divide is edge-padded with copies of its last scenario
+    and sliced back.  ``None`` for both runs unsharded on ``device``.  The
+    host engine ignores them, as the reference's does.
     """
 
     device: str = "cuda"
@@ -72,6 +87,8 @@ class EngineConfig:
     kind: str = "auto"
     eval_every: int = 1
     slot_budget: int | None = None
+    num_devices: int | None = None
+    mesh: ScenarioMesh | None = None
 
     def __post_init__(self):
         if self.kernel_backend not in _KERNEL_BACKENDS:
@@ -85,7 +102,21 @@ class EngineConfig:
             raise ValueError("eval_every must be >= 1")
         if self.slot_budget is not None and self.slot_budget < 1:
             raise ValueError("slot_budget must be >= 1")
-        torch.device(self.device)  # raises on a malformed device string
+        if self.num_devices is not None and self.num_devices < 1:
+            raise ValueError("num_devices must be >= 1")
+        dev = torch.device(self.device)  # raises on a malformed device string
+        if self.mesh is not None:
+            if not isinstance(self.mesh, ScenarioMesh):
+                raise TypeError(f"mesh must be a ScenarioMesh, got {type(self.mesh).__name__}")
+            if self.mesh.device_type != dev.type:
+                raise ValueError(
+                    f"the mesh's devices are {self.mesh.device_type} devices but the "
+                    f"engine's device is {self.device!r}: they must be of one type")
+        elif self.num_devices is not None and dev.type != "cuda":
+            raise ValueError(
+                f"num_devices counts CUDA cards; device={self.device!r} is one torch "
+                f"device: pass mesh=ScenarioMesh((torch.device({dev.type!r}),) * n) "
+                f"to run n shards on it")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +203,27 @@ def engine_capability(engine: EngineConfig) -> EngineCapability:
             f"kernel_backend='cuda' launches CUDA kernels and needs a CUDA "
             f"device, got device={engine.device!r}; use kernel_backend='torch'",
         )
+    if engine.mesh is not None and dev.type == "cuda":
+        count = torch.cuda.device_count()
+        missing = sorted({str(d) for d in engine.mesh.devices if d.index >= count})
+        if missing:
+            return EngineCapability(
+                False,
+                CAP_CUDA_UNAVAILABLE,
+                f"the scenario mesh names {missing} but torch sees {count} CUDA devices",
+            )
     return EngineCapability(True, CAP_OK, "supported")
+
+
+def scenario_mesh(engine: EngineConfig) -> ScenarioMesh | None:
+    """The device engine's scenario mesh: ``engine.mesh``, else the first
+    ``engine.num_devices`` cards, else None (unsharded).  Raises
+    ``ValueError`` when more cards are asked for than are visible."""
+    if engine.mesh is not None:
+        return engine.mesh
+    if engine.num_devices is not None:
+        return make_scenario_mesh(engine.num_devices)
+    return None
 
 
 def kernel_dtype_capability(engine: EngineConfig, value_dtype) -> EngineCapability:

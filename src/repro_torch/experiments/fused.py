@@ -40,6 +40,14 @@ slot universe for universes within its slot budget; the port keeps only
 the tiled one, which holds every config the dense one does (a worker's
 active entries never outnumber its universe) in fewer resident entries.
 
+Scenario sharding (``EngineConfig(num_devices=...)`` or ``mesh=``, the
+reference's ``shard_map`` over its ``"data"`` axis): the batch is
+edge-padded to a multiple of the mesh's D shards and split, each shard runs
+this body on its own device in a thread of its own (on a card, on a stream
+of its own; shards that share a device take turns), and the outputs are
+gathered in shard order and sliced back (:func:`prepare_scan_inputs`,
+:func:`run_convergence_scan`).
+
 Exactness: event times, fresh counts, per-worker latencies and rejects do
 not depend on the iterate, so they equal the reference exactly
 (``tests/test_torch_parity.py``).  That needs float64 event state with
@@ -61,6 +69,8 @@ is divided as numpy divides (:func:`exact_div`).
 from __future__ import annotations
 
 import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -89,6 +99,7 @@ from repro_torch.experiments.engine import (
     engine_capability,
     kernel_dtype_capability,
     kernel_shape_capability,
+    scenario_mesh,
 )
 from repro_torch.experiments.sweep import churn_rows, task_latency_parts, trace_tensors, wait_for
 from repro_torch.kernels import block_sub, cache_events, what_if
@@ -879,10 +890,15 @@ def check_run(
     engine: EngineConfig,
     universe: SlotUniverse | None = None,
     active_cap: int = 0,
+    num_scenarios: int | None = None,
+    device=None,
 ):
     """The capability checks of a convergence run, shared by the device and
     host engines, before any launch: ``(spec, kernels)`` or
-    :class:`~repro_torch.experiments.engine.EngineCapabilityError`."""
+    :class:`~repro_torch.experiments.engine.EngineCapabilityError`.  The
+    kernels' launch shapes are checked at ``num_scenarios`` (default: the
+    traces'; a shard's for a sharded run), the kernels built on ``device``
+    (default ``engine.device``)."""
     cap = engine_capability(engine)
     if not cap.supported:
         raise EngineCapabilityError(cap)
@@ -891,7 +907,7 @@ def check_run(
             f"traces hold {traces.horizon} draws/worker but {num_iterations} "
             "iterations requested"
         )
-    kernels = problem.fused_kernels(engine.device)
+    kernels = problem.fused_kernels(engine.device if device is None else device)
     dcap = kernel_dtype_capability(engine, kernels.value_dtype)
     if not dcap.supported:
         raise EngineCapabilityError(dcap)
@@ -900,11 +916,62 @@ def check_run(
         engine.kernel_backend, universe=universe, active_cap=active_cap,
         has_churn=traces.churn is not None,
     )
-    errors = _kernel_shape_errors(spec, kernels, traces.num_scenarios, traces.num_workers)
+    S = traces.num_scenarios if num_scenarios is None else num_scenarios
+    errors = _kernel_shape_errors(spec, kernels, S, traces.num_workers)
     scap = kernel_shape_capability(engine, errors)
     if not scap.supported:
         raise EngineCapabilityError(scap)
     return spec, kernels
+
+
+def scenario_rows(traces: FleetTraces, rows) -> FleetTraces:
+    """The scenarios ``rows`` (an index array; repeats allowed) of ``traces``:
+    every ``[S, ...]`` array indexed, the static slowdowns and the churn
+    schedule shared."""
+    return dataclasses.replace(
+        traces, comm=traces.comm[rows], comp_unit=traces.comp_unit[rows],
+        burst_start=traces.burst_start[rows], burst_end=traces.burst_end[rows],
+        burst_factor=traces.burst_factor[rows])
+
+
+def shard_rows(num_scenarios: int, num_shards: int) -> list[np.ndarray]:
+    """Each shard's scenario rows: the axis edge-padded with copies of the
+    last scenario to a multiple of ``num_shards`` (``(-S) % D`` of them, as
+    the reference pads for ``shard_map``), then split into equal shards."""
+    S = num_scenarios
+    rows = np.concatenate([np.arange(S), np.full((-S) % num_shards, S - 1)])
+    return np.split(rows, num_shards)
+
+
+@dataclasses.dataclass
+class ScanShard:
+    """One shard's operands on its device: the problem's kernels there, the
+    trace tensors and initial iterates of its scenarios, and the replicated
+    §6 slot tables and what-if draws."""
+
+    kernels: FusedKernels
+    tr: dict
+    V0: torch.Tensor
+    tabs: dict
+    normals: torch.Tensor | None
+
+    def run(self, spec: _StaticSpec, eval_mask) -> tuple[np.ndarray, ...]:
+        """:func:`_run_scan` over this shard, its outputs copied to the host."""
+        return tuple(o.cpu().numpy() for o in _run_scan(
+            self.kernels, spec, self.tr, self.V0, eval_mask, self.tabs, self.normals))
+
+
+@dataclasses.dataclass
+class ScanInputs:
+    """What :func:`prepare_scan_inputs` returns: the static spec, the
+    evaluation mask, each shard's operands, the unpadded scenario count and
+    whether the run is sharded (a mesh: one thread per shard)."""
+
+    spec: _StaticSpec
+    eval_mask: np.ndarray
+    shards: list[ScanShard]
+    num_scenarios: int
+    sharded: bool
 
 
 def prepare_scan_inputs(
@@ -919,20 +986,36 @@ def prepare_scan_inputs(
     engine: EngineConfig | None = None,
     V0: np.ndarray | None = None,
     what_if_normals=None,
-):
-    """Capability checks, static spec, kernels, and the device operands:
-    ``(spec, kernels, trace tensors, V0 [S, ...], eval_mask, slot tables,
-    what-if normals)``.
+) -> ScanInputs:
+    """Capability checks, static spec, and every shard's device operands.
+
+    Without a scenario mesh on ``engine`` one shard holds the whole batch on
+    ``engine.device``.  With a mesh of D devices
+    (:func:`~repro_torch.experiments.engine.scenario_mesh`) the scenario axis
+    is edge-padded to a multiple of D and split into D equal shards, one per
+    mesh entry (:func:`shard_rows`): the ``[S, ...]`` trace arrays and the
+    ``V0`` stack are split, the slowdowns, the churn schedule, the §6 slot
+    tables, the what-if draws and ``eval_mask`` replicated (the reference's
+    ``in_specs``).  The checks run once, at a shard's S, and every shard's
+    kernels and draws are built here, before any launch and before any shard
+    starts.
 
     Raises :class:`~repro_torch.experiments.engine.EngineCapabilityError`
-    for configurations the engine cannot run (a §6 cache past the slot
-    budget included).  ``V0`` overrides the problem's initial iterate
+    for configurations the engine cannot run (a missing card, a §6 cache
+    past the slot budget included), and ``ValueError`` for a mesh of more
+    cards than are visible.  ``V0`` overrides the problem's initial iterate
     (numpy; broadcast over scenarios); ``what_if_normals`` the §6 what-if
     draws (:func:`~repro_torch.lb.optimizer.what_if_normals`).
     """
     eng = EngineConfig() if engine is None else engine
     T = num_iterations
     N = traces.num_workers
+    S = traces.num_scenarios
+    cap = engine_capability(eng)
+    if not cap.supported:
+        raise EngineCapabilityError(cap)
+    mesh = scenario_mesh(eng)
+    groups = [np.arange(S)] if mesh is None else shard_rows(S, mesh.size)
     cap = scan_capability(problem, config, N, slot_budget=eng.slot_budget)
     if not cap.supported:
         raise EngineCapabilityError(cap)
@@ -946,28 +1029,68 @@ def prepare_scan_inputs(
         universe = build_slot_universe(base_start, base_stop, lb_ladder_for(config, n_local))
         active_cap = int(active_slot_capacity(universe).max())
     spec, kernels = check_run(problem, traces, config, T, cost_scale, eng,
-                              universe=universe, active_cap=active_cap)
-    S = traces.num_scenarios
-    dev = kernels.device
+                              universe=universe, active_cap=active_cap,
+                              num_scenarios=len(groups[0]),
+                              device=None if mesh is None else mesh.devices[0])
+    devices = (kernels.device,) if mesh is None else mesh.devices
     v0 = problem.init(seed) if V0 is None else np.asarray(V0)
-    V0_stack = torch.as_tensor(np.repeat(v0[None], S, axis=0), device=dev)
     eval_mask = np.zeros(T, dtype=bool)
     eval_mask[::eval_every] = True
     eval_mask[T - 1] = True
-    tabs = {}
-    if universe is not None:
-        tabs = {
-            name: torch.as_tensor(getattr(universe, name), dtype=I64, device=dev)
-            for name in ("slot_table", "widths", "starts", "stops")
-        }
-    normals = None
-    if config.load_balance:
-        normals = (
-            default_what_if_normals(seed, N, jlb.SIM_ITERATIONS, dev)
-            if what_if_normals is None
-            else torch.as_tensor(np.asarray(what_if_normals), dtype=F64, device=dev)
-        )
-    return spec, kernels, trace_tensors(traces, dev), V0_stack, eval_mask, tabs, normals
+    shards = []
+    for dev, rows in zip(devices, groups):
+        k = problem.fused_kernels(dev)
+        dev = k.device
+        tabs = {}
+        if universe is not None:
+            tabs = {
+                name: torch.as_tensor(getattr(universe, name), dtype=I64, device=dev)
+                for name in ("slot_table", "widths", "starts", "stops")
+            }
+        normals = None
+        if config.load_balance:
+            normals = (
+                default_what_if_normals(seed, N, jlb.SIM_ITERATIONS, dev)
+                if what_if_normals is None
+                else torch.as_tensor(np.asarray(what_if_normals), dtype=F64, device=dev)
+            )
+        part = traces if mesh is None else scenario_rows(traces, rows)
+        V0_stack = torch.as_tensor(np.repeat(v0[None], len(rows), axis=0), device=dev)
+        shards.append(ScanShard(k, trace_tensors(part, dev), V0_stack, tabs, normals))
+    return ScanInputs(spec, eval_mask, shards, S, sharded=mesh is not None)
+
+
+def _run_sharded(spec: _StaticSpec, eval_mask, shards: list[ScanShard]) -> list[tuple]:
+    """Every shard's run in a thread of its own, on a card on a stream of its
+    own; each shard's outputs in shard order.  Shards on distinct devices
+    run at once; shards that share a device take turns (a lock per device):
+    their threads would only contend for the host, which bounds every path
+    (pca_paper_scale's dsag at 40 scenarios on one H100: four free threads
+    3.9-4.6 s, the same four shards in turns 1.2-1.6 s, unsharded 0.7 s;
+    ``PERF.md``).  A shard's exception is
+    re-raised here once every shard has stopped: a run never succeeds on
+    part of its shards."""
+    streams = []
+    for sh in shards:
+        stream = None
+        if sh.kernels.device.type == "cuda":
+            dev = sh.kernels.device
+            stream = torch.cuda.Stream(device=dev)
+            # the operands were made on the caller's stream
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        streams.append(stream)
+    turns = {sh.kernels.device: threading.Lock() for sh in shards}
+
+    def work(shard: ScanShard, stream):
+        with turns[shard.kernels.device]:
+            if stream is None:
+                return shard.run(spec, eval_mask)
+            with torch.cuda.device(stream.device), torch.cuda.stream(stream):
+                return shard.run(spec, eval_mask)
+
+    with ThreadPoolExecutor(max_workers=len(shards), thread_name_prefix="scenario-shard") as pool:
+        futures = [pool.submit(work, sh, st) for sh, st in zip(shards, streams)]
+        return [f.result() for f in futures]
 
 
 def run_convergence_scan(
@@ -983,14 +1106,22 @@ def run_convergence_scan(
     V0: np.ndarray | None = None,
     what_if_normals=None,
 ):
-    """Train ``config`` on every scenario of ``traces`` on the engine's device.
+    """Train ``config`` on every scenario of ``traces`` on the engine's device,
+    or on its scenario mesh's devices, one shard each
+    (:func:`prepare_scan_inputs`).
 
     Returns a :class:`~repro_torch.experiments.convergence.
-    ConvergenceBatchResult` of numpy arrays with the reference's shapes.
+    ConvergenceBatchResult` of numpy arrays with the reference's shapes,
+    the shards' outputs concatenated in shard order and sliced back to the
+    traces' S.  Every per-scenario value equals the unsharded run's bit for
+    bit: each scenario's arithmetic depends on its own row alone, and the
+    batch-level host branches (Algorithm 2's ``needs``, the §6 cadence and
+    Algorithm 1's rounds, the walks' and clears' trip counts) only skip
+    work that is an exact no-op for the rows that do not need it.
     """
     from repro_torch.experiments.convergence import ConvergenceBatchResult
 
-    spec, kernels, tr, V0_stack, eval_mask, tabs, normals = prepare_scan_inputs(
+    inputs = prepare_scan_inputs(
         problem,
         traces,
         config,
@@ -1002,11 +1133,13 @@ def run_convergence_scan(
         V0=V0,
         what_if_normals=what_if_normals,
     )
+    if inputs.sharded:
+        parts = _run_sharded(inputs.spec, inputs.eval_mask, inputs.shards)
+    else:
+        parts = [inputs.shards[0].run(inputs.spec, inputs.eval_mask)]
+    S = inputs.num_scenarios
     times, subopt, fresh, lat, rejected, evictions, published = (
-        o.cpu().numpy()
-        for o in _run_scan(kernels, spec, tr, V0_stack, eval_mask, tabs, normals)
-    )
-    S = traces.num_scenarios
+        np.concatenate(outs, axis=0)[:S] for outs in zip(*parts))
     return ConvergenceBatchResult(
         times=times,
         suboptimality=subopt,

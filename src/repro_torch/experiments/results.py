@@ -4,9 +4,10 @@ verdict of the convergence sweeps and their ``BENCH_convergence.json``
 payload (:func:`convergence_payload`, :func:`write_bench_convergence`;
 ``repro.experiments.results``), and the
 §6 ``lb_scan`` column (:func:`run_lb_scan`, then :meth:`LbScanRun.column`:
-``benchmarks/bench_regression.run_lb_scan_column``) and the elastic-fleet
+``benchmarks/bench_regression.run_lb_scan_column``), the elastic-fleet
 ``churn`` column (:func:`run_churn_column`: ``benchmarks/bench_regression.
-run_churn_column``).
+run_churn_column``) and the scenario-sharded ``pca_grid_sharded`` column
+(:func:`run_pca_grid_sharded_column`).
 
 :func:`write_bench_sweep`, :func:`write_bench_convergence` and
 :func:`write_json` write wherever they are told; the port's CLIs never point
@@ -491,3 +492,63 @@ def run_churn_column(recipe: dict | None = None, *, engine=None) -> ChurnColumnR
     column = {"recipe": r, "schedule": schedule, "bitexact_scan_vs_host": bitexact,
               "methods": cols, "ordering": ordering}
     return ChurnColumnRun(column, prob, cluster, churned, methods, runs, secs)
+
+
+@dataclasses.dataclass
+class PcaGridShardedRun:
+    """The ``pca_grid_sharded`` column's run: the column, and the two
+    sweeps it compares."""
+
+    column: dict
+    sharded: object  # ConvergenceSweepOutcome through the scenario mesh
+    unsharded: object  # the same sweep, unsharded
+
+
+def run_pca_grid_sharded_column(*, n_scenarios: int = 40, num_devices: int | None = None,
+                                seed: int = 0, engine=None,
+                                scale: float = 1.0) -> PcaGridShardedRun:
+    """The ``pca_grid_sharded`` column (``benchmarks/bench_regression.
+    run_pca_grid_sharded_column``): the paper-scale PCA grid at
+    ``n_scenarios`` through the scenario-sharded device engine and through
+    the unsharded one.
+
+    The shards are ``engine.mesh`` where ``engine`` has one (``(cpu,) * n``
+    on the CPU, or several shards on one card), else the first
+    ``num_devices`` cards (default 4), clamped to the cards torch sees, as
+    the reference clamps to its devices.  ``engine`` (default
+    ``EngineConfig()``) gives the device and the kernel backend; both runs
+    take the device engine.  ``scale`` shrinks rows and iterations as
+    :func:`~repro_torch.experiments.convergence.paper_scale_pca_sweep` does
+    (1.0 is the committed column).  The column is the sharded sweep's
+    :func:`convergence_payload` plus ``num_devices`` (the shards), ``seed``,
+    ``bitexact_sharded_vs_unsharded`` (every field of every method's result,
+    publication times included), ``sharded_seconds``, ``unsharded_seconds``
+    and ``device_scaling`` (unsharded over sharded wall clock).
+    """
+    import torch
+
+    from repro_torch.experiments.convergence import paper_scale_pca_sweep, result_mismatches
+    from repro_torch.experiments.engine import EngineConfig
+
+    eng = EngineConfig() if engine is None else engine
+    plain = dataclasses.replace(eng, kind="scan", num_devices=None, mesh=None)
+    if eng.mesh is not None:
+        sharded, D = dataclasses.replace(plain, mesh=eng.mesh), eng.mesh.size
+    else:
+        D = min(4 if num_devices is None else num_devices, torch.cuda.device_count())
+        sharded = dataclasses.replace(plain, num_devices=D)
+    kw = dict(scale=scale, seed=seed, n_scenarios=n_scenarios)
+    sharded_out, gap = paper_scale_pca_sweep(engine=sharded, **kw)
+    plain_out, _ = paper_scale_pca_sweep(engine=plain, **kw)
+    bitexact = all(not result_mismatches(r, plain_out.results[m])
+                   for m, r in sharded_out.results.items())
+    column = convergence_payload(sharded_out, gap)
+    column.update(
+        num_devices=D,
+        seed=seed,
+        bitexact_sharded_vs_unsharded=bool(bitexact),
+        sharded_seconds=sharded_out.engine_seconds,
+        unsharded_seconds=plain_out.engine_seconds,
+        device_scaling=plain_out.engine_seconds / max(sharded_out.engine_seconds, 1e-12),
+    )
+    return PcaGridShardedRun(column, sharded_out, plain_out)

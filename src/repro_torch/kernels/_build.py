@@ -7,7 +7,8 @@ The library lands in ``build/`` beside this module (listed in
 ``.gitignore``) under a name carrying a digest of the sources and flags, so a
 changed source is rebuilt and an unchanged one is loaded as it is.  Nothing is
 built when a module is imported (the CPU tests import every module): the
-first kernel launch builds.  Pointers are passed as ``c_void_p`` and 64-bit
+first kernel launch builds, under a module lock, so that the threads of a
+sharded run that reach their first launch together build once.  Pointers are passed as ``c_void_p`` and 64-bit
 sizes as ``c_int64``, so ctypes never truncates them to 32 bits.  Every C
 entry point returns ``cudaGetLastError()`` after its launch, and
 :func:`launch` raises when it is not 0.
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -78,6 +80,10 @@ CONSTANTS = tuple(LIMITS)
 build_info: dict = {}
 _lib = None
 _constants: dict[str, int] = {}
+#: held while the library is built and loaded (first launches of several threads)
+_lock = threading.Lock()
+#: held while a wrapper adds to its launch counter (see :func:`count_launch`)
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -117,10 +123,25 @@ def compile_library(sources: list[Path], out: Path) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its digest is new."""
-    global _lib
+    """The loaded kernel library, built first if its digest is new.  Safe to
+    call from several threads: one builds and loads, the others wait."""
     if _lib is not None:
         return _lib
+    with _lock:
+        if _lib is None:
+            _build_and_load()
+    return _lib
+
+
+def _tmp_path(so: Path) -> Path:
+    """Where this thread compiles ``so`` before the atomic rename: unique per
+    process and per thread."""
+    return so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+
+
+def _build_and_load() -> None:
+    """Build the library if its digest is new and load it (under :data:`_lock`)."""
+    global _lib
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for flag in NVCC_FLAGS:
@@ -132,9 +153,18 @@ def library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        tmp = _tmp_path(so)
         build_info["log"] = compile_library(sources, tmp)
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    lib = _load(so)
+    build_info["path"] = str(so)
+    build_info["seconds"] = time.perf_counter() - t0
+    _lib = lib
+
+
+def _load(so: Path) -> ctypes.CDLL:
+    """Load the built library, declare every entry point's types and read
+    its constants."""
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -145,9 +175,6 @@ def library() -> ctypes.CDLL:
         _constants[name] = int(getattr(lib, name)())
     lib.dsag_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dsag_cuda_error_string.restype = ctypes.c_char_p
-    build_info["path"] = str(so)
-    build_info["seconds"] = time.perf_counter() - t0
-    _lib = lib
     return lib
 
 
@@ -162,6 +189,14 @@ def mirror_mismatches() -> dict[str, tuple[int, int]]:
     """``{name: (mirrored, compiled)}`` for every entry of :data:`LIMITS`
     that differs from the built library's value (builds it first)."""
     return {name: (v, constant(name)) for name, v in LIMITS.items() if constant(name) != v}
+
+
+def count_launch(counts: dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]``, a wrapper's launch counter: the shards of
+    a sharded run launch from several threads, and ``+=`` on a dict entry is
+    a read, an add and a write."""
+    with _count_lock:
+        counts[name] += 1
 
 
 def launch(name: str, *args) -> None:

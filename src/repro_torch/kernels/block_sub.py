@@ -47,17 +47,29 @@ def _window(starts, widths, n: int, max_width: int | None):
     return idx, mask
 
 
-def _task_sigmoid(z):
-    """``sigmoid`` of each task's row of ``z`` [G, W].  On the CPU torch runs
-    a call's elements through a vector body and a scalar tail with different
-    ``exp`` code, so an element's bits would follow its place in the batch:
-    there each task's row gets a call of its own, which keeps a task's
-    result independent of the tasks beside it (what the scalar simulator,
-    the host engine and the device engine need to agree bit for bit).  CUDA
-    evaluates every element alike."""
-    if z.is_cuda:
-        return torch.sigmoid(z)
-    return torch.stack([torch.sigmoid(row) for row in z])
+def _each_task(fn, *batch):
+    """``fn`` over a batch of tasks (each argument's leading axis).  On the
+    CPU each task gets a call of its own: there torch and MKL choose a call's
+    code by its whole shape (an ``exp``'s vector body or scalar tail, a long
+    reduction or product split across threads), so a task's bits would
+    follow the tasks beside it.  One call per task keeps every task's result
+    independent of its batch, which the scalar simulator, the host engine,
+    the device engine and the device engine's scenario shards need to agree
+    bit for bit.  On the card the plain versions are held to the kernels
+    within a tolerance only: one call."""
+    if batch[0].is_cuda:
+        return fn(*batch)
+    return torch.cat([fn(*(a[g:g + 1] for a in batch)) for g in range(batch[0].shape[0])])
+
+
+def _logreg_tasks(xg, yg, Vb, n: int):
+    z = yg * (xg * Vb[:, None, :]).sum(2)
+    s = torch.sigmoid(-z)
+    return -(xg * (yg * s)[:, :, None]).sum(1) / n
+
+
+def _pca_tasks(xg, Vb):
+    return -(xg.transpose(1, 2) @ (xg @ Vb))
 
 
 def logreg_block_sub_plain(X, y, Vb, starts, widths, max_width=None):
@@ -70,9 +82,7 @@ def logreg_block_sub_plain(X, y, Vb, starts, widths, max_width=None):
     idx, mask = _window(starts, widths, n, max_width)
     xg = X[idx]  # [G, W, d]
     yg = y[idx] * mask.to(y.dtype)
-    z = yg * (xg * Vb[:, None, :]).sum(2)
-    s = _task_sigmoid(-z)
-    return -(xg * (yg * s)[:, :, None]).sum(1) / n
+    return _each_task(functools.partial(_logreg_tasks, n=n), xg, yg, Vb)
 
 
 def pca_block_sub_plain(X, Vb, starts, widths, max_width=None):
@@ -82,7 +92,7 @@ def pca_block_sub_plain(X, Vb, starts, widths, max_width=None):
         return torch.zeros_like(Vb)
     idx, mask = _window(starts, widths, n, max_width)
     xg = X[idx] * mask[:, :, None].to(X.dtype)  # [G, W, d]
-    return -(xg.transpose(1, 2) @ (xg @ Vb))
+    return _each_task(_pca_tasks, xg, Vb)
 
 
 def _require(t: torch.Tensor, what: str, dtype, shape: tuple, device) -> None:
@@ -229,7 +239,7 @@ def _launch_wide(X, y, Vb, starts, widths, plan: Plan, G: int, n: int, d: int, k
         widths.data_ptr(), scratch, partial, out.data_ptr(), G, n, d, k, plan.W, plan.slabs,
         plan.slab_rows, int(logreg), dev.index, _stream(dev),
     )
-    launch_counts["logreg_block_sub" if logreg else "pca_block_sub"] += 1
+    _build.count_launch(launch_counts, "logreg_block_sub" if logreg else "pca_block_sub")
     return out
 
 
@@ -268,7 +278,7 @@ def logreg_block_sub(X, y, Vb, starts, widths, max_width=None):
         X.data_ptr(), y.data_ptr(), Vb.data_ptr(), starts.data_ptr(), widths.data_ptr(),
         partial, out.data_ptr(), G, n, d, plan.slabs, plan.warps, dev.index, _stream(dev),
     )
-    launch_counts["logreg_block_sub"] += 1
+    _build.count_launch(launch_counts, "logreg_block_sub")
     return out
 
 
@@ -305,5 +315,5 @@ def pca_block_sub(X, Vb, starts, widths, max_width=None):
         X.data_ptr(), Vb.data_ptr(), starts.data_ptr(), widths.data_ptr(),
         partial, out.data_ptr(), G, n, d, k, plan.slabs, dev.index or 0, _stream(dev),
     )
-    launch_counts["pca_block_sub"] += 1
+    _build.count_launch(launch_counts, "pca_block_sub")
     return out

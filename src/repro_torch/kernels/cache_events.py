@@ -180,5 +180,5 @@ def grid_cache_update(
         *(t.data_ptr() for t in outs),
         S, R, E, F, wpb, rows_per, cps, dev.index or 0, _stream(dev),
     )
-    launch_counts["grid_cache_update"] += 1
+    _build.count_launch(launch_counts, "grid_cache_update")
     return outs

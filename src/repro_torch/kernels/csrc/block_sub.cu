@@ -42,6 +42,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "rows_wide.cuh"
 
 namespace {
@@ -240,7 +241,8 @@ int dsag_logreg_block_sub(const float* X, const float* y, const float* Vb,
                           const int64_t* starts, const int64_t* widths,
                           float* partial, float* out, int64_t G, int64_t n, int d,
                           int slabs, int warps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = (size_t)(d + warps * 32 * (d | 1)) * sizeof(float);
   if (slabs < 1 || (slabs > 1 && partial == nullptr) || warps < 1 ||
@@ -260,7 +262,8 @@ int dsag_pca_block_sub(const float* X, const float* Vb, const int64_t* starts,
                        const int64_t* widths, float* partial, float* out,
                        int64_t G, int64_t n, int d, int k, int slabs,
                        int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (slabs < 1 || (slabs > 1 && partial == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem =
@@ -282,7 +285,8 @@ int dsag_wide_block_sub(const float* X, const float* y, const float* Vb, const i
                         const int64_t* widths, float* scratch, float* partial, float* out,
                         int64_t G, int64_t n, int d, int k, int64_t W, int slabs,
                         int64_t slab_rows, int logreg, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_wide(X, y, Vb, (int64_t)d * k, starts, widths, scratch, partial, out, G,
                          n, 0, d, k, W, slabs, slab_rows, logreg != 0, -1.f,

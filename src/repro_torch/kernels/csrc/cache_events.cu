@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -434,7 +436,8 @@ int dsag_grid_cache_update(
     const int64_t* slot_width, double* sums, double* values, int64_t* iters,
     int64_t* covered, int64_t* rejected, int S, int R, int E, int F, int wpb, int rows_per,
     int cps, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (S <= 0) return (int)cudaGetLastError();
   if (R < 0 || (int64_t)R * F >= (int64_t(1) << 31) || wpb < 1 || (R > kWindow && wpb != 1) ||

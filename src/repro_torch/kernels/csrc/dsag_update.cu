@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -233,7 +235,8 @@ int dsag_dsag_cache_update_int8(const float* g, const int8_t* cq, const void* cs
                                 const uint8_t* code, int8_t* ncq, void* ncs, int8_t* npq,
                                 void* nps, float* nh, int64_t p, int64_t rows, int64_t b,
                                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (p <= 0 || rows <= 0 || b <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((rows + kInt8Warps - 1) / kInt8Warps);
@@ -250,7 +253,8 @@ int dsag_dsag_cache_update(const void* g, const void* c, const float* h,
                            const float* mask, void* new_c, float* new_h,
                            int64_t p, int64_t n, int g_bf16, int c_bf16, int streaming,
                            int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;

@@ -58,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;        // query rows per block
@@ -596,7 +598,8 @@ int dsag_flash_attention(const void* q, const void* k, const void* v, void* o,
                          int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
                          int64_t vss, int64_t osb, int64_t osh, int64_t oss,
                          int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
   cudaStream_t s = (cudaStream_t)stream;

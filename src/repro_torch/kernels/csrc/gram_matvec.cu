@@ -55,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "rows_wide.cuh"
 
 namespace cg = cooperative_groups;
@@ -422,7 +423,8 @@ int dsag_gram_max_cluster() { return kGramMaxCluster; }
 int dsag_gram_matvec(const float* x, const float* v, float* partial, float* out,
                      int64_t B, int64_t m, int d, int k, int chunk_rows, int nchunks,
                      int vec, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || nchunks <= 0 || d * k == 0) return (int)cudaGetLastError();
   if (k < 1 || k > kGramMaxK || d > kGramMaxJ * kGramThreads || device < 0 ||
@@ -454,7 +456,8 @@ int dsag_gram_matvec(const float* x, const float* v, float* partial, float* out,
 int dsag_gram_matvec_wide(const float* x, const float* v, float* scratch, float* partial,
                           float* out, int64_t B, int64_t m, int d, int k, int slabs,
                           int64_t slab_rows, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_wide(x, nullptr, v, 0, nullptr, nullptr, scratch, partial, out, B, B * m,
                          m, d, k, m, slabs, slab_rows, false, 1.f, 1.f, (cudaStream_t)stream);

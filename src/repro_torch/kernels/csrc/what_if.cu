@@ -46,6 +46,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kMaxWorkers = 1024;
@@ -117,7 +119,8 @@ extern "C" {
 int dsag_what_if_replay(const double* total, double* u, const int64_t* w_eff, int64_t S,
                         int N, int K, int w, int use_margin, double margin, double inv_k,
                         int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (S <= 0 || N <= 0) return (int)cudaGetLastError();
   const int threads = ((N + 31) / 32) * 32;

@@ -117,7 +117,7 @@ def dsag_cache_update(g, c, h, mask):
         int(g.dtype == torch.bfloat16), int(c.dtype == torch.bfloat16),
         int(n >= STREAM_MIN_N), dev.index or 0, _stream(dev),
     )
-    launch_counts["dsag_cache_update"] += 1
+    _build.count_launch(launch_counts, "dsag_cache_update")
     return new_c, new_h
 
 
@@ -208,5 +208,5 @@ def dsag_cache_update_int8(g, cq, cs, pq, ps, h, code):
         *(t.data_ptr() for t in (g, cq, cs, pq, ps, h, code) + outs),
         p, rows, b, dev.index or 0, _stream(dev),
     )
-    launch_counts["dsag_cache_update_int8"] += 1
+    _build.count_launch(launch_counts, "dsag_cache_update_int8")
     return outs

@@ -131,7 +131,7 @@ def _launch(q, k, v, out, causal: bool) -> None:
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *target.stride()[:3],
         dev.index or 0, _stream(dev),
     )
-    launch_counts["flash_attention"] += 1
+    _build.count_launch(launch_counts, "flash_attention")
     if target is not out:
         out.copy_(target[..., :d])
 

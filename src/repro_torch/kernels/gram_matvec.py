@@ -132,5 +132,5 @@ def gram_matvec(x, v):
             x.data_ptr(), v.data_ptr(), partial, out.data_ptr(),
             B, m, d, k, p.slab_rows, p.slabs, int(vec), dev.index, _stream(dev),
         )
-    launch_counts["gram_matvec"] += 1
+    _build.count_launch(launch_counts, "gram_matvec")
     return out

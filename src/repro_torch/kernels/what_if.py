@@ -105,5 +105,5 @@ def what_if_replay(total, w, margin: float):
         int(margin > 0.0), float(margin), 1.0 / max(K, 1),
         total.device.index or 0, _stream(total.device),
     )
-    launch_counts["what_if_replay"] += 1
+    _build.count_launch(launch_counts, "what_if_replay")
     return u
