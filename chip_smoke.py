@@ -166,7 +166,23 @@ Phases (any failure raises and the script exits non-zero):
    column's dsag, sag and coded on the same four shards, bit-equal to phase
    9 (a)'s device runs; (e) ``make_scenario_mesh(count + 1)`` and
    ``EngineConfig(num_devices=count + 1)`` refused before any launch;
-12. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+12. the analysis layer (``repro_torch.analysis``): (a) the lint
+   (``run_lint("all", device="cuda:0")``: TL001, TL003, TL004 over every
+   entry, the ``*_cuda`` ones through K1, K2, K3; the event streams, K3's and
+   K7's outputs against the CPU run, K1, K2 and K5 at two pad widths), failing
+   on any finding its baseline does not hold; (b) each phase-3 row's bytes,
+   FLOPs and peak from its kernel's cost model, its bound, and its kernel
+   and device times as multiples of the bound; (c) the serving roofline of
+   phase 6's cell: ``count_cost`` over one prefill of 4 × 2048 tokens and one
+   decode step through K6 (K6 billed by its cost model), failing unless the
+   prefill's counted product FLOPs equal the analytic count (2 × the layers'
+   and the unembedding's parameters × the tokens they see) and K6's 24
+   launches its causal-pairs FLOPs; ``derive`` with phase 6's measured prefill
+   seconds and decode ms per step: flops, bytes, the three terms, the
+   dominant one, model FLOPs, the useful fraction and the mfu, whose N is
+   the parameters the step multiplies a token by (the prefill unembeds one
+   row per sequence), with the reference's N (all parameters) beside it;
+13. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -184,13 +200,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 and float64
-#: FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-PEAK_F64 = 34e12
-#: bf16 dense tensor-core FLOP/s (the bound of attention's matrix products)
-PEAK_BF16 = 989e12
 F32_RTOL = 1e-4  # kernel vs plain: float32 sums in another order
 F32_ATOL_REL = 1e-5  # ... plus this times the largest |plain| value
 
@@ -265,17 +274,17 @@ def timed_pair(torch, kernel, plain, reps: int, plain_reps: int) -> tuple[float,
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+#: a phase-3 row's cost-model fields: phase 12 (b) prints them; the kernels line leaves them out
+COST_KEYS = ("bytes", "flops", "peak")
 
 
-def unique_rows(starts: np.ndarray, widths: np.ndarray, n: int) -> int:
-    touched = np.zeros(n + 1, dtype=np.int64)
-    np.add.at(touched, starts - 1, 1)
-    np.add.at(touched, starts - 1 + widths, -1)
-    return int(np.count_nonzero(np.cumsum(touched)[:n]))
+def bound_of(cost: tuple) -> dict:
+    """A phase-3 row's cost (``(bytes, flops, peak)`` from a kernel's model in
+    ``repro_torch.analysis.roofline``) and its bound there."""
+    from repro_torch.analysis import roofline
+
+    b_ms, b_by = roofline.bound_ms(*cost)
+    return dict(bytes=cost[0], flops=cost[1], peak=cost[2], bound_ms=b_ms, bound_by=b_by)
 
 
 def grid_tasks(n: int, N: int, p: int, S: int, rng) -> tuple[np.ndarray, np.ndarray]:
@@ -343,6 +352,7 @@ def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> lis
     padded to its widest window, as the scalar simulator and the host engine
     call the kernels; or ("lb", N, p0, S): the §6 layout of :func:`lb_tasks`)
     with ``X``'s width and, for K2, ``k`` columns."""
+    from repro_torch.analysis import roofline
     from repro_torch.cluster.simulator import MethodConfig, task_pad_width
     from repro_torch.core.problems import make_higgs_like
     from repro_torch.kernels import block_sub
@@ -424,17 +434,14 @@ def check_block_sub(torch, kind: str, X, y, rng, shapes=None, k: int = 3) -> lis
             idx = (st[:, None] - 1 + ar[None, :]).clamp(0, n - 1)
             xg = Xc[idx] * (ar[None, :] < wd[:, None])[:, :, None].float()
             lib_ms = cuda_ms(torch, lambda: -torch.bmm(xg.transpose(1, 2), torch.bmm(xg, Vb)), 20)
-        row_bytes = d * 4 + (4 if kind == "logreg" else 0)
-        total_rows = int(widths.sum())
-        nbytes = unique_rows(starts, widths, n) * row_bytes + 2 * Vb.numel() * 4 + 16 * G
-        flops = total_rows * ((4 * d + 5) if kind == "logreg" else 4 * d * k)
-        b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
+        bound = bound_of(roofline.logreg_block_sub_cost(starts, widths, n, d) if kind == "logreg"
+                         else roofline.pca_block_sub_cost(starts, widths, n, d, k))
+        b_ms, b_by = bound["bound_ms"], bound["bound_by"]
         plan = (block_sub.logreg_plan(G, n, d, W) if kind == "logreg"
                 else block_sub.pca_plan(G, n, d, k, W))
         path = "wide" if plan.wide else "fast"
         rows.append(dict(call=call, G=G, d=d, k=k, max_width=W, path=path, max_abs_err=err,
-                         ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by))
+                         ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, library_ms=lib_ms, **bound))
         print(f"  {kind}_block_sub [{call}] G={G} d={d}{'' if k is None else f' k={k}'} "
               f"width<={W} ({path} path): "
               f"max|diff|={err:.3e} (|plain|<={scale:.3e}), repeats its bits; kernel "
@@ -451,6 +458,7 @@ def check_what_if(torch, S: int, N: int, w: int, margin: float, rng,
     equality with the plain version.  With ``dead`` (dead workers per
     scenario), the churn call: those workers' draws +inf (random ones of
     each scenario) and per-scenario waits ``w_eff = min(w, #alive)``."""
+    from repro_torch.analysis import roofline
     from repro_torch.kernels import what_if
     from repro_torch.lb import jit_optimizer as jlb
     from repro_torch.lb.optimizer import what_if_normals
@@ -489,14 +497,8 @@ def check_what_if(torch, S: int, N: int, w: int, margin: float, rng,
              f"(max |diff| {float((got - want).abs().max()):.3e}) or does not repeat")
     k_ms, p_ms = timed_pair(torch, kernel, plain, reps=50, plain_reps=5)
     dev_ms, dev_kernels = device_ms(torch, kernel, 20)
-    # bytes: total read once, u written once (and the waits); operations: per
-    # iteration ~6 float64 ops per living worker and one selection of the
-    # w-th smallest of the finishes, linear work (one compare each); the
-    # kernel's N-wide rank count per worker is its own choice, not work the
-    # function needs
-    nbytes = total.numel() * 8 + S * N * 8 + (S * 8 if dead is not None else 0)
-    ops = K * 7 * n_live
-    b_ms, b_by = bound_ms(nbytes, ops, PEAK_F64)
+    bound = bound_of(roofline.what_if_replay_cost(S, N, K, n_live, dead is not None))
+    b_ms, b_by = bound["bound_ms"], bound["bound_by"]
     mask, extra = "", {}
     if dead is not None:
         # the wrapper's device time includes its range check of the waits (a
@@ -518,7 +520,7 @@ def check_what_if(torch, S: int, N: int, w: int, margin: float, rng,
           f"plain version, repeats its bits; kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)}: "
           f"{dev_kernels}{alone}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(call=f"S={S} N={N} w={w}{mask}", max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
-                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, **extra)
+                plain_ms=p_ms, library_ms=None, **bound, **extra)
 
 
 def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
@@ -526,6 +528,7 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
     """Phase 3 for K3 at one dsag shape; exact equality.  ``cleared`` slots
     of every scenario are in the state a churn clear leaves them: tag -1 and
     a stale non-zero value row, which the walk must take as empty."""
+    from repro_torch.analysis import roofline
     from repro_torch.kernels import cache_events
 
     dev = torch.device("cuda")
@@ -563,10 +566,8 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
     n_valid = int(args["valid_r"].sum())
     n_rej = int((got[4] - args["rejected"]).sum())
     accepted = n_valid - n_rej
-    nbytes = (S * R * (1 + 8 + 8) + S * R * F * 8 + 2 * (S * F * 8 + S * E * F * 8
-              + S * E * 8 + 2 * S * 8) + E * 8)
-    flops = accepted * F * 2  # one float64 sub and one add per accepted feature
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F64)
+    bound = bound_of(roofline.grid_cache_update_cost(S, R, E, F, accepted))
+    b_ms, b_by = bound["bound_ms"], bound["bound_by"]
     state = ""
     if cleared:
         slot_r = args["slot_r"].cpu().numpy()
@@ -583,7 +584,7 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
           f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(call=f"S{S}_R{R}_E{E}_F{F}" + (f"_cleared{cleared}" if cleared else ""),
                 max_abs_err=0.0, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+                **bound)
 
 
 def k4_launch(torch, g, c, h, mask, streaming: bool):
@@ -603,6 +604,7 @@ def k4_launch(torch, g, c, h, mask, streaming: bool):
 
 def check_dsag_update(torch, p: int, n: int, slot_dtype, rng) -> dict:
     """Phase 3 for K4 at one shape; exact equality with the plain version."""
+    from repro_torch.analysis import roofline
     from repro_torch.kernels import dsag_update
 
     dev = torch.device("cuda")
@@ -621,10 +623,8 @@ def check_dsag_update(torch, p: int, n: int, slot_dtype, rng) -> dict:
                             lambda: dsag_update.dsag_cache_update_plain(g, c, h, mask),
                             reps=50, plain_reps=10)
     dev_ms, dev_kernels = device_ms(torch, lambda: dsag_update.dsag_cache_update(g, c, h, mask), 50)
-    sz = g.element_size()
-    nbytes = p * n * 3 * sz + 2 * n * 4 + p * 4  # g, c read; c written; h read, written
-    flops = 6 * p * n
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
+    bound = bound_of(roofline.dsag_cache_update_cost(p, n, g.element_size()))
+    b_ms, b_by = bound["bound_ms"], bound["bound_by"]
     dt = str(slot_dtype).removeprefix("torch.")
     # the path the wrapper does not take here, held and timed beside it
     streaming = n >= dsag_update.STREAM_MIN_N
@@ -639,14 +639,14 @@ def check_dsag_update(torch, p: int, n: int, slot_dtype, rng) -> dict:
           f"{fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
           f"the {other} path, equal too: device {fmt_ms(other_ms)}")
     return dict(call=f"p{p}_n{n}_{dt}", path=path, max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
-                other_path_device_ms=other_ms,
-                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                other_path_device_ms=other_ms, plain_ms=p_ms, library_ms=None, **bound)
 
 
 def check_dsag_update_int8(torch, p: int, rows: int, b: int, rng) -> dict:
     """Phase 3 for K4's int8 entry at one shape (``p`` groups of ``rows``
     rows of ``b`` elements, one bf16 scale per row); ``torch.equal`` to the
     plain version, every output."""
+    from repro_torch.analysis import roofline
     from repro_torch.kernels import dsag_update
     from repro_torch.optim.compression import quantize
 
@@ -675,21 +675,18 @@ def check_dsag_update_int8(torch, p: int, rows: int, b: int, rng) -> dict:
                             lambda: dsag_update.dsag_cache_update_int8_plain(*args),
                             reps=50, plain_reps=10)
     dev_ms, dev_kernels = device_ms(torch, lambda: dsag_update.dsag_cache_update_int8(*args), 50)
-    n = p * rows * b
-    # g (f32) and two int8 slots read, two written; four bf16 scale rows;
-    # h read and written; the per-group code
-    nbytes = n * 4 + 4 * n + 4 * p * rows * 2 + 2 * rows * b * 4 + p
-    flops = 20 * n  # two dequantizations, two absmax, two divisions, delta and sum
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
+    bound = bound_of(roofline.dsag_cache_update_int8_cost(p, rows, b))
+    b_ms, b_by = bound["bound_ms"], bound["bound_by"]
     print(f"  dsag_cache_update_int8 [{p}, {rows}, {b}]: equal; kernel {k_ms:.4f} ms (device "
           f"{fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
           f"({b_by}); no single PyTorch call computes it")
     return dict(call=f"p{p}_rows{rows}_b{b}", max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
-                plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=p_ms, library_ms=None, **bound)
 
 
 def check_gram_matvec(torch, x, v) -> dict:
     """Phase 3 for K5 at one shape (``x`` [m, d] or [B, m, d])."""
+    from repro_torch.analysis import roofline
     from repro_torch.kernels import gram_matvec
 
     got = gram_matvec.gram_matvec(x, v)
@@ -717,24 +714,15 @@ def check_gram_matvec(torch, x, v) -> dict:
     B = x.shape[0] if x.dim() == 3 else 1
     m, d = x.shape[-2:]
     k = v.shape[1]
-    nbytes = (B * m * d + d * k + B * d * k) * 4
-    flops = 4 * B * m * d * k
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_F32)
+    bound = bound_of(roofline.gram_matvec_cost(B, m, d, k))
+    b_ms, b_by = bound["bound_ms"], bound["bound_by"]
     path = "wide" if gram_matvec.is_wide(B, d, k) else "fast"
     print(f"  gram_matvec {shape} ({path} path): max|diff|={err:.3e} "
           f"(|plain|<={scale:.3e}); kernel "
           f"{k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, "
           f"matmul pair {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
     return dict(call=shape, path=path, max_abs_err=err, ms=k_ms, device_ms=dev_ms,
-                plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-
-
-def causal_pairs(sq: int, sk: int, causal: bool) -> int:
-    """(query, key) pairs a causal mask aligned bottom-right leaves, per head."""
-    if not causal:
-        return sq * sk
-    offs = sk - sq
-    return sum(min(sk, q + offs + 1) for q in range(sq))
+                plain_ms=p_ms, library_ms=lib_ms, **bound)
 
 
 def k6_within_tolerance(torch, got, want32) -> bool:
@@ -751,6 +739,7 @@ def check_flash(torch, b: int, h: int, sq: int, sk: int, d: int, rng,
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
+    from repro_torch.analysis import roofline
     from repro_torch.kernels import flash_attention as k6
 
     dtype = dtype or torch.bfloat16
@@ -806,9 +795,8 @@ def check_flash(torch, b: int, h: int, sq: int, sk: int, d: int, rng,
         fail(f"SDPA with a bottom-right causal mask disagrees with K6's function at {shape}: "
              f"max |diff| {lib_err:.3e}")
     lib_ms = cuda_ms(torch, library, 20)
-    nbytes = (2 * b * h * sq * d + 2 * b * kvh * sk * d) * q.element_size()
-    flops = 4 * b * h * d * causal_pairs(sq, sk, causal)
-    b_ms, b_by = bound_ms(nbytes, flops, PEAK_BF16)
+    bound = bound_of(roofline.flash_attention_cost(b, h, kvh, sq, sk, d, causal, dtype))
+    b_ms, b_by, flops = bound["bound_ms"], bound["bound_by"], bound["flops"]
     print(f"  flash_attention {shape} causal={causal}: max|diff|={err:.3e} vs plain "
           f"({str(dtype).removeprefix('torch.')} out); kernel {k_ms:.4f} ms (device "
           f"{fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
@@ -816,7 +804,7 @@ def check_flash(torch, b: int, h: int, sq: int, sk: int, d: int, rng,
           f"kernel/SDPA {k_ms / lib_ms:.2f}, bound {b_ms:.5f} ms ({b_by}, {flops:.3e} flops, "
           f"{flops / k_ms * 1e-9:.1f} TFLOP/s)")
     return dict(call=shape, max_abs_err=err, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                library_ms=lib_ms, **bound)
 
 
 def committed_ttg() -> dict:
@@ -2288,8 +2276,9 @@ def serving_prompts(vocab: int):
     return np.random.default_rng(0).integers(0, vocab, (SERVE_B, SERVE_PROMPT))
 
 
-def run_serving(torch) -> dict:
-    """Phase 6: serve qwen1.5-0.5b at full width and depth through K6."""
+def run_serving(torch) -> tuple:
+    """Phase 6: serve qwen1.5-0.5b at full width and depth through K6;
+    returns the phase's numbers and the server (phase 12 counts its work)."""
     import dataclasses
 
     from repro_torch.kernels import flash_attention as k6
@@ -2445,6 +2434,94 @@ def run_serving(torch) -> dict:
               f"tolerance of its plain version, max |diff| "
               f"{float((got.float() - want32.transpose(1, 2)).abs().max()):.3e}")
 
+    return out, srv
+
+
+def run_analysis(torch, per_kernel: dict, serving: dict, srv) -> dict:
+    """Phase 12: the analysis layer on the card: (a) the lint over every
+    entry on cuda:0, (b) each phase-3 row's cost model and bound, (c) the
+    serving roofline of phase 6's cell."""
+    from repro_torch.analysis import roofline
+    from repro_torch.analysis.cost import count_cost
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.configs.base import ShapeConfig
+
+    t0 = time.perf_counter()
+    report = run_lint("all", device="cuda:0")
+    for line in report.render_text().splitlines():
+        print(f"  (a) {line}")
+    if report.findings:
+        fail(f"phase 12 (a): {len(report.findings)} lint finding(s) not in the baseline")
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+
+    for name, rows in per_kernel.items():
+        for r in rows:
+            bound = r["bound_ms"]
+            dev = "not measured" if r["device_ms"] is None else f"{r['device_ms'] / bound:.1f}x"
+            print(f"  (b) {name} [{r['call']}]: {r['bytes']:.6g} B, {r['flops']:.6g} FLOP at "
+                  f"{r['peak'] / 1e12:g} TFLOP/s -> bound {bound:.6g} ms ({r['bound_by']}); "
+                  f"kernel {r['ms'] / bound:.1f}x the bound, device {dev}")
+
+    t0 = time.perf_counter()
+    cfg, params, model = srv.cfg, srv.params, srv.model
+    L, b, s = cfg.num_layers, SERVE_B, SERVE_PROMPT
+    held = {}
+    with torch.inference_mode():
+        tokens = torch.as_tensor(serving_prompts(cfg.vocab_size), device="cuda")
+        max_len = SERVE_PROMPT + SERVE_TOKENS + 8
+        prefill = count_cost(lambda: held.update(
+            out=model.prefill(params, {"tokens": tokens}, max_len)))
+        logits, cache = held.pop("out")
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        decode = count_cost(lambda: held.update(
+            out=model.decode_step(params, tok, cache, SERVE_PROMPT)))
+        del cache, held["out"]
+    k6 = prefill.rows.get("flash_attention")
+    if k6 is None or k6.calls != L:
+        fail(f"phase 12 (c): the prefill's count holds no K6 row of {L} launches: "
+             f"{None if k6 is None else k6.calls}")
+    attn = params["blocks"]["attn"]
+    h, kvh, hd = attn["wq"].shape[2], attn["wk"].shape[2], cfg.resolved_head_dim
+    k6_flops = L * roofline.flash_attention_cost(b, h, kvh, s, s, hd, True, torch.bfloat16)[1]
+    gemm = roofline.serving_gemm_flops(cfg, params, b * s, b)
+    counted = prefill.flops_of("aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm")
+    if counted != gemm or k6.flops != k6_flops:
+        fail(f"phase 12 (c): counted prefill product FLOPs {counted:.6g} (K6 {k6.flops:.6g}) "
+             f"differ from the analytic {gemm:.6g} (K6 {k6_flops:.6g})")
+    num_params = model.num_params()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {}
+    for label, cost, shape, measured, n_tok in (
+            ("prefill", prefill, ShapeConfig("prefill", s, b, "prefill"), serving["prefill_s"],
+             b * s),
+            ("decode", decode, ShapeConfig("decode", s + SERVE_TOKENS, b, "decode"),
+             serving["decode_ms_per_token"] / 1e3, b)):
+        # the mfu's N: the parameters the step multiplies a token by (the
+        # prefill unembeds one row per sequence, the embedding lookup is no
+        # product); the reference's N, all parameters, is printed beside it
+        n_prod = roofline.serving_gemm_flops(cfg, params, n_tok, b) / (2 * n_tok)
+        ideal = roofline.derive(cfg, shape, n_prod, cost)
+        rf = roofline.derive(cfg, shape, n_prod, cost, step_time_s=measured)
+        all_params = roofline.derive(cfg, shape, num_params, cost, step_time_s=measured)
+        row = dict(rf.as_dict(), product_params=n_prod, roofline_mfu=ideal.mfu,
+                   memory_share=rf.memory_s / measured, num_params=num_params,
+                   mfu_num_params=all_params.mfu)
+        out[label] = row
+        print(f"  (c) {label} ({smi}): counted {cost.flops:.6g} FLOP, {cost.bytes:.6g} B; "
+              f"compute {rf.compute_s * 1e3:.4f} ms, memory {rf.memory_s * 1e3:.4f} ms, "
+              f"collective 0 (one card): {rf.dominant}-bound; model FLOPs "
+              f"{rf.model_flops_per_device:.6g} (useful {rf.useful_flops_fraction:.4f}); "
+              f"measured {measured * 1e3:.3f} ms (phase 6): mfu {rf.mfu:.5f} (N = "
+              f"{n_prod / 1e6:.4f} M product params; the reference's N = all "
+              f"{num_params / 1e6:.1f} M params gives {all_params.mfu:.5f}), memory term "
+              f"{row['memory_share']:.4f} of the step; at the roofline mfu {ideal.mfu:.4f}")
+        for kind in ("flops", "bytes"):
+            top = ", ".join(f"{n} x{c} {v:.4g}" for v, n, c in cost.top_costs(4)[kind])
+            print(f"      top {kind}: {top}")
+    print(f"  (c) prefill products: counted {counted:.6g} FLOP = analytic 2 x layer and "
+          f"unembedding parameters x tokens; K6 {L} launches, {k6.flops:.6g} FLOP = its "
+          f"causal-pairs model; took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2753,7 +2830,7 @@ def main() -> None:
     print("phase 5: the live two-tier trainer through the kernels")
     live_launches = run_live(torch)
     print("phase 6: serving qwen1.5-0.5b at full width and depth through K6")
-    serving = run_serving(torch)
+    serving, server = run_serving(torch)
     print("phase 7: the scalar simulator and the host engine against the device engine, "
           "the live pin, the BENCH_sweep grid")
     t0 = time.perf_counter()
@@ -2775,7 +2852,13 @@ def main() -> None:
     t0 = time.perf_counter()
     sharding_launches = run_sharding(torch, outcomes)
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
-    print("phase 12: the kernels line")
+    print("phase 12: the analysis layer: the lint on cuda:0, the kernels' bounds, the "
+          "serving roofline")
+    t0 = time.perf_counter()
+    analysis = run_analysis(torch, per_kernel, serving, server)
+    del server
+    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    print("phase 13: the kernels line")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
                 + engine_launches.get(k, 0) + lb_launches.get(k, 0)
                 + churn_launches.get(k, 0) + paper_launches.get(k, 0)
@@ -2820,9 +2903,11 @@ def main() -> None:
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], calls=rows,
+            library_ms=main_row["library_ms"],
+            calls=[{k: v for k, v in r.items() if k not in COST_KEYS} for r in rows],
         ))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"roofline": analysis}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

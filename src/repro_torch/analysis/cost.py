@@ -1,0 +1,234 @@
+"""FLOPs and HBM bytes of one run of a torch program, counted op by op.
+
+The counterpart of ``repro.analysis.hlo``.  :func:`count_cost` runs the
+program once under a ``TorchDispatchMode``, which sees every ATen op that
+really runs: a Python loop's trips count themselves, so nothing here parses
+trip counts.  The accounting keeps ``hlo.py``'s rules:
+
+* **FLOPs**: ``2 · prod(result) · contraction`` for ``mm``, ``bmm``,
+  ``addmm``, ``baddbmm``, ``mv``, ``dot``, the ``_scaled_dot_product_*``
+  attention ops (two products) and ``convolution``; ``einsum`` and
+  ``matmul`` reach the dispatch mode as these.  Each product's FLOPs go to
+  the peak of its operands' dtype (:func:`~repro_torch.analysis.kernel_costs.peak_for`).
+* **Bytes**: an op's materialized results are written once and read once
+  (twice their bytes); a product's operands are read.  Views (slices,
+  transposes, aliasing reshapes, ``expand``) bill nothing, so an
+  ``index_select`` or a gather of a slice bills only what it produces.  An
+  in-place op or a copy into a slice bills the region it writes; an empty
+  allocation bills nothing.
+* **Kernels**: the port's CUDA kernels are ctypes calls, which the dispatch
+  mode never sees.  Their wrappers report each launch to this thread's
+  counter with the kernel's cost model
+  (:mod:`repro_torch.analysis.kernel_costs`): the model bills the kernel's own
+  reads, writes and FLOPs, under the kernel's name; the wrapper's torch ops
+  (its output allocation, any padding or copy) are billed by the dispatch
+  mode like any other op.  The counter is thread-local: the shards of a
+  sharded run, each in a thread of its own, are not counted by another
+  thread's counter.
+* **Attention score bytes**: the bytes of results whose two trailing dims
+  are equal and at least :data:`MIN_SCORE_DIM` (``[.., S, S]`` score buffers:
+  the counterpart of ``hlo.sxs_buffer_bytes``), the part of the memory
+  term a flash kernel keeps out of HBM.
+
+What it cannot see: a kernel without a cost model; host work (the Python
+interpreter, launches, synchronizations); and bytes that the caches keep
+out of HBM or that an op moves beyond its inputs and outputs (a
+non-contiguous operand re-read, a library's workspace).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+from repro_torch.analysis.kernel_costs import peak_for
+from repro_torch.kernels import _build
+
+aten = torch.ops.aten
+
+#: the least sequence length whose ``[.., S, S]`` results count as attention scores
+MIN_SCORE_DIM = 1024
+
+#: products: op name -> index of the left operand (its last dim is the contraction)
+PRODUCTS = {"mm": 0, "bmm": 0, "mv": 0, "dot": 0, "addmm": 1, "baddbmm": 1, "addmv": 1}
+_ATTENTION = {
+    getattr(aten, name).default
+    for name in ("_scaled_dot_product_flash_attention",
+                 "_scaled_dot_product_efficient_attention",
+                 "_scaled_dot_product_cudnn_attention",
+                 "_scaled_dot_product_flash_attention_for_cpu")
+    if hasattr(aten, name)
+}
+#: ops that allocate without writing, or alias without a schema annotation
+_FREE = {
+    aten.empty.memory_format, aten.empty_strided.default, aten.empty_like.default,
+    aten.new_empty.default, aten.new_empty_strided.default, aten._unsafe_view.default,
+    aten.alias.default, aten.detach.default, aten.lift_fresh.default,
+    aten._local_scalar_dense.default,
+}
+
+
+def composite(func) -> bool:
+    """Whether ``func`` is an op that decomposes into others
+    (CompositeImplicitAutograd): outside inference mode the dispatch mode
+    sees only its parts."""
+    return torch._C._dispatch_has_kernel_for_dispatch_key(
+        func.name(), torch._C.DispatchKey.CompositeImplicitAutograd)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _written(func, args, ins, outs) -> int:
+    """Bytes an in-place or ``out=`` op writes: an indexed write's indexed
+    elements, else the whole mutated tensor (a slice's view for a copy into
+    a slice)."""
+    target = next((t for t in ins if any(t is o for o in outs)), outs[0] if outs else None)
+    if target is None:
+        return 0
+    packet = func.overloadpacket
+    if packet in (aten.index_put_, aten.index_put, aten._index_put_impl_):
+        idx = [i for i in args[1] if i is not None]
+        rest = target.shape[len(args[1]):]
+        return math.prod(torch.broadcast_shapes(*(i.shape for i in idx))) * math.prod(rest) \
+            * target.element_size()
+    if packet in (aten.scatter_, aten.scatter_add_, aten.scatter_reduce_):
+        return args[2].numel() * target.element_size()
+    return _nbytes(target)
+
+
+@dataclasses.dataclass
+class CostRow:
+    """One op (``aten.<name>``) or kernel's share of a counted run."""
+
+    name: str
+    calls: int = 0
+    flops: float = 0.0
+    bytes: float = 0.0
+
+
+@dataclasses.dataclass
+class Cost:
+    """What :func:`count_cost` counted: totals, FLOPs by the peak they run
+    at, the attention score bytes, and one :class:`CostRow` per op or kernel."""
+
+    flops: float = 0.0
+    bytes: float = 0.0
+    attn_score_bytes: float = 0.0
+    flops_at_peak: dict = dataclasses.field(default_factory=dict)
+    rows: dict = dataclasses.field(default_factory=dict)
+
+    def add(self, name: str, flops: float, nbytes: float, peak: float | None = None) -> None:
+        row = self.rows.get(name)
+        if row is None:
+            row = self.rows[name] = CostRow(name)
+        row.calls += 1
+        row.flops += flops
+        row.bytes += nbytes
+        self.flops += flops
+        self.bytes += nbytes
+        if flops:
+            self.flops_at_peak[peak] = self.flops_at_peak.get(peak, 0.0) + flops
+
+    def top_costs(self, k: int = 15) -> dict:
+        """The k rows with the most bytes and the k with the most FLOPs, each
+        ``(value, name, calls)``, largest first (``hlo.top_costs``)."""
+        rows = self.rows.values()
+        return {
+            "bytes": sorted(((r.bytes, r.name, r.calls) for r in rows), reverse=True)[:k],
+            "flops": sorted(((r.flops, r.name, r.calls) for r in rows if r.flops),
+                            reverse=True)[:k],
+        }
+
+    def flops_of(self, *names: str) -> float:
+        return sum(self.rows[n].flops for n in names if n in self.rows)
+
+
+class _CostMode(TorchDispatchMode):
+    def __init__(self, cost: Cost):
+        super().__init__()
+        self.cost = cost
+        self.paused = False
+
+    def kernel(self, name: str, model) -> None:
+        """A kernel wrapper's report (``_build.count_launch``): its model's
+        host reads are not counted."""
+        self.paused = True
+        try:
+            nbytes, flops, peak = model()
+        finally:
+            self.paused = False
+        self.cost.add(name, flops, nbytes, peak)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if composite(func):
+            # under inference_mode composite ops (einsum, matmul, to) arrive
+            # whole: count the ops they decompose into
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        if not self.paused:
+            self._count(func, args, kwargs, out)
+        return out
+
+    def _count(self, func, args, kwargs, out) -> None:
+        op = func.overloadpacket.__name__
+        name = f"aten.{op}"
+        if func in _FREE or func.is_view:
+            self.cost.add(name, 0.0, 0.0)
+            return
+        outs = _tensors(out)
+        ins = _tensors((args, kwargs))
+        flops, peak, nbytes = 0.0, None, 0.0
+        if op in PRODUCTS:
+            lhs = args[PRODUCTS[op]]
+            flops = 2.0 * math.prod(outs[0].shape) * lhs.shape[-1]
+            peak = peak_for(lhs.dtype)
+            nbytes += sum(_nbytes(t) for t in ins)
+        elif func in _ATTENTION:
+            q, k = args[0], args[1]
+            flops = 4.0 * math.prod(q.shape[:-1]) * k.shape[-2] * q.shape[-1]
+            peak = peak_for(q.dtype)
+            nbytes += sum(_nbytes(t) for t in args[:3])
+        elif func.overloadpacket is aten.convolution:
+            w, o = args[1], outs[0]
+            flops = 2.0 * math.prod(o.shape) * math.prod(w.shape[1:])
+            peak = peak_for(w.dtype)
+            nbytes += sum(_nbytes(t) for t in ins)
+        if func._schema.is_mutable:
+            nbytes += 2 * _written(func, args, ins, outs)
+        else:
+            nbytes += 2 * sum(_nbytes(t) for t in outs)
+        for t in outs:
+            if t.dim() >= 2 and t.shape[-1] == t.shape[-2] >= MIN_SCORE_DIM:
+                self.cost.attn_score_bytes += 2 * _nbytes(t)
+        self.cost.add(name, flops, nbytes, peak)
+
+
+def count_cost(fn, *args, **kwargs) -> Cost:
+    """Run ``fn(*args, **kwargs)`` once and count its FLOPs and bytes (see
+    the module docstring); the kernels this thread launches meanwhile are
+    billed by their cost models.  ``fn``'s result is not returned: a caller
+    that needs it keeps it from a closure."""
+    cost = Cost()
+    mode = _CostMode(cost)
+    prev = getattr(_build.cost_counter, "active", None)
+    _build.cost_counter.active = mode.kernel
+    try:
+        with mode:
+            fn(*args, **kwargs)
+    finally:
+        _build.cost_counter.active = prev
+    return cost

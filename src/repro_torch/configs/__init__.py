@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.experiments.engine import CAP_ARCH, refuse
 
 _MODULES: dict[str, str] = {
@@ -34,4 +34,5 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
 
-__all__ = ["ARCHS", "ModelConfig", "TrainConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "TrainConfig", "get_config",
+           "get_smoke_config"]

@@ -8,7 +8,9 @@ parity and refused where a model is built.  :class:`TrainConfig` configures
 the live trainer, which runs the paper problems only
 (``launch/paper_jobs.py``); fields that configure the model zoo's sharding
 are kept for parity and must stay at their defaults here (a mesh is refused
-by :mod:`repro_torch.launch.train`).
+by :mod:`repro_torch.launch.train`).  :class:`ShapeConfig` names one input
+shape (what :func:`repro_torch.analysis.roofline.model_flops` counts), and
+:data:`SHAPES` the reference's cells.
 """
 
 from __future__ import annotations
@@ -86,6 +88,28 @@ class ModelConfig:
     def supports_long_context(self) -> bool:
         """Sub-quadratic sequence mixing -> long_500k cell runs."""
         return self.family in ("ssm", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_training(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,7 +19,10 @@ widths past their fast paths' caps, so every width runs on the card.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its launches
-in its module's ``launch_counts``; :func:`launch_counts` merges them.
+in its module's ``launch_counts``; :func:`launch_counts` merges them.  Beside
+each count it reports the launch's cost model
+(:mod:`repro_torch.analysis.kernel_costs`) to the thread's active cost counter
+(:func:`repro_torch.analysis.cost.count_cost`), if there is one.
 """
 
 from __future__ import annotations

@@ -84,6 +84,9 @@ _constants: dict[str, int] = {}
 _lock = threading.Lock()
 #: held while a wrapper adds to its launch counter (see :func:`count_launch`)
 _count_lock = threading.Lock()
+#: each thread's active cost counter (``repro_torch.analysis.cost``), if any:
+#: the shards of a sharded run count apart
+cost_counter = threading.local()
 
 
 def _nvcc() -> str:
@@ -191,12 +194,19 @@ def mirror_mismatches() -> dict[str, tuple[int, int]]:
     return {name: (v, constant(name)) for name, v in LIMITS.items() if constant(name) != v}
 
 
-def count_launch(counts: dict[str, int], name: str) -> None:
+def count_launch(counts: dict[str, int], name: str, cost=None) -> None:
     """Add one to ``counts[name]``, a wrapper's launch counter: the shards of
     a sharded run launch from several threads, and ``+=`` on a dict entry is
-    a read, an add and a write."""
+    a read, an add and a write.  If this thread has an active cost counter,
+    report the launch to it: ``cost()`` returns its ``(bytes, flops, peak)``
+    (the kernel's model in :mod:`repro_torch.analysis.kernel_costs`; it may read
+    the launch's data on the host, which the counter does not count).
+    Without a counter ``cost`` is not called: no launch, no host read."""
     with _count_lock:
         counts[name] += 1
+    counter = getattr(cost_counter, "active", None)
+    if counter is not None and cost is not None:
+        counter(name, cost)
 
 
 def launch(name: str, *args) -> None:

@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
@@ -220,6 +221,15 @@ def shape_error(G: int, n: int, d: int, k: int | None, max_width: int | None) ->
     return None
 
 
+def _block_cost(starts, widths, n: int, d: int, k: int | None):
+    """K1's (``k is None``) or K2's cost model at one launch's windows (read
+    on the host: only an active cost counter asks)."""
+    st, wd = starts.cpu().numpy(), widths.cpu().numpy()
+    if k is None:
+        return kernel_costs.logreg_block_sub_cost(st, wd, n, d)
+    return kernel_costs.pca_block_sub_cost(st, wd, n, d, k)
+
+
 def _launch_wide(X, y, Vb, starts, widths, plan: Plan, G: int, n: int, d: int, k: int,
                  out_shape: tuple, logreg: bool):
     """One allocation (the result, then the partials and the row-pass
@@ -239,7 +249,8 @@ def _launch_wide(X, y, Vb, starts, widths, plan: Plan, G: int, n: int, d: int, k
         widths.data_ptr(), scratch, partial, out.data_ptr(), G, n, d, k, plan.W, plan.slabs,
         plan.slab_rows, int(logreg), dev.index, _stream(dev),
     )
-    _build.count_launch(launch_counts, "logreg_block_sub" if logreg else "pca_block_sub")
+    _build.count_launch(launch_counts, "logreg_block_sub" if logreg else "pca_block_sub",
+                        cost=lambda: _block_cost(starts, widths, n, d, None if logreg else k))
     return out
 
 
@@ -278,7 +289,8 @@ def logreg_block_sub(X, y, Vb, starts, widths, max_width=None):
         X.data_ptr(), y.data_ptr(), Vb.data_ptr(), starts.data_ptr(), widths.data_ptr(),
         partial, out.data_ptr(), G, n, d, plan.slabs, plan.warps, dev.index, _stream(dev),
     )
-    _build.count_launch(launch_counts, "logreg_block_sub")
+    _build.count_launch(launch_counts, "logreg_block_sub",
+                        cost=lambda: _block_cost(starts, widths, n, d, None))
     return out
 
 
@@ -315,5 +327,6 @@ def pca_block_sub(X, Vb, starts, widths, max_width=None):
         X.data_ptr(), Vb.data_ptr(), starts.data_ptr(), widths.data_ptr(),
         partial, out.data_ptr(), G, n, d, k, plan.slabs, dev.index or 0, _stream(dev),
     )
-    _build.count_launch(launch_counts, "pca_block_sub")
+    _build.count_launch(launch_counts, "pca_block_sub",
+                        cost=lambda: _block_cost(starts, widths, n, d, k))
     return out

@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
 
@@ -180,5 +181,7 @@ def grid_cache_update(
         *(t.data_ptr() for t in outs),
         S, R, E, F, wpb, rows_per, cps, dev.index or 0, _stream(dev),
     )
-    _build.count_launch(launch_counts, "grid_cache_update")
+    _build.count_launch(
+        launch_counts, "grid_cache_update", cost=lambda: kernel_costs.grid_cache_update_cost(
+            S, R, E, F, int(valid_r.sum()) - int((outs[4] - rejected).sum())))
     return outs

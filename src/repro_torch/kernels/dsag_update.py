@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
 
@@ -117,7 +118,8 @@ def dsag_cache_update(g, c, h, mask):
         int(g.dtype == torch.bfloat16), int(c.dtype == torch.bfloat16),
         int(n >= STREAM_MIN_N), dev.index or 0, _stream(dev),
     )
-    _build.count_launch(launch_counts, "dsag_cache_update")
+    _build.count_launch(launch_counts, "dsag_cache_update",
+                        cost=lambda: kernel_costs.dsag_cache_update_cost(p, n, g.element_size()))
     return new_c, new_h
 
 
@@ -208,5 +210,6 @@ def dsag_cache_update_int8(g, cq, cs, pq, ps, h, code):
         *(t.data_ptr() for t in (g, cq, cs, pq, ps, h, code) + outs),
         p, rows, b, dev.index or 0, _stream(dev),
     )
-    _build.count_launch(launch_counts, "dsag_cache_update_int8")
+    _build.count_launch(launch_counts, "dsag_cache_update_int8",
+                        cost=lambda: kernel_costs.dsag_cache_update_int8_cost(p, rows, b))
     return outs

@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_sub import _on_cpu, _stream
 
@@ -131,7 +132,9 @@ def _launch(q, k, v, out, causal: bool) -> None:
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *target.stride()[:3],
         dev.index or 0, _stream(dev),
     )
-    _build.count_launch(launch_counts, "flash_attention")
+    _build.count_launch(
+        launch_counts, "flash_attention", cost=lambda: kernel_costs.flash_attention_cost(
+            b, h, kvh, sq, sk, d, causal, q.dtype))
     if target is not out:
         out.copy_(target[..., :d])
 

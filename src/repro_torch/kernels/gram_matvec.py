@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_sub import GRID_Y, Plan, _on_cpu, _require, _stream, wide_plan
 
@@ -132,5 +133,6 @@ def gram_matvec(x, v):
             x.data_ptr(), v.data_ptr(), partial, out.data_ptr(),
             B, m, d, k, p.slab_rows, p.slabs, int(vec), dev.index, _stream(dev),
         )
-    _build.count_launch(launch_counts, "gram_matvec")
+    _build.count_launch(launch_counts, "gram_matvec",
+                        cost=lambda: kernel_costs.gram_matvec_cost(B, m, d, k))
     return out

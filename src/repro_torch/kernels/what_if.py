@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
 
@@ -105,5 +106,8 @@ def what_if_replay(total, w, margin: float):
         int(margin > 0.0), float(margin), 1.0 / max(K, 1),
         total.device.index or 0, _stream(total.device),
     )
-    _build.count_launch(launch_counts, "what_if_replay")
+    # dead workers' latencies are +inf: the living ones are the finite rows
+    _build.count_launch(
+        launch_counts, "what_if_replay", cost=lambda: kernel_costs.what_if_replay_cost(
+            S, N, K, int(torch.isfinite(total[:, :, 0]).sum()), per_scenario))
     return u
