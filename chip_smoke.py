@@ -182,7 +182,20 @@ Phases (any failure raises and the script exits non-zero):
    dominant one, model FLOPs, the useful fraction and the mfu, whose N is
    the parameters the step multiplies a token by (the prefill unembeds one
    row per sequence), with the reference's N (all parameters) beside it;
-13. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+13. the model zoo's DSAG training path (~45 s): (a) qwen1.5-0.5b at full
+   width and depth (464.1 M parameters, bf16), P = 4, global batch 8 x 128,
+   ``TrainConfig()`` (adamw, bf16 slots, remat full), 8 steps with
+   live-sampled stragglers: the losses (finite), host ms per step, ms per
+   synchronized step, peak memory, the mfu of 6·N·D at the bf16 peak, K4
+   launches (one per step; ``--profile`` profiles one such step); (b) K4
+   at ``[4, n]`` bf16 on the run's second step's inputs, ``torch.equal``
+   to its plain twin, timed beside its bound; (c) the smoke
+   config in float32, sgd, 20 steps on replayed traces: the card (K4)
+   against the port on the CPU (streams, ξ, ``mask_count`` equal; losses
+   within :data:`TRAIN_CHECK_RTOL`); (d) the quickstart
+   (``repro_torch.examples.quickstart``): the loss falls; (e) K6 refuses a
+   grad-requiring input before any launch;
+14. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -602,16 +615,24 @@ def k4_launch(torch, g, c, h, mask, streaming: bool):
     return new_c, new_h
 
 
-def check_dsag_update(torch, p: int, n: int, slot_dtype, rng) -> dict:
-    """Phase 3 for K4 at one shape; exact equality with the plain version."""
+def check_dsag_update(torch, p: int, n: int, slot_dtype, rng, inputs=None,
+                      plain_reps: int = 10) -> dict:
+    """Phase 3 for K4 at one shape, on random slots or on ``inputs`` (a
+    ``(g, c, h, mask)`` the main path gave K4); exact equality with the
+    plain version."""
     from repro_torch.analysis import roofline
     from repro_torch.kernels import dsag_update
 
     dev = torch.device("cuda")
-    g = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32, device=dev).to(slot_dtype)
-    c = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32, device=dev).to(slot_dtype)
-    h = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=dev)
-    mask = torch.as_tensor(rng.random(p) < 0.7, dtype=torch.float32, device=dev)
+    if inputs is not None:
+        g, c, h, mask = inputs
+    else:
+        g = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32,
+                            device=dev).to(slot_dtype)
+        c = torch.as_tensor(rng.normal(size=(p, n)), dtype=torch.float32,
+                            device=dev).to(slot_dtype)
+        h = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=dev)
+        mask = torch.as_tensor(rng.random(p) < 0.7, dtype=torch.float32, device=dev)
     got = dsag_update.dsag_cache_update(g, c, h, mask)
     want = dsag_update.dsag_cache_update_plain(g, c, h, mask)
     torch.cuda.synchronize()
@@ -621,7 +642,7 @@ def check_dsag_update(torch, p: int, n: int, slot_dtype, rng) -> dict:
                  f"to its plain version")
     k_ms, p_ms = timed_pair(torch, lambda: dsag_update.dsag_cache_update(g, c, h, mask),
                             lambda: dsag_update.dsag_cache_update_plain(g, c, h, mask),
-                            reps=50, plain_reps=10)
+                            reps=50, plain_reps=plain_reps)
     dev_ms, dev_kernels = device_ms(torch, lambda: dsag_update.dsag_cache_update(g, c, h, mask), 50)
     bound = bound_of(roofline.dsag_cache_update_cost(p, n, g.element_size()))
     b_ms, b_by = bound["bound_ms"], bound["bound_by"]
@@ -2525,6 +2546,170 @@ def run_analysis(torch, per_kernel: dict, serving: dict, srv) -> dict:
     return out
 
 
+#: phase 13 (a): the full-width training cell: steps, global batch and sequence
+#: length (the reference trainer's default shape), over P = 4 DSAG groups
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 128
+#: phase 13 (c): steps of the smoke config in float32, card against CPU, and
+#: the losses' tolerance: sgd (no per-element normalization to amplify a
+#: float32 rounding), float32 products summed in another order
+TRAIN_CHECK_STEPS, TRAIN_CHECK_RTOL = 20, 1e-5
+
+
+def state_to(torch, tree, dev):
+    """A train state (nested dicts of tensors) copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: state_to(torch, v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def run_training(torch) -> tuple[dict, dict, dict]:
+    """Phase 13: the model zoo's DSAG training path.  Returns the phase's
+    numbers, its K4 launches and K4's row at the full-width shape."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.experiments.grid import HEAVY_BURSTS
+    from repro_torch.kernels import dsag_update as k4
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.latency.model import make_heterogeneous_cluster, sample_fleet
+    from repro_torch.launch.train import Trainer, TrainerOptions
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    card = EngineConfig(device="cuda", kernel_backend="cuda")
+    out: dict = {}
+
+    # (a) full width and depth, adamw, bf16 slots, remat "full" (TrainConfig()),
+    # live-sampled stragglers; K4's inputs of the second step kept for (b)
+    trn = Trainer(TrainerOptions(arch="qwen1.5-0.5b", smoke=False, steps=TRAIN_STEPS,
+                                 global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 train_config=TrainConfig(), log_every=10**6, engine=card))
+    cfg, n_params = trn.cfg, trn.model.num_params()
+    P, n = trn.gs.num_groups, trn.layout.numel
+    print(f"  (a) {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e6:.1f} M parameters ({cfg.dtype}; flat n = {n}), P = {P}, global "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, adamw, {trn.opts.train_config.dsag_cache_dtype} "
+          f"slots, remat {trn.opts.train_config.remat}, {TRAIN_STEPS} steps")
+    wrapper, k4_inputs = k4.dsag_cache_update, []
+
+    def keep_second(g, c, h, mask):
+        if len(k4_inputs) < 2:
+            k4_inputs.append(tuple(t.clone() for t in (g, c, h, mask)))
+        return wrapper(g, c, h, mask)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(k4, "dsag_cache_update", keep_second):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = trn.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"phase 13 (a): losses {losses}")
+    if counts["dsag_cache_update"] != TRAIN_STEPS:
+        fail(f"phase 13 (a): {counts['dsag_cache_update']} K4 launches in {TRAIN_STEPS} steps")
+    host_ms = float(np.mean(hist["step_time"][2:])) * 1e3
+    # the step synchronized, three more steps from the trained state
+    batch = trn.batch_on_device(next(trn.data))
+    bits = torch.tensor([[True] * P, [False] * P, [False] * P], device="cuda")
+    holder = [trn.state]
+
+    def one_step():
+        holder[0], _ = trn.step_fn(holder[0], batch, *bits)
+
+    step_ms = cuda_ms(torch, one_step, 2)
+    shape = ShapeConfig("train_cell", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mflops = roofline.model_flops(cfg, shape, n_params, None)
+    mfu = mflops / roofline.PEAK_BF16 / (step_ms / 1e3)
+    print(f"  (a) {smi}: losses {', '.join(f'{x:.4f}' for x in losses)}; host "
+          f"{host_ms:.1f} ms per step (steps 2-{TRAIN_STEPS - 1}, enqueue), {step_ms:.1f} ms per "
+          f"step synchronized (2 steps after the run), run wall {wall:.2f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB; K4 launches {counts['dsag_cache_update']} = steps; mfu "
+          f"{mfu:.4f} (6·N·D = {mflops:.4g} FLOP per step, N = {n_params}, bf16 peak); "
+          f"fresh groups per step {hist['mask_count']}")
+    # (b) K4 at [P, n] bf16 on the run's second step's inputs (its first real
+    # gradients against a filled cache), bit-equal to its plain twin
+    row = check_dsag_update(torch, P, n, torch.bfloat16, None, inputs=k4_inputs[1],
+                            plain_reps=2)
+    del k4_inputs
+    out.update(host_ms_per_step=host_ms, step_ms=step_ms, peak_bytes=peak, mfu=mfu,
+               losses=losses, model_flops=mflops, num_params=n_params, flat_n=n)
+    del trn, holder, batch, one_step
+    torch.cuda.empty_cache()
+
+    # (c) the smoke config in float32: the card (kernels) against the port on
+    # the CPU (plain versions), 20 steps with replayed traces
+    cl = make_heterogeneous_cluster(4, seed=3, burst_rate=0.0)
+    traces = sample_fleet(cl, 1, 400, burst_rate=HEAVY_BURSTS.rate,
+                          burst_factor_mean=HEAVY_BURSTS.factor_mean,
+                          burst_duration_mean=HEAVY_BURSTS.duration_mean, seed=7)
+    tc = TrainConfig(optimizer="sgd", learning_rate=1e-3, dsag_cache_dtype="float32")
+
+    def check_trainer(engine):
+        return Trainer(TrainerOptions(arch="qwen1.5-0.5b", dtype="float32",
+                                      steps=TRAIN_CHECK_STEPS, global_batch=8, seq_len=64,
+                                      traces=traces, scenario=0, simulate_stragglers=False,
+                                      train_config=tc, log_every=10**6, engine=engine))
+
+    on_cpu = check_trainer(EngineConfig(device="cpu", kernel_backend="torch"))
+    state0 = on_cpu.init_state()
+    reset_launch_counts()
+    hp = on_cpu.run()
+    n_cpu = launch_counts()["dsag_cache_update"]
+    on_card = check_trainer(card)
+    on_card.init_state = lambda: state_to(torch, state0, "cuda")
+    reset_launch_counts()
+    hc = on_card.run()
+    n_card = launch_counts()["dsag_cache_update"]
+    for f in ("mask_stream", "flush_stream", "evict_stream", "xi", "mask_count"):
+        if not np.array_equal(np.asarray(hc[f]), np.asarray(hp[f])):
+            fail(f"phase 13 (c): the card's {f} differs from the CPU's")
+    rel = float(np.max(np.abs(np.asarray(hc["loss"]) / np.asarray(hp["loss"]) - 1)))
+    if rel > TRAIN_CHECK_RTOL:
+        fail(f"phase 13 (c): losses differ by rtol {rel} (tolerance {TRAIN_CHECK_RTOL})")
+    if n_card != TRAIN_CHECK_STEPS or n_cpu != 0:
+        fail(f"phase 13 (c): K4 launches card {n_card}, CPU {n_cpu}")
+    flushes = int(np.stack(hc["flush_stream"]).sum())
+    print(f"  (c) smoke float32, sgd, {TRAIN_CHECK_STEPS} steps, replayed traces: streams, xi, "
+          f"mask_count equal card == CPU ({flushes} flushes, fresh {hc['mask_count']}); losses "
+          f"within rtol {rel:.2e} (tolerance {TRAIN_CHECK_RTOL}); K4 launches {n_card}")
+    out["card_vs_cpu_loss_rtol"] = rel
+
+    # (d) the quickstart on the card: the loss falls
+    from repro_torch.examples.quickstart import main as quickstart
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, qh = quickstart([])
+    q_wall = time.perf_counter() - t0
+    q_k4 = launch_counts()["dsag_cache_update"]
+    first, last = float(np.mean(qh["loss"][:10])), float(np.mean(qh["loss"][-10:]))
+    if not last < first or q_k4 != len(qh["loss"]):
+        fail(f"phase 13 (d): quickstart loss {first} -> {last}, K4 launches {q_k4}")
+    print(f"  (d) quickstart: {len(qh['loss'])} steps in {q_wall:.1f} s, mean loss of the "
+          f"first 10 steps {first:.4f} -> last 10 {last:.4f}; K4 launches {q_k4}")
+    out["quickstart"] = {"first10": first, "last10": last, "seconds": q_wall}
+
+    # (e) K6 refuses to be differentiated
+    q = torch.zeros(1, 64, 2, 64, device="cuda", requires_grad=True)
+    reset_launch_counts()
+    try:
+        k6.flash_attention_bshd(q, q.detach(), q.detach())
+    except RuntimeError as e:
+        print(f"  (e) K6 refuses grad-requiring inputs: {e}")
+    else:
+        fail("phase 13 (e): K6 took a grad-requiring input")
+    if launch_counts()["flash_attention"]:
+        fail("phase 13 (e): K6 launched for a grad-requiring input")
+    launches = {"dsag_cache_update": counts["dsag_cache_update"] + n_card + q_k4}
+    return out, launches, row
+
+
 def profile_run(torch, label: str, setup, iters: int) -> dict | None:
     """One warm run under ``torch.profiler``: host wall clock (ending in a
     synchronize), the union of device kernel intervals (busy time), the idle
@@ -2583,6 +2768,33 @@ def profile_paths(torch) -> None:
     for arch in PAPER_JOBS:
         opts = paper_live_opts(arch, "dsag", EngineConfig())
         profile_run(torch, f"live {arch}/dsag", lambda: Trainer(opts).run, opts.steps)
+
+
+def profile_training(torch) -> None:
+    """``--profile``: one step of phase 13 (a)'s full-width training cell
+    (the device's idle share; the kernels that take the most time)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.launch.train import Trainer, TrainerOptions
+
+    trn = Trainer(TrainerOptions(arch="qwen1.5-0.5b", smoke=False, steps=1,
+                                 global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 train_config=TrainConfig(), log_every=10**6,
+                                 engine=EngineConfig()))
+    P = trn.gs.num_groups
+    holder = [trn.init_state()]
+    batch = trn.batch_on_device(next(trn.data))
+    bits = torch.tensor([[True] * (P - 1) + [False], [False] * P, [False] * P], device="cuda")
+
+    def one_step():
+        holder[0], _ = trn.step_fn(holder[0], batch, *bits)
+
+    one_step()  # the first step allocates the state's slots
+    prof = profile_run(torch, "train step (qwen1.5-0.5b full width, P = 4)", lambda: one_step, 1)
+    if prof is not None:
+        k4_us = sum(us for name, us in prof["by_name_us"].items() if "dsag" in name)
+        print(f"    K4 share of the step's device time: {k4_us / 1e3 / prof['busy_ms']:.3f} "
+              f"({k4_us / 1e3:.3f} of {prof['busy_ms']:.3f} ms)")
 
 
 def profile_serving(torch) -> None:
@@ -2820,6 +3032,7 @@ def main() -> None:
     if "--profile" in sys.argv[1:]:
         profile_paths(torch)
         profile_serving(torch)
+        profile_training(torch)
     if {"--quick", "--profile", "--build-times"} & set(sys.argv[1:]):
         print(json.dumps({"per_kernel": per_kernel}))
         return
@@ -2858,11 +3071,17 @@ def main() -> None:
     analysis = run_analysis(torch, per_kernel, serving, server)
     del server
     print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
-    print("phase 13: the kernels line")
+    print("phase 13: the model zoo's DSAG training path (qwen1.5-0.5b at full width)")
+    t0 = time.perf_counter()
+    training, train_launches, k4_row = run_training(torch)
+    per_kernel["dsag_cache_update"].append(k4_row)
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    print("phase 14: the kernels line")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
                 + engine_launches.get(k, 0) + lb_launches.get(k, 0)
                 + churn_launches.get(k, 0) + paper_launches.get(k, 0)
-                + sharding_launches.get(k, 0) for k in sweep_launches}
+                + sharding_launches.get(k, 0) + train_launches.get(k, 0)
+                for k in sweep_launches}
     launches["flash_attention"] = serving["launches"]
 
     meta = {
@@ -2899,6 +3118,7 @@ def main() -> None:
             launches_churn=churn_launches.get(name, 0),
             launches_paper=paper_launches.get(name, 0),
             launches_sharding=sharding_launches.get(name, 0),
+            launches_train=train_launches.get(name, 0),
             launches_serve=serving["launches"] if name == "flash_attention" else 0,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
@@ -2908,6 +3128,7 @@ def main() -> None:
         ))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"roofline": analysis}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,13 @@ a :class:`~repro_torch.optim.compression.Quantized` slot as ``q`` then
 ``scale``), under the same path strings (``['dsag']/['cache']/[<flat index
 0>]``), so either package restores what the other wrote.  bfloat16 leaves are
 stored as their uint16 bits and tagged ``"bfloat16"`` (npz holds no
-bfloat16).  Writes go to ``step_<n>.tmp`` and are renamed into place; a
+bfloat16).  A model's train state, whose tensors are flat (one
+:class:`~repro_torch.models.layers.FlatLayout` row per group), is written as
+the reference's tree of leaves (:func:`train_state_tree`: parameters in
+their own dtypes; optimizer moments, DSAG cache, pending and H per leaf) and
+read back by :func:`train_state_from_tree`, so a checkpoint of the
+reference's model-zoo trainer restores in the port and the other way
+round.  Writes go to ``step_<n>.tmp`` and are renamed into place; a
 :class:`CheckpointManager` writes on a background thread, at most one write
 in flight, and keeps the newest ``keep``.  Restoring onto a mesh
 (``shardings``) is refused with ``mesh-not-ported``.
@@ -134,6 +140,46 @@ def restore_checkpoint(path: str, like: Any, shardings: Any | None = None) -> An
             raise ValueError(f"shape mismatch {a.shape} vs {tuple(leaf.shape)}")
         leaves.append(_decode(a, dt, leaf.device))
     return _unflatten(like, leaves)
+
+
+#: optimizer entries that are flat like the parameters (adafactor's ``stats``
+#: are a tree already)
+_FLAT_OPT = ("m", "v", "mu")
+
+
+def train_state_tree(state: dict, layout) -> dict:
+    """A model's flat train state as the reference's tree (views of the
+    flat tensors; the parameters cast to their leaves' dtypes)."""
+    dsag = dict(state["dsag"])
+    for k in ("cache", "pending"):
+        if torch.is_tensor(dsag[k]):  # int8 slots are a tree of leaves already
+            dsag[k] = layout.tree(dsag[k])
+    dsag["h"] = layout.tree(dsag["h"])
+    return {
+        "params": layout.tree(state["params"], cast=True),
+        "opt": {k: layout.tree(v) if k in _FLAT_OPT else v for k, v in state["opt"].items()},
+        "dsag": dsag,
+        "step": state["step"],
+    }
+
+
+def train_state_from_tree(tree: dict, layout) -> dict:
+    """The flat train state of a tree in :func:`train_state_tree`'s layout
+    (new tensors; float DSAG slots keep the tree's dtype)."""
+    dsag = dict(tree["dsag"])
+    for k in ("cache", "pending"):
+        first = dsag[k]
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        if torch.is_tensor(first):  # int8 slots stay a tree of leaves
+            dsag[k] = layout.flatten(dsag[k], first.dtype)
+    dsag["h"] = layout.flatten(dsag["h"])
+    return {
+        "params": layout.flatten(tree["params"]),
+        "opt": {k: layout.flatten(v) if k in _FLAT_OPT else v for k, v in tree["opt"].items()},
+        "dsag": dsag,
+        "step": tree["step"],
+    }
 
 
 class CheckpointManager:

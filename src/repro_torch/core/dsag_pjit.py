@@ -13,13 +13,21 @@ group's gradient parks in a *pending* slot; a later flush bit moves it into
 the cache.  The cache and H update runs through kernel K4
 (:mod:`repro_torch.kernels.dsag_update`).
 
-The port's state holds one parameter tensor (the paper problems' iterate
-``V``), so every slot is a tensor with a leading group dim, flattened to
-``[P, n]`` for K4.  With ``dsag_cache_dtype="int8"`` a slot is a
+The port's state holds one parameter tensor: the paper problems' iterate
+``V``, or a model's parameters flattened by a
+:class:`~repro_torch.models.layers.FlatLayout` (``layout=``).  Every float
+slot is a tensor with a leading group dim, ``[P, n]`` for K4, which
+updates all of a model's parameters in one launch.  With
+``dsag_cache_dtype="int8"`` a slot is a
 :class:`~repro_torch.optim.compression.Quantized` of the reference's layout
 (one bfloat16 scale per row of the parameter's last axis) and K4's int8
-entry updates it.  What is not ported is refused with a capability code: a
-mesh (:data:`CAP_MESH`) and a job that offers no per-group gradient
+entry updates it; for a model, a tree of them, one per leaf (a leaf's rows
+are its own last axis, which the flat view does not have), each its own
+launch.  Per-group gradients come from the job's ``group_value_and_grad``
+or, for the reference's ``loss_fn(params, batch)``, from autograd, one
+group at a time (:func:`autograd_group_value_and_grad`).  What is not
+ported is refused with a capability code: a mesh (:data:`CAP_MESH`) and a
+job that offers neither a loss nor per-group gradients
 (:data:`CAP_GROUP_GRAD`).
 """
 
@@ -33,6 +41,7 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.experiments.engine import refuse
 from repro_torch.kernels import dsag_update as k4
+from repro_torch.models.layers import get_path, set_path, tree_map
 from repro_torch.optim.compression import Quantized
 from repro_torch.optim.optimizers import (
     apply_updates,
@@ -43,7 +52,7 @@ from repro_torch.optim.optimizers import (
 
 #: a device mesh (sharded groups, ZeRO slots)
 CAP_MESH = "mesh-not-ported"
-#: a job without ``group_value_and_grad`` (the reference's vmapped autodiff)
+#: a job with neither a ``loss_fn`` nor ``group_value_and_grad``
 CAP_GROUP_GRAD = "group-grad-required"
 
 _SLOT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -62,10 +71,15 @@ def make_group_spec(tc: TrainConfig, mesh=None) -> GroupSpec:
     return GroupSpec(num_groups=1 if not tc.dsag else 4, axes=())
 
 
-def _cache_like(params: torch.Tensor, gs: GroupSpec, dtype: str):
+def _cache_like(params: torch.Tensor, gs: GroupSpec, dtype: str, layout=None):
     """An empty slot: a leading group dim on the parameter's shape; int8
     slots carry one bfloat16 scale per row of the last axis (the
-    reference's ``_cache_like``)."""
+    reference's ``_cache_like``), one slot per leaf of ``layout``."""
+    if dtype == "int8" and layout is not None:
+        tree: dict = {}
+        for x, view in zip(layout.leaves, layout.views(params)):
+            set_path(tree, x.path, _cache_like(view, gs, dtype))
+        return tree
     shape = (gs.num_groups,) + tuple(params.shape)
     dev = params.device
     if dtype == "int8":
@@ -80,11 +94,11 @@ def _cache_like(params: torch.Tensor, gs: GroupSpec, dtype: str):
     return torch.zeros(shape, dtype=_SLOT_DTYPES[dtype], device=dev)
 
 
-def init_dsag_state(params: torch.Tensor, gs: GroupSpec, tc: TrainConfig) -> dict:
+def init_dsag_state(params: torch.Tensor, gs: GroupSpec, tc: TrainConfig, layout=None) -> dict:
     dev = params.device
     return {
-        "cache": _cache_like(params, gs, tc.dsag_cache_dtype),
-        "pending": _cache_like(params, gs, tc.dsag_cache_dtype),
+        "cache": _cache_like(params, gs, tc.dsag_cache_dtype, layout),
+        "pending": _cache_like(params, gs, tc.dsag_cache_dtype, layout),
         "pending_valid": torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
         "filled": torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
         "h": torch.zeros(params.shape, dtype=torch.float32, device=dev),
@@ -101,8 +115,8 @@ def _update_slots(dsag, group_grads, mask, eff_flush, evict, take_new, backend):
     p = mask.shape[0]
     cache, pending = dsag["cache"], dsag["pending"]
     dt = cache.dtype
-    g = group_grads.to(torch.float32)
-    g_slot = g.to(dt)
+    g = group_grads
+    g_slot = g.to(dt)  # rounded once, as the reference stores a float32 gradient
     zero = torch.zeros((), dtype=dt, device=g.device)
     g_in = torch.where(_bmask(mask, g), g_slot,
                        torch.where(_bmask(eff_flush, g), pending, zero))
@@ -142,12 +156,32 @@ def _update_int8(dsag, group_grads, mask, eff_flush, evict, take_new, backend):
             new_h.reshape(dsag["h"].shape))
 
 
+def _update_int8_leaves(dsag, group_grads, mask, eff_flush, evict, take_new, backend,
+                        layout):
+    """A model's int8 slots (a tree of one :class:`Quantized` per leaf of
+    ``layout``): :func:`_update_int8` per leaf, ``(cache tree, pending
+    tree, flat h)``."""
+    cache, pending = {}, {}
+    new_h = torch.zeros_like(dsag["h"])
+    for x, g, h, out in zip(layout.leaves, layout.views(group_grads), layout.views(dsag["h"]),
+                            layout.views(new_h)):
+        leaf = {"cache": get_path(dsag["cache"], x.path),
+                "pending": get_path(dsag["pending"], x.path), "h": h}
+        c, pend, hh = _update_int8(leaf, g, mask, eff_flush, evict, take_new, backend)
+        set_path(cache, x.path, c)
+        set_path(pending, x.path, pend)
+        out.copy_(hh)
+    return cache, pending, new_h
+
+
 def dsag_update(dsag: dict, group_grads: torch.Tensor, mask, flush, evict=None,
-                backend: str = "cuda"):
+                backend: str = "cuda", layout=None):
     """Apply the DSAG cache rule; returns ``(new_dsag, h_hat, xi)``.
 
-    ``group_grads`` [P, ...] float32; ``mask`` / ``flush`` / ``evict`` [P]
-    bool.  ``backend="cuda"`` runs the cache and H update through the K4
+    ``group_grads`` [P, ...] float32 (or already in the float slots'
+    dtype: the cache rule rounds them to it first); ``mask`` / ``flush`` /
+    ``evict`` [P] bool; ``layout`` the flat layout of a model's int8
+    slots.  ``backend="cuda"`` runs the cache and H update through the K4
     wrapper (the kernel on CUDA tensors, its plain version on CPU tensors),
     ``"torch"`` through the plain version everywhere.
 
@@ -183,6 +217,9 @@ def dsag_update(dsag: dict, group_grads: torch.Tensor, mask, flush, evict=None,
     if isinstance(dsag["cache"], Quantized):
         new_cache, new_pending, new_h = _update_int8(
             dsag, group_grads, mask, eff_flush, evict, take_new, backend)
+    elif isinstance(dsag["cache"], dict):
+        new_cache, new_pending, new_h = _update_int8_leaves(
+            dsag, group_grads, mask, eff_flush, evict, take_new, backend, layout)
     else:
         new_cache, new_pending, new_h = _update_slots(
             dsag, group_grads, mask, eff_flush, evict, take_new, backend)
@@ -211,34 +248,77 @@ def dsag_update(dsag: dict, group_grads: torch.Tensor, mask, flush, evict=None,
     return new_dsag, h_hat, xi
 
 
+def autograd_group_value_and_grad(loss_fn, layout=None, grad_dtype=torch.float32):
+    """``group_value_and_grad`` of the reference's ``loss_fn(params, batch)``.
+
+    The returned function takes the parameters (a tensor; with ``layout``,
+    the flat tensor of that layout, whose tree ``loss_fn`` sees) and a batch
+    whose every leaf is ``[P, ...]``, and returns ``(losses [P] float32,
+    grads [P, n] grad_dtype)``: what the reference's
+    ``vmap(value_and_grad)`` returns.  The groups run one at a time through
+    ``torch.autograd.grad``, so one group's activations and logits are alive
+    at a time; ``grad_dtype`` is the float DSAG slots' dtype, into which
+    the cache rule rounds each gradient first anyway (float32 otherwise).
+    """
+
+    def group_value_and_grad(params, batch):
+        p = _num_groups(batch)
+        losses = torch.empty(p, dtype=torch.float32, device=params.device)
+        grads = torch.empty((p,) + tuple(params.shape), dtype=grad_dtype, device=params.device)
+        for i in range(p):
+            with torch.enable_grad():
+                leaf = params.detach().requires_grad_(True)
+                tree = layout.unflatten(leaf) if layout is not None else leaf
+                loss = loss_fn(tree, tree_map(lambda a, i=i: a[i], batch))
+                (grad,) = torch.autograd.grad(loss, leaf)
+            grads[i] = grad
+            losses[i] = loss.detach()
+        return losses, grads
+
+    return group_value_and_grad
+
+
+def _num_groups(batch) -> int:
+    while isinstance(batch, dict):
+        batch = next(iter(batch.values()))
+    return batch.shape[0]
+
+
 def make_train_step(job: Any, tc: TrainConfig, gs: GroupSpec, mesh=None,
-                    project_fn=None, backend: str = "cuda"):
+                    project_fn=None, backend: str = "cuda", layout=None):
     """Build ``step(state, batch, mask, flush, evict=None) -> (state, metrics)``.
 
-    ``job.group_value_and_grad(params, batch)`` returns ``(losses [P],
-    grads [P, ...])`` — what the reference's ``vmap(value_and_grad)`` of
-    the per-group loss returns.  ``project_fn``, when given, re-projects the
-    updated parameters (the paper's PCA orthonormalization).  ``backend``
-    selects the kernels (``"cuda"``) or their plain versions (``"torch"``)
-    for the cache update.
+    ``job`` is the reference's ``loss_fn(params, batch)`` (the per-group
+    mean loss; its gradients come from :func:`autograd_group_value_and_grad`)
+    or a job whose ``group_value_and_grad(params, batch)`` returns ``(losses
+    [P], grads [P, ...])`` itself.  ``layout`` is the
+    :class:`~repro_torch.models.layers.FlatLayout` of flat model parameters
+    (``loss_fn`` then sees their tree).  ``project_fn``, when given,
+    re-projects the updated parameters (the paper's PCA
+    orthonormalization).  ``backend`` selects the kernels (``"cuda"``) or
+    their plain versions (``"torch"``) for the cache update.
     """
     if mesh is not None:
         raise refuse(CAP_MESH, "a mesh-sharded train step is not ported yet")
     group_value_and_grad = getattr(job, "group_value_and_grad", None)
     if group_value_and_grad is None:
-        raise refuse(
-            CAP_GROUP_GRAD,
-            "the port computes per-group gradients through the job's "
-            "group_value_and_grad (no autodiff of a loss_fn yet)",
-        )
-    opt = make_optimizer(tc)
+        if not callable(job):
+            raise refuse(
+                CAP_GROUP_GRAD,
+                "the train step needs the reference's loss_fn(params, batch) or a job "
+                "with group_value_and_grad(params, batch)",
+            )
+        float_slots = tc.dsag and tc.dsag_cache_dtype in _SLOT_DTYPES
+        group_value_and_grad = autograd_group_value_and_grad(
+            job, layout, _SLOT_DTYPES[tc.dsag_cache_dtype] if float_slots else torch.float32)
+    opt = make_optimizer(tc, layout)
 
     def step(state, batch, mask, flush, evict=None):
         params = state["params"]
         losses, grads = group_value_and_grad(params, batch)
         if tc.dsag:
             new_dsag, h_hat, xi = dsag_update(
-                state["dsag"], grads, mask, flush, evict, backend=backend
+                state["dsag"], grads, mask, flush, evict, backend=backend, layout=layout
             )
         else:
             new_dsag = state["dsag"]
@@ -251,7 +331,7 @@ def make_train_step(job: Any, tc: TrainConfig, gs: GroupSpec, mesh=None,
             gnorm = global_norm(h_hat)
 
         updates, new_opt = opt.update(h_hat, state["opt"], params)
-        new_params = apply_updates(params, updates)
+        new_params = apply_updates(params, updates, layout)
         if project_fn is not None:
             new_params = project_fn(new_params)
         new_state = {
@@ -272,11 +352,12 @@ def make_train_step(job: Any, tc: TrainConfig, gs: GroupSpec, mesh=None,
     return step
 
 
-def init_train_state(params: torch.Tensor, tc: TrainConfig, gs: GroupSpec) -> dict:
-    opt = make_optimizer(tc)
+def init_train_state(params: torch.Tensor, tc: TrainConfig, gs: GroupSpec,
+                     layout=None) -> dict:
+    opt = make_optimizer(tc, layout)
     return {
         "params": params,
         "opt": opt.init(params),
-        "dsag": init_dsag_state(params, gs, tc),
+        "dsag": init_dsag_state(params, gs, tc, layout),
         "step": torch.zeros((), dtype=torch.int32, device=params.device),
     }

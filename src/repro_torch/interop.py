@@ -1,5 +1,6 @@
 """Carry the reference's state across: problem data, traces, initial iterate,
-the live trainer's train state, and a served model's parameters.
+the live trainer's train state, a served model's parameters and a
+model-zoo train state.
 
 This system has no weights.  Its state is the problem data and the latency
 traces, so these helpers rebuild the port's problem and
@@ -15,13 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import train_state_from_tree
 from repro_torch.core.problems import (
     FiniteSumProblem,
     LogisticRegressionProblem,
     PCAProblem,
 )
 from repro_torch.latency.model import FleetTraces
-from repro_torch.models.layers import ParamDecl, torch_dtype
+from repro_torch.models.layers import FlatLayout, ParamDecl, tree_map, torch_dtype
 from repro_torch.models.transformer import lm_decls
 from repro_torch.optim.compression import Quantized
 
@@ -141,3 +143,52 @@ def model_params_from_arrays(cfg, tree, device="cuda") -> dict:
         return {k: convert(decl[k], a[k], f"{path}/{k}") for k in decl}
 
     return convert(lm_decls(cfg), tree, "")
+
+
+def model_train_state_from_arrays(cfg, params, opt, dsag, step, device="cuda",
+                                  slot_dtype=torch.bfloat16) -> dict:
+    """The port's flat model-zoo train state from the reference's trees.
+
+    ``params`` as :func:`model_params_from_arrays` takes it; ``opt`` the
+    reference's optimizer state (adamw's ``m``, ``v``, ``step``; sgd's
+    ``mu``, ``step``; adafactor's ``stats``, ``step``) and ``dsag`` its DSAG
+    state (``cache`` / ``pending`` trees of ``[P, ...]`` slots, ``h``,
+    ``pending_valid``, ``filled``), all nested dicts of numpy arrays.  Float
+    slots are float32 arrays holding ``slot_dtype``'s values (bfloat16 by
+    default, ``TrainConfig()``'s), so the conversion is exact; an int8 slot
+    leaf is a ``(q, scale)`` pair (scales as float32 arrays, one block per
+    row of the leaf's last axis).  ``step`` is an int.
+    """
+    dev = torch.device(device)
+    layout = FlatLayout.from_decls(lm_decls(cfg), cfg.dtype)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+
+    def array(a):
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.as_tensor(a.astype(np.int32), device=dev)
+        return f32(a)
+
+    def slots(tree):
+        if isinstance(tree, dict):
+            return {k: slots(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            q, scale = tree
+            q = torch.as_tensor(np.asarray(q, dtype=np.int8), device=dev)
+            return Quantized(q=q, scale=f32(scale).to(torch.bfloat16), block=q.shape[-1])
+        return f32(tree).to(slot_dtype)
+
+    def flags(a):
+        return torch.as_tensor(np.asarray(a, dtype=bool), device=dev)
+
+    tree = {
+        "params": model_params_from_arrays(cfg, params, device=dev),
+        "opt": tree_map(array, opt),
+        "dsag": {"cache": slots(dsag["cache"]), "pending": slots(dsag["pending"]),
+                 "pending_valid": flags(dsag["pending_valid"]), "filled": flags(dsag["filled"]),
+                 "h": tree_map(f32, dsag["h"])},
+        "step": torch.tensor(int(step), dtype=torch.int32, device=dev),
+    }
+    return train_state_from_tree(tree, layout)

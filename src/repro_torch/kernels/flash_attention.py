@@ -139,17 +139,33 @@ def _launch(q, k, v, out, causal: bool) -> None:
         out.copy_(target[..., :d])
 
 
+def refuse_grad(*tensors) -> None:
+    """Raise if autograd would record through K6: it writes its output
+    through a raw pointer and has no backward (neither has the reference's
+    Pallas kernel), so the output would carry no ``grad_fn`` and every
+    attention weight's gradient would come out zero.  Training takes the
+    plain attention (``gqa_forward(..., backend="torch")``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the flash-attention kernel (K6) has no backward: call it under "
+            "torch.no_grad() / torch.inference_mode(), or take the plain attention "
+            "(backend='torch') where a gradient is needed"
+        )
+
+
 def flash_attention_op(q, k, v, *, causal: bool = True, block_q: int = 128,
                        block_k: int = 128):
     """Flash attention over ``[b, h, s, d]`` (the reference's contract).
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch K6
     (float32 or bfloat16, head dims up to 128; bfloat16 16-byte aligned) or
-    raise.
+    raise, also when grad mode is on and an input requires grad
+    (:func:`refuse_grad`).
     """
     _check_contract(q.shape[2], k.shape[2], causal, block_k)
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal)
+    refuse_grad(q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"q has {q.shape[1]} heads, k has {k.shape[1]}")
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -162,7 +178,8 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, block_k: int = 128):
     ``v`` [b, sk, kvh, d] with ``h % kvh == 0`` → [b, sq, h, d].
 
     CPU tensors take :func:`flash_attention_plain` over repeated kv heads;
-    CUDA tensors launch K6 on the tensors as they lie, or raise.
+    CUDA tensors launch K6 on the tensors as they lie, or raise (as
+    :func:`flash_attention_op` does, grad-requiring inputs included).
     """
     _check_contract(q.shape[1], k.shape[1], causal, block_k)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -171,6 +188,7 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, block_k: int = 128):
         kt = kt.repeat_interleave(groups, dim=1)
         vt = vt.repeat_interleave(groups, dim=1)
         return flash_attention_plain(qt, kt, vt, causal=causal).transpose(1, 2)
+    refuse_grad(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(qt, kt, vt, out.transpose(1, 2), causal)
     return out

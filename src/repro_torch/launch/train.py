@@ -1,14 +1,20 @@
-"""The live two-tier DSAG trainer for the paper problems, from
-``repro.launch.train``.
+"""The two-tier DSAG trainer, from ``repro.launch.train``.
 
 Wires together
 
-    paper problem (logreg / pca) -> Tier-1 step (K1/K5 group gradients, K4
-    cache update, optimizer, QR) -> Tier-2 deadline controller
+    model zoo / paper problem -> Tier-1 step (group gradients, K4 cache
+    update, optimizer, QR for PCA) -> Tier-2 deadline controller
     (mask/flush/evict) -> failure detector -> (optional) straggler simulation
     -> (optional) checkpoints
 
-on the card by default.  Replaying a ``FleetTraces`` scenario through the
+on the card by default.  Two kinds of jobs share the loop: the model zoo's
+dense LMs (``--arch qwen1.5-0.5b``; the smoke config unless ``--full``),
+whose per-group gradients come from autograd over ``Model.train_loss`` on
+the reference's synthetic batches (``repro_torch.data``), with the
+parameters, moments and DSAG slots flat (``FlatLayout``) so K4 updates
+every parameter in one launch per step; and the paper problems (``--arch
+logreg`` / ``--arch pca``, K1/K5 group gradients).  Replaying a
+``FleetTraces`` scenario through the
 controller (``TrainerOptions.traces``) gives the (mask, flush, evict)
 streams of the JAX package's controller and scalar simulator bit for bit;
 ``time_scale > 0`` turns the virtual straggler waits into real sleeps.
@@ -21,14 +27,18 @@ after the last step (the reference's files: :mod:`repro_torch.checkpoint`);
 ``restore`` resumes from the newest checkpoint there, at the step after it.
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --full \\
+      --steps 8 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --steps 40 \\
+      --device cpu --kernel-backend torch --check
   PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 20 --check
   PYTHONPATH=src python -m repro_torch.launch.train --arch pca --groups 8 \\
       --samples 512 --device cpu --kernel-backend torch
   PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 40 \\
       --checkpoint-dir ckpt [--restore]
 
-Not ported (refused with a capability code): the model-zoo archs
-(:data:`CAP_ARCH`) and, through the Tier-1 step, a mesh.
+Not ported (refused with a capability code): the model zoo's other
+families (:data:`CAP_ARCH`) and, through the Tier-1 step, a mesh.
 """
 
 from __future__ import annotations
@@ -42,19 +52,41 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.checkpoint import train_state_from_tree, train_state_tree
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.dsag_pjit import GroupSpec, init_train_state, make_train_step
-from repro_torch.experiments.engine import CAP_ARCH, EngineConfig, refuse
+from repro_torch.core.dsag_pjit import (
+    GroupSpec,
+    init_train_state,
+    make_group_spec,
+    make_train_step,
+)
+from repro_torch.data import make_batch_iterator
+from repro_torch.experiments.engine import (
+    CAP_ARCH,
+    EngineCapabilityError,
+    EngineConfig,
+    engine_capability,
+)
 from repro_torch.ft.runtime import DeadlineController, FailureDetector
 from repro_torch.ft.validation import trace_latency_fn
 from repro_torch.latency.model import make_heterogeneous_cluster
 from repro_torch.launch.paper_jobs import PAPER_ARCHES, make_paper_job, paper_train_config
+from repro_torch.models import build_model
+
+__all__ = ["CAP_ARCH", "Trainer", "TrainerOptions", "check_history", "main"]
 
 
 @dataclasses.dataclass
 class TrainerOptions:
     arch: str = "logreg"
+    #: model-zoo archs: the reduced config (else the published widths)
+    smoke: bool = True
     steps: int = 50
+    global_batch: int = 8  # model-zoo archs: sequences per step, over all groups
+    seq_len: int = 128
+    #: model-zoo archs: the config's dtype replaced (e.g. "float32"); None keeps it
+    dtype: str | None = None
     seed: int = 0
     checkpoint_dir: str | None = None
     restore: bool = False
@@ -65,8 +97,8 @@ class TrainerOptions:
     simulate_stragglers: bool = True
     dsag_w: int | None = None  # wait-for-w groups (default: 3/4 of P)
     log_every: int = 10
-    num_groups: int | None = None  # group count (default 4)
-    samples: int = 1024  # problem size
+    num_groups: int | None = None  # paper archs: group count (default 4)
+    samples: int = 1024  # paper archs: problem size
     method: str = "dsag"  # dsag | sag (controller stale-acceptance mode)
     #: replay a pre-sampled FleetTraces scenario through the controller
     #: instead of live-sampling the straggler cluster (the pinned path)
@@ -86,20 +118,43 @@ class Trainer:
         tc = opts.train_config
         if opts.method not in ("dsag", "sag"):
             raise ValueError(f"method {opts.method!r} not in ('dsag', 'sag')")
-        if opts.arch not in PAPER_ARCHES:
-            raise refuse(CAP_ARCH, f"--arch {opts.arch!r}: only the paper problems "
-                                   f"{PAPER_ARCHES} are trained; training the model "
-                                   f"zoo is not ported")
-        G = opts.num_groups or 4
-        self.gs = GroupSpec(num_groups=G, axes=())
-        self.job = make_paper_job(opts.arch, G, samples=opts.samples, seed=opts.seed,
-                                  engine=opts.engine)
-        self.device = self.job.device
-        self.data = self.job.batch_iterator()
-        project_fn = self.job.project_fn if opts.arch == "pca" else None
-        self.step_fn = make_train_step(self.job, tc, self.gs, opts.mesh,
-                                       project_fn=project_fn,
-                                       backend=opts.engine.kernel_backend)
+        self.job = None
+        self.layout = None
+        backend = opts.engine.kernel_backend
+        if opts.arch in PAPER_ARCHES:
+            G = opts.num_groups or 4
+            self.gs = GroupSpec(num_groups=G, axes=())
+            self.job = make_paper_job(opts.arch, G, samples=opts.samples, seed=opts.seed,
+                                      engine=opts.engine)
+            self.device = self.job.device
+            self.data = self.job.batch_iterator()
+            project_fn = self.job.project_fn if opts.arch == "pca" else None
+            self.step_fn = make_train_step(self.job, tc, self.gs, opts.mesh,
+                                           project_fn=project_fn, backend=backend)
+        else:
+            cap = engine_capability(opts.engine)
+            if not cap.supported:
+                raise EngineCapabilityError(cap)
+            cfg = get_smoke_config(opts.arch) if opts.smoke else get_config(opts.arch)
+            if opts.dtype is not None:
+                cfg = dataclasses.replace(cfg, dtype=opts.dtype)
+            self.cfg = cfg
+            self.model = build_model(cfg)
+            self.layout = self.model.layout
+            self.device = torch.device(opts.engine.device)
+            self.gs = make_group_spec(tc, opts.mesh)
+            if opts.global_batch % self.gs.num_groups:
+                raise ValueError(f"global batch {opts.global_batch} not divisible by "
+                                 f"{self.gs.num_groups} DSAG groups")
+            self.data = make_batch_iterator(cfg, self.gs.num_groups, opts.global_batch,
+                                            opts.seq_len, seed=opts.seed)
+
+            def loss_fn(params, batch):
+                return self.model.train_loss(params, batch, remat=tc.remat)
+
+            self.step_fn = make_train_step(loss_fn, tc, self.gs, opts.mesh, backend=backend,
+                                           layout=self.layout)
+        G = self.gs.num_groups
 
         # Tier-2 control plane
         w = opts.dsag_w or max(1, (3 * G) // 4)
@@ -113,7 +168,8 @@ class Trainer:
             else None
         )
         if opts.traces is not None:
-            self._latency_of = trace_latency_fn(opts.traces, opts.scenario, self.job.loads)
+            loads = self.job.loads if self.job is not None else np.ones(G)
+            self._latency_of = trace_latency_fn(opts.traces, opts.scenario, loads)
             self._churn = opts.traces.churn
             self.straggler_sim = None
         else:
@@ -133,19 +189,38 @@ class Trainer:
 
     # -- lifecycle ---------------------------------------------------------
     def init_state(self):
-        params = self.job.init_params(self.opts.seed)
-        return init_train_state(params, self.opts.train_config, self.gs)
+        """A fresh train state; a model's parameters drawn from a seeded
+        ``torch.Generator`` on the trainer's device."""
+        if self.job is not None:
+            params = self.job.init_params(self.opts.seed)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(self.opts.seed)
+            params = self.layout.flatten(self.model.init(gen))
+        return init_train_state(params, self.opts.train_config, self.gs, self.layout)
+
+    def _tree(self, state):
+        """What a checkpoint holds: a model's state as the reference's tree."""
+        return state if self.layout is None else train_state_tree(state, self.layout)
 
     def maybe_restore(self, state):
         """``(state, first step)``: the newest checkpoint's state and the
         step after it when ``restore`` is set and one exists."""
         if self.ckpt is None or not self.opts.restore:
             return state, 0
-        restored, step = self.ckpt.restore_latest(state)
+        restored, step = self.ckpt.restore_latest(self._tree(state))
         if restored is None:
             return state, 0
+        if self.layout is not None:
+            restored = train_state_from_tree(restored, self.layout)
         print(f"[train] restored checkpoint at step {step}")
         return restored, step + 1
+
+    def batch_on_device(self, batch):
+        """A model-zoo batch (numpy, every leaf [P, ...]) on the trainer's
+        device; a paper job's batch as its iterator gives it."""
+        if self.job is not None:
+            return batch
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
 
     def _group_latencies(self, step: int) -> np.ndarray:
         if self.straggler_sim is None:
@@ -233,10 +308,12 @@ class Trainer:
                 # one copy of the [3, G] decision per step, from pinned memory
                 # so it queues behind the previous step instead of waiting
                 bits = bits.pin_memory().to(dev, non_blocking=True)
-            state, metrics = self.step_fn(state, batch, bits[0], bits[1], bits[2])
+            state, metrics = self.step_fn(state, self.batch_on_device(batch),
+                                          bits[0], bits[1], bits[2])
             pending.append((step, metrics, time.perf_counter() - t0))
             history["virtual"].append(float(self.deadlines.now))
-            if opts.eval_every > 0 and (step % opts.eval_every == 0 or step == opts.steps - 1):
+            if (self.job is not None and opts.eval_every > 0
+                    and (step % opts.eval_every == 0 or step == opts.steps - 1)):
                 # pulls the params (a sync point): keep the cadence coarse
                 gap = self.job.suboptimality(state["params"])
                 history["eval"].append(
@@ -251,10 +328,10 @@ class Trainer:
                     f"({history['step_time'][-1]*1e3:.0f} ms)"
                 )
             if self.ckpt and (step + 1) % tc.checkpoint_every == 0:
-                self.ckpt.save(step, state)
+                self.ckpt.save(step, self._tree(state))
         drain()
         if self.ckpt and opts.steps > start_step:
-            self.ckpt.save(opts.steps - 1, state, blocking=True)
+            self.ckpt.save(opts.steps - 1, self._tree(state), blocking=True)
         history["wall_seconds"] = [time.perf_counter() - wall0]
         self.state = state
         return history
@@ -277,15 +354,22 @@ def check_history(hist: dict) -> tuple[bool, str]:
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="logreg",
-                    help=f"one of {PAPER_ARCHES} (the model zoo is not ported)")
+                    help=f"a model-zoo arch (qwen1.5-0.5b, qwen2-7b) or one of {PAPER_ARCHES}")
+    ap.add_argument("--full", dest="smoke", action="store_false",
+                    help="model-zoo archs: the published widths (default: the smoke config)")
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8, help="model-zoo archs: global batch")
+    ap.add_argument("--seq", type=int, default=128, help="model-zoo archs: sequence length")
     ap.add_argument("--samples", type=int, default=1024)
     ap.add_argument("--groups", type=int, default=None)
     ap.add_argument("--method", default="dsag", choices=["dsag", "sag"])
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--restore", action="store_true")
     ap.add_argument("--no-dsag", action="store_true")
-    ap.add_argument("--lr", type=float, default=0.25, help="step size eta")
+    ap.add_argument("--optimizer", default="adamw",
+                    help="model-zoo archs: adamw | adafactor | sgd")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="step size (default: 3e-4 for a model, eta = 0.25 for the paper archs)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     ap.add_argument("--kernel-backend", default="cuda", choices=["cuda", "torch"],
@@ -293,16 +377,24 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--check", action="store_true",
                     help="assert ξ reached 1.0 and the loss decreased (smoke gate)")
     args = ap.parse_args(argv)
+    if args.arch in PAPER_ARCHES:
+        tc = paper_train_config(0.25 if args.lr is None else args.lr, dsag=not args.no_dsag)
+    else:
+        tc = TrainConfig(dsag=not args.no_dsag, optimizer=args.optimizer,
+                         learning_rate=3e-4 if args.lr is None else args.lr)
     opts = TrainerOptions(
         arch=args.arch,
+        smoke=args.smoke,
         steps=args.steps,
+        global_batch=args.batch,
+        seq_len=args.seq,
         samples=args.samples,
         num_groups=args.groups,
         method=args.method,
         seed=args.seed,
         checkpoint_dir=args.checkpoint_dir,
         restore=args.restore,
-        train_config=paper_train_config(args.lr, dsag=not args.no_dsag),
+        train_config=tc,
         engine=EngineConfig(device=args.device, kernel_backend=args.kernel_backend),
     )
     hist = Trainer(opts).run()

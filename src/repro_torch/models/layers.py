@@ -101,6 +101,109 @@ def num_elements(decls) -> int:
     return sum(math.prod(d.shape) for _, d in _leaves(decls))
 
 
+def get_path(tree, path: tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def set_path(tree: dict, path: tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+# ---------------------------------------------------------------------------
+# Flat parameter layout
+# ---------------------------------------------------------------------------
+
+#: a flat layout starts every leaf at a multiple of this many elements
+FLAT_ALIGN = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLeaf:
+    path: tuple[str, ...]
+    shape: tuple[int, ...]
+    dtype: torch.dtype  # the leaf's own dtype (the flat tensor is float32)
+    offset: int
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Every leaf of a parameter tree at its own offset of one flat tensor.
+
+    The Tier-1 step holds a model's parameters, gradients, optimizer moments
+    and DSAG slots as ``[..., numel]`` tensors: one ``[n]`` row per group is
+    what K4 updates in one launch, and what sgd, adamw, clipping and
+    ``apply_updates`` take elementwise.  The parameters are float32 holding
+    each leaf's values in its own dtype (bfloat16 weights, float32 norm
+    scales), so ``p.float() + u`` rounded back to each leaf's dtype is the
+    reference's ``apply_updates``.  Leaves sit in the reference's flatten
+    order (dict keys sorted), each at a multiple of :data:`FLAT_ALIGN`; the
+    gaps between them (and up to ``numel``) are zero and nothing reads them.
+    """
+
+    leaves: tuple[FlatLeaf, ...]
+    numel: int
+
+    @classmethod
+    def from_decls(cls, decls, dtype) -> "FlatLayout":
+        leaves, off = [], 0
+        for path, d in _leaves(decls):
+            leaves.append(FlatLeaf(path, tuple(d.shape), torch_dtype(d.dtype or dtype), off))
+            off = round_up(off + math.prod(d.shape), FLAT_ALIGN)
+        return cls(tuple(leaves), off)
+
+    def views(self, flat: torch.Tensor) -> list[torch.Tensor]:
+        """Each leaf's view of ``flat`` [..., numel] as [..., *shape]: no copy."""
+        lead = tuple(flat.shape[:-1])
+        return [flat[..., x.offset:x.offset + x.size].view(lead + x.shape) for x in self.leaves]
+
+    def tree(self, flat: torch.Tensor, cast: bool = False) -> dict:
+        """The tree of :meth:`views` (each cast to its leaf's dtype with
+        ``cast``: a copy where the dtype differs)."""
+        out: dict = {}
+        for x, v in zip(self.leaves, self.views(flat)):
+            set_path(out, x.path, v.to(x.dtype) if cast else v)
+        return out
+
+    def unflatten(self, flat: torch.Tensor) -> dict:
+        """The parameter tree over ``flat`` [numel] for a loss: each leaf cast
+        to its dtype, through one ``split``, so that autograd writes the flat
+        gradient once (not one zero-filled ``[numel]`` tensor per leaf)."""
+        sizes, end = [], 0
+        for x in self.leaves:
+            sizes += [x.offset - end, x.size]
+            end = x.offset + x.size
+        parts = torch.split(flat, sizes + [self.numel - end], dim=-1)
+        out: dict = {}
+        for x, part in zip(self.leaves, parts[1::2]):
+            set_path(out, x.path, part.view(x.shape).to(x.dtype))
+        return out
+
+    def flatten(self, tree, dtype=torch.float32) -> torch.Tensor:
+        """A new ``[..., numel]`` tensor of ``dtype`` holding ``tree``'s leaves
+        (any leading dims, as ``[P, *shape]`` slots have), gaps zero."""
+        first = get_path(tree, self.leaves[0].path)
+        lead = tuple(first.shape[:first.dim() - len(self.leaves[0].shape)])
+        out = torch.zeros(lead + (self.numel,), dtype=dtype, device=first.device)
+        for x, v in zip(self.leaves, self.views(out)):
+            v.copy_(get_path(tree, x.path))
+        return out
+
+    def round_(self, flat: torch.Tensor) -> torch.Tensor:
+        """Round each leaf of ``flat`` to its own dtype, in place."""
+        for x, v in zip(self.leaves, self.views(flat)):
+            if x.dtype != flat.dtype:
+                v.copy_(v.to(x.dtype))
+        return flat
+
+
 # ---------------------------------------------------------------------------
 # Normalization
 # ---------------------------------------------------------------------------

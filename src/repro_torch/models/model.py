@@ -1,14 +1,18 @@
 """Model API of the dense GQA family, from ``repro.models.model``.
 
 ``build_model(cfg)`` returns a :class:`Model` exposing ``init(generator)``,
-``num_params()``, ``prefill(params, batch, cache_len)`` ->
-``(last_logits, cache)``, ``decode_step(params, tokens, cache, index)`` ->
-``(logits, cache)`` and ``cache_abstract(batch, cache_len)``.  The KV cache
-is the reference's ``{"k": [L, b, S, kvh, hd], "v": ...}``; ``decode_step``
-writes into it in place.  ``kernel_backend`` says how prefill attention runs
-on the card: ``"cuda"`` through kernel K6 (default), ``"torch"`` through the
-reference's plain ``full_attention``.  Families other than dense, MLA and
-experts raise ``arch-not-ported``; ``train_loss`` is not ported yet.
+``num_params()``, ``layout`` (the parameters' :class:`FlatLayout`),
+``train_loss(params, batch, *, remat, fused_loss)`` (next-token CE),
+``prefill(params, batch, cache_len)`` -> ``(last_logits, cache)``,
+``decode_step(params, tokens, cache, index)`` -> ``(logits, cache)`` and
+``cache_abstract(batch, cache_len)``.  The KV cache is the reference's
+``{"k": [L, b, S, kvh, hd], "v": ...}``; ``decode_step`` writes into it in
+place.  ``kernel_backend`` says how prefill attention runs on the card:
+``"cuda"`` through kernel K6 (default), ``"torch"`` through the reference's
+plain ``full_attention``.  ``train_loss`` always takes the plain attention,
+as the reference's does (K6 has no backward and refuses grad).  Families
+other than dense, MLA and experts raise ``arch-not-ported``, and so do the
+enc-dec and VLM batch layouts.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.experiments.engine import CAP_ARCH, refuse
 from repro_torch.models.layers import (
+    FlatLayout,
     apply_norm,
     init_from_decls,
     mlp_apply,
@@ -28,11 +34,15 @@ from repro_torch.models.layers import (
     torch_dtype,
 )
 from repro_torch.models.transformer import (
+    AUX_LOSS_COEF,
+    backbone_forward,
     check_ported,
     embed_inputs,
+    fused_next_token_loss,
     layer_params,
     lm_decls,
     lm_logits,
+    next_token_loss,
     padded_kv_heads,
 )
 
@@ -54,6 +64,7 @@ class Model:
         if self.kernel_backend not in ("cuda", "torch"):
             raise ValueError(f"unknown kernel_backend {self.kernel_backend!r}")
         self.decls = lm_decls(self.cfg)
+        self.layout = FlatLayout.from_decls(self.decls, self.cfg.dtype)
 
     # -- parameters -------------------------------------------------------
     def init(self, generator: torch.Generator) -> Any:
@@ -62,6 +73,28 @@ class Model:
 
     def num_params(self) -> int:
         return num_elements(self.decls)
+
+    # -- training ----------------------------------------------------------
+    def train_loss(self, params, batch, *, remat: str = "full", fused_loss: bool = False):
+        """Mean next-token cross-entropy of ``batch["tokens"]`` [b, s].
+
+        Logits span the padded vocab (``embed_decls`` rounds it up to 256),
+        as the reference's logsumexp does.  Attention is the plain one (the
+        reference's ``_attend``), whatever ``kernel_backend`` says."""
+        cfg = self.cfg
+        if "audio_embed" in batch:
+            raise refuse(CAP_ARCH, f"{cfg.name}: the enc-dec batch layout is not ported")
+        tokens = batch["tokens"]
+        x = embed_inputs(cfg, params, tokens, image_embed=batch.get("image_embed"))
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        x, aux = backbone_forward(cfg, params, x, positions, remat=remat, backend="torch")
+        x = apply_norm(cfg, params["ln_f"], x)
+        if fused_loss:
+            ce = fused_next_token_loss(cfg, params, x, tokens)
+        else:
+            ce = next_token_loss(cfg, lm_logits(cfg, params, x), tokens)
+        return ce + (AUX_LOSS_COEF * aux if cfg.num_experts else 0.0)
 
     # -- serving: prefill ---------------------------------------------------
     def prefill(self, params, batch, cache_len: int):

@@ -1,10 +1,16 @@
 """Decoder-only LM of the dense family, from ``repro.models.transformer``.
 
 Parameters of the residual blocks are stacked along a leading layer axis as
-in the reference; a Python loop over that axis takes the place of
-``lax.scan``, with no rematerialization (serving runs under
-``torch.inference_mode()``).  MoE, SSM and hybrid blocks, MLA, learned
-positions and image prefixes are refused with ``arch-not-ported``.
+in the reference; a Python loop over that axis (each stacked leaf unbound
+once, so a backward stacks the layers' gradients in one write) takes the
+place of ``lax.scan``.  ``remat`` is the reference's ``_remat``: ``"none"``,
+``"full"`` (each layer under ``torch.utils.checkpoint``) or ``"selective"``
+(the matmul outputs saved, the rest recomputed: the reference's
+``dots_with_no_batch_dims_saveable``); under no grad it changes nothing.
+:func:`fused_next_token_loss` is the reference's chunked online logsumexp
+over vocab chunks, each chunk checkpointed.  MoE, SSM and hybrid blocks,
+MLA, learned positions and image prefixes are refused with
+``arch-not-ported``.
 """
 
 from __future__ import annotations
@@ -12,6 +18,11 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.experiments.engine import CAP_ARCH, refuse
@@ -29,6 +40,8 @@ from repro_torch.models.layers import (
     tree_map,
     unembed,
 )
+
+AUX_LOSS_COEF = 0.01
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -97,12 +110,52 @@ def _apply_block(cfg: ModelConfig, bp, x, positions, *, backend: str = "cuda"):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def backbone_forward(cfg: ModelConfig, params, x, positions, *, backend: str = "cuda"):
+def _save_products(ctx, op, *args, **kwargs):
+    """Keep the outputs of products with no batch dims, recompute the rest.
+
+    Every ``torch.einsum`` of the model runs as ``aten.bmm``; an einsum with
+    no batch dims (the projections, the MLP, the unembedding) is a ``bmm``
+    of batch 1, attention's scores and mixing have the ``b·h`` batch."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) or (
+            op == torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, mode: str):
+    """``fn`` under the reference's rematerialization ``mode``."""
+    if mode not in ("none", "full", "selective"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+    if mode == "none":
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if mode == "full":
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+            create_selective_checkpoint_contexts(_save_products)))
+
+    return wrapped
+
+
+def unstack_layers(blocks, n: int) -> list:
+    """The per-layer parameter trees of stacked ``blocks``: each leaf unbound
+    once (views; a backward stacks the layers' gradients in one write)."""
+    per_leaf = tree_map(lambda a: a.unbind(0), blocks)
+    return [tree_map(lambda t, i=i: t[i], per_leaf) for i in range(n)]
+
+
+def backbone_forward(cfg: ModelConfig, params, x, positions, *, remat: str = "full",
+                     backend: str = "cuda"):
     """Run all blocks in layer order.  Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, a = _apply_block(cfg, layer_params(params["blocks"], i), x, positions,
-                            backend=backend)
+    for lp in unstack_layers(params["blocks"], cfg.num_layers):
+        def body(xx, lp=lp):
+            return _apply_block(cfg, lp, xx, positions, backend=backend)
+
+        x, a = _remat(body, remat)(x)
         aux = aux + a
     return x, aux
 
@@ -115,6 +168,44 @@ def embed_inputs(cfg: ModelConfig, params, tokens, *, image_embed=None, offset=0
 
 def lm_logits(cfg: ModelConfig, params, x):
     return unembed(cfg, params["embed"], x)
+
+
+def fused_next_token_loss(cfg: ModelConfig, params, x, tokens, *, text_offset: int = 0,
+                          chunk: int = 8192):
+    """Cross-entropy fused with the unembedding, chunked over the vocab.
+
+    Never materializes ``[b, s, V]`` logits: a loop over vocab chunks keeps
+    a running (max, sumexp) pair and the target logit, each chunk's body
+    checkpointed (its ``[b, s, chunk]`` logits recomputed in the backward),
+    as the reference's ``lax.scan`` of ``jax.checkpoint(body)``.  A vocab
+    that ``chunk`` does not divide is one chunk, as in the reference."""
+    if text_offset:
+        x = x[:, text_offset:]
+    xs = x[:, :-1]
+    targets = tokens[:, 1:].long()
+    w = params["embed"]["tok"].T if cfg.tie_embeddings else params["embed"]["unembed"]
+    v = w.shape[1]
+    if v % chunk:
+        chunk = v  # fallback: a single chunk (the smoke configs, and 152064)
+
+    def body(m, s, tl, ci, w_blk):
+        logits = torch.einsum("bsd,dv->bsv", xs, w_blk.to(xs.dtype)).to(torch.float32)
+        m_new = torch.maximum(m, logits.amax(-1))
+        s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
+        # the target logit if it falls inside this chunk
+        local = targets - ci * chunk
+        hit = (local >= 0) & (local < chunk)
+        got = torch.take_along_dim(logits, local.clamp(0, chunk - 1)[..., None], dim=-1)[..., 0]
+        return m_new, s, torch.where(hit, got, tl)
+
+    b, sm1 = targets.shape
+    m = torch.full((b, sm1), -1e30, dtype=torch.float32, device=x.device)
+    s = torch.zeros((b, sm1), dtype=torch.float32, device=x.device)
+    tl = torch.zeros((b, sm1), dtype=torch.float32, device=x.device)
+    step = _remat(body, "full")
+    for ci in range(v // chunk):
+        m, s, tl = step(m, s, tl, ci, w[:, ci * chunk:(ci + 1) * chunk])
+    return torch.mean(torch.log(s) + m - tl)
 
 
 def next_token_loss(cfg: ModelConfig, logits, tokens, *, text_offset: int = 0):

@@ -1,12 +1,17 @@
 """Optimizers of the live trainer, from ``repro.optim.optimizers``.
 
 Optax-like ``(init, update)`` pairs over a single parameter tensor (the
-paper problems' iterate ``V``; the port's Tier-1 state holds one tensor per
-slot, not a pytree), each in the reference's float32 operator order.
+paper problems' iterate ``V``, or a model's flat parameters: the port's
+Tier-1 state holds one tensor per slot, not a pytree), each in the
+reference's float32 operator order.  sgd and adamw are elementwise, so the
+flat tensor of a :class:`~repro_torch.models.layers.FlatLayout` is all they
+need; adafactor and :func:`apply_updates` take the layout and walk its
+leaves, as the reference walks its tree.
 :func:`sgd` computes ``mu = momentum * mu + g`` then ``upd = -lr * (mu +
 weight_decay * p)``, so with ``beta1 = 0`` and ``weight_decay = 0``
 (``paper_train_config``) the iterate rule is ``V - η·Ĥ`` in the same float32
-steps as the reference.  :func:`adamw` is ``TrainConfig()``'s default, and so
+steps as the reference.  :func:`global_norm` sums the flat tensor at once
+where the reference sums per-leaf sums: equal within float32 rounding.  :func:`adamw` is ``TrainConfig()``'s default, and so
 the live trainer's (its bias corrections ``1 - beta ** step`` in float32);
 :func:`adafactor` factors the second moment of a parameter of rank ≥ 2
 (PCA's ``[d, k]`` iterate; logreg's ``[d]`` keeps a full one) and clips the
@@ -21,6 +26,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models.layers import get_path, set_path
 
 
 class Optimizer(NamedTuple):
@@ -82,27 +88,26 @@ def adamw(lr: float, beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
 
 
 def adafactor(lr: float, decay: float = 0.99, eps: float = 1e-30, weight_decay: float = 0.0,
-              clip_threshold: float = 1.0) -> Optimizer:
-    """Factored second-moment optimizer (Shazeer & Stern), no first moment."""
+              clip_threshold: float = 1.0, layout=None) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern), no first moment.
+
+    With ``layout`` the parameters are a flat tensor of that layout: every
+    leaf keeps its own statistics (a tree, as the reference's) and its own
+    RMS clip, and the update is written into the leaf's span."""
 
     def _factored(shape) -> bool:
         return len(shape) >= 2
 
-    def init(params):
+    def leaf_init(shape, device):
         def z(shape):
-            return torch.zeros(shape, dtype=torch.float32, device=params.device)
+            return torch.zeros(shape, dtype=torch.float32, device=device)
 
-        shape = tuple(params.shape)
-        stats = ({"vr": z(shape[:-1]), "vc": z(shape[:-2] + shape[-1:])}
-                 if _factored(shape) else {"v": z(shape)})
-        return {"stats": stats,
-                "step": torch.zeros((), dtype=torch.int32, device=params.device)}
+        return ({"vr": z(shape[:-1]), "vc": z(shape[:-2] + shape[-1:])}
+                if _factored(shape) else {"v": z(shape)})
 
-    def update(grads, state, params):
-        step = state["step"] + 1
-        g = grads.to(torch.float32)
+    def leaf_update(g, s, p):
+        g = g.to(torch.float32)
         g2 = torch.square(g) + eps
-        s = state["stats"]
         if _factored(g.shape):
             vr = decay * s["vr"] + (1 - decay) * g2.mean(dim=-1)
             vc = decay * s["vc"] + (1 - decay) * g2.mean(dim=-2)
@@ -117,21 +122,51 @@ def adafactor(lr: float, decay: float = 0.99, eps: float = 1e-30, weight_decay: 
         # update clipping (RMS)
         rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
-        upd = -lr * (u + weight_decay * params.to(torch.float32))
-        return upd, {"stats": new_s, "step": step}
+        return -lr * (u + weight_decay * p.to(torch.float32)), new_s
+
+    def init(params):
+        dev = params.device
+        if layout is None:
+            stats = leaf_init(tuple(params.shape), dev)
+        else:
+            stats = {}
+            for x in layout.leaves:
+                set_path(stats, x.path, leaf_init(x.shape, dev))
+        return {"stats": stats, "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        if layout is None:
+            upd, stats = leaf_update(grads, state["stats"], params)
+            return upd, {"stats": stats, "step": step}
+        upd = torch.zeros(params.shape, dtype=torch.float32, device=params.device)
+        stats = {}
+        for x, g, p, u in zip(layout.leaves, layout.views(grads), layout.views(params),
+                              layout.views(upd)):
+            leaf_u, leaf_s = leaf_update(g, get_path(state["stats"], x.path), p)
+            u.copy_(leaf_u)
+            set_path(stats, x.path, leaf_s)
+        return upd, {"stats": stats, "step": step}
 
     return Optimizer(init, update)
 
 
-def make_optimizer(tc: TrainConfig) -> Optimizer:
+def make_optimizer(tc: TrainConfig, layout=None) -> Optimizer:
+    """``tc``'s optimizer; ``layout`` when the parameters are a flat tensor of
+    a :class:`~repro_torch.models.layers.FlatLayout` (only adafactor reads it)."""
     if tc.optimizer == "adamw":
         return adamw(tc.learning_rate, tc.beta1, tc.beta2, tc.eps, tc.weight_decay)
     if tc.optimizer == "adafactor":
-        return adafactor(tc.learning_rate, weight_decay=tc.weight_decay)
+        return adafactor(tc.learning_rate, weight_decay=tc.weight_decay, layout=layout)
     if tc.optimizer == "sgd":
         return sgd(tc.learning_rate, momentum=tc.beta1, weight_decay=tc.weight_decay)
     raise ValueError(f"unknown optimizer {tc.optimizer}")
 
 
-def apply_updates(params: torch.Tensor, updates: torch.Tensor) -> torch.Tensor:
-    return (params.to(torch.float32) + updates).to(params.dtype)
+def apply_updates(params: torch.Tensor, updates: torch.Tensor, layout=None) -> torch.Tensor:
+    """``(p.float() + u)`` cast back to the parameters' dtype: with ``layout``
+    each leaf of the flat float32 tensor is rounded to its own dtype."""
+    new = params.to(torch.float32) + updates
+    if layout is not None:
+        return layout.round_(new)
+    return new.to(params.dtype)

@@ -555,11 +555,12 @@ def _code(excinfo) -> str:
 
 
 def test_capability_codes(tmp_path):
-    """What stays refused (a model-zoo arch, a mesh, a job without group
-    gradients, CUDA kernels off the card), and what now runs: checkpoints,
+    """What stays refused (a model-zoo arch of another family, a mesh, a job
+    without a loss or group gradients, CUDA kernels off the card), and what
+    now runs: checkpoints,
     the int8 cache and adamw/adafactor each build and run one step."""
     with pytest.raises(EngineCapabilityError) as e:
-        Trainer(TrainerOptions(arch="qwen1.5-0.5b", engine=CPU))
+        Trainer(TrainerOptions(arch="mamba2-370m", engine=CPU))
     assert _code(e) == CAP_ARCH
     trn = Trainer(TrainerOptions(checkpoint_dir=str(tmp_path), steps=1, engine=CPU))
     assert len(trn.run()["loss"]) == 1 and (tmp_path / "step_00000000").is_dir()
