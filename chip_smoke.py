@@ -195,7 +195,28 @@ Phases (any failure raises and the script exits non-zero):
    within :data:`TRAIN_CHECK_RTOL`); (d) the quickstart
    (``repro_torch.examples.quickstart``): the loss falls; (e) K6 refuses a
    grad-requiring input before any launch;
-14. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+14. serving the MoE, MLA, SSM and hybrid families at their published widths
+   (~1 min): mamba2-370m (48 layers) and zamba2-2.7b (54) at full depth,
+   grok-1-314b and deepseek-v2-236b cut to 4 layers (:data:`FAMILY_ARCHS`),
+   random bf16 weights from seed 0, 4 x 1024-token prompts, 32 greedy tokens
+   through ``Server.generate``; each model freed before the next.  (a) tokens
+   in range, K6 launches per prefill = the GQA applications (grok 4, zamba2
+   9, mamba2 and deepseek's MLA 0), prefill s, decode ms per step, tokens/s,
+   peak memory; (b) K6 against its plain version on the first GQA
+   attention's real q, k, v (:func:`k6_within_tolerance` widened by
+   :func:`score_rounding_slack`, the float32 rounding of scores in the
+   thousands), the model through K6 against it through the plain attention
+   (zamba2 gated in bf16 by :data:`SERVE_TOL` and in float32 by
+   :data:`SERVE_F32_TOL`; grok gated in float32 at one layer, its bf16
+   numbers printed beside the share of (token, layer) pairs whose top-k
+   experts agree), the pairs dropped at the published capacity factor; (c)
+   decode of token s from an (s-1)-token cache against the s-token prefill
+   at a capacity factor that drops no pair (bf16 at the phase's depth, with
+   the float32-score witness beside GQA models' and held for
+   :data:`F32_SCORE_DECODE_GATE`; float32 at full depth or, for MoE, one
+   layer); (d) the smoke config in float32, card against CPU
+   (:data:`FAMILY_CPU_TOL`, greedy tokens equal);
+15. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -203,6 +224,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2710,6 +2732,405 @@ def run_training(torch) -> tuple[dict, dict, dict]:
     return out, launches, row
 
 
+#: phase 14: the archs of the MoE, MLA, SSM and hybrid families at their
+#: published widths: the MoE models cut to this many layers (one card holds
+#: neither whole: grok-1 is 316 B parameters, deepseek-v2 244 B), the others
+#: at full depth
+FAMILY_ARCHS = {"mamba2-370m": None, "zamba2-2.7b": None, "grok-1-314b": 4,
+                "deepseek-v2-236b": 4}
+#: phase 14: batch, prompt length and generated tokens of each model
+FAMILY_B, FAMILY_PROMPT, FAMILY_TOKENS = 4, 1024, 32
+#: phase 14 (c): archs whose bf16 decode-vs-prefill check is held on the
+#: decode with float32 scores (the witness), the served decode's printed
+#: beside it.  grok-1's scores reach 8.7e3 at this init (projection std 0.5
+#: over d_model 6144), where a bf16 score's ulp is 16 to 32: the served decode
+#: attention rounds its scores to bf16 (the reference's ``gqa_decode_step``),
+#: K6's prefill keeps them in float32, so near-tied keys swap weight and the
+#: routing that follows flips (measured on an H100 80GB HBM3 at 700 W: served
+#: 0.585, witness 0.0142, against the 0.5 bound; in float32 at one layer 6.4e-5)
+F32_SCORE_DECODE_GATE = ("grok-1-314b",)
+#: phase 14 (d): the smoke configs in float32 on the card against the CPU
+#: (float32 rounding of cuBLAS and K6 against the CPU's plain ops): logits and
+#: caches within rtol plus this times the largest |CPU| value
+FAMILY_CPU_TOL = 1e-4
+
+
+def gqa_applications(cfg) -> int:
+    """K6 launches per prefill: the GQA attention applications (none for SSM
+    and MLA, one per group of ``attn_every`` layers for the hybrid)."""
+    if cfg.family == "ssm" or cfg.use_mla:
+        return 0
+    return cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.num_layers
+
+
+def no_drop_cf(cfg) -> float:
+    """A capacity factor at which no (token, expert) pair drops: capacity
+    ``t·k·cf / E`` >= t for every expert."""
+    return float(math.ceil(cfg.num_experts / cfg.top_k))
+
+
+class RouteLog:
+    """Stands in for ``moe_apply``: records each call's top-k experts (sorted
+    per token) and the pairs its capacity drops, then calls it."""
+
+    def __init__(self, torch, moe_mod):
+        self.torch, self.moe, self.apply, self.calls = torch, moe_mod, moe_mod.moe_apply, []
+
+    def __call__(self, cfg, p, x, capacity_factor=None):
+        m = self.moe
+        tokens = x.reshape(m.dispatch_chunks(cfg, x.shape[0]), -1, x.shape[-1])
+        idx = m.route(cfg, p, tokens)[2]
+        cap = m.capacity_of(cfg, tokens.shape[1], capacity_factor or cfg.capacity_factor)
+        counts = self.torch.stack([self.torch.bincount(c.reshape(-1), minlength=cfg.num_experts)
+                                   for c in idx])
+        dropped = int((counts - cap).clamp(min=0).sum())
+        self.calls.append((idx.reshape(-1, cfg.top_k).sort(-1).values, dropped))
+        return self.apply(cfg, p, x, capacity_factor=capacity_factor)
+
+
+def family_prefill(torch, model, params, tokens, max_len: int, moe_mod):
+    """Last-position prefill logits and the run's :class:`RouteLog`."""
+    log = RouteLog(torch, moe_mod)
+    with torch.inference_mode(), mock.patch.object(moe_mod, "moe_apply", log):
+        logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    del cache
+    return logits[:, -1], log
+
+
+def decode_vs_prefill(torch, model, params, tokens, max_len: int, want) -> float:
+    """Rel RMS of token s's logits decoded from an (s-1)-token cache against
+    ``want``, the s-token prefill's."""
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": tokens[:, :-1]}, max_len)
+        logits, _ = model.decode_step(params, tokens[:, -1:], cache, tokens.shape[1] - 1)
+    del cache
+    return logit_diff(torch, logits[:, -1], want)[1]
+
+
+#: phase 14 (b): float32 roundings of a score, in units of 2**-24 times the
+#: largest |score| of its row, allowed on each side of K6 and its plain
+#: version (both sum the same exact bf16 products in float32, in other
+#: orders, then scale them): the plain version's scores are off float64's by
+#: up to ~2 such units at grok-1's activations (measured on an H100 80GB HBM3)
+SCORE_ROUNDING_ULPS = 16
+
+
+def score_rounding_slack(torch, q, k, v, out):
+    """How far each output of a causal softmax attention over ``[b, h, s,
+    d]`` float32 inputs moves when every score of its row moves by up to
+    ``eps = SCORE_ROUNDING_ULPS · 2**-24 · max|score|``: ``do/ds_i = p_i (v_i -
+    o)``, so ``|do| <= eps · Σ p_i |v_i - o| <= eps · (P|V| + |o|)``.  Where
+    scores reach thousands (grok-1 at this init) and two keys nearly tie, this
+    float32 rounding moves an output whose values cancel by several of its own
+    bf16 ulps, in K6 and in the plain version alike."""
+    from repro_torch.kernels.flash_attention import NEG_INF
+
+    sq, sk = q.shape[2], k.shape[2]
+    keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(sk - sq)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    eps = SCORE_ROUNDING_ULPS * 2.0**-24 * s.abs().masked_fill(~keep, 0).amax(-1, keepdim=True)
+    p = torch.softmax(s.masked_fill_(~keep, NEG_INF), dim=-1)
+    return eps * (torch.einsum("bhqk,bhkd->bhqd", p, v.abs()) + out.abs())
+
+
+def k6_on_layer_activations(torch, cfg, params, tokens) -> dict:
+    """K6 against its plain version on the first GQA attention's real q, k, v
+    (layer 0; the hybrid's shared block at group 0, after its Mamba2 layers):
+    :func:`k6_within_tolerance`, widened by :func:`score_rounding_slack`; the
+    float64-score result printed beside both as the witness."""
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import apply_norm, apply_rope
+    from repro_torch.models.transformer import embed_inputs, layer_params
+
+    with torch.inference_mode():
+        x = embed_inputs(cfg, params, tokens)
+        if cfg.family == "hybrid":
+            for i in range(cfg.attn_every):
+                lp = layer_params(params["blocks"], i)
+                x = x + ssm_mod.mamba_forward(cfg, lp["mamba"], apply_norm(cfg, lp["ln"], x))
+            block = params["shared_attn"]
+        else:
+            block = layer_params(params["blocks"], 0)
+        q, k, v = attn._project_qkv(cfg, block["attn"], apply_norm(cfg, block["ln1"], x))
+        pos = torch.arange(tokens.shape[1], device="cuda").expand(tokens.shape)
+        q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta)
+        got = k6.flash_attention_bshd(q, k, v).transpose(1, 2).float()
+        g = q.shape[2] // k.shape[2]
+        qh, kh, vh = (t.float().transpose(1, 2) for t in (q, attn._repeat_kv(k, g),
+                                                          attn._repeat_kv(v, g)))
+        want32 = k6.flash_attention_plain(qh, kh, vh)
+        diff = (got - want32).abs()
+        tol = K6_RTOL["bfloat16"] * want32.abs() + K6_ATOL_REL * float(want32.abs().max())
+        strict = int((diff > tol).sum())
+        slack = score_rounding_slack(torch, qh, kh, vh, want32)
+        wide = int((diff > tol + slack).sum())
+        # the witness: attention with float64 scores and probabilities
+        s64 = torch.einsum("bhqd,bhkd->bhqk", qh.double(), kh.double()) / math.sqrt(q.shape[-1])
+        sq = s64.shape[-1]
+        s64.masked_fill_(~torch.ones(sq, sq, dtype=torch.bool, device="cuda").tril(), k6.NEG_INF)
+        exact = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s64, -1), vh.double())
+        del s64
+        err_k6, err_plain = (float((t.double() - exact).abs().max()) for t in (got, want32))
+        res = {"max_abs_err": float(diff.max()), "violations_strict": strict,
+               "violations": wide, "k6_vs_f64": err_k6, "plain_vs_f64": err_plain}
+    print(f"    (b) K6 on the first GQA attention's q, k, v ({q.shape[2]} q / {k.shape[2]} kv "
+          f"heads x {q.shape[3]}, |q| <= {float(q.abs().max()):.1f}): max |K6 - plain| "
+          f"{res['max_abs_err']:.3e}; outside k6_within_tolerance {strict} of {diff.numel()}, "
+          f"outside it widened by the float32 score rounding ({SCORE_ROUNDING_ULPS} ulps of "
+          f"the row's largest score) {wide}; against float64 scores max |K6 - exact| "
+          f"{err_k6:.3e}, max |plain - exact| {err_plain:.3e}")
+    if wide or not bool(torch.isfinite(got).all()):
+        fail(f"phase 14 (b): K6 on {cfg.name}'s layer activations disagrees with its plain "
+             f"version beyond the float32 score rounding at {wide} outputs")
+    return res
+
+
+def card_against_cpu(torch, arch: str) -> dict:
+    """Phase 14 (d): ``arch``'s smoke config in float32 on the card (K6 where
+    the model has GQA) and on the CPU (plain): prefill and 4 greedy decode
+    steps, logits and every cache leaf."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import _leaves, tree_map
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 40)))
+    runs = {}
+    for dev, backend in (("cpu", "torch"), ("cuda", "cuda")):
+        model = build_model(cfg, kernel_backend=backend)
+        p = tree_map(lambda a: a.to(dev), params)
+        steps, tok = [], None
+        with torch.inference_mode():
+            logits, cache = model.prefill(p, {"tokens": toks.to(dev)}, 48)
+            for t in range(5):
+                if t:
+                    logits, cache = model.decode_step(p, tok, cache, 39 + t)
+                tok = logits[:, -1:].argmax(-1)
+                # copies: the next step writes the cache in place
+                leaves = [logits] + [c for _, c in _leaves(cache)]
+                steps.append([a.float().cpu().clone() for a in leaves] + [tok.cpu()])
+        runs[backend] = steps
+    worst = 0.0
+    for s_card, s_cpu in zip(runs["cuda"], runs["torch"]):
+        if not torch.equal(s_card[-1], s_cpu[-1]):
+            fail(f"phase 14 (d): {cfg.name}: greedy tokens differ card vs CPU")
+        for a, b in zip(s_card[:-1], s_cpu[:-1]):
+            scale = float(b.abs().max())
+            if not torch.allclose(a, b, rtol=FAMILY_CPU_TOL, atol=FAMILY_CPU_TOL * scale):
+                fail(f"phase 14 (d): {cfg.name}: card and CPU differ by "
+                     f"{float((a - b).abs().max()):.3e} (|CPU| <= {scale:.3e})")
+            worst = max(worst, float((a - b).abs().max()) / max(scale, 1e-30))
+    return {"max_rel": worst}
+
+
+def run_families(torch) -> dict:
+    """Phase 14: serve the MoE, MLA, SSM and hybrid families at their
+    published widths.  Returns the phase's numbers (``k6_main``: K6's
+    launches in the main path's ``generate`` runs)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import tree_map
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    max_len = FAMILY_PROMPT + FAMILY_TOKENS + 8
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {"k6_main": 0, "models": {}}
+    for arch, depth in FAMILY_ARCHS.items():
+        t_model = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth) if depth else full
+        gqa = gqa_applications(cfg)
+        # the server of this arch over the config at this depth (the published
+        # widths), weights drawn from seed 0 on the card
+        srv = Server(arch, smoke=True, max_len=max_len, device="cuda", seed=0)
+        srv.cfg, srv.model = cfg, build_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        srv.params = srv.model.init(torch.Generator(device="cuda").manual_seed(0))
+        model, params = srv.model, srv.params
+        init_peak = torch.cuda.max_memory_allocated()
+        cut = (f"{depth} of {full.num_layers} layers (cut: one card holds neither MoE model)"
+               if depth else f"all {cfg.num_layers} layers")
+        print(f"  {arch}: {cut}, d_model {cfg.d_model}, {model.num_params() / 1e9:.2f} B "
+              f"parameters (bf16, seed 0; {torch.cuda.memory_allocated() / 2**30:.1f} GiB, "
+              f"init peak {init_peak / 2**30:.1f} GiB); batch {FAMILY_B} x prompt "
+              f"{FAMILY_PROMPT}, {FAMILY_TOKENS} tokens; {gqa} K6 launches per prefill")
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                    (FAMILY_B, FAMILY_PROMPT))
+        tokens = torch.as_tensor(prompts, device="cuda")
+        reset_launch_counts()
+        srv.generate({"tokens": prompts[:, :64]}, 2)  # warm the libraries
+        k6_expected = gqa  # every K6 launch of this model's checks: one per GQA prefill layer
+
+        # (a) generation through the server
+        torch.cuda.reset_peak_memory_stats()
+        n0 = launch_counts()["flash_attention"]
+        toks = srv.generate({"tokens": prompts}, FAMILY_TOKENS)
+        n6 = launch_counts()["flash_attention"] - n0
+        k6_expected += gqa
+        t = srv.timings
+        peak = torch.cuda.max_memory_allocated()
+        if n6 != gqa:
+            fail(f"phase 14 (a): {arch}: {n6} K6 launches for one prefill, expected {gqa}")
+        vocab_padded = params["embed"]["tok"].shape[0]
+        if toks.shape != (FAMILY_B, FAMILY_TOKENS) or not bool(
+                ((toks >= 0) & (toks < vocab_padded)).all()):
+            fail(f"phase 14 (a): {arch}: tokens of shape {tuple(toks.shape)} outside "
+                 f"[0, {vocab_padded})")
+        decode_ms = t["decode"] / (FAMILY_TOKENS - 1) * 1e3
+        tok_s = FAMILY_B * FAMILY_TOKENS / (t["prefill"] + t["decode"])
+        print(f"    (a) generate ({smi}): prefill {t['prefill']:.4f} s "
+              f"({FAMILY_B * FAMILY_PROMPT / t['prefill']:.0f} prompt tok/s), decode "
+              f"{decode_ms:.3f} ms/token step ({FAMILY_B / decode_ms * 1e3:.0f} tok/s), "
+              f"{tok_s:.1f} generated tok/s end to end; peak memory {peak / 2**30:.2f} GiB; "
+              f"K6 launches {n6}")
+        res = {"layers": cfg.num_layers, "params": model.num_params(), "prefill_s": t["prefill"],
+               "decode_ms_per_token": decode_ms, "tokens_per_s": tok_s, "peak_bytes": peak,
+               "init_peak_bytes": init_peak, "k6_launches": n6}
+        out["k6_main"] += n6
+
+        # (b) K6 on the model's real activations, and the whole model through
+        # K6 against it through the plain attention (bf16)
+        lg_main, log_main = family_prefill(torch, model, params, tokens, max_len, moe_mod)
+        k6_expected += gqa
+        if cfg.num_experts:
+            dropped = sum(d for _, d in log_main.calls)
+            res["dropped_pairs_published_cf"] = dropped
+            print(f"    pairs dropped at the published capacity factor "
+                  f"{cfg.capacity_factor}: {dropped} of "
+                  f"{FAMILY_B * FAMILY_PROMPT * cfg.top_k * cfg.num_layers} in one prefill")
+        if gqa:
+            res["k6_on_activations"] = k6_on_layer_activations(torch, cfg, params, tokens)
+            k6_expected += 1
+            plain = build_model(cfg, kernel_backend="torch")
+            lg_plain, log_plain = family_prefill(torch, plain, params, tokens, max_len, moe_mod)
+            rms = logit_diff(torch, lg_main, lg_plain)[1]
+            res["k6_vs_plain_rel_rms_bf16"] = rms
+            line = (f"    (b) bf16 prefill logits through K6 vs the plain attention: rel RMS "
+                    f"{rms:.4f}")
+            if cfg.num_experts:
+                agree = float(np.mean([float((a == b).all(-1).float().mean()) for (a, _), (b, _)
+                                       in zip(log_main.calls, log_plain.calls)]))
+                res["topk_agree_k6_vs_plain"] = agree
+                print(f"{line} (printed, not gated: a routing flip at a near-tie is no kernel "
+                      f"fault); (token, layer) pairs whose top-{cfg.top_k} experts agree "
+                      f"{agree:.4f}")
+            else:
+                tol = SERVE_TOL["k6_vs_plain"]
+                print(f"{line} (tolerance {tol})")
+                if rms > tol:
+                    fail(f"phase 14 (b): {arch}: bf16 K6 and plain prefills differ by rel RMS "
+                         f"{rms} (tolerance {tol})")
+            del plain, log_plain
+
+        # (c) decode of token s from an (s-1)-token cache against the s-token
+        # prefill, bf16, at a capacity factor that drops no pair
+        if cfg.num_experts:
+            cf = no_drop_cf(cfg)
+            model_c = build_model(dataclasses.replace(cfg, capacity_factor=cf))
+            want, _ = family_prefill(torch, model_c, params, tokens, max_len, moe_mod)
+            k6_expected += gqa
+            label = f"bf16, capacity factor {cf:g} (no pair drops)"
+        else:
+            model_c, want, label = model, lg_main, "bf16"
+        dp = decode_vs_prefill(torch, model_c, params, tokens, max_len, want)
+        k6_expected += gqa
+        tol = SERVE_TOL["decode_vs_prefill"]
+        gate = "printed; the witness below is held" if arch in F32_SCORE_DECODE_GATE else tol
+        print(f"    (c) {label}: decode of token {FAMILY_PROMPT} from a "
+              f"{FAMILY_PROMPT - 1}-token cache vs the {FAMILY_PROMPT}-token prefill: rel RMS "
+              f"{dp:.3e} (tolerance {gate})")
+        if gqa:
+            # the witness: the same decode with its attention scores kept in
+            # float32, as K6's prefill keeps them
+            with mock.patch.object(attn, "gqa_decode_step", decode_step_f32_scores):
+                res["decode_vs_prefill_rel_rms_bf16_f32_scores"] = decode_vs_prefill(
+                    torch, model_c, params, tokens, max_len, want)
+            k6_expected += gqa
+            print(f"    (c) the same decode with float32 scores (witness): rel RMS "
+                  f"{res['decode_vs_prefill_rel_rms_bf16_f32_scores']:.3e} (tolerance "
+                  f"{tol if arch in F32_SCORE_DECODE_GATE else 'none: printed'})")
+        gated = (res["decode_vs_prefill_rel_rms_bf16_f32_scores"]
+                 if arch in F32_SCORE_DECODE_GATE else dp)
+        if gated > tol:
+            fail(f"phase 14 (c): {arch}: bf16 decode vs prefill rel RMS {gated} "
+                 f"(tolerance {tol})")
+        res["decode_vs_prefill_rel_rms_bf16"] = dp
+
+        # float32: the MoE models at one layer (grok at four would need 85 GB),
+        # the others at full depth; the bf16 weights cast
+        L32 = 1 if cfg.num_experts else cfg.num_layers
+        cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=L32)
+        if cfg.num_experts:
+            cfg32 = dataclasses.replace(cfg32, capacity_factor=no_drop_cf(cfg))
+        p32 = {k: (tree_map(lambda a: a[:L32].float(), v) if k == "blocks"
+                   else tree_map(lambda a: a.float(), v)) for k, v in params.items()}
+        del srv, model, params, model_c, want, log_main
+        gc.collect()
+        torch.cuda.empty_cache()
+        k6_32 = build_model(cfg32)
+        gqa32 = gqa_applications(cfg32)
+        lg32, _ = family_prefill(torch, k6_32, p32, tokens, max_len, moe_mod)
+        k6_expected += gqa32
+        if gqa:
+            lg32_plain, _ = family_prefill(torch, build_model(cfg32, kernel_backend="torch"),
+                                           p32, tokens, max_len, moe_mod)
+            d32 = logit_diff(torch, lg32, lg32_plain)
+            print(f"    (b) float32 ({L32} layers) through K6 vs the plain attention: prefill "
+                  f"logits max|diff|/max {d32[0]:.3e}, rel RMS {d32[1]:.3e} (tolerance "
+                  f"{SERVE_F32_TOL})")
+            if max(d32) > SERVE_F32_TOL:
+                fail(f"phase 14 (b): {arch}: float32 K6 and plain prefills differ by {d32}")
+            res["k6_vs_plain_f32"] = d32
+            if not cfg.num_experts:  # full depth: the float32 run is the bf16 runs' yardstick
+                e_k6, e_plain = (logit_diff(torch, lg, lg32)[1] for lg in (lg_main, lg_plain))
+                print(f"    bf16 prefill logits against the float32 run: rel RMS through K6 "
+                      f"{e_k6:.4f}, through the plain attention {e_plain:.4f} (printed)")
+                res.update(bf16_k6_vs_f32_rel_rms=e_k6, bf16_plain_vs_f32_rel_rms=e_plain)
+        dp32 = decode_vs_prefill(torch, k6_32, p32, tokens, max_len, lg32)
+        k6_expected += gqa32
+        print(f"    (c) float32 ({L32} layers): decode vs prefill rel RMS {dp32:.3e} "
+              f"(tolerance {SERVE_F32_TOL})")
+        if dp32 > SERVE_F32_TOL:
+            fail(f"phase 14 (c): {arch}: float32 decode vs prefill rel RMS {dp32} "
+                 f"(tolerance {SERVE_F32_TOL})")
+        res["decode_vs_prefill_rel_rms_f32"] = dp32
+        del k6_32, p32, lg32, lg_main
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the smoke config, float32: the card against the CPU
+        d = card_against_cpu(torch, arch)
+        smoke_gqa = gqa_applications(get_smoke_config(arch))
+        print(f"    (d) smoke config, float32, prefill + 4 greedy steps: card == CPU tokens, "
+              f"logits and caches within max |diff| / max|CPU| {d['max_rel']:.2e} "
+              f"(tolerance rtol {FAMILY_CPU_TOL} + {FAMILY_CPU_TOL} x max)")
+        res["card_vs_cpu_max_rel"] = d["max_rel"]
+        k6_expected += smoke_gqa
+        total = launch_counts()["flash_attention"]
+        if total != k6_expected:
+            fail(f"phase 14: {arch}: {total} K6 launches, expected {k6_expected} (one per GQA "
+                 f"layer of each prefill through K6, one on the activations)")
+        res["seconds"] = time.perf_counter() - t_model
+        print(f"    K6 launches for {arch} in the phase: {total} (the main path's {n6}); "
+              f"{res['seconds']:.1f} s")
+        out["models"][arch] = res
+    return out
+
+
 def profile_run(torch, label: str, setup, iters: int) -> dict | None:
     """One warm run under ``torch.profiler``: host wall clock (ending in a
     synchronize), the union of device kernel intervals (busy time), the idle
@@ -2824,6 +3245,43 @@ def profile_serving(torch) -> None:
         return model.decode_step(params, tok, cache, SERVE_PROMPT)
 
     profile_run(torch, "serve decode step", lambda: step, 1)
+
+
+def profile_families(torch) -> None:
+    """``--profile``: phase 14's models (the same configs, weights and
+    prompts): one prefill and one decode step each, their device idle share
+    and kernels per step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    max_len = FAMILY_PROMPT + FAMILY_TOKENS + 8
+    for arch, depth in FAMILY_ARCHS.items():
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, num_layers=depth) if depth else cfg
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (FAMILY_B, FAMILY_PROMPT)), device="cuda")
+
+        @torch.inference_mode()
+        def prefill():
+            return model.prefill(params, {"tokens": tokens}, max_len)
+
+        profile_run(torch, f"{arch} prefill", lambda: prefill, 1)
+        logits, cache = prefill()
+        tok = logits[:, -1].argmax(-1)[:, None]
+
+        @torch.inference_mode()
+        def step():
+            return model.decode_step(params, tok, cache, FAMILY_PROMPT)
+
+        profile_run(torch, f"{arch} decode step", lambda: step, 1)
+        del model, params, cache, logits, prefill, step
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -2976,6 +3434,10 @@ def main() -> None:
             check_flash(torch, SERVE_B, 16, 1, SERVE_PROMPT + SERVE_TOKENS + 5, 64, rng),
             check_flash(torch, SERVE_B, 16, 2085, 2085, 64, rng),
             check_flash(torch, SERVE_B, 16, SERVE_PROMPT, SERVE_PROMPT, 64, rng, kvh=2),
+            # phase 14's GQA prefills: grok-1 (48 q / 8 kv heads x 128) and
+            # zamba2's shared block (32 heads x 80, run zero-padded to 128)
+            check_flash(torch, FAMILY_B, 48, FAMILY_PROMPT, FAMILY_PROMPT, 128, rng, kvh=8),
+            check_flash(torch, FAMILY_B, 32, FAMILY_PROMPT, FAMILY_PROMPT, 80, rng),
         ],
     }
     # K1 and K2 at the scalar simulator's single task and the host engine's
@@ -3033,6 +3495,7 @@ def main() -> None:
         profile_paths(torch)
         profile_serving(torch)
         profile_training(torch)
+        profile_families(torch)
     if {"--quick", "--profile", "--build-times"} & set(sys.argv[1:]):
         print(json.dumps({"per_kernel": per_kernel}))
         return
@@ -3076,13 +3539,20 @@ def main() -> None:
     training, train_launches, k4_row = run_training(torch)
     per_kernel["dsag_cache_update"].append(k4_row)
     print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
-    print("phase 14: the kernels line")
+    print("phase 14: serving the MoE, MLA, SSM and hybrid families at full width "
+          "(mamba2-370m and zamba2-2.7b at full depth; grok-1-314b and deepseek-v2-236b cut "
+          "to 4 layers)")
+    t0 = time.perf_counter()
+    families = run_families(torch)
+    families["seconds"] = time.perf_counter() - t0
+    print(f"  phase 14 took {families['seconds']:.1f} s")
+    print("phase 15: the kernels line")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
                 + engine_launches.get(k, 0) + lb_launches.get(k, 0)
                 + churn_launches.get(k, 0) + paper_launches.get(k, 0)
                 + sharding_launches.get(k, 0) + train_launches.get(k, 0)
                 for k in sweep_launches}
-    launches["flash_attention"] = serving["launches"]
+    launches["flash_attention"] = serving["launches"] + families["k6_main"]
 
     meta = {
         "logreg_block_sub": ("src/repro_torch/kernels/csrc/block_sub.cu",
@@ -3120,6 +3590,7 @@ def main() -> None:
             launches_sharding=sharding_launches.get(name, 0),
             launches_train=train_launches.get(name, 0),
             launches_serve=serving["launches"] if name == "flash_attention" else 0,
+            launches_families=families["k6_main"] if name == "flash_attention" else 0,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -3129,6 +3600,7 @@ def main() -> None:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"roofline": analysis}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

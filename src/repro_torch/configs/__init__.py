@@ -1,8 +1,11 @@
 """Configuration dataclasses of the port and the registry of the model archs
 it serves: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-The port serves the dense family; every other arch of the JAX package's
-registry is refused with :data:`~repro_torch.experiments.engine.CAP_ARCH`.
+The port serves the dense family (qwen1.5-0.5b, qwen2-7b), MoE (grok-1-314b;
+deepseek-v2-236b, with MLA), SSM (mamba2-370m) and hybrid (zamba2-2.7b)
+archs; every other arch of the JAX package's registry (the enc-dec and VLM
+families, learned positions, the GELU MLP) is refused with
+:data:`~repro_torch.experiments.engine.CAP_ARCH`.
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ from repro_torch.experiments.engine import CAP_ARCH, refuse
 _MODULES: dict[str, str] = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
 }
 
 ARCHS = tuple(_MODULES)

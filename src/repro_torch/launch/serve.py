@@ -1,10 +1,13 @@
 """Batched serving: prefill a prompt batch, then decode greedily, from
 ``repro.launch.serve``.
 
-On the card by default, with prefill attention through CUDA kernel K6;
+On the card by default, with GQA prefill attention through CUDA kernel K6;
 ``--device cpu --kernel-backend torch`` runs the plain path on the CPU.
-Without ``--full`` it serves the arch's smoke config, as the reference's CLI
-does; with it, the published widths and depth.
+``--arch`` takes every arch of ``repro_torch.configs.ARCHS``: the dense
+(qwen1.5-0.5b, qwen2-7b), MoE (grok-1-314b; deepseek-v2-236b with MLA), SSM
+(mamba2-370m) and hybrid (zamba2-2.7b) families.  Without ``--full`` it
+serves the arch's smoke config, as the reference's CLI does; with it, the
+published widths and depth (one card holds neither MoE model whole).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --kernel-backend torch

@@ -37,8 +37,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 40 \\
       --checkpoint-dir ckpt [--restore]
 
-Not ported (refused with a capability code): the model zoo's other
-families (:data:`CAP_ARCH`) and, through the Tier-1 step, a mesh.
+Not ported (refused with a capability code): training the model zoo's
+other families (:data:`CAP_ARCH`: MoE, MLA, SSM and hybrid archs are
+served, not trained) and, through the Tier-1 step, a mesh.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ from repro_torch.ft.validation import trace_latency_fn
 from repro_torch.latency.model import make_heterogeneous_cluster
 from repro_torch.launch.paper_jobs import PAPER_ARCHES, make_paper_job, paper_train_config
 from repro_torch.models import build_model
+from repro_torch.models.transformer import check_trainable
 
 __all__ = ["CAP_ARCH", "Trainer", "TrainerOptions", "check_history", "main"]
 
@@ -138,6 +140,7 @@ class Trainer:
             cfg = get_smoke_config(opts.arch) if opts.smoke else get_config(opts.arch)
             if opts.dtype is not None:
                 cfg = dataclasses.replace(cfg, dtype=opts.dtype)
+            check_trainable(cfg)
             self.cfg = cfg
             self.model = build_model(cfg)
             self.layout = self.model.layout

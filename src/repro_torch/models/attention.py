@@ -1,5 +1,5 @@
-"""GQA attention (+RoPE, optional QKV bias) with prefill and KV-cached decode
-paths, from ``repro.models.attention``.
+"""GQA attention (+RoPE, optional QKV bias) and MLA (deepseek-v2) with
+prefill and KV-cached decode paths, from ``repro.models.attention``.
 
 The math follows the reference op for op: scores are formed in the
 activation dtype and softmaxed in float32, probabilities cast back, and
@@ -14,7 +14,15 @@ the reference's ``full_attention`` / ``chunked_attention`` as written.
 Decode attention (:func:`gqa_decode_step`) is a plain einsum over the
 cache, as the reference computes it outside any Pallas kernel; it writes
 the new key and value into the cache in place (the reference donates the
-cache to its jitted step).  MLA and cross-attention are not ported.
+cache to its jitted step).
+
+MLA (:func:`mla_forward`, :func:`mla_prefill_with_cache`, the absorbed
+:func:`mla_decode_step`) attends through the plain attention on every
+device (``backend="torch"``), as the reference's MLA does: its q/k head dim
+(``qk_nope_dim + qk_rope_dim``, 192 at deepseek-v2) differs from its v head
+dim and passes its own scale, and K6 takes neither (head dims up to 128,
+the default scale).  Its cache is the compressed ``c_kv`` and the shared
+``k_rope``, written in place at decode.  Cross-attention is not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +63,20 @@ def gqa_decls(cfg: ModelConfig, heads: int | None = None) -> dict[str, ParamDecl
         out["bk"] = ParamDecl((kvh, hd), ("kv_heads", "head"), init="zeros")
         out["bv"] = ParamDecl((kvh, hd), ("kv_heads", "head"), init="zeros")
     return out
+
+
+def mla_decls(cfg: ModelConfig) -> dict[str, ParamDecl]:
+    d, h = cfg.d_model, cfg.num_heads
+    nope, rope, vh, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    return {
+        "wq": ParamDecl((d, h, nope + rope), ("embed", "heads", "head"), init="scaled"),
+        "w_dkv": ParamDecl((d, lora), ("embed", "lora"), init="scaled"),
+        "w_kr": ParamDecl((d, rope), ("embed", "head"), init="scaled"),
+        "kv_norm": ParamDecl((lora,), ("lora",), init="ones", dtype="float32"),
+        "w_uk": ParamDecl((lora, h, nope), ("lora", "heads", "head"), init="scaled"),
+        "w_uv": ParamDecl((lora, h, vh), ("lora", "heads", "head"), init="scaled"),
+        "wo": ParamDecl((h, vh, d), ("heads", "head", "embed"), init="scaled"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -197,3 +219,79 @@ def gqa_decode_step(cfg: ModelConfig, params, x, cache, index: int,
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): low-rank compressed KV
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(cfg: ModelConfig, params, x, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    q_nope = q[..., :cfg.qk_nope_dim]
+    q_rope = apply_rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(cfg: ModelConfig, params, x, positions):
+    c_kv = torch.einsum("bsd,dl->bsl", x, params["w_dkv"].to(x.dtype))
+    # RMSNorm on the compressed kv stream (deepseek-v2)
+    c32 = c_kv.to(torch.float32)
+    c32 = c32 * torch.rsqrt(torch.mean(torch.square(c32), dim=-1, keepdim=True) + cfg.norm_eps)
+    c_kv = (c32 * params["kv_norm"]).to(x.dtype)
+    k_rope = torch.einsum("bsd,dk->bsk", x, params["w_kr"].to(x.dtype))
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_prefill_with_cache(cfg: ModelConfig, params, x, positions, *, causal: bool = True):
+    """Expanded-form MLA over a full sequence, through the plain attention.
+    Returns (y, {"c_kv": [b, s, lora], "k_rope": [b, s, rope]}) (unpadded:
+    the caller writes them into its cache)."""
+    q_nope, q_rope = _mla_q(cfg, params, x, positions)
+    c_kv, k_rope = _mla_ckv(cfg, params, x, positions)
+    k_nope = torch.einsum("bsl,lhn->bshn", c_kv, params["w_uk"].to(x.dtype))
+    v = torch.einsum("bsl,lhn->bshn", c_kv, params["w_uv"].to(x.dtype))
+    h = k_nope.shape[2]
+    k_rope_b = k_rope[:, :, None, :].expand(*k_rope.shape[:2], h, k_rope.shape[-1])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    out = _attend(q, k, v, causal=causal, scale=mla_scale(cfg), backend="torch")
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return y, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_forward(cfg: ModelConfig, params, x, positions, *, causal: bool = True):
+    """Expanded-form MLA for training / prefill: x [b, s, d]."""
+    return mla_prefill_with_cache(cfg, params, x, positions, causal=causal)[0]
+
+
+def mla_decode_step(cfg: ModelConfig, params, x, cache, index: int):
+    """Absorbed-matmul MLA decode: attention runs in the compressed space.
+    x [b, 1, d]; cache c_kv [b, S, lora] and k_rope [b, S, rope], written in
+    place at ``index``."""
+    index = int(index)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    S = c_kv.shape[1]
+    if not 0 <= index < S:
+        raise ValueError(f"decode index {index} outside the cache of length {S}")
+    pos = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, params, x, pos)
+    c_new, kr_new = _mla_ckv(cfg, params, x, pos)
+    c_kv[:, index:index + 1] = c_new.to(c_kv.dtype)
+    k_rope[:, index:index + 1] = kr_new.to(k_rope.dtype)
+    # absorb W_uk into the query:  q~ = W_uk^T q_nope   [b, 1, h, lora]
+    q_t = torch.einsum("bqhn,lhn->bqhl", q_nope, params["w_uk"].to(x.dtype))
+    scores = (torch.einsum("bqhl,bsl->bhqs", q_t, c_kv)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope, k_rope)).to(torch.float32) * mla_scale(cfg)
+    valid = torch.arange(S, device=x.device)[None, None, None, :] <= index
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhqs,bsl->bqhl", probs, c_kv)  # attend in compressed space
+    out = torch.einsum("bqhl,lhn->bqhn", ctx, params["w_uv"].to(x.dtype))
+    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return y, {"c_kv": c_kv, "k_rope": k_rope}

@@ -63,7 +63,8 @@ def _init_leaf(decl: ParamDecl, gen: torch.Generator, dtype) -> torch.Tensor:
     else:
         raise ValueError(decl.init)
     draw = torch.randn(decl.shape, generator=gen, dtype=torch.float32, device=dev)
-    return (draw * std).to(dt)
+    # scaled in place: a full-width MoE leaf's float32 draw is tens of GB
+    return draw.mul_(std).to(dt)
 
 
 def is_decl(x) -> bool:

@@ -1,16 +1,23 @@
-"""Decoder-only LM of the dense family, from ``repro.models.transformer``.
+"""Decoder-only LM covering the dense, MoE, SSM and hybrid families, from
+``repro.models.transformer``.
 
 Parameters of the residual blocks are stacked along a leading layer axis as
 in the reference; a Python loop over that axis (each stacked leaf unbound
 once, so a backward stacks the layers' gradients in one write) takes the
-place of ``lax.scan``.  ``remat`` is the reference's ``_remat``: ``"none"``,
-``"full"`` (each layer under ``torch.utils.checkpoint``) or ``"selective"``
-(the matmul outputs saved, the rest recomputed: the reference's
-``dots_with_no_batch_dims_saveable``); under no grad it changes nothing.
-:func:`fused_next_token_loss` is the reference's chunked online logsumexp
-over vocab chunks, each chunk checkpointed.  MoE, SSM and hybrid blocks,
-MLA, learned positions and image prefixes are refused with
-``arch-not-ported``.
+place of ``lax.scan``.  The hybrid family (zamba2) adds one *shared*
+attention + MLP block (``shared_attn``), applied after every group of
+``attn_every`` Mamba2 layers.  ``remat`` is the reference's ``_remat``:
+``"none"``, ``"full"`` (each layer under ``torch.utils.checkpoint``) or
+``"selective"`` (the matmul outputs saved, the rest recomputed: the
+reference's ``dots_with_no_batch_dims_saveable``); under no grad it changes
+nothing.  :func:`fused_next_token_loss` is the reference's chunked online
+logsumexp over vocab chunks, each chunk checkpointed.
+
+Serving (``models/model.py``) takes every family declared here; the
+training forward (:func:`backbone_forward`) takes the dense family only
+(:func:`check_trainable`).  Learned positions, the GELU MLP and the
+enc-dec and VLM families are refused with ``arch-not-ported``
+(:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.experiments.engine import CAP_ARCH, refuse
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamDecl,
     apply_norm,
@@ -45,7 +54,24 @@ AUX_LOSS_COEF = 0.01
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Refuse every model feature outside the dense GQA family."""
+    """Refuse every model feature the port does not serve: the enc-dec and
+    VLM families, learned positions and the GELU MLP."""
+    what = []
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        what.append(f"the {cfg.family} family")
+    if cfg.max_position_embeddings:
+        what.append("learned positions")
+    if not cfg.mlp_swiglu:
+        what.append("the GELU MLP")
+    if what:
+        raise refuse(CAP_ARCH, f"{cfg.name}: {', '.join(what)} not ported; the port "
+                               f"serves the dense, moe, ssm and hybrid families")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse every model the port cannot train: all but the dense GQA family
+    (MoE with its aux loss, MLA, SSM and hybrid serve only)."""
+    check_ported(cfg)
     what = []
     if cfg.family != "dense":
         what.append(f"the {cfg.family} family")
@@ -53,13 +79,9 @@ def check_ported(cfg: ModelConfig) -> None:
         what.append("MLA")
     if cfg.num_experts:
         what.append("experts")
-    if cfg.max_position_embeddings:
-        what.append("learned positions")
-    if not cfg.mlp_swiglu:
-        what.append("the GELU MLP")
     if what:
-        raise refuse(CAP_ARCH, f"{cfg.name}: {', '.join(what)} not ported; the port "
-                               f"serves dense GQA models")
+        raise refuse(CAP_ARCH, f"{cfg.name}: training {', '.join(what)} is not ported; "
+                               f"the port trains dense GQA models")
 
 
 def stack_decls(decls, n: int):
@@ -80,20 +102,43 @@ def padded_heads(cfg: ModelConfig) -> int:
 def _block_decls(cfg: ModelConfig) -> dict[str, Any]:
     """One residual block of the stacked part of the model."""
     check_ported(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ln": norm_decls(cfg), "mamba": ssm_mod.mamba_decls(cfg)}
+    out: dict[str, Any] = {"ln1": norm_decls(cfg), "ln2": norm_decls(cfg)}
+    if cfg.use_mla:
+        out["attn"] = attn.mla_decls(cfg)
+    else:
+        out["attn"] = attn.gqa_decls(cfg, heads=padded_heads(cfg))
+    if cfg.num_experts:
+        out["moe"] = moe_mod.moe_decls(cfg)
+    else:
+        out["mlp"] = mlp_decls(cfg, swiglu=cfg.mlp_swiglu)
+    return out
+
+
+def _shared_attn_decls(cfg: ModelConfig) -> dict[str, Any]:
+    """zamba2: one shared full attention + MLP block used every attn_every
+    layers (weights shared across its invocations)."""
     return {
         "ln1": norm_decls(cfg),
-        "ln2": norm_decls(cfg),
         "attn": attn.gqa_decls(cfg, heads=padded_heads(cfg)),
-        "mlp": mlp_decls(cfg, swiglu=cfg.mlp_swiglu),
+        "ln2": norm_decls(cfg),
+        "mlp": mlp_decls(cfg, swiglu=True),
     }
 
 
 def lm_decls(cfg: ModelConfig) -> dict[str, Any]:
-    return {
+    decls = {
         "embed": embed_decls(cfg),
         "blocks": stack_decls(_block_decls(cfg), cfg.num_layers),
         "ln_f": norm_decls(cfg),
     }
+    if cfg.family == "hybrid":
+        if cfg.num_layers % cfg.attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are no whole number of "
+                             f"groups of {cfg.attn_every}")
+        decls["shared_attn"] = _shared_attn_decls(cfg)
+    return decls
 
 
 def layer_params(blocks, i: int):
@@ -149,7 +194,8 @@ def unstack_layers(blocks, n: int) -> list:
 
 def backbone_forward(cfg: ModelConfig, params, x, positions, *, remat: str = "full",
                      backend: str = "cuda"):
-    """Run all blocks in layer order.  Returns (x, aux_loss)."""
+    """Run all blocks in layer order (the dense family).  Returns (x, aux_loss)."""
+    check_trainable(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params["blocks"], cfg.num_layers):
         def body(xx, lp=lp):

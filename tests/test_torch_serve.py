@@ -52,7 +52,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.experiments.engine import (
     CAP_ARCH,
     CAP_CUDA_KERNELS_OFF_DEVICE,
@@ -95,6 +95,8 @@ K6_DTYPES = ("float32", "bfloat16")
 #: calls at the edge of the contract: (sq, sk, causal, block_k)
 K6_CONTRACT = [(8, 4, True, 128), (130, 129, True, 128), (128, 130, False, 128),
                (64, 64, False, 128), (4, 8, True, 128), (64, 256, False, 128)]
+#: the dense archs (the other families: ``test_torch_families.py``)
+ARCHS = ("qwen1.5-0.5b", "qwen2-7b")
 #: model cases: smoke configs in both dtypes; prompt, cache slack, decode steps
 MODEL_CASES = [(a, dt) for a in ARCHS for dt in ("float32", "bfloat16")]
 B, S, SLACK, STEPS, GEN = 2, 12, 8, 4, 8
@@ -453,7 +455,8 @@ def _code(excinfo) -> str:
     return excinfo.value.capability.code
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "deepseek-v2-236b", "whisper-base", "gpt-x"])
+@pytest.mark.parametrize("arch", ["pixtral-12b", "starcoder2-15b", "whisper-base", "qwen1.5-32b",
+                                  "gpt-x"])
 def test_unported_archs_are_refused(arch):
     with pytest.raises(EngineCapabilityError) as e:
         get_config(arch)
@@ -463,9 +466,11 @@ def test_unported_archs_are_refused(arch):
     assert _code(e) == CAP_ARCH
 
 
-@pytest.mark.parametrize("change", [dict(family="moe", num_experts=4), dict(use_mla=True),
-                                    dict(family="ssm"), dict(family="enc_dec"),
-                                    dict(mlp_swiglu=False), dict(max_position_embeddings=64)])
+@pytest.mark.parametrize("change", [dict(family="vlm", num_image_tokens=16), dict(family="vlm"),
+                                    dict(family="enc_dec"), dict(mlp_swiglu=False),
+                                    dict(max_position_embeddings=64),
+                                    dict(family="moe", num_experts=4, top_k=2, d_ff_expert=128,
+                                         max_position_embeddings=64)])
 def test_unported_model_features_are_refused(change):
     cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), **change)
     with pytest.raises(EngineCapabilityError) as e:
