@@ -1,18 +1,19 @@
 """Configuration dataclasses of the port and the registry of the model archs
 it serves: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 
-The port serves the dense family (qwen1.5-0.5b, qwen2-7b), MoE (grok-1-314b;
-deepseek-v2-236b, with MLA), SSM (mamba2-370m) and hybrid (zamba2-2.7b)
-archs; every other arch of the JAX package's registry (the enc-dec and VLM
-families, learned positions, the GELU MLP) is refused with
-:data:`~repro_torch.experiments.engine.CAP_ARCH`.
+Every arch of the JAX package's registry is here: the dense family
+(qwen1.5-0.5b, qwen2-7b, qwen1.5-32b, starcoder2-15b), MoE (grok-1-314b;
+deepseek-v2-236b, with MLA), SSM (mamba2-370m), hybrid (zamba2-2.7b), VLM
+(pixtral-12b) and enc-dec (whisper-base).  All of them serve; the dense,
+VLM and enc-dec archs also train (``models/transformer.py::check_trainable``).
+An unknown name is refused with :data:`~repro_torch.experiments.engine.CAP_ARCH`.
 """
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, TrainConfig
+from repro_torch.configs.base import SHAPES, MeshConfig, ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.experiments.engine import CAP_ARCH, refuse
 
 _MODULES: dict[str, str] = {
@@ -22,6 +23,10 @@ _MODULES: dict[str, str] = {
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "grok-1-314b": "repro_torch.configs.grok1_314b",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "qwen1.5-32b": "repro_torch.configs.qwen1_5_32b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
+    "whisper-base": "repro_torch.configs.whisper_base",
 }
 
 ARCHS = tuple(_MODULES)
@@ -29,7 +34,7 @@ ARCHS = tuple(_MODULES)
 
 def _module(name: str):
     if name not in _MODULES:
-        raise refuse(CAP_ARCH, f"arch {name!r} is not ported; the port serves {ARCHS}")
+        raise refuse(CAP_ARCH, f"arch {name!r} is not in the registry; the port serves {ARCHS}")
     return importlib.import_module(_MODULES[name])
 
 
@@ -41,5 +46,5 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
 
-__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "TrainConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCHS", "SHAPES", "MeshConfig", "ModelConfig", "ShapeConfig", "TrainConfig",
+           "get_config", "get_smoke_config"]

@@ -2,15 +2,18 @@
 
 The same frozen dataclasses with the same fields, defaults and properties,
 so a configuration reads the same in both packages.  :class:`ModelConfig`
-describes the model zoo, of which the port serves the dense family
-(``repro_torch.launch.serve``); the other families' fields are kept for
-parity and refused where a model is built.  :class:`TrainConfig` configures
-the live trainer, which runs the paper problems only
-(``launch/paper_jobs.py``); fields that configure the model zoo's sharding
-are kept for parity and must stay at their defaults here (a mesh is refused
-by :mod:`repro_torch.launch.train`).  :class:`ShapeConfig` names one input
-shape (what :func:`repro_torch.analysis.roofline.model_flops` counts), and
-:data:`SHAPES` the reference's cells.
+describes the model zoo, every family of which the port serves
+(``repro_torch.launch.serve``: dense, MoE, MLA, SSM, hybrid, VLM and
+enc-dec); the dense, VLM and enc-dec families also train through the
+model-zoo branch of ``repro_torch.launch.train``, the others are refused
+there.  :class:`TrainConfig` configures the live trainer, for the paper
+problems (``launch/paper_jobs.py``) and the model zoo; fields that
+configure the model zoo's sharding are kept for parity and must stay at
+their defaults here (a mesh is refused by ``core/dsag_pjit.py``).
+:class:`MeshConfig` is the reference's mesh description, kept for parity:
+nothing in the port builds a mesh from it yet.  :class:`ShapeConfig` names
+one input shape (what :func:`repro_torch.analysis.roofline.model_flops`
+counts), and :data:`SHAPES` the reference's cells.
 """
 
 from __future__ import annotations
@@ -145,3 +148,24 @@ class TrainConfig:
     # fault tolerance
     checkpoint_every: int = 200
     keep_checkpoints: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: tuple[int, ...] = (16, 16)
+    axes: tuple[str, ...] = ("data", "model")
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))

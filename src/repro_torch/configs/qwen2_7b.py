@@ -2,8 +2,7 @@
 vocab=152064 — GQA, QKV bias.  Heads padded 28->32 for TP=16.
 [arXiv:2407.10671]
 
-Copied from ``repro.configs.qwen2_7b``; the port serves its smoke config
-(GQA with kv=2), which covers ``_repeat_kv``."""
+Copied from ``repro.configs.qwen2_7b``."""
 
 from repro_torch.configs.base import ModelConfig
 

@@ -5,9 +5,9 @@ and decode greedily with the O(1)-state SSM cache (the reference's
   PYTHONPATH=src python -m repro_torch.examples.serve_decode --arch zamba2-2.7b
   PYTHONPATH=src python -m repro_torch.examples.serve_decode --device cpu --kernel-backend torch
 
-Any arch the port serves runs here; the reference's enc-dec (whisper-base)
-and VLM (pixtral-12b) branches, which add audio or image embeddings to the
-batch, are not ported: those archs exit with ``arch-not-ported``.
+Any arch of the registry runs here; for the enc-dec (whisper-base) and VLM
+(pixtral-12b) archs the batch also carries the stub frontend's audio or
+image embeddings, as the reference's example adds them.
 """
 
 from __future__ import annotations
@@ -16,10 +16,9 @@ import argparse
 import sys
 import time
 
-import numpy as np
-
+from repro_torch.configs import get_smoke_config
 from repro_torch.experiments.engine import EngineCapabilityError
-from repro_torch.launch.serve import Server
+from repro_torch.launch.serve import Server, prompt_positions, stub_batch
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -33,13 +32,13 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
 
     try:
-        srv = Server(args.arch, smoke=True, max_len=args.prompt_len + args.tokens + 8,
+        cfg = get_smoke_config(args.arch)
+        srv = Server(args.arch, smoke=True,
+                     max_len=prompt_positions(cfg, args.prompt_len) + args.tokens + 8,
                      device=args.device, kernel_backend=args.kernel_backend)
     except EngineCapabilityError as e:
         sys.exit(f"{e.capability.code}: {e}")
-    cfg = srv.cfg
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))}
+    batch = stub_batch(srv.cfg, args.batch, args.prompt_len)
     t0 = time.perf_counter()
     out = srv.generate(batch, args.tokens)
     dt = time.perf_counter() - t0

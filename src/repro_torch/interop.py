@@ -24,7 +24,7 @@ from repro_torch.core.problems import (
 )
 from repro_torch.latency.model import FleetTraces
 from repro_torch.models.layers import FlatLayout, ParamDecl, tree_map, torch_dtype
-from repro_torch.models.transformer import lm_decls
+from repro_torch.models.model import model_decls
 from repro_torch.optim.compression import Quantized
 
 
@@ -124,7 +124,8 @@ def model_params_from_arrays(cfg, tree, device="cuda") -> dict:
     """The port's parameters of ``cfg``'s model from the reference's tree.
 
     ``tree`` is the reference's parameter tree as nested dicts of numpy
-    arrays (the same keys, stacked ``[L, ...]`` block leaves).  Each leaf is
+    arrays (the same keys, stacked ``[L, ...]`` block leaves; whisper's
+    ``enc_blocks``, ``enc_pos``, ``cross`` and ``ln_x`` included).  Each leaf is
     stored in its declared dtype; bfloat16 leaves travel as float32 arrays
     holding bfloat16 values, so the conversion is exact.
     """
@@ -142,7 +143,7 @@ def model_params_from_arrays(cfg, tree, device="cuda") -> dict:
                              f"declared {sorted(decl)}")
         return {k: convert(decl[k], a[k], f"{path}/{k}") for k in decl}
 
-    return convert(lm_decls(cfg), tree, "")
+    return convert(model_decls(cfg), tree, "")
 
 
 def model_train_state_from_arrays(cfg, params, opt, dsag, step, device="cuda",
@@ -160,7 +161,7 @@ def model_train_state_from_arrays(cfg, params, opt, dsag, step, device="cuda",
     row of the leaf's last axis).  ``step`` is an int.
     """
     dev = torch.device(device)
-    layout = FlatLayout.from_decls(lm_decls(cfg), cfg.dtype)
+    layout = FlatLayout.from_decls(model_decls(cfg), cfg.dtype)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)

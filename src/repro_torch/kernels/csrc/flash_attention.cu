@@ -45,10 +45,19 @@
 // serving shape).  mma.sync reaches about two thirds of the card's bf16 rate;
 // wgmma with TMA and warp specialisation is the step after this one.
 //
+// Head dims: 64, 128 and 256 are built; the wrapper zero-pads any other d up
+// to the next of them (the reference pads d to a multiple of 128 lanes).  At
+// d = 256 the bf16 kernel's tiles take (64 + 4 * 64) * 256 * 2 B = 160 KiB of
+// shared memory (above the 48 KiB default, so the launch raises the limit
+// with cudaFuncSetAttribute, as it does for every instantiation) and its
+// float32 accumulator 128 registers a thread: what -Xptxas -v reports for it,
+// spills included, is printed by chip_smoke.py's phase 2.  The float32 kernel
+// at d = 256 takes 217 KiB of shared memory, under the 227 KiB a block may use.
+//
 // float32 (flash_fwd_kernel), the correctness path (the float32 model held to
 // 1e-3 of the reference's full_attention).  256 threads form a 16 x 16 grid:
 // thread (ty, tx) owns query rows ty*4 .. ty*4+3, keys tx*4 .. tx*4+3 of a
-// tile and output columns tx*4 .. tx*4+3 (+64 for d = 128); a row's 16
+// tile and output columns 64 g + tx*4 .. 64 g + tx*4+3 for g < d / 64; a row's 16
 // threads are a half-warp (row max and sum by four xor shuffles).  K (
 // transposed), V, Q (transposed) and P are staged in shared memory and
 // multiplied on the CUDA cores in float32 (67 TFLOP/s at most).
@@ -338,7 +347,7 @@ flash_fwd_bf16_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                           int groups, int64_t sq, int64_t sk, int causal, float scale,
                           Strides qs, Strides ks, Strides vs, Strides os, int nq) {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
   constexpr int kKSteps = D / 16;  // k steps of Q.K^T
   constexpr int kNT = kBK / 8;     // 8-key column tiles of S
   constexpr int kND = D / 8;       // 8-wide column tiles of O
@@ -389,8 +398,8 @@ flash_fwd_bf16_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
   cp_async_wait<1>();  // Q has landed
   __syncthreads();
-  // Q's A fragments: held in registers at d = 64; at d = 128 they would
-  // push the kernel past 255 registers into spills, so there each tile
+  // Q's A fragments: held in registers at d = 64; at d = 128 and 256 they
+  // would push the kernel past 255 registers into spills, so there each tile
   // reads them again from the Q tile (ldmatrix, free of bank conflicts)
   constexpr bool kQRegs = D == 64;
   const int qrow = warp * 16 + 8 * (j8 & 1) + r8;
@@ -588,7 +597,7 @@ int dsag_flash_block_k() { return kBK; }
 // addressed through its own (batch, head, position) strides in elements with
 // the head dim contiguous; float32 (is_bf16 = 0: CUDA cores) or bfloat16
 // (is_bf16 = 1: tensor cores; every base pointer 16-byte aligned and every
-// stride a multiple of 8); d = 64 or 128.  The wrapper checks shapes, strides
+// stride a multiple of 8); d = 64, 128 or 256.  The wrapper checks shapes, strides
 // and the reference's contract (causal needs sq <= sk); B * H >= 1,
 // 1 <= ceil(sq / 64) <= 65535.
 int dsag_flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -613,6 +622,10 @@ int dsag_flash_attention(const void* q, const void* k, const void* v, void* o,
     err = launch_bf16<128>(q, k, v, o, B, H, sq, sk, groups, causal, scale, qs, ks, vs, os, s);
   else if (d == 128)
     err = launch_f32<128>(q, k, v, o, B, H, sq, sk, groups, causal, scale, qs, ks, vs, os, s);
+  else if (d == 256 && is_bf16)
+    err = launch_bf16<256>(q, k, v, o, B, H, sq, sk, groups, causal, scale, qs, ks, vs, os, s);
+  else if (d == 256)
+    err = launch_f32<256>(q, k, v, o, B, H, sq, sk, groups, causal, scale, qs, ks, vs, os, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)err;

@@ -7,6 +7,9 @@ VMEM, head dim padded to 128 lanes).  It keeps the reference's contract:
 ``[b, h, s, d]`` in and out, causal mask aligned bottom-right to the true
 lengths, float32 math inside, the output in the input's dtype, and the same
 two refusals (causal with ``sq > sk``; non-causal with ``sk % block_k``).
+Head dims 64, 128 and 256 are built; any other d up to 256 runs zero-padded
+to the next of them with the true d's scale, as the reference pads d to a
+multiple of 128 lanes.
 ``block_q`` / ``block_k`` take part only in that contract: the CUDA kernels
 (``csrc/flash_attention.cu``) pick their own tiles.  bfloat16 runs on the
 tensor cores (``mma.sync``, K and V staged by ``cp.async``), which needs every
@@ -17,7 +20,12 @@ cores.
 :func:`flash_attention_bshd` is the model's entry: ``[b, s, h, d]`` queries
 and ``[b, s, kvh, d]`` keys and values, read and written in place through
 their strides, with kv head ``i // (h / kvh)`` serving query head ``i``
-instead of a repeated copy (``models/attention.py`` calls it for prefill).
+instead of a repeated copy (``models/attention.py`` calls it for prefill,
+for whisper's encoder and for its cross-attention).  It keeps the causal
+refusal but not the non-causal ``sk % block_k`` one: that refusal is the
+reference op's (its Pallas kernel would let zero-padded keys into the
+softmax), while the reference model calls ``full_attention`` over exactly
+``sk`` keys, and K6 drops every key past ``sk`` in both modes.
 
 The plain version is the twin of ``repro/kernels/ref.py::flash_attention_ref``:
 a full float32 softmax.  Kernel and plain version agree within float32
@@ -41,12 +49,13 @@ launch_counts = {"flash_attention": 0}
 #: the reference's mask value (not -inf)
 NEG_INF = -1e30
 #: head dims the kernel is built for (d = v dim); smaller ones are zero-padded
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
-def _check_contract(sq: int, sk: int, causal: bool, block_k: int) -> None:
-    """The reference wrapper's two refusals."""
-    if not causal and sk % block_k != 0:
+def _check_contract(sq: int, sk: int, causal: bool, block_k: int | None) -> None:
+    """The reference wrapper's two refusals (the non-causal one only with a
+    ``block_k``)."""
+    if not causal and block_k is not None and sk % block_k != 0:
         # zero-padded keys would enter a non-causal softmax in the reference
         raise ValueError(f"non-causal flash requires sk % block_k == 0, got {sk}")
     if causal and sq > sk:
@@ -158,7 +167,7 @@ def flash_attention_op(q, k, v, *, causal: bool = True, block_q: int = 128,
     """Flash attention over ``[b, h, s, d]`` (the reference's contract).
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch K6
-    (float32 or bfloat16, head dims up to 128; bfloat16 16-byte aligned) or
+    (float32 or bfloat16, head dims up to 256; bfloat16 16-byte aligned) or
     raise, also when grad mode is on and an input requires grad
     (:func:`refuse_grad`).
     """
@@ -173,15 +182,17 @@ def flash_attention_op(q, k, v, *, causal: bool = True, block_q: int = 128,
     return out
 
 
-def flash_attention_bshd(q, k, v, *, causal: bool = True, block_k: int = 128):
+def flash_attention_bshd(q, k, v, *, causal: bool = True):
     """Flash attention in the model's layout: ``q`` [b, sq, h, d], ``k`` and
     ``v`` [b, sk, kvh, d] with ``h % kvh == 0`` → [b, sq, h, d].
 
     CPU tensors take :func:`flash_attention_plain` over repeated kv heads;
     CUDA tensors launch K6 on the tensors as they lie, or raise (as
     :func:`flash_attention_op` does, grad-requiring inputs included).
+    Non-causal calls take any ``sk`` (the model's ``full_attention``
+    contract, not the op's).
     """
-    _check_contract(q.shape[1], k.shape[1], causal, block_k)
+    _check_contract(q.shape[1], k.shape[1], causal, None)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if _on_cpu(q, k, v):
         groups = q.shape[2] // k.shape[2]

@@ -4,10 +4,13 @@
 On the card by default, with GQA prefill attention through CUDA kernel K6;
 ``--device cpu --kernel-backend torch`` runs the plain path on the CPU.
 ``--arch`` takes every arch of ``repro_torch.configs.ARCHS``: the dense
-(qwen1.5-0.5b, qwen2-7b), MoE (grok-1-314b; deepseek-v2-236b with MLA), SSM
-(mamba2-370m) and hybrid (zamba2-2.7b) families.  Without ``--full`` it
-serves the arch's smoke config, as the reference's CLI does; with it, the
-published widths and depth (one card holds neither MoE model whole).
+(qwen1.5-0.5b, qwen2-7b, qwen1.5-32b, starcoder2-15b), MoE (grok-1-314b;
+deepseek-v2-236b with MLA), SSM (mamba2-370m), hybrid (zamba2-2.7b), VLM
+(pixtral-12b) and enc-dec (whisper-base) families; for the last two the CLI
+adds stub image or audio embeddings to the batch, as the reference's does.
+Without ``--full`` it serves the arch's smoke config, as the reference's CLI
+does; with it, the published widths and depth (one card holds neither MoE
+model, nor qwen1.5-32b, whole).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --kernel-backend torch
@@ -64,20 +67,24 @@ class Server:
     def generate(self, batch, num_tokens: int) -> torch.Tensor:
         """Greedy generation; returns [b, num_tokens] int32 token ids.
 
-        The argmax runs over the padded vocab, as the reference's does.
+        ``batch`` holds ``tokens`` and, for the VLM and enc-dec families,
+        ``image_embed`` or ``audio_embed`` (numpy or tensors); decoding
+        starts after the prompt's positions, the VLM's image prefix
+        included.  The argmax runs over the padded vocab, as the reference's
+        does.
         """
-        tokens = batch["tokens"]
-        if not isinstance(tokens, torch.Tensor):
-            tokens = torch.as_tensor(np.asarray(tokens))
-        tokens = tokens.to(device=self.device, dtype=torch.int32)
+        cfg = self.cfg
+        batch = {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+                 for k, v in batch.items()}
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        batch["tokens"] = batch["tokens"].to(torch.int32)
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens},
-                                           cache_len=self.max_len)
+        logits, cache = self.model.prefill(self.params, batch, cache_len=self.max_len)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
         self._sync()
         t1 = time.perf_counter()
         out = [tok]
-        index = tokens.shape[1]
+        index = prompt_positions(cfg, batch["tokens"].shape[1])
         for _ in range(num_tokens - 1):
             logits, cache = self.model.decode_step(self.params, tok, cache, index)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
@@ -87,6 +94,28 @@ class Server:
         self._sync()
         self.timings = {"prefill": t1 - t0, "decode": time.perf_counter() - t1}
         return result
+
+
+def prompt_positions(cfg, prompt_len: int) -> int:
+    """Cache positions a prompt of ``prompt_len`` tokens fills: the VLM's
+    image prefix comes first."""
+    return prompt_len + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+
+
+def stub_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
+    """A prompt batch as the reference's CLI draws it from
+    ``np.random.default_rng(seed)``: tokens, then for the enc-dec family
+    ``audio_embed`` [b, encoder_seq, d] and for the VLM ``image_embed`` [b,
+    num_image_tokens, d], normal draws times 0.1 in bfloat16 (the stub
+    frontends)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt_len))}
+    n = {"enc_dec": cfg.encoder_seq, "vlm": cfg.num_image_tokens}.get(cfg.family)
+    if n is not None:
+        key = "audio_embed" if cfg.family == "enc_dec" else "image_embed"
+        out[key] = torch.as_tensor(rng.normal(size=(batch, n, cfg.d_model)) * 0.1).to(
+            torch.bfloat16)
+    return out
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -103,11 +132,11 @@ def main(argv: list[str] | None = None) -> None:
                     help="prefill attention through the CUDA kernel (default) or "
                          "the plain torch attention")
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     srv = Server(args.arch, smoke=not args.full,
-                 max_len=args.prompt_len + args.tokens + 8, device=args.device,
-                 kernel_backend=args.kernel_backend, seed=args.seed)
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, srv.cfg.vocab_size, (args.batch, args.prompt_len))}
+                 max_len=prompt_positions(cfg, args.prompt_len) + args.tokens + 8,
+                 device=args.device, kernel_backend=args.kernel_backend, seed=args.seed)
+    batch = stub_batch(srv.cfg, args.batch, args.prompt_len)
     t0 = time.perf_counter()
     toks = srv.generate(batch, args.tokens)
     dt = time.perf_counter() - t0

@@ -8,9 +8,12 @@ Wires together
     -> (optional) checkpoints
 
 on the card by default.  Two kinds of jobs share the loop: the model zoo's
-dense LMs (``--arch qwen1.5-0.5b``; the smoke config unless ``--full``),
-whose per-group gradients come from autograd over ``Model.train_loss`` on
-the reference's synthetic batches (``repro_torch.data``), with the
+dense, VLM and enc-dec archs (``--arch qwen1.5-0.5b``, ``qwen2-7b``,
+``qwen1.5-32b``, ``starcoder2-15b``, ``pixtral-12b``, ``whisper-base``; the
+smoke config unless ``--full``), whose per-group gradients come from
+autograd over ``Model.train_loss`` on the reference's synthetic batches
+(``repro_torch.data``: image or audio embeddings beside the tokens where
+the family takes them), with the
 parameters, moments and DSAG slots flat (``FlatLayout``) so K4 updates
 every parameter in one launch per step; and the paper problems (``--arch
 logreg`` / ``--arch pca``, K1/K5 group gradients).  Replaying a
@@ -37,9 +40,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 40 \\
       --checkpoint-dir ckpt [--restore]
 
-Not ported (refused with a capability code): training the model zoo's
-other families (:data:`CAP_ARCH`: MoE, MLA, SSM and hybrid archs are
-served, not trained) and, through the Tier-1 step, a mesh.
+Not ported (refused with a capability code): training the model zoo's MoE,
+MLA, SSM and hybrid archs (:data:`CAP_ARCH`: they are served, not trained)
+and, through the Tier-1 step, a mesh.
 """
 
 from __future__ import annotations
@@ -357,7 +360,8 @@ def check_history(hist: dict) -> tuple[bool, str]:
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="logreg",
-                    help=f"a model-zoo arch (qwen1.5-0.5b, qwen2-7b) or one of {PAPER_ARCHES}")
+                    help=f"a model-zoo arch of the dense, vlm or enc_dec family "
+                         f"(e.g. qwen1.5-0.5b, whisper-base) or one of {PAPER_ARCHES}")
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="model-zoo archs: the published widths (default: the smoke config)")
     ap.add_argument("--steps", type=int, default=50)

@@ -1,5 +1,5 @@
-"""The model zoo's dense, MoE, SSM and hybrid families behind the reference's
-model API."""
+"""The model zoo's families (dense, MoE, MLA, SSM, hybrid, VLM, enc-dec)
+behind the reference's model API."""
 
 from repro_torch.models.model import Model, build_model, cache_abstract
 

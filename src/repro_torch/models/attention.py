@@ -10,7 +10,11 @@ Prefill attention (:func:`_attend`) on CUDA tensors with the ``"cuda"``
 kernel backend runs CUDA kernel K6 (``kernels/flash_attention.py``), which
 reads the model's ``[b, s, h, d]`` tensors in place and serves GQA without
 repeating K and V; on CPU tensors, or with the ``"torch"`` backend, it is
-the reference's ``full_attention`` / ``chunked_attention`` as written.
+the reference's ``full_attention`` / ``chunked_attention`` as written.  The
+same goes for whisper's non-causal calls (its encoder's self-attention and
+the decoder's cross-attention, :func:`cross_attention_forward`, at prefill
+and at every decode step): K6 takes any key count there, as
+``full_attention`` does.
 Decode attention (:func:`gqa_decode_step`) is a plain einsum over the
 cache, as the reference computes it outside any Pallas kernel; it writes
 the new key and value into the cache in place (the reference donates the
@@ -20,9 +24,11 @@ MLA (:func:`mla_forward`, :func:`mla_prefill_with_cache`, the absorbed
 :func:`mla_decode_step`) attends through the plain attention on every
 device (``backend="torch"``), as the reference's MLA does: its q/k head dim
 (``qk_nope_dim + qk_rope_dim``, 192 at deepseek-v2) differs from its v head
-dim and passes its own scale, and K6 takes neither (head dims up to 128,
-the default scale).  Its cache is the compressed ``c_kv`` and the shared
-``k_rope``, written in place at decode.  Cross-attention is not ported.
+dim and passes its own scale, and K6 takes neither (one head dim for q, k
+and v, the default scale).  Its cache is the compressed ``c_kv`` and the
+shared ``k_rope``, written in place at decode.  Cross-attention
+(:func:`cross_attention_forward`) reads keys and values that
+:func:`encoder_kv` projects once from the encoder's output.
 """
 
 from __future__ import annotations
@@ -133,9 +139,9 @@ def _attend(q, k, v, *, causal: bool, q_offset: int = 0, scale: float | None = N
     """Attention of q [b, sq, h, d] over k, v [b, sk, kvh, d] (``h % kvh == 0``).
 
     CUDA tensors with the ``"cuda"`` backend go through K6, which takes the
-    prefill calls of this model (q_offset 0, the default scale, sq == sk
-    when causal) and refuses others; everything else is the reference's
-    plain path over repeated kv heads.
+    prefill and cross-attention calls of this model (q_offset 0, the default
+    scale, sq == sk when causal, any sk when not) and refuses others;
+    everything else is the reference's plain path over repeated kv heads.
     """
     if backend == "cuda" and q.device.type == "cuda":
         if q_offset or scale is not None or (causal and q.shape[1] != k.shape[1]):
@@ -295,3 +301,31 @@ def mla_decode_step(cfg: ModelConfig, params, x, cache, index: int):
     out = torch.einsum("bqhl,lhn->bqhn", ctx, params["w_uv"].to(x.dtype))
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_forward(cfg: ModelConfig, params, x, enc_k, enc_v, *,
+                            backend: str = "cuda") -> torch.Tensor:
+    """Decoder cross-attention of x [b, s, d] (any s: the prompt at prefill,
+    one token at decode) against precomputed encoder keys and values
+    [b, enc_seq, kvh, hd]: non-causal, no RoPE."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+    out = _attend(q, enc_k, enc_v, causal=False, backend=backend)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+
+
+def encoder_kv(cfg: ModelConfig, params, enc_out):
+    """The cross-attention's keys and values [b, enc_seq, kvh, hd] of the
+    encoder's output [b, enc_seq, d]."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, params["wk"].to(enc_out.dtype))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, params["wv"].to(enc_out.dtype))
+    if cfg.qkv_bias:
+        k = k + params["bk"].to(enc_out.dtype)
+        v = v + params["bv"].to(enc_out.dtype)
+    return k, v

@@ -6,8 +6,8 @@ Every parameter is declared once (shape, per-dim logical axes, init) and
 tensors drawn from an explicit ``torch.Generator``.  The port has no mesh:
 the logical axes are kept for parity, the reference's sharding rules and
 ``tp_contract`` become plain einsums.  Dtype handling follows the
-reference op for op (f32 inside the norms, the rotary angles and the SiLU,
-cast back to the activation dtype), so a float32 model equals the
+reference op for op (f32 inside the norms, the rotary angles, the SiLU and
+the GELU, cast back to the activation dtype), so a float32 model equals the
 reference's within float32 rounding.
 """
 
@@ -21,7 +21,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.experiments.engine import CAP_ARCH, refuse
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -222,15 +221,35 @@ def rmsnorm(params, x, eps: float) -> torch.Tensor:
     return (x * params["scale"]).to(dt)
 
 
+def layernorm_decls(dim: int, axis: str = "embed2") -> dict[str, ParamDecl]:
+    return {
+        "scale": ParamDecl((dim,), (axis,), init="ones", dtype="float32"),
+        "bias": ParamDecl((dim,), (axis,), init="zeros", dtype="float32"),
+    }
+
+
+def layernorm(params, x, eps: float) -> torch.Tensor:
+    """LayerNorm in float32 over the last dim: the population variance
+    (``jnp.var``'s; torch's default would be the unbiased one)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return (x * params["scale"] + params["bias"]).to(dt)
+
+
 def norm_decls(cfg: ModelConfig, dim: int | None = None) -> dict[str, ParamDecl]:
+    """LayerNorm for the enc-dec family (whisper), RMSNorm for every other."""
+    dim = dim or cfg.d_model
     if cfg.family == "enc_dec":
-        raise refuse(CAP_ARCH, f"{cfg.name}: layernorm (the enc_dec family) is not ported")
-    return rmsnorm_decls(dim or cfg.d_model)
+        return layernorm_decls(dim)
+    return rmsnorm_decls(dim)
 
 
 def apply_norm(cfg: ModelConfig, params, x) -> torch.Tensor:
     if cfg.family == "enc_dec":
-        raise refuse(CAP_ARCH, f"{cfg.name}: layernorm (the enc_dec family) is not ported")
+        return layernorm(params, x, cfg.norm_eps)
     return rmsnorm(params, x, cfg.norm_eps)
 
 
@@ -262,25 +281,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def mlp_decls(cfg: ModelConfig, d_ff: int | None = None, swiglu: bool = True):
-    if not swiglu:
-        raise refuse(CAP_ARCH, f"{cfg.name}: the GELU MLP is not ported")
     d = cfg.d_model
     f = d_ff or cfg.d_ff
+    if swiglu:
+        return {
+            "w_gate": ParamDecl((d, f), ("embed", "mlp"), init="scaled"),
+            "w_up": ParamDecl((d, f), ("embed", "mlp"), init="scaled"),
+            "w_down": ParamDecl((f, d), ("mlp", "embed"), init="scaled"),
+        }
     return {
-        "w_gate": ParamDecl((d, f), ("embed", "mlp"), init="scaled"),
         "w_up": ParamDecl((d, f), ("embed", "mlp"), init="scaled"),
+        "b_up": ParamDecl((f,), ("mlp",), init="zeros"),
         "w_down": ParamDecl((f, d), ("mlp", "embed"), init="scaled"),
+        "b_down": ParamDecl((d,), ("embed",), init="zeros"),
     }
 
 
 def mlp_apply(params, x, swiglu: bool = True) -> torch.Tensor:
-    """SwiGLU: ``(silu(x W_gate) in f32, cast) * x W_up``, then ``W_down``."""
-    if not swiglu:
-        raise refuse(CAP_ARCH, "the GELU MLP is not ported")
-    gate = torch.einsum("...d,df->...f", x, params["w_gate"])
-    up = torch.einsum("...d,df->...f", x, params["w_up"])
-    h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-    return torch.einsum("...f,fd->...d", h, params["w_down"])
+    """SwiGLU: ``(silu(x W_gate) in f32, cast) * x W_up``, then ``W_down``;
+    or the two-matrix GELU MLP (whisper, starcoder2): ``x W_up + b_up``,
+    GELU in float32 with the tanh approximation (``jax.nn.gelu``'s default),
+    cast, then ``W_down + b_down``."""
+    if swiglu:
+        gate = torch.einsum("...d,df->...f", x, params["w_gate"])
+        up = torch.einsum("...d,df->...f", x, params["w_up"])
+        h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+        return torch.einsum("...f,fd->...d", h, params["w_down"])
+    h = torch.einsum("...d,df->...f", x, params["w_up"]) + params["b_up"].to(x.dtype)
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    return torch.einsum("...f,fd->...d", h, params["w_down"]) + params["b_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

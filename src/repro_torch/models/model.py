@@ -1,24 +1,29 @@
-"""Model API over the dense, MoE, SSM and hybrid families, from
-``repro.models.model``.
+"""Model API over every family of the model zoo, from ``repro.models.model``.
 
 ``build_model(cfg)`` returns a :class:`Model` exposing ``init(generator)``,
 ``num_params()``, ``layout`` (the parameters' :class:`FlatLayout`),
 ``train_loss(params, batch, *, remat, fused_loss)`` (next-token CE),
 ``prefill(params, batch, cache_len)`` -> ``(last_logits, cache)``,
 ``decode_step(params, tokens, cache, index)`` -> ``(logits, cache)`` and
-``cache_abstract(batch, cache_len)``.  The caches are the reference's
-(:func:`cache_abstract`): ``{"k", "v": [L, b, S, kvh, hd]}`` for GQA,
-``{"c_kv", "k_rope"}`` for MLA, the Mamba2 ``{"state" (float32), "conv"}``
-for SSM, and both (``"mamba"``, and ``"shared"`` with one KV cache per
-shared-block application) for the hybrid family; ``decode_step`` writes
-into them in place.  ``kernel_backend`` says how GQA prefill attention runs
-on the card: ``"cuda"`` through kernel K6 (default), ``"torch"`` through the
-reference's plain ``full_attention``; MLA takes the plain attention either
-way (``models/attention.py``).  ``train_loss`` always takes the plain
-attention, as the reference's does (K6 has no backward and refuses grad),
-and trains the dense family only: MoE, MLA, SSM and hybrid models raise
-``arch-not-ported`` there (:func:`check_trainable`), as do the enc-dec and
-VLM batch layouts everywhere.
+``cache_abstract(batch, cache_len)``.  Batch layouts are the reference's:
+``{"tokens": [b, s]}``; the VLM's ``{"tokens": [b, s - n_img],
+"image_embed": [b, n_img, d]}`` (the patches prefix the text, and decoding
+goes on at position ``s``); the enc-dec ``{"tokens": [b, s], "audio_embed":
+[b, encoder_seq, d]}``.  The caches are the reference's
+(:func:`cache_abstract`): ``{"k", "v": [L, b, S, kvh, hd]}`` for GQA (and
+the VLM), plus ``"cross_k"``, ``"cross_v"`` [L, b, encoder_seq, kvh, hd]
+for the enc-dec family (written once at prefill, read at every decode
+step), ``{"c_kv", "k_rope"}`` for MLA, the Mamba2 ``{"state" (float32),
+"conv"}`` for SSM, and both (``"mamba"``, and ``"shared"`` with one KV cache
+per shared-block application) for the hybrid family; ``decode_step`` writes
+into them in place.  ``kernel_backend`` says how GQA prefill attention and
+whisper's encoder and cross-attention run on the card: ``"cuda"`` through
+kernel K6 (default), ``"torch"`` through the reference's plain
+``full_attention``; MLA takes the plain attention either way
+(``models/attention.py``).  ``train_loss`` always takes the plain attention,
+as the reference's does (K6 has no backward and refuses grad), and trains
+the dense, VLM and enc-dec families: MoE, MLA, SSM and hybrid models raise
+``arch-not-ported`` there (:func:`check_trainable`).
 """
 
 from __future__ import annotations
@@ -35,15 +40,20 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     FlatLayout,
+    ParamDecl,
     apply_norm,
+    embed_decls,
     init_from_decls,
     mlp_apply,
+    mlp_decls,
+    norm_decls,
     num_elements,
     torch_dtype,
     tree_map,
 )
 from repro_torch.models.transformer import (
     AUX_LOSS_COEF,
+    _remat,
     backbone_forward,
     check_ported,
     check_trainable,
@@ -53,8 +63,87 @@ from repro_torch.models.transformer import (
     lm_decls,
     lm_logits,
     next_token_loss,
+    padded_heads,
     padded_kv_heads,
+    stack_decls,
+    unstack_layers,
 )
+
+# ---------------------------------------------------------------------------
+# Whisper-style encoder-decoder
+# ---------------------------------------------------------------------------
+
+
+def encdec_decls(cfg: ModelConfig) -> dict[str, Any]:
+    enc_block = {
+        "ln1": norm_decls(cfg),
+        "attn": attn.gqa_decls(cfg, heads=padded_heads(cfg)),
+        "ln2": norm_decls(cfg),
+        "mlp": mlp_decls(cfg, swiglu=False),
+    }
+    dec_block = {
+        "ln1": norm_decls(cfg),
+        "attn": attn.gqa_decls(cfg, heads=padded_heads(cfg)),
+        "ln_x": norm_decls(cfg),
+        "cross": attn.gqa_decls(cfg, heads=padded_heads(cfg)),
+        "ln2": norm_decls(cfg),
+        "mlp": mlp_decls(cfg, swiglu=False),
+    }
+    return {
+        "embed": embed_decls(cfg),
+        "enc_pos": ParamDecl((cfg.encoder_seq, cfg.d_model), ("pos", "embed")),
+        "pos": ParamDecl((cfg.max_position_embeddings, cfg.d_model), ("pos", "embed")),
+        "enc_blocks": stack_decls(enc_block, cfg.encoder_layers),
+        "enc_ln_f": norm_decls(cfg),
+        "blocks": stack_decls(dec_block, cfg.num_layers),
+        "ln_f": norm_decls(cfg),
+    }
+
+
+def model_decls(cfg: ModelConfig) -> dict[str, Any]:
+    """The parameter declarations of ``cfg``'s model: the enc-dec tree or
+    the decoder-only LM's."""
+    return encdec_decls(cfg) if cfg.family == "enc_dec" else lm_decls(cfg)
+
+
+def _encode(cfg: ModelConfig, params, audio_embed, *, backend: str = "cuda"):
+    """The encoder over ``audio_embed`` [b, encoder_seq, d]: learned
+    positions, non-causal self-attention without RoPE (K6 on the card with
+    the ``"cuda"`` backend), each layer under full remat as the reference's."""
+    dtype = torch_dtype(cfg.dtype)
+    x = audio_embed.to(dtype) + params["enc_pos"][None].to(dtype)
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    for lp in unstack_layers(params["enc_blocks"], cfg.encoder_layers):
+        def body(carry, lp=lp):
+            h = apply_norm(cfg, lp["ln1"], carry)
+            carry = carry + attn.gqa_forward(cfg, lp["attn"], h, positions, causal=False,
+                                             use_rope=False, backend=backend)
+            h = apply_norm(cfg, lp["ln2"], carry)
+            return carry + mlp_apply(lp["mlp"], h, swiglu=False)
+
+        x = _remat(body, "full")(x)
+    return apply_norm(cfg, params["enc_ln_f"], x)
+
+
+def _encdec_decoder(cfg: ModelConfig, params, x, positions, enc_out, remat: str,
+                    *, backend: str = "cuda"):
+    """Full-sequence decoder pass (training): causal self-attention and
+    cross-attention over ``enc_out``, then the final norm."""
+    for lp in unstack_layers(params["blocks"], cfg.num_layers):
+        def body(carry, lp=lp):
+            h = apply_norm(cfg, lp["ln1"], carry)
+            carry = carry + attn.gqa_forward(cfg, lp["attn"], h, positions, causal=True,
+                                             use_rope=False, backend=backend)
+            h = apply_norm(cfg, lp["ln_x"], carry)
+            ek, ev = attn.encoder_kv(cfg, lp["cross"], enc_out)
+            carry = carry + attn.cross_attention_forward(cfg, lp["cross"], h, ek, ev,
+                                                         backend=backend)
+            h = apply_norm(cfg, lp["ln2"], carry)
+            return carry + mlp_apply(lp["mlp"], h, swiglu=False)
+
+        x = _remat(body, remat)(x)
+    return apply_norm(cfg, params["ln_f"], x)
+
 
 
 def cache_abstract(cfg: ModelConfig, batch: int, cache_len: int, dtype=None) -> dict:
@@ -68,6 +157,9 @@ def cache_abstract(cfg: ModelConfig, batch: int, cache_len: int, dtype=None) -> 
     def sd(shape, d=dt):
         return torch.empty(shape, dtype=d, device="meta")
 
+    if cfg.family == "enc_dec":
+        cross = (L, b, cfg.encoder_seq) + kv[3:]
+        return {"k": sd(kv), "v": sd(kv), "cross_k": sd(cross), "cross_v": sd(cross)}
     if cfg.use_mla:
         return {"c_kv": sd((L, b, S, cfg.kv_lora_rank)), "k_rope": sd((L, b, S, cfg.qk_rope_dim))}
     if cfg.family in ("ssm", "hybrid"):
@@ -110,7 +202,7 @@ class Model:
     def __post_init__(self):
         if self.kernel_backend not in ("cuda", "torch"):
             raise ValueError(f"unknown kernel_backend {self.kernel_backend!r}")
-        self.decls = lm_decls(self.cfg)
+        self.decls = model_decls(self.cfg)
         self.layout = FlatLayout.from_decls(self.decls, self.cfg.dtype)
 
     # -- parameters -------------------------------------------------------
@@ -123,44 +215,66 @@ class Model:
 
     # -- training ----------------------------------------------------------
     def train_loss(self, params, batch, *, remat: str = "full", fused_loss: bool = False):
-        """Mean next-token cross-entropy of ``batch["tokens"]`` [b, s].
+        """Mean next-token cross-entropy of ``batch["tokens"]`` [b, s] (the
+        VLM's over its text positions only, the enc-dec's given the encoded
+        ``batch["audio_embed"]``).
 
         Logits span the padded vocab (``embed_decls`` rounds it up to 256),
         as the reference's logsumexp does.  Attention is the plain one (the
-        reference's ``_attend``), whatever ``kernel_backend`` says."""
+        reference's ``_attend``), whatever ``kernel_backend`` says.  A batch
+        carrying embeddings its family does not take is refused."""
         cfg = self.cfg
         check_trainable(cfg)
-        if "audio_embed" in batch:
-            raise refuse(CAP_ARCH, f"{cfg.name}: the enc-dec batch layout is not ported")
+        self._check_layout(batch)
         tokens = batch["tokens"]
-        x = embed_inputs(cfg, params, tokens, image_embed=batch.get("image_embed"))
+        if cfg.family == "enc_dec":
+            enc_out = _encode(cfg, params, batch["audio_embed"], backend="torch")
+            x = embed_inputs(cfg, params, tokens)
+            positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+            x = _encdec_decoder(cfg, params, x, positions, enc_out, remat, backend="torch")
+            if fused_loss:
+                return fused_next_token_loss(cfg, params, x, tokens)
+            return next_token_loss(cfg, lm_logits(cfg, params, x), tokens)
+        image = batch.get("image_embed")
+        x = embed_inputs(cfg, params, tokens, image_embed=image)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         x, aux = backbone_forward(cfg, params, x, positions, remat=remat, backend="torch")
         x = apply_norm(cfg, params["ln_f"], x)
+        offset = cfg.num_image_tokens if image is not None else 0
         if fused_loss:
-            ce = fused_next_token_loss(cfg, params, x, tokens)
+            ce = fused_next_token_loss(cfg, params, x, tokens, text_offset=offset)
         else:
-            ce = next_token_loss(cfg, lm_logits(cfg, params, x), tokens)
+            ce = next_token_loss(cfg, lm_logits(cfg, params, x), tokens, text_offset=offset)
         return ce + (AUX_LOSS_COEF * aux if cfg.num_experts else 0.0)
+
+    def _check_layout(self, batch) -> None:
+        """Refuse a batch whose embeddings this family does not take: audio
+        for all but the enc-dec family (which needs it), images for all but
+        the VLM."""
+        cfg = self.cfg
+        if ("audio_embed" in batch) != (cfg.family == "enc_dec") or (
+                "image_embed" in batch and cfg.family != "vlm"):
+            raise refuse(CAP_ARCH, f"{cfg.name}: the {cfg.family} family takes no batch of "
+                                   f"keys {sorted(batch)}")
 
     # -- serving: prefill ---------------------------------------------------
     def prefill(self, params, batch, cache_len: int):
-        """``batch["tokens"]`` [b, s] -> (logits [b, 1, V], cache padded to
-        ``cache_len``; a recurrent state where the family has one)."""
+        """``batch`` (tokens [b, s], and the family's embeddings) -> (logits
+        [b, 1, V], cache padded to ``cache_len``; a recurrent state where the
+        family has one)."""
         cfg = self.cfg
+        self._check_layout(batch)
+        if cfg.family == "enc_dec":
+            return self._prefill_encdec(params, batch, cache_len)
         tokens = batch["tokens"]
-        x = embed_inputs(cfg, params, tokens)
+        x = embed_inputs(cfg, params, tokens, image_embed=batch.get("image_embed"))
         b, s = x.shape[:2]
         if cfg.family in ("ssm", "hybrid") and s < cfg.ssm_conv - 1:
             raise ValueError(f"a prompt of {s} tokens is shorter than the conv's "
                              f"{cfg.ssm_conv - 1}-token tail")
         positions = torch.arange(s, device=x.device).expand(b, s)
-        cache = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=x.device),
-                         cache_abstract(cfg, b, cache_len, x.dtype))
-        if cfg.family != "ssm":  # the reference pads the prompt's keys with zeros
-            for t in (cache["shared"] if cfg.family == "hybrid" else cache).values():
-                t[:, :, s:].zero_()
+        cache = self._empty_cache(b, s, cache_len, x)
         if cfg.family in ("ssm", "hybrid"):
             x = self._prefill_recurrent(params, x, positions, cache)
         else:
@@ -175,6 +289,45 @@ class Model:
                 x = x + y
                 x = x + self._ffn(lp, apply_norm(cfg, lp["ln2"], x))
                 _write_prompt(cache, c, i)
+        x = apply_norm(cfg, params["ln_f"], x)
+        return lm_logits(cfg, params, x[:, -1:]), cache
+
+    def _empty_cache(self, b: int, s: int, cache_len: int, x) -> dict:
+        """The decode cache on ``x``'s device, the sequence caches zero past
+        the prompt's ``s`` positions (the reference pads the prompt's keys
+        with zeros); the rest is written whole by the prefill."""
+        cfg = self.cfg
+        cache = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=x.device),
+                         cache_abstract(cfg, b, cache_len, x.dtype))
+        if cfg.family != "ssm":
+            seq = cache["shared"] if cfg.family == "hybrid" else cache
+            for name, t in seq.items():
+                if not name.startswith("cross_"):
+                    t[:, :, s:].zero_()
+        return cache
+
+    def _prefill_encdec(self, params, batch, cache_len: int):
+        """Encode the audio, then the decoder over the prompt: its self-
+        attention keys and values into ``k``/``v``, each layer's projection
+        of the encoder's output into ``cross_k``/``cross_v``."""
+        cfg = self.cfg
+        enc_out = _encode(cfg, params, batch["audio_embed"], backend=self.kernel_backend)
+        x = embed_inputs(cfg, params, batch["tokens"])
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        cache = self._empty_cache(b, s, cache_len, x)
+        for i in range(cfg.num_layers):
+            lp = layer_params(params["blocks"], i)
+            h = apply_norm(cfg, lp["ln1"], x)
+            y, c = attn.gqa_prefill_with_cache(cfg, lp["attn"], h, positions, use_rope=False,
+                                               backend=self.kernel_backend)
+            x = x + y
+            h = apply_norm(cfg, lp["ln_x"], x)
+            ek, ev = attn.encoder_kv(cfg, lp["cross"], enc_out)
+            x = x + attn.cross_attention_forward(cfg, lp["cross"], h, ek, ev,
+                                                 backend=self.kernel_backend)
+            x = x + mlp_apply(lp["mlp"], apply_norm(cfg, lp["ln2"], x), swiglu=False)
+            _write_prompt(cache, dict(c, cross_k=ek, cross_v=ev), i)
         x = apply_norm(cfg, params["ln_f"], x)
         return lm_logits(cfg, params, x[:, -1:]), cache
 
@@ -223,11 +376,23 @@ class Model:
 
     # -- serving: one decode step -------------------------------------------
     def decode_step(self, params, tokens, cache, index: int):
-        """tokens [b, 1]; ``index`` tokens already in the cache, which is
-        updated in place and returned."""
+        """tokens [b, 1]; ``index`` positions already in the cache (the VLM's
+        image positions included), which is updated in place and returned.
+        The enc-dec family reads its cross caches and writes only ``k``/``v``;
+        its cross-attention runs through K6 with the ``"cuda"`` backend."""
         cfg = self.cfg
         x = embed_inputs(cfg, params, tokens, offset=index)
-        if cfg.family == "ssm":
+        if cfg.family == "enc_dec":
+            for i in range(cfg.num_layers):
+                lp, c = layer_params(params["blocks"], i), _layer(cache, i)
+                y, _ = attn.gqa_decode_step(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x), c,
+                                            index, use_rope=False)
+                x = x + y
+                x = x + attn.cross_attention_forward(
+                    cfg, lp["cross"], apply_norm(cfg, lp["ln_x"], x), c["cross_k"],
+                    c["cross_v"], backend=self.kernel_backend)
+                x = x + mlp_apply(lp["mlp"], apply_norm(cfg, lp["ln2"], x), swiglu=False)
+        elif cfg.family == "ssm":
             for i in range(cfg.num_layers):
                 x = self._mamba_layer(params, x, i, cache, decode=True)
         elif cfg.family == "hybrid":

@@ -1,5 +1,5 @@
-"""Decoder-only LM covering the dense, MoE, SSM and hybrid families, from
-``repro.models.transformer``.
+"""Decoder-only LM covering the dense, MoE, SSM, hybrid and VLM families,
+from ``repro.models.transformer``.
 
 Parameters of the residual blocks are stacked along a leading layer axis as
 in the reference; a Python loop over that axis (each stacked leaf unbound
@@ -13,11 +13,15 @@ reference's ``dots_with_no_batch_dims_saveable``); under no grad it changes
 nothing.  :func:`fused_next_token_loss` is the reference's chunked online
 logsumexp over vocab chunks, each chunk checkpointed.
 
-Serving (``models/model.py``) takes every family declared here; the
-training forward (:func:`backbone_forward`) takes the dense family only
-(:func:`check_trainable`).  Learned positions, the GELU MLP and the
-enc-dec and VLM families are refused with ``arch-not-ported``
-(:func:`check_ported`).
+A config with ``max_position_embeddings`` has a learned position table
+(``pos``) and no RoPE; the VLM family (pixtral) prefixes the text with image
+embeddings (:func:`embed_inputs`).  The enc-dec family (whisper) builds its
+own tree from these blocks (``models/model.py::encdec_decls``).
+
+Serving (``models/model.py``) takes every family; the training forward
+(:func:`backbone_forward`) takes the dense (SwiGLU or GELU), VLM and
+enc-dec families and refuses MoE, MLA, SSM and hybrid models with
+``arch-not-ported`` (:func:`check_trainable`).
 """
 
 from __future__ import annotations
@@ -53,27 +57,24 @@ from repro_torch.models.layers import (
 AUX_LOSS_COEF = 0.01
 
 
+#: the families of ``ModelConfig.family``, every one served
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "enc_dec", "vlm")
+
+
 def check_ported(cfg: ModelConfig) -> None:
-    """Refuse every model feature the port does not serve: the enc-dec and
-    VLM families, learned positions and the GELU MLP."""
-    what = []
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        what.append(f"the {cfg.family} family")
-    if cfg.max_position_embeddings:
-        what.append("learned positions")
-    if not cfg.mlp_swiglu:
-        what.append("the GELU MLP")
-    if what:
-        raise refuse(CAP_ARCH, f"{cfg.name}: {', '.join(what)} not ported; the port "
-                               f"serves the dense, moe, ssm and hybrid families")
+    """Refuse a family that the reference does not define."""
+    if cfg.family not in FAMILIES:
+        raise refuse(CAP_ARCH, f"{cfg.name}: unknown family {cfg.family!r}; the port "
+                               f"serves {FAMILIES}")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse every model the port cannot train: all but the dense GQA family
-    (MoE with its aux loss, MLA, SSM and hybrid serve only)."""
+    """Refuse every model the port cannot train: MoE (with its aux loss),
+    MLA, SSM and hybrid serve only; the dense (SwiGLU or GELU MLP, RoPE or
+    learned positions), VLM and enc-dec families train."""
     check_ported(cfg)
     what = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm", "enc_dec"):
         what.append(f"the {cfg.family} family")
     if cfg.use_mla:
         what.append("MLA")
@@ -81,7 +82,7 @@ def check_trainable(cfg: ModelConfig) -> None:
         what.append("experts")
     if what:
         raise refuse(CAP_ARCH, f"{cfg.name}: training {', '.join(what)} is not ported; "
-                               f"the port trains dense GQA models")
+                               f"the port trains the dense, vlm and enc_dec families")
 
 
 def stack_decls(decls, n: int):
@@ -138,6 +139,8 @@ def lm_decls(cfg: ModelConfig) -> dict[str, Any]:
             raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are no whole number of "
                              f"groups of {cfg.attn_every}")
         decls["shared_attn"] = _shared_attn_decls(cfg)
+    if cfg.max_position_embeddings:
+        decls["pos"] = ParamDecl((cfg.max_position_embeddings, cfg.d_model), ("pos", "embed"))
     return decls
 
 
@@ -149,7 +152,8 @@ def layer_params(blocks, i: int):
 def _apply_block(cfg: ModelConfig, bp, x, positions, *, backend: str = "cuda"):
     """Full-sequence residual block.  Returns (x, aux_loss)."""
     h = apply_norm(cfg, bp["ln1"], x)
-    x = x + attn.gqa_forward(cfg, bp["attn"], h, positions, backend=backend)
+    x = x + attn.gqa_forward(cfg, bp["attn"], h, positions,
+                             use_rope=not cfg.max_position_embeddings, backend=backend)
     h = apply_norm(cfg, bp["ln2"], x)
     x = x + mlp_apply(bp["mlp"], h, swiglu=cfg.mlp_swiglu)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -194,7 +198,8 @@ def unstack_layers(blocks, n: int) -> list:
 
 def backbone_forward(cfg: ModelConfig, params, x, positions, *, remat: str = "full",
                      backend: str = "cuda"):
-    """Run all blocks in layer order (the dense family).  Returns (x, aux_loss)."""
+    """Run all blocks in layer order (the dense and VLM families).  Returns
+    (x, aux_loss)."""
     check_trainable(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack_layers(params["blocks"], cfg.num_layers):
@@ -206,10 +211,24 @@ def backbone_forward(cfg: ModelConfig, params, x, positions, *, remat: str = "fu
     return x, aux
 
 
-def embed_inputs(cfg: ModelConfig, params, tokens, *, image_embed=None, offset=0):
+def embed_inputs(cfg: ModelConfig, params, tokens, *, image_embed=None, offset: int = 0):
+    """Token embeddings, after ``image_embed`` [b, n_img, d] where given (the
+    VLM's patches prefix the text), plus the learned positions
+    ``pos[offset:offset + s]`` where the config has them.  The start is
+    clamped to ``[0, max_position_embeddings - s]`` as the reference's
+    ``dynamic_slice_in_dim`` clamps it; a sequence longer than the table is
+    refused (the reference fails to trace it)."""
+    dtype = torch_dtype(cfg.dtype)
+    x = embed_lookup(params["embed"], tokens.long(), cfg.d_model, dtype)
     if image_embed is not None:
-        raise refuse(CAP_ARCH, f"{cfg.name}: image prefixes (the vlm family) are not ported")
-    return embed_lookup(params["embed"], tokens.long(), cfg.d_model, torch_dtype(cfg.dtype))
+        x = torch.cat([image_embed.to(dtype), x], dim=1)
+    if cfg.max_position_embeddings:
+        s, n = x.shape[1], cfg.max_position_embeddings
+        if s > n:
+            raise ValueError(f"{cfg.name}: {s} positions exceed the learned table of {n}")
+        start = min(max(int(offset), 0), n - s)
+        x = x + params["pos"][start:start + s][None].to(dtype)
+    return x
 
 
 def lm_logits(cfg: ModelConfig, params, x):

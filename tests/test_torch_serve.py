@@ -62,7 +62,7 @@ from repro_torch.experiments.engine import (
 from repro_torch.interop import model_params_from_arrays
 from repro_torch.kernels import flash_attention as k6
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.launch.serve import Server
+from repro_torch.launch.serve import Server, stub_batch
 from repro_torch.models import build_model, cache_abstract
 from repro_torch.models.attention import (
     _attend,
@@ -74,6 +74,7 @@ from repro_torch.models.layers import apply_rope, mlp_apply, rmsnorm
 from repro_torch.models.transformer import (
     apply_norm,
     backbone_forward,
+    check_trainable,
     embed_inputs,
     lm_logits,
     next_token_loss,
@@ -90,6 +91,8 @@ K6_CASES = [
     (1, 2, 128, 128, 64, False),  # non-causal
     (1, 2, 64, 64, 128, True),
     (1, 1, 100, 130, 128, True),
+    (1, 2, 70, 70, 192, True),  # above 128: the reference pads d to 256 lanes
+    (1, 1, 40, 96, 256, True),
 ]
 K6_DTYPES = ("float32", "bfloat16")
 #: calls at the edge of the contract: (sq, sk, causal, block_k)
@@ -455,8 +458,7 @@ def _code(excinfo) -> str:
     return excinfo.value.capability.code
 
 
-@pytest.mark.parametrize("arch", ["pixtral-12b", "starcoder2-15b", "whisper-base", "qwen1.5-32b",
-                                  "gpt-x"])
+@pytest.mark.parametrize("arch", ["gpt-x"])
 def test_unported_archs_are_refused(arch):
     with pytest.raises(EngineCapabilityError) as e:
         get_config(arch)
@@ -466,15 +468,36 @@ def test_unported_archs_are_refused(arch):
     assert _code(e) == CAP_ARCH
 
 
-@pytest.mark.parametrize("change", [dict(family="vlm", num_image_tokens=16), dict(family="vlm"),
-                                    dict(family="enc_dec"), dict(mlp_swiglu=False),
-                                    dict(max_position_embeddings=64),
-                                    dict(family="moe", num_experts=4, top_k=2, d_ff_expert=128,
-                                         max_position_embeddings=64)])
-def test_unported_model_features_are_refused(change):
-    cfg = dataclasses.replace(get_smoke_config("qwen2-7b"), **change)
+@pytest.mark.parametrize("arch", ["pixtral-12b", "starcoder2-15b", "whisper-base", "qwen1.5-32b"])
+def test_registry_archs_build_and_serve_on_cpu(arch):
+    """The four archs that were refused before: each smoke config builds and
+    serves greedy tokens on the CPU (held against the reference in
+    ``tests/test_torch_registry.py``)."""
+    srv = Server(arch, device="cpu", kernel_backend="torch", max_len=40)
+    assert srv.cfg.name == f"{arch}-smoke" and get_config(arch).name == arch
+    toks = srv.generate(stub_batch(srv.cfg, 2, 10), 4)
+    assert toks.shape == (2, 4) and bool(((toks >= 0) & (toks < 512)).all())
+
+
+#: what the port serves but does not train: (smoke config, fields replaced)
+TRAIN_REFUSED = [("grok-1-314b", {}), ("deepseek-v2-236b", {}), ("mamba2-370m", {}),
+                 ("zamba2-2.7b", {}),
+                 ("qwen2-7b", dict(family="moe", num_experts=4, top_k=2, d_ff_expert=128,
+                                   max_position_embeddings=64)),
+                 ("pixtral-12b", dict(num_experts=4, top_k=2, d_ff_expert=128))]
+
+
+@pytest.mark.parametrize(("arch", "change"), TRAIN_REFUSED,
+                         ids=["moe", "mla", "ssm", "hybrid", "moe-learned-pos", "vlm-moe"])
+def test_unported_model_features_are_refused(arch, change):
+    cfg = dataclasses.replace(get_smoke_config(arch), **change)
+    model = build_model(cfg, kernel_backend="torch")  # served
     with pytest.raises(EngineCapabilityError) as e:
-        build_model(cfg)
+        check_trainable(cfg)
+    assert _code(e) == CAP_ARCH
+    with pytest.raises(EngineCapabilityError) as e:
+        model.train_loss(model.init(torch.Generator().manual_seed(0)),
+                         {"tokens": torch.zeros((1, 8), dtype=torch.long)})
     assert _code(e) == CAP_ARCH
 
 
@@ -583,12 +606,31 @@ def test_gpu_k6_bshd_gqa_matches_plain(card, s):
                                       _repeat_kv(v, 4).float().transpose(1, 2)).transpose(1, 2)
     torch.cuda.synchronize()
     assert _k6_tolerance(got, want32)
-    # head dims below 128 run zero-padded (the smoke configs' 16); above, refused
-    small = [torch.as_tensor(rng.normal(size=(1, 2, 40, 16)), device=card).float()
-             for _ in range(3)]
-    assert _k6_tolerance(k6.flash_attention_op(*small), k6.flash_attention_plain(*small))
-    with pytest.raises(ValueError, match="head dims"):
-        k6.flash_attention_op(*(torch.zeros(1, 1, 8, 192, device=card),) * 3)
+    # head dims below 128 run zero-padded (the smoke configs' 16), and so
+    # does 192 (to the d = 256 instantiation); 256 runs as it is
+    for d in (16, 192, 256):
+        qkv = [torch.as_tensor(rng.normal(size=(1, 2, 40, d)), device=card) for _ in range(3)]
+        for dt in (torch.float32, torch.bfloat16):
+            x = [t.to(dt) for t in qkv]
+            want = k6.flash_attention_plain(*(t.float() for t in x))
+            assert _k6_tolerance(k6.flash_attention_op(*x), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", K6_DTYPES)
+@pytest.mark.parametrize(("sq", "sk"), [(1500, 1500), (1024, 1500), (1, 1500), (37, 130)])
+def test_gpu_k6_bshd_non_causal_takes_any_key_count(card, dt, sq, sk):
+    """whisper's shapes: the encoder over 1500 frames, cross-attention at
+    prefill and at a decode step; sk no multiple of the key tiles."""
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.as_tensor(rng.normal(size=(2, n, 4, 64)), dtype=torch.float32,
+                               device=card).to(_dtype(dt)) for n in (sq, sk, sk))
+    reset_launch_counts()
+    got = k6.flash_attention_bshd(q, k, v, causal=False)
+    want32 = k6.flash_attention_plain(*(t.float().transpose(1, 2) for t in (q, k, v)),
+                                      causal=False).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1 and _k6_tolerance(got, want32)
 
 
 @pytest.mark.gpu
