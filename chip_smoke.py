@@ -242,7 +242,28 @@ Phases (any failure raises and the script exits non-zero):
    trains 8 steps at full width through ``Trainer`` (``TrainConfig()``, P =
    4): K4 once per step over [4, n] bf16, no K6, finite losses, host ms per
    step and peak memory;
-16. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+16. training the MoE, MLA, SSM and hybrid families on the card, each model
+   freed before the next: (a) mamba2-370m at full width and depth and (b)
+   zamba2-2.7b at full width, cut to two groups of six Mamba2 layers and
+   the shared block (:data:`FAMILY_TRAIN_ARCHS`), each trained
+   :data:`TRAIN_STEPS` steps through ``Trainer`` (``TrainConfig()``, P = 4,
+   8 x 128 tokens, random bf16 weights from seed 0): finite losses, K4 once
+   per step over [4, n] bf16, no K6, host ms per step, peak memory, and K4
+   on the second step's inputs bit-equal to its plain twin, timed beside its
+   bound; (c) grok-1-314b, deepseek-v2-236b and pixtral-12b at full width,
+   the embedding and one block in bf16 (:data:`FAMILY_LAYER_ARCHS`: no DSAG
+   state of them fits one card): ``Model.train_loss`` and
+   ``torch.autograd.grad`` over 8 x 128 tokens (pixtral's after 256 stub
+   image embeddings), finite, two runs bit-equal, the MoE backward through
+   ``_Dispatch``/``_Combine`` against the indexing form within
+   :data:`MOE_BWD_TOL`, ms per forward + backward and peak memory; (d) the
+   four smoke configs in float32, 8 ``Trainer`` steps (sgd, replayed
+   traces), card against CPU: streams equal, losses and the final
+   parameters' relative RMS within :data:`TRAIN_CHECK_RTOL`, K4 once per
+   step; (e) the SSD at chunk
+   128 past a cumulative decay of 88.7: every gradient finite on the card
+   and within :data:`SSD_CPU_TOL` of the CPU port's;
+17. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -3571,6 +3592,328 @@ def run_whisper_training(torch) -> tuple[dict, dict]:
     return res, {"dsag_cache_update": counts["dsag_cache_update"]}
 
 
+#: phase 16 (a), (b): the SSM and hybrid archs trained through ``Trainer`` at
+#: their published widths, and the depth each is cut to (None: full depth).
+#: zamba2-2.7b keeps two of its nine groups of six Mamba2 layers and the shared
+#: block, the deepest that fits under ~70 GiB: a run peaked at 84.1 bytes per
+#: parameter at one group (H100 80GB HBM3, 700 W), so two groups (0.747 B
+#: parameters) take ~59 GiB and three (0.986 B) ~77 GiB
+FAMILY_TRAIN_ARCHS = {"mamba2-370m": None, "zamba2-2.7b": 12}
+#: phase 16 (c): archs whose full-width layer runs forward and backward alone
+#: (embedding, one block, unembedding; bf16): no DSAG state of them fits one
+#: card (a grok-1 layer alone holds 4.8 B expert parameters, a deepseek-v2
+#: layer 3.9 B; pixtral-12b's embedding tables are 1.34 B), so no Trainer
+FAMILY_LAYER_ARCHS = ("grok-1-314b", "deepseek-v2-236b", "pixtral-12b")
+#: phase 16 (c): the MoE backward through ``_Dispatch``/``_Combine`` against
+#: autograd through the indexing form (an accumulating ``index_put``), each
+#: gradient leaf within four bf16 ulps of its largest value
+MOE_BWD_TOL = 2.0**-5
+#: phase 16 (e): the SSD at the published chunk of 128: b, s, heads, head
+#: dim, state, and the float32 bound of the card against the CPU
+SSD_SHAPE, SSD_CPU_TOL = (1, 128, 2, 4, 8), 1e-4
+
+
+def free_cuda(torch) -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_family_arch(torch, arch: str, layers, smi: str) -> tuple[dict, dict, dict]:
+    """Phase 16 (a)/(b): ``arch`` at its published width (``layers`` deep,
+    None: all) trained :data:`TRAIN_STEPS` steps through ``Trainer``
+    (``TrainConfig()``: adamw, bf16 slots, remat full; P = 4, live-sampled
+    stragglers, random bf16 weights from seed 0).  Returns its numbers, its
+    launches and K4's row on the run's second step's inputs."""
+    import dataclasses
+
+    import repro_torch.launch.train as train_mod
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.kernels import dsag_update as k4
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    def cut(a):
+        return dataclasses.replace(get_config(a), num_layers=layers or get_config(a).num_layers)
+
+    free_cuda(torch)
+    with mock.patch.object(train_mod, "get_config", cut):
+        trn = train_mod.Trainer(train_mod.TrainerOptions(
+            arch=arch, smoke=False, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, train_config=TrainConfig(), log_every=10**6,
+            engine=EngineConfig(device="cuda", kernel_backend="cuda")))
+    cfg, n_params = trn.cfg, trn.model.num_params()
+    P, n = trn.gs.num_groups, trn.layout.numel
+    # K4's inputs of the second step (its first real gradients against a
+    # filled cache), copied to the host so that they add nothing to the peak
+    wrapper, k4_inputs = k4.dsag_cache_update, []
+
+    def keep_second(g, c, h, mask):
+        if len(k4_inputs) < 2:
+            k4_inputs.append(tuple(t.to("cpu") for t in (g, c, h, mask)))
+        return wrapper(g, c, h, mask)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(k4, "dsag_cache_update", keep_second):
+        hist = trn.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"phase 16: {arch}: losses {losses}")
+    if counts["dsag_cache_update"] != TRAIN_STEPS or counts["flash_attention"]:
+        fail(f"phase 16: {arch}: {counts['dsag_cache_update']} K4 launches in {TRAIN_STEPS} "
+             f"steps, {counts['flash_attention']} K6 launches")
+    host_ms = float(np.mean(hist["step_time"][2:])) * 1e3
+    depth = f"{cfg.num_layers} of {get_config(arch).num_layers}" if layers else cfg.num_layers
+    print(f"  {cfg.name}: {depth} layers, d_model {cfg.d_model}, {n_params / 1e6:.1f} M "
+          f"parameters (flat n = {n}), P = {P}, global batch {TRAIN_BATCH} x {TRAIN_SEQ}, adamw, "
+          f"bf16 slots, remat full ({smi}): losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"host {host_ms:.1f} ms per step (steps 2-{TRAIN_STEPS - 1}), run wall {wall:.2f} s; "
+          f"peak memory {peak / 2**30:.2f} GiB ({peak / n_params:.1f} B per parameter); K4 "
+          f"launches {counts['dsag_cache_update']} = steps at [{P}, {n}] bf16, K6 0")
+    # K4 on those inputs: bit-equal to its plain twin, timed beside its bound
+    # (not counted)
+    del trn
+    free_cuda(torch)
+    inputs = tuple(t.to("cuda") for t in k4_inputs[1])
+    del k4_inputs
+    row = check_dsag_update(torch, P, n, torch.bfloat16, None, inputs=inputs, plain_reps=2)
+    del inputs
+    free_cuda(torch)
+    res = {"layers": cfg.num_layers, "params": n_params, "numel": n, "losses": losses,
+           "host_ms_per_step": host_ms, "wall_s": wall, "peak_bytes": peak,
+           "k4_launches": counts["dsag_cache_update"]}
+    return res, {"dsag_cache_update": counts["dsag_cache_update"]}, row
+
+
+def indexing_moe(torch, moe_mod):
+    """``moe_mod``'s ``_Dispatch``/``_Combine`` as plain indexing, whose
+    autograd backward is an accumulating ``index_put`` (the port's MoE
+    before its gather pair): the comparison of phase 16 (c)."""
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((a.shape[0], 1) + a.shape[2:])], dim=1)
+
+    def dispatch(tokens, src_of_slot, slot_of_pair):
+        xi = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+        return pad(tokens)[xi, src_of_slot]
+
+    def combine(y_flat, gates, slot_of_pair, src_of_slot, pair_of_slot):
+        nx, t, k = gates.shape
+        xi = torch.arange(nx, device=y_flat.device)[:, None]
+        y_pairs = pad(y_flat)[xi, slot_of_pair].reshape(nx, t, k, -1)
+        return (y_pairs * gates[..., None]).sum(dim=2)
+
+    return (mock.patch.object(moe_mod._Dispatch, "apply", dispatch),
+            mock.patch.object(moe_mod._Combine, "apply", combine))
+
+
+def layer_forward_backward(torch, arch: str, smi: str) -> dict:
+    """Phase 16 (c): ``arch``'s embedding and one block at its published
+    width in bf16 (random weights from seed 0): ``Model.train_loss`` over
+    8 x 128 tokens (pixtral: after 256 stub image embeddings) and
+    ``torch.autograd.grad`` of every parameter, twice (bit-equal); MoE
+    models once more with the indexing form, within :data:`MOE_BWD_TOL`."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import _leaves
+
+    free_cuda(torch)
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    leaves = [t.requires_grad_(True) for _, t in _leaves(params)]
+    n_img = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    batch = {k: torch.as_tensor(v[0], device="cuda") for k, v in next(make_batch_iterator(
+        cfg, 1, TRAIN_BATCH, TRAIN_SEQ + n_img, seed=0)).items()}
+
+    def grads():
+        loss = model.train_loss(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    loss, first = grads()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss2, second = grads()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    k6 = launch_counts()["flash_attention"]
+    if not bool(torch.isfinite(loss)) or not all(bool(torch.isfinite(g).all()) for g in first):
+        fail(f"phase 16 (c): {arch}: a non-finite loss ({float(loss)}) or gradient")
+    same = torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(first, second))
+    if not same or k6:
+        fail(f"phase 16 (c): {arch}: two backward runs differ ({not same}) or K6 ran ({k6})")
+    del second
+    out = {"params": model.num_params(), "loss": float(loss), "ms_fwd_bwd": ms,
+           "peak_bytes": peak, "bit_equal_runs": True}
+    worst = None
+    if cfg.num_experts:
+        patches = indexing_moe(torch, moe_mod)
+        with patches[0], patches[1]:
+            _, plain = grads()
+        worst = 0.0
+        for (name, _), a, b in zip(_leaves(params), first, plain):
+            scale = float(b.abs().max())
+            err = float((a.float() - b.float()).abs().max())
+            if err > MOE_BWD_TOL * scale:
+                fail(f"phase 16 (c): {arch}: {name}'s gradient through the gather pair differs "
+                     f"from the indexing form's by {err:.3e} (|g| <= {scale:.3e})")
+            worst = max(worst, err / max(scale, 1e-30))
+        del plain
+        out["gather_vs_indexing_max_rel"] = worst
+    what = (f"the gather pair against the indexing form within {worst:.3e} of each leaf's "
+            f"largest value (tolerance {MOE_BWD_TOL}); " if worst is not None else "")
+    print(f"  (c) {cfg.name}: embedding + 1 of {get_config(arch).num_layers} layers, "
+          f"{out['params'] / 1e9:.3f} B parameters, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} tokens"
+          f"{f' after {n_img} image embeddings' if n_img else ''} ({smi}): loss {float(loss):.4f}, "
+          f"gradients finite, two runs bit-equal; {what}{ms:.1f} ms per forward + backward; "
+          f"peak memory {peak / 2**30:.2f} GiB; K6 0")
+    del first, leaves, params, model
+    free_cuda(torch)
+    return out
+
+
+def smoke_train_card_vs_cpu(torch, arch: str, traces) -> dict:
+    """Phase 16 (d): ``arch``'s smoke config in float32, sgd, 8 ``Trainer``
+    steps on replayed traces, on the card (K4) and on the CPU (plain): the
+    streams equal, the losses and the final parameters' relative RMS
+    difference within :data:`TRAIN_CHECK_RTOL`, K4 once per step on the
+    card."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import Trainer, TrainerOptions
+
+    tc = TrainConfig(optimizer="sgd", learning_rate=1e-2, dsag_cache_dtype="float32")
+    runs, k4 = {}, {}
+    state0 = None
+    for dev, backend in (("cpu", "torch"), ("cuda", "cuda")):
+        trn = Trainer(TrainerOptions(arch=arch, dtype="float32", steps=TRAIN_STEPS,
+                                     global_batch=8, seq_len=64, traces=traces, scenario=0,
+                                     simulate_stragglers=False, train_config=tc,
+                                     log_every=10**6,
+                                     engine=EngineConfig(device=dev, kernel_backend=backend)))
+        if state0 is None:
+            state0 = trn.init_state()
+        else:
+            trn.init_state = lambda: state_to(torch, state0, dev)
+        reset_launch_counts()
+        runs[dev] = (trn.run(), trn.state["params"].cpu())
+        k4[dev] = launch_counts()["dsag_cache_update"]
+    (hc, pc), (hp, pp) = runs["cuda"], runs["cpu"]
+    for f in ("mask_stream", "flush_stream", "evict_stream", "xi", "mask_count"):
+        if not np.array_equal(np.asarray(hc[f]), np.asarray(hp[f])):
+            fail(f"phase 16 (d): {arch}: the card's {f} differs from the CPU's")
+    rel = float(np.max(np.abs(np.asarray(hc["loss"]) / np.asarray(hp["loss"]) - 1)))
+    # the final parameters' relative RMS difference, as the port's trainer
+    # tests hold them (tests/test_torch_train_lm.py); the largest element's
+    # difference beside it, printed
+    prel = float(torch.linalg.norm(pc - pp) / torch.linalg.norm(pp))
+    pmax = float((pc - pp).abs().max() / pp.abs().max())
+    if not np.isfinite(hc["loss"]).all() or rel > TRAIN_CHECK_RTOL or prel > TRAIN_CHECK_RTOL:
+        fail(f"phase 16 (d): {arch}: losses differ by rtol {rel}, final parameters by a "
+             f"relative RMS of {prel} (tolerance {TRAIN_CHECK_RTOL})")
+    if k4["cuda"] != TRAIN_STEPS or k4["cpu"]:
+        fail(f"phase 16 (d): {arch}: K4 launches card {k4['cuda']}, CPU {k4['cpu']}")
+    return {"loss_rtol": rel, "params_rel_rms": prel, "params_max_rel": pmax, "k4": k4["cuda"]}
+
+
+def ssd_full_chunk_on_card(torch) -> dict:
+    """Phase 16 (e): ``_ssd_chunked`` at the published chunk of 128 on inputs
+    whose cumulative decay passes float32's 88.7 (A = -1, dt = softplus of
+    normals, seed 0): every gradient finite on the card, and equal to the
+    CPU port's within :data:`SSD_CPU_TOL`."""
+    from repro_torch.models import ssm as ssm_mod
+
+    b, s, h, p, n = SSD_SHAPE
+    rng = np.random.default_rng(0)
+    host = {"x": rng.normal(size=(b, s, h, p)), "dt": np.log1p(np.exp(rng.normal(size=(b, s, h)))),
+            "A": -np.ones(h), "B": rng.normal(size=(b, s, n)), "C": rng.normal(size=(b, s, n))}
+    w = rng.normal(size=(b, s, h, p))
+    decay = float(np.cumsum(host["dt"] * -host["A"], axis=1).max())
+    if decay <= 88.72:
+        fail(f"phase 16 (e): the cumulative decay {decay} does not pass 88.7")
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        args = [torch.tensor(host[k], dtype=torch.float32, device=dev, requires_grad=True)
+                for k in ("x", "dt", "A", "B", "C")]
+        y, st = ssm_mod._ssd_chunked(*args, 128)
+        loss = (y * torch.tensor(w, dtype=torch.float32, device=dev)).sum() + st.sum()
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, args)]
+    worst = 0.0
+    for name, a, c in zip(("x", "dt", "A", "B", "C"), grads["cuda"], grads["cpu"]):
+        scale = float(c.abs().max())
+        if not bool(torch.isfinite(a).all()) or not torch.allclose(
+                a, c, rtol=SSD_CPU_TOL, atol=SSD_CPU_TOL * scale):
+            fail(f"phase 16 (e): the SSD's gradient of {name} on the card is not finite or "
+                 f"differs from the CPU's by {float((a - c).abs().max()):.3e} "
+                 f"(|CPU| <= {scale:.3e})")
+        worst = max(worst, float((a - c).abs().max()) / scale)
+    print(f"  (e) the SSD at chunk 128 (cumulative decay {decay:.1f} > 88.7): the gradients of "
+          f"x, dt, A, B, C finite on the card and within {worst:.2e} of the CPU port's largest "
+          f"(tolerance {SSD_CPU_TOL})")
+    return {"max_decay": decay, "card_vs_cpu_max_rel": worst}
+
+
+def run_family_training(torch) -> tuple[dict, dict, list]:
+    """Phase 16: train the MoE, MLA, SSM and hybrid families on the card.
+    Returns the phase's numbers, its K4 launches and K4's rows at the
+    trained models' ``[4, n]``."""
+    from repro_torch.experiments.grid import HEAVY_BURSTS
+    from repro_torch.latency.model import make_heterogeneous_cluster, sample_fleet
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    out: dict = {}
+    launches = {"dsag_cache_update": 0}
+    rows = []
+    t0 = time.perf_counter()
+    for arch, layers in FAMILY_TRAIN_ARCHS.items():
+        res, n, row = train_family_arch(torch, arch, layers, smi)
+        out[arch] = res
+        launches["dsag_cache_update"] += n["dsag_cache_update"]
+        rows.append(row)
+    print(f"  (a), (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for arch in FAMILY_LAYER_ARCHS:
+        out[arch] = layer_forward_backward(torch, arch, smi)
+    print(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cl = make_heterogeneous_cluster(4, seed=3, burst_rate=0.0)
+    traces = sample_fleet(cl, 1, 400, burst_rate=HEAVY_BURSTS.rate,
+                          burst_factor_mean=HEAVY_BURSTS.factor_mean,
+                          burst_duration_mean=HEAVY_BURSTS.duration_mean, seed=7)
+    smoke = {arch: smoke_train_card_vs_cpu(torch, arch, traces)
+             for arch in ("grok-1-314b", "deepseek-v2-236b", "mamba2-370m", "zamba2-2.7b")}
+    for arch, r in smoke.items():
+        launches["dsag_cache_update"] += r["k4"]
+    print("  (d) smoke configs, float32, sgd, " + "; ".join(
+        f"{a}: losses within rtol {r['loss_rtol']:.2e}, final parameters' relative RMS "
+        f"{r['params_rel_rms']:.2e} (largest element {r['params_max_rel']:.2e} of the largest), "
+        f"K4 {r['k4']}" for a, r in smoke.items())
+        + f" (tolerance {TRAIN_CHECK_RTOL}); took {time.perf_counter() - t0:.1f} s")
+    out["smoke_card_vs_cpu"] = smoke
+    out["ssd_full_chunk"] = ssd_full_chunk_on_card(torch)
+    return out, launches, rows
+
+
 def profile_run(torch, label: str, setup, iters: int) -> dict | None:
     """One warm run under ``torch.profiler``: host wall clock (ending in a
     synchronize), the union of device kernel intervals (busy time), the idle
@@ -4006,13 +4349,21 @@ def main() -> None:
     registry = run_registry(torch)
     registry["seconds"] = time.perf_counter() - t0
     print(f"  phase 15 took {registry['seconds']:.1f} s")
-    print("phase 16: the kernels line")
+    print("phase 16: training the MoE, MLA, SSM and hybrid families on the card "
+          "(mamba2-370m at full depth, zamba2-2.7b at two groups of six layers; one layer of "
+          "grok-1-314b, deepseek-v2-236b and pixtral-12b forward and backward)")
+    t0 = time.perf_counter()
+    fam_train, fam_train_launches, k4_rows = run_family_training(torch)
+    per_kernel["dsag_cache_update"] += k4_rows
+    fam_train["seconds"] = time.perf_counter() - t0
+    print(f"  phase 16 took {fam_train['seconds']:.1f} s")
+    print("phase 17: the kernels line")
     reg_train = registry.pop("train_launches")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
                 + engine_launches.get(k, 0) + lb_launches.get(k, 0)
                 + churn_launches.get(k, 0) + paper_launches.get(k, 0)
                 + sharding_launches.get(k, 0) + train_launches.get(k, 0)
-                + reg_train.get(k, 0)
+                + reg_train.get(k, 0) + fam_train_launches.get(k, 0)
                 for k in sweep_launches}
     launches["flash_attention"] = (serving["launches"] + families["k6_main"]
                                    + registry["k6_main"])
@@ -4056,6 +4407,7 @@ def main() -> None:
             launches_families=families["k6_main"] if name == "flash_attention" else 0,
             launches_registry=(registry["k6_main"] if name == "flash_attention"
                                else reg_train.get(name, 0)),
+            launches_family_training=fam_train_launches.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -4067,6 +4419,7 @@ def main() -> None:
     print(json.dumps({"training": training}))
     print(json.dumps({"families": families}))
     print(json.dumps({"registry": registry}))
+    print(json.dumps({"family_training": fam_train}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,7 @@ it serves: ``get_config(arch)`` / ``get_smoke_config(arch)``.
 Every arch of the JAX package's registry is here: the dense family
 (qwen1.5-0.5b, qwen2-7b, qwen1.5-32b, starcoder2-15b), MoE (grok-1-314b;
 deepseek-v2-236b, with MLA), SSM (mamba2-370m), hybrid (zamba2-2.7b), VLM
-(pixtral-12b) and enc-dec (whisper-base).  All of them serve; the dense,
-VLM and enc-dec archs also train (``models/transformer.py::check_trainable``).
+(pixtral-12b) and enc-dec (whisper-base).  All of them serve and train.
 An unknown name is refused with :data:`~repro_torch.experiments.engine.CAP_ARCH`.
 """
 

@@ -4,9 +4,8 @@ The same frozen dataclasses with the same fields, defaults and properties,
 so a configuration reads the same in both packages.  :class:`ModelConfig`
 describes the model zoo, every family of which the port serves
 (``repro_torch.launch.serve``: dense, MoE, MLA, SSM, hybrid, VLM and
-enc-dec); the dense, VLM and enc-dec families also train through the
-model-zoo branch of ``repro_torch.launch.train``, the others are refused
-there.  :class:`TrainConfig` configures the live trainer, for the paper
+enc-dec) and trains through the model-zoo branch of
+``repro_torch.launch.train``.  :class:`TrainConfig` configures the live trainer, for the paper
 problems (``launch/paper_jobs.py``) and the model zoo; fields that
 configure the model zoo's sharding are kept for parity and must stay at
 their defaults here (a mesh is refused by ``core/dsag_pjit.py``).

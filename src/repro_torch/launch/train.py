@@ -8,12 +8,13 @@ Wires together
     -> (optional) checkpoints
 
 on the card by default.  Two kinds of jobs share the loop: the model zoo's
-dense, VLM and enc-dec archs (``--arch qwen1.5-0.5b``, ``qwen2-7b``,
-``qwen1.5-32b``, ``starcoder2-15b``, ``pixtral-12b``, ``whisper-base``; the
+ten archs, every family (``--arch qwen1.5-0.5b``, ``qwen2-7b``,
+``qwen1.5-32b``, ``starcoder2-15b``, ``grok-1-314b``, ``deepseek-v2-236b``,
+``mamba2-370m``, ``zamba2-2.7b``, ``pixtral-12b``, ``whisper-base``; the
 smoke config unless ``--full``), whose per-group gradients come from
-autograd over ``Model.train_loss`` on the reference's synthetic batches
-(``repro_torch.data``: image or audio embeddings beside the tokens where
-the family takes them), with the
+autograd over ``Model.train_loss`` (the MoE's aux loss included) on the
+reference's synthetic batches (``repro_torch.data``: image or audio
+embeddings beside the tokens where the family takes them), with the
 parameters, moments and DSAG slots flat (``FlatLayout``) so K4 updates
 every parameter in one launch per step; and the paper problems (``--arch
 logreg`` / ``--arch pca``, K1/K5 group gradients).  Replaying a
@@ -40,9 +41,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 40 \\
       --checkpoint-dir ckpt [--restore]
 
-Not ported (refused with a capability code): training the model zoo's MoE,
-MLA, SSM and hybrid archs (:data:`CAP_ARCH`: they are served, not trained)
-and, through the Tier-1 step, a mesh.
+Not ported (refused with a capability code): a mesh, through the Tier-1
+step.  An arch the registry does not hold is refused with :data:`CAP_ARCH`.
 """
 
 from __future__ import annotations
@@ -77,7 +77,6 @@ from repro_torch.ft.validation import trace_latency_fn
 from repro_torch.latency.model import make_heterogeneous_cluster
 from repro_torch.launch.paper_jobs import PAPER_ARCHES, make_paper_job, paper_train_config
 from repro_torch.models import build_model
-from repro_torch.models.transformer import check_trainable
 
 __all__ = ["CAP_ARCH", "Trainer", "TrainerOptions", "check_history", "main"]
 
@@ -143,7 +142,6 @@ class Trainer:
             cfg = get_smoke_config(opts.arch) if opts.smoke else get_config(opts.arch)
             if opts.dtype is not None:
                 cfg = dataclasses.replace(cfg, dtype=opts.dtype)
-            check_trainable(cfg)
             self.cfg = cfg
             self.model = build_model(cfg)
             self.layout = self.model.layout
@@ -360,8 +358,8 @@ def check_history(hist: dict) -> tuple[bool, str]:
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="logreg",
-                    help=f"a model-zoo arch of the dense, vlm or enc_dec family "
-                         f"(e.g. qwen1.5-0.5b, whisper-base) or one of {PAPER_ARCHES}")
+                    help=f"a model-zoo arch (e.g. qwen1.5-0.5b, mamba2-370m) or one of "
+                         f"{PAPER_ARCHES}")
     ap.add_argument("--full", dest="smoke", action="store_false",
                     help="model-zoo archs: the published widths (default: the smoke config)")
     ap.add_argument("--steps", type=int, default=50)

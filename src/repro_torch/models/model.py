@@ -22,8 +22,7 @@ kernel K6 (default), ``"torch"`` through the reference's plain
 ``full_attention``; MLA takes the plain attention either way
 (``models/attention.py``).  ``train_loss`` always takes the plain attention,
 as the reference's does (K6 has no backward and refuses grad), and trains
-the dense, VLM and enc-dec families: MoE, MLA, SSM and hybrid models raise
-``arch-not-ported`` there (:func:`check_trainable`).
+every family: the MoE's adds ``AUX_LOSS_COEF`` times the experts' aux loss.
 """
 
 from __future__ import annotations
@@ -56,7 +55,6 @@ from repro_torch.models.transformer import (
     _remat,
     backbone_forward,
     check_ported,
-    check_trainable,
     embed_inputs,
     fused_next_token_loss,
     layer_params,
@@ -217,14 +215,15 @@ class Model:
     def train_loss(self, params, batch, *, remat: str = "full", fused_loss: bool = False):
         """Mean next-token cross-entropy of ``batch["tokens"]`` [b, s] (the
         VLM's over its text positions only, the enc-dec's given the encoded
-        ``batch["audio_embed"]``).
+        ``batch["audio_embed"]``), plus ``AUX_LOSS_COEF`` times the experts'
+        load-balance loss for MoE models.
 
         Logits span the padded vocab (``embed_decls`` rounds it up to 256),
         as the reference's logsumexp does.  Attention is the plain one (the
         reference's ``_attend``), whatever ``kernel_backend`` says.  A batch
         carrying embeddings its family does not take is refused."""
         cfg = self.cfg
-        check_trainable(cfg)
+        check_ported(cfg)
         self._check_layout(batch)
         tokens = batch["tokens"]
         if cfg.family == "enc_dec":

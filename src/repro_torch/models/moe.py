@@ -1,5 +1,5 @@
 """Mixture-of-experts with chunk-local sort-based capacity dispatch, from
-``repro.models.moe`` (forward only: serving).
+``repro.models.moe``: serving and training.
 
 Tokens choose their top-k experts.  The token stream is split into
 ``cfg.moe_dispatch_chunks`` chunks when that divides the batch (else one),
@@ -7,16 +7,27 @@ and tokens compete for per-expert capacity only within their chunk.  The
 (token, expert) pairs of a chunk are sorted by expert, stably, and a pair
 past its expert's capacity is dropped; the reference's index tables follow
 (``slot_of_pair``: the slot each pair landed in, or the pad slot;
-``src_of_slot``: the token each slot holds, or the pad token), and dispatch
+``src_of_slot``: the token each slot holds, or the pad token;
+``pair_of_slot``: the pair each slot holds, or the pad pair), and dispatch
 and combine are plain gathers over them.  The expert FFNs are grouped
 einsums over ``[x, E, C, d]``, as in the reference (cuBLAS here, XLA there:
 neither is a Pallas kernel).
 
+Dispatch and combine are the reference's ``custom_vjp`` pair, here
+:class:`_Dispatch` and :class:`_Combine` (``torch.autograd.Function``):
+both directions of both are gathers over the index tables, so no backward
+sums through an accumulating ``index_put``, whose order of adds is its
+kernel's: the dispatch's backward sums each token's k slots' cotangents
+over the k axis, as the reference does, and the combine's gathers ``d_out``
+by ``src_of_slot`` and scales it by the slot's gate.  The aux loss's expert counts carry no
+gradient (the reference's constant scatter); its mean probabilities do.
+
 Where the reference's order matters the port keeps it: the top k are taken
 from a stable descending sort (``jax.lax.top_k`` puts the lower index first
-among equal values, and bfloat16 router logits do tie), the pairs' sort is
-stable (``jnp.argsort``), and the capacity is the reference's integer and
-float arithmetic.  The reference's ``custom_vjp`` backward is not ported.
+among equal values, and bfloat16 router logits do tie; its gradient reaches
+the selected entries, as ``top_k``'s does), the pairs' sort is stable
+(``jnp.argsort``), and the capacity is the reference's integer and float
+arithmetic.
 """
 
 from __future__ import annotations
@@ -87,6 +98,61 @@ def dispatch_chunks(cfg: ModelConfig, batch: int) -> int:
     return cfg.moe_dispatch_chunks if batch % max(cfg.moe_dispatch_chunks, 1) == 0 else 1
 
 
+def _take(arr, idx):
+    """Batched row gather: arr [x, n, ...], idx [x, m] -> [x, m, ...] (an
+    index kernel: ``take_along_dim`` would first expand ``idx`` to int64
+    rows as wide as ``arr``'s, 25 GiB at grok-1's width)."""
+    return arr[torch.arange(arr.shape[0], device=arr.device)[:, None], idx]
+
+
+def _pad_row(a):
+    """``a`` [x, n, ...] with one zero row appended along axis 1."""
+    return torch.cat([a, a.new_zeros((a.shape[0], 1) + a.shape[2:])], dim=1)
+
+
+class _Dispatch(torch.autograd.Function):
+    """``grouped[slot] = tokens[src_of_slot]`` (the pad token: zeros); the
+    backward ``d_tokens[t] = Σ_j d_grouped[slot_of_pair[t, j]]``."""
+
+    @staticmethod
+    def forward(ctx, tokens, src_of_slot, slot_of_pair):
+        ctx.save_for_backward(slot_of_pair)
+        ctx.tokens_per_chunk = tokens.shape[1]
+        return _take(_pad_row(tokens), src_of_slot)
+
+    @staticmethod
+    def backward(ctx, d_grouped):
+        (slot_of_pair,) = ctx.saved_tensors
+        nx, tk = slot_of_pair.shape
+        t = ctx.tokens_per_chunk
+        d_pairs = _take(_pad_row(d_grouped), slot_of_pair)  # [x, t*k, d]
+        return d_pairs.reshape(nx, t, tk // t, -1).sum(dim=2), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``out[t] = Σ_j gate[t, j] · y[slot_of_pair[t, j]]``; the backward
+    ``d_y[slot] = gate_of_slot · d_out[src_of_slot]`` and ``d_gate[t, j] =
+    y[slot_of_pair[t, j]] · d_out[t]`` (returned in the gates' dtype)."""
+
+    @staticmethod
+    def forward(ctx, y_flat, gates, slot_of_pair, src_of_slot, pair_of_slot):
+        ctx.save_for_backward(y_flat, gates, slot_of_pair, src_of_slot, pair_of_slot)
+        nx, t, k = gates.shape
+        y_pairs = _take(_pad_row(y_flat), slot_of_pair).reshape(nx, t, k, -1)
+        return (y_pairs * gates[..., None]).sum(dim=2)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        y_flat, gates, slot_of_pair, src_of_slot, pair_of_slot = ctx.saved_tensors
+        nx, t, k = gates.shape
+        gf_pad = _pad_row(gates.reshape(nx, t * k))
+        gate_of_slot = _take(gf_pad, pair_of_slot)
+        d_y = _take(_pad_row(d_out), src_of_slot) * gate_of_slot[..., None]
+        y_pairs = _take(_pad_row(y_flat), slot_of_pair).reshape(nx, t, k, -1)
+        d_gates = (y_pairs * d_out[:, :, None, :]).sum(dim=-1)
+        return d_y, d_gates.to(gates.dtype), None, None, None
+
+
 def moe_apply(cfg: ModelConfig, params, x, *, capacity_factor: float | None = None):
     """Returns (output [b, s, d], aux load-balance loss [])."""
     b, s, d = x.shape
@@ -125,21 +191,19 @@ def moe_apply(cfg: ModelConfig, params, x, *, capacity_factor: float | None = No
         1, sort_idx, slot_sorted)
     src_of_slot = torch.full((nx, n_slots + 1), t, dtype=torch.int64, device=dev).scatter_(
         1, slot_sorted, torch.where(keep, src_token, t))[:, :n_slots]
+    pair_of_slot = torch.full((nx, n_slots + 1), t * k, dtype=torch.int64, device=dev).scatter_(
+        1, slot_sorted, torch.where(keep, sort_idx, t * k))[:, :n_slots]
 
-    # ---- gather dispatch: grouped[slot] = tokens[src_of_slot] (pad: zeros) ----
-    xi = torch.arange(nx, device=dev)[:, None]
-    tok_pad = torch.cat([tokens, tokens.new_zeros((nx, 1, d))], dim=1)
-    grouped = tok_pad[xi, src_of_slot].reshape(nx, e, capacity, d)
+    # ---- gather dispatch (its backward a gather too) ----
+    grouped = _Dispatch.apply(tokens, src_of_slot, slot_of_pair).reshape(nx, e, capacity, d)
 
     # ---- grouped expert FFN (swiglu) ----
     y_grouped = _swiglu(grouped, params["w_gate"], params["w_up"], params["w_down"],
                         "xecd,edf->xecf", "xecf,efd->xecd")
 
-    # ---- gather combine: out[t] = Σ_j gate[t, j] · y[slot_of_pair[t, j]] ----
-    y_flat = y_grouped.reshape(nx, n_slots, d)
-    y_pad = torch.cat([y_flat, y_flat.new_zeros((nx, 1, d))], dim=1)
-    y_pairs = y_pad[xi, slot_of_pair].reshape(nx, t, k, d)
-    out = (y_pairs * gate_vals.to(x.dtype)[..., None]).sum(dim=2)
+    # ---- gather combine ----
+    out = _Combine.apply(y_grouped.reshape(nx, n_slots, d), gate_vals.to(x.dtype),
+                         slot_of_pair, src_of_slot, pair_of_slot)
 
     if cfg.num_shared_experts:
         out = out + _shared(params, tokens)

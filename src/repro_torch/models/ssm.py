@@ -17,6 +17,13 @@ softplus of the step size as ``logaddexp(x, 0)`` (``jax.nn.softplus``;
 reference runs all of this as plain XLA ops, outside any Pallas kernel; so
 does the port, as plain torch ops.  The port has no mesh, so the
 reference's sharding constraints are gone.
+
+Training differentiates :func:`mamba_forward` with autograd.  Each ``exp``
+there has a non-positive exponent (the intra-chunk decay's is masked before
+the exp: :func:`_ssd_chunked`, the one departure from the reference), the
+softplus is ``logaddexp``, the gated RMSNorm's ``rsqrt`` has ``norm_eps``
+under it, and the conv is products and a SiLU, so the backward is finite at
+the published chunk of 128.
 """
 
 from __future__ import annotations
@@ -80,7 +87,18 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
     """SSD over a full sequence.
 
     x: [b, s, h, p]; dt: [b, s, h] (post-softplus); A: [h] (negative);
-    B, C: [b, s, n] (single group).  Returns (y [b,s,h,p], state [b,h,p,n])."""
+    B, C: [b, s, n] (single group).  Returns (y [b,s,h,p], state [b,h,p,n]).
+
+    The one place where the port departs from the reference's arithmetic:
+    the reference takes ``exp(dAcs_i - dAcs_j)`` for every (i, j) of a chunk
+    and then zeroes j > i with ``where``.  There the exponent is the decay
+    summed over i+1..j, positive, and past float32's 88.7 (a 128-token chunk
+    at the init's A = -1 and dt ~ 0.8) the exp is ``inf``: the forward is
+    still right, but the backward multiplies the ``where``'s zero cotangent
+    by ``inf`` and the gradients of dt and A are NaN.  Here the exponent is
+    masked to ``-inf`` before the exp: the forward is bit for bit the
+    reference's (exp(-inf) is exactly 0), the gradient finite, and equal to
+    the reference's wherever that one is finite."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     L = min(chunk, s)
@@ -102,10 +120,12 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int):
     dA_cs = torch.cumsum(dA, dim=2)  # inclusive cumsum within chunk
     seg_sum = dA_cs[:, :, -1:, :]  # [b,c,1,h]
 
-    # intra-chunk: y[i] += sum_{j<=i} C_i.B_j exp(dAcs_i - dAcs_j) dt_j x_j
-    decay = torch.exp(dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :])  # [b,c,i,j,h]
+    # intra-chunk: y[i] += sum_{j<=i} C_i.B_j exp(dAcs_i - dAcs_j) dt_j x_j; the
+    # exponent is masked before the exp (j > i: -inf, exp exactly 0)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], decay, 0.0)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None],
+                                  dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :],
+                                  -torch.inf))  # [b,c,i,j,h]
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     attn = cb[..., None] * decay  # [b,c,i,j,h]
     dtx = dtc[..., None] * xc  # [b,c,L,h,p]

@@ -18,10 +18,12 @@ A config with ``max_position_embeddings`` has a learned position table
 embeddings (:func:`embed_inputs`).  The enc-dec family (whisper) builds its
 own tree from these blocks (``models/model.py::encdec_decls``).
 
-Serving (``models/model.py``) takes every family; the training forward
-(:func:`backbone_forward`) takes the dense (SwiGLU or GELU), VLM and
-enc-dec families and refuses MoE, MLA, SSM and hybrid models with
-``arch-not-ported`` (:func:`check_trainable`).
+Serving (``models/model.py``) and the training forward
+(:func:`backbone_forward`) take every family: a block is a Mamba2 layer
+(SSM, hybrid), or attention (GQA or MLA) and a feed-forward (the MLP, or
+the MoE with its aux loss); the hybrid's groups of ``attn_every`` Mamba2
+layers are each followed by the shared block, and ``remat`` wraps a whole
+group there, as the reference's ``_remat(group_body)``.
 """
 
 from __future__ import annotations
@@ -66,23 +68,6 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise refuse(CAP_ARCH, f"{cfg.name}: unknown family {cfg.family!r}; the port "
                                f"serves {FAMILIES}")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse every model the port cannot train: MoE (with its aux loss),
-    MLA, SSM and hybrid serve only; the dense (SwiGLU or GELU MLP, RoPE or
-    learned positions), VLM and enc-dec families train."""
-    check_ported(cfg)
-    what = []
-    if cfg.family not in ("dense", "vlm", "enc_dec"):
-        what.append(f"the {cfg.family} family")
-    if cfg.use_mla:
-        what.append("MLA")
-    if cfg.num_experts:
-        what.append("experts")
-    if what:
-        raise refuse(CAP_ARCH, f"{cfg.name}: training {', '.join(what)} is not ported; "
-                               f"the port trains the dense, vlm and enc_dec families")
 
 
 def stack_decls(decls, n: int):
@@ -151,12 +136,29 @@ def layer_params(blocks, i: int):
 
 def _apply_block(cfg: ModelConfig, bp, x, positions, *, backend: str = "cuda"):
     """Full-sequence residual block.  Returns (x, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        h = apply_norm(cfg, bp["ln"], x)
+        return x + ssm_mod.mamba_forward(cfg, bp["mamba"], h), aux
     h = apply_norm(cfg, bp["ln1"], x)
-    x = x + attn.gqa_forward(cfg, bp["attn"], h, positions,
-                             use_rope=not cfg.max_position_embeddings, backend=backend)
+    if cfg.use_mla:
+        x = x + attn.mla_forward(cfg, bp["attn"], h, positions)
+    else:
+        x = x + attn.gqa_forward(cfg, bp["attn"], h, positions,
+                                 use_rope=not cfg.max_position_embeddings, backend=backend)
     h = apply_norm(cfg, bp["ln2"], x)
-    x = x + mlp_apply(bp["mlp"], h, swiglu=cfg.mlp_swiglu)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.num_experts:
+        y, aux = moe_mod.moe_apply(cfg, bp["moe"], h)
+        return x + y, aux
+    return x + mlp_apply(bp["mlp"], h, swiglu=cfg.mlp_swiglu), aux
+
+
+def _apply_shared_attn(cfg: ModelConfig, sp, x, positions, *, backend: str = "cuda"):
+    """zamba2's shared attention (RoPE on) + SwiGLU block."""
+    h = apply_norm(cfg, sp["ln1"], x)
+    x = x + attn.gqa_forward(cfg, sp["attn"], h, positions, backend=backend)
+    h = apply_norm(cfg, sp["ln2"], x)
+    return x + mlp_apply(sp["mlp"], h, swiglu=True)
 
 
 def _save_products(ctx, op, *args, **kwargs):
@@ -198,11 +200,24 @@ def unstack_layers(blocks, n: int) -> list:
 
 def backbone_forward(cfg: ModelConfig, params, x, positions, *, remat: str = "full",
                      backend: str = "cuda"):
-    """Run all blocks in layer order (the dense and VLM families).  Returns
-    (x, aux_loss)."""
-    check_trainable(cfg)
+    """Run all blocks in layer order, each under ``remat`` (the hybrid: each
+    group of ``attn_every`` Mamba2 layers and the shared block after it).
+    Returns (x, aux_loss)."""
+    check_ported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in unstack_layers(params["blocks"], cfg.num_layers):
+    layers = unstack_layers(params["blocks"], cfg.num_layers)
+    if cfg.family == "hybrid":
+        k = cfg.attn_every
+        for g in range(cfg.num_layers // k):
+            def group(xx, group_layers=layers[g * k:(g + 1) * k]):
+                for lp in group_layers:
+                    xx, _ = _apply_block(cfg, lp, xx, positions, backend=backend)
+                return _apply_shared_attn(cfg, params["shared_attn"], xx, positions,
+                                          backend=backend)
+
+            x = _remat(group, remat)(x)
+        return x, aux
+    for lp in layers:
         def body(xx, lp=lp):
             return _apply_block(cfg, lp, xx, positions, backend=backend)
 

@@ -49,6 +49,12 @@ Tolerances, and why:
   these seeds no token flips, and the logits bound holds unloosened.
 * ``num_params`` of the four published configs: equal, counted from the
   declarations with nothing allocated.
+* One group's ``train_loss`` and gradient of each smoke model in float32
+  (:func:`test_training_stays_refused`, which also holds that a mesh stays
+  refused): ``rtol=1e-4``, ``atol = 1e-4 * max|ref| + 4 * spread`` per leaf,
+  ``spread`` the reference's own one-ulp sensitivity (as
+  ``tests/test_torch_registry.py``); leaves where the reference's gradient
+  is NaN (its SSD fault, ROADMAP §3) must be finite in the port.
 
 Tests marked ``gpu`` hold the card against the CPU on the smoke configs and
 the server through K6 against the server through the plain attention; they
@@ -229,6 +235,19 @@ for arch in P["archs"]:
             srv.cfg, srv.model, srv.params, srv.max_len = cfg, model, params, S + SLACK
             srv._prefill, srv._decode = prefill, dec
             out[pre + "generate"] = np.asarray(srv.generate({{"tokens": jnp.asarray(toks[:, :S])}}, GEN))
+            # one group's train_loss and its gradient over the prompt, and the
+            # gradient's spread: its change when every parameter moves by one
+            # float32 ulp, up or down as a seeded draw says
+            vg = jax.jit(jax.value_and_grad(lambda p, b: model.train_loss(p, b)))
+            batch = {{"tokens": jnp.asarray(toks[:, :S])}}
+            loss, grads = vg(params, batch)
+            out[pre + "train/loss"] = f32(loss)
+            flat(grads, pre + "train/grad")
+            nr, inf = np.random.default_rng(1), np.float32(np.inf)
+            nudged = jax.tree.map(lambda a: jnp.asarray(np.nextafter(np.asarray(a), np.where(
+                nr.integers(0, 2, a.shape).astype(bool), inf, -inf))), params)
+            flat(jax.tree.map(lambda g, h: np.abs(f32(g) - f32(h)).max(), grads,
+                              vg(nudged, batch)[1]), pre + "train/spread")
 np.savez(sys.argv[1], **out)
 """
 
@@ -520,19 +539,47 @@ def test_recurrent_prompt_shorter_than_the_conv_tail_is_refused():
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
-def test_training_stays_refused(arch):
-    from repro_torch.launch.train import Trainer, TrainerOptions
+def test_training_stays_refused(ref, arch):
+    """What stays refused in training these families is a mesh; without one
+    the smoke model's loss is finite and one group's gradient through the
+    trainer's group gradients (``autograd_group_value_and_grad`` over the
+    flat layout) matches the reference's ``value_and_grad`` in float32:
+    ``rtol=1e-4``, ``atol = 1e-4 * max|ref| + 4 * spread`` of each leaf
+    (``spread``: the reference's own change under a one-ulp nudge of every
+    parameter, as ``tests/test_torch_registry.py`` holds its gradients).
+    Where the reference's gradient is NaN (its SSD fault, ROADMAP §3: the
+    smoke config's dt reaches ~16, and a 16-token chunk's decay passes
+    88.7), the port's is finite; only the SSM families may hit it."""
+    from repro_torch.core.dsag_pjit import CAP_MESH, autograd_group_value_and_grad
     from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.launch.train import Trainer, TrainerOptions
 
-    model = build_model(get_smoke_config(arch), kernel_backend="torch")
-    params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(EngineCapabilityError) as e:
-        model.train_loss(params, {"tokens": torch.zeros((2, 8), dtype=torch.long)})
-    assert e.value.capability.code == CAP_ARCH
-    with pytest.raises(EngineCapabilityError) as e:
-        Trainer(TrainerOptions(arch=arch, engine=EngineConfig(device="cpu",
-                                                              kernel_backend="torch")))
-    assert e.value.capability.code == CAP_ARCH
+        Trainer(TrainerOptions(arch=arch, mesh=object(),
+                               engine=EngineConfig(device="cpu", kernel_backend="torch")))
+    assert e.value.capability.code == CAP_MESH
+    cfg, params, pre, toks = _setup(ref, arch, "float32")
+    model = build_model(cfg, kernel_backend="torch")
+    layout = model.layout
+    fn = autograd_group_value_and_grad(model.train_loss, layout)
+    tokens = toks[None, :, :S]
+    losses, grads = fn(layout.flatten(params), {"tokens": tokens})
+    assert torch.isfinite(losses).all()
+    _close(_np(losses), [float(ref[pre + "train/loss"])], rtol=1e-5, atol_rel=0)
+    want = dict(_leaves(_tree(ref, pre + "train/grad")))
+    spread = dict(_leaves(_tree(ref, pre + "train/spread")))
+    got = {"/" + "/".join(x.path): v[0] for x, v in zip(layout.leaves, layout.views(grads))}
+    assert sorted(got) == sorted(want) == sorted(spread)
+    compared = 0
+    for n, g in got.items():
+        assert torch.isfinite(g).all(), n
+        if not np.isfinite(want[n]).all():
+            assert cfg.family in ("ssm", "hybrid"), n
+            continue
+        compared += 1
+        np.testing.assert_allclose(_np(g), want[n], rtol=1e-4, err_msg=n,
+                                   atol=1e-4 * float(np.abs(want[n]).max()) + 4 * float(spread[n]))
+    assert compared
 
 
 def test_serve_cli_and_example_on_cpu(capsys):

@@ -555,12 +555,12 @@ def _code(excinfo) -> str:
 
 
 def test_capability_codes(tmp_path):
-    """What stays refused (a model-zoo arch of another family, a mesh, a job
+    """What stays refused (an arch the registry does not hold, a mesh, a job
     without a loss or group gradients, CUDA kernels off the card), and what
     now runs: checkpoints,
     the int8 cache and adamw/adafactor each build and run one step."""
     with pytest.raises(EngineCapabilityError) as e:
-        Trainer(TrainerOptions(arch="mamba2-370m", engine=CPU))
+        Trainer(TrainerOptions(arch="gpt-x", engine=CPU))
     assert _code(e) == CAP_ARCH
     trn = Trainer(TrainerOptions(checkpoint_dir=str(tmp_path), steps=1, engine=CPU))
     assert len(trn.run()["loss"]) == 1 and (tmp_path / "step_00000000").is_dir()

@@ -70,11 +70,10 @@ from repro_torch.models.attention import (
     chunked_attention,
     full_attention,
 )
-from repro_torch.models.layers import apply_rope, mlp_apply, rmsnorm
+from repro_torch.models.layers import apply_rope, mlp_apply, rmsnorm, set_path
 from repro_torch.models.transformer import (
     apply_norm,
     backbone_forward,
-    check_trainable,
     embed_inputs,
     lm_logits,
     next_token_loss,
@@ -479,7 +478,8 @@ def test_registry_archs_build_and_serve_on_cpu(arch):
     assert toks.shape == (2, 4) and bool(((toks >= 0) & (toks < 512)).all())
 
 
-#: what the port serves but does not train: (smoke config, fields replaced)
+#: the model features that were served but not trained: (smoke config,
+#: fields replaced); each now trains
 TRAIN_REFUSED = [("grok-1-314b", {}), ("deepseek-v2-236b", {}), ("mamba2-370m", {}),
                  ("zamba2-2.7b", {}),
                  ("qwen2-7b", dict(family="moe", num_experts=4, top_k=2, d_ff_expert=128,
@@ -490,15 +490,48 @@ TRAIN_REFUSED = [("grok-1-314b", {}), ("deepseek-v2-236b", {}), ("mamba2-370m", 
 @pytest.mark.parametrize(("arch", "change"), TRAIN_REFUSED,
                          ids=["moe", "mla", "ssm", "hybrid", "moe-learned-pos", "vlm-moe"])
 def test_unported_model_features_are_refused(arch, change):
-    cfg = dataclasses.replace(get_smoke_config(arch), **change)
+    """What stays refused for these features is a mesh; without one each
+    config trains: its loss is finite, and the trainer's group gradient
+    (``autograd_group_value_and_grad`` over the flat layout) is, group by
+    group, the gradient of ``Model.train_loss`` on that group's batch, bit
+    for bit (the four registry families are held against the reference in
+    ``tests/test_torch_train_families.py``)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.dsag_pjit import (
+        CAP_MESH,
+        GroupSpec,
+        autograd_group_value_and_grad,
+        make_train_step,
+    )
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **change)
     model = build_model(cfg, kernel_backend="torch")  # served
+    params = model.init(torch.Generator().manual_seed(0))
+    layout = model.layout
     with pytest.raises(EngineCapabilityError) as e:
-        check_trainable(cfg)
-    assert _code(e) == CAP_ARCH
-    with pytest.raises(EngineCapabilityError) as e:
-        model.train_loss(model.init(torch.Generator().manual_seed(0)),
-                         {"tokens": torch.zeros((1, 8), dtype=torch.long)})
-    assert _code(e) == CAP_ARCH
+        make_train_step(model.train_loss, TrainConfig(), GroupSpec(2, ()), mesh=object(),
+                        layout=layout)
+    assert _code(e) == CAP_MESH
+    batch = {"tokens": torch.as_tensor(
+        np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 2, 12)))}
+    if cfg.family == "vlm":
+        batch["image_embed"] = torch.as_tensor(np.random.default_rng(4).normal(
+            size=(2, 2, cfg.num_image_tokens, cfg.d_model)), dtype=torch.float32)
+    losses, grads = autograd_group_value_and_grad(model.train_loss, layout)(
+        layout.flatten(params), batch)
+    assert torch.isfinite(losses).all() and torch.isfinite(grads).all()
+    for i in range(2):
+        leaves = [t.detach().clone().requires_grad_(True) for t in layout.views(
+            layout.flatten(params))]
+        tree: dict = {}
+        for x, t in zip(layout.leaves, leaves):
+            set_path(tree, x.path, t.to(x.dtype))
+        loss = model.train_loss(tree, {k: v[i] for k, v in batch.items()})
+        assert torch.equal(loss.detach(), losses[i])
+        for x, g, want in zip(layout.leaves, layout.views(grads[i]),
+                              torch.autograd.grad(loss, leaves)):
+            assert torch.equal(g, want), x.path
+    assert float(grads.abs().max()) > 0
 
 
 @pytest.mark.parametrize("where", ["pointer", "stride"])

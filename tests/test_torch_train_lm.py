@@ -476,7 +476,7 @@ def test_failed_group_does_not_block_progress(tmp_path, two_threads):
 
 def test_model_zoo_refusals():
     with pytest.raises(EngineCapabilityError) as e:
-        Trainer(TrainerOptions(arch="mamba2-370m", engine=CPU))
+        Trainer(TrainerOptions(arch="gpt-x", engine=CPU))
     assert e.value.capability.code == CAP_ARCH
     with pytest.raises(EngineCapabilityError) as e:
         make_train_step(object(), TrainConfig(), GroupSpec(4, ()))
