@@ -168,8 +168,9 @@ Phases (any failure raises and the script exits non-zero):
    9 (a)'s device runs; (e) ``make_scenario_mesh(count + 1)`` and
    ``EngineConfig(num_devices=count + 1)`` refused before any launch;
 12. the analysis layer (``repro_torch.analysis``): (a) the lint
-   (``run_lint("all", device="cuda:0")``: TL001, TL003, TL004 over every
-   entry, the ``*_cuda`` ones through K1, K2, K3; the event streams, K3's and
+   (``run_lint("all", device="cuda:0")``: TL001 to TL005 over every entry
+   (TL002 and TL005 over the tiled §6 cache's per-rank walk: no table copy,
+   no host sync per rank), the ``*_cuda`` ones through K1, K2, K3; the event streams, K3's and
    K7's outputs against the CPU run, K1, K2 and K5 at two pad widths), failing
    on any finding its baseline does not hold; (b) each phase-3 row's bytes,
    FLOPs and peak from its kernel's cost model, its bound, and its kernel
@@ -263,7 +264,26 @@ Phases (any failure raises and the script exits non-zero):
    step; (e) the SSD at chunk
    128 past a cumulative decay of 88.7: every gradient finite on the card
    and within :data:`SSD_CPU_TOL` of the CPU port's;
-17. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+17. the mesh path (~2 min): qwen1.5-0.5b on a (data=2, model=2) device mesh
+   of four processes on the card (``RankPool``, gloo: NCCL refuses two
+   ranks on one device), each run held against the unsharded port on the
+   same inputs, computed first in this process and freed before the ranks
+   start.  (a) training at full width and depth through
+   ``Trainer(TrainerOptions(mesh=))`` and its step (:data:`MESH_TC`: DSAG
+   groups on ``data``, FSDP, adamw, bf16 slots; P = 2, :data:`MESH_TRAIN`
+   tokens), 2 steps with group 1 masked at the second: losses, per-group
+   losses, ξ and the parameters' relative RMS within :data:`MESH_TOL`, K4
+   once per step on every rank over its local ``[1, n]`` slots, the
+   collectives of one step per rank (``count_cost``: kinds, calls and
+   ring-model wire bytes); (b) the same in float32 at 2 layers with float32
+   slots, held tight; (c) serving: ``Server(mesh=)`` prefill and 4 decode
+   steps (:data:`MESH_SERVE`), bf16 at full depth and float32 at 2 layers,
+   against the unsharded ``Server``: every K6 call (each rank's 8 local
+   heads) held on its own inputs against the plain attention, the prefill
+   logits within :data:`MESH_TOL`, the float32 tokens equal; every rank's K4
+   and K6 launches counted into the kernels line; K4 and K6 then timed at
+   the ranks' local shapes in this process;
+18. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -2930,6 +2950,26 @@ def k6_on_layer_activations(torch, cfg, params, tokens) -> dict:
     return k6_against_plain_on(torch, cfg, q, k, v, True, "the first GQA attention", 14)
 
 
+def k6_violations(torch, q, k, v, out, causal: bool):
+    """K6's output ``out`` on ``[b, s, h, d]`` q, k, v against the plain
+    version: ``(outside k6_within_tolerance, outside it widened by
+    score_rounding_slack, |out - plain|, the [b, h, s, d] float32 tensors)``."""
+    from repro_torch.kernels import flash_attention as k6
+    from repro_torch.models import attention as attn
+
+    got = out.transpose(1, 2).float()
+    g = q.shape[2] // k.shape[2]
+    qh, kh, vh = (t.float().transpose(1, 2) for t in (q, attn._repeat_kv(k, g),
+                                                      attn._repeat_kv(v, g)))
+    want32 = k6.flash_attention_plain(qh, kh, vh, causal=causal)
+    diff = (got - want32).abs()
+    rtol = K6_RTOL[str(q.dtype).removeprefix("torch.")]
+    tol = rtol * want32.abs() + K6_ATOL_REL * float(want32.abs().max())
+    slack = score_rounding_slack(torch, qh, kh, vh, want32, causal=causal)
+    return (int((diff > tol).sum()), int((diff > tol + slack).sum()), diff,
+            (qh, kh, vh, got, want32))
+
+
 def k6_against_plain_on(torch, cfg, q, k, v, causal: bool, what: str, phase: int,
                         quiet: bool = False) -> dict:
     """K6 (``flash_attention_bshd``) against its plain version on a model's
@@ -2938,20 +2978,11 @@ def k6_against_plain_on(torch, cfg, q, k, v, causal: bool, what: str, phase: int
     float64-score result printed beside both as the witness.  One K6
     launch."""
     from repro_torch.kernels import flash_attention as k6
-    from repro_torch.models import attention as attn
 
     with torch.inference_mode():
-        got = k6.flash_attention_bshd(q, k, v, causal=causal).transpose(1, 2).float()
-        g = q.shape[2] // k.shape[2]
-        qh, kh, vh = (t.float().transpose(1, 2) for t in (q, attn._repeat_kv(k, g),
-                                                          attn._repeat_kv(v, g)))
-        want32 = k6.flash_attention_plain(qh, kh, vh, causal=causal)
-        diff = (got - want32).abs()
-        rtol = K6_RTOL[str(q.dtype).removeprefix("torch.")]
-        tol = rtol * want32.abs() + K6_ATOL_REL * float(want32.abs().max())
-        strict = int((diff > tol).sum())
-        slack = score_rounding_slack(torch, qh, kh, vh, want32, causal=causal)
-        wide = int((diff > tol + slack).sum())
+        out = k6.flash_attention_bshd(q, k, v, causal=causal)
+        strict, wide, diff, (qh, kh, vh, got, want32) = k6_violations(torch, q, k, v, out,
+                                                                      causal)
         # the witness: attention with float64 scores and probabilities
         s64 = torch.einsum("bhqd,bhkd->bhqk", qh.double(), kh.double()) / math.sqrt(q.shape[-1])
         sq, sk = s64.shape[-2:]
@@ -3914,6 +3945,375 @@ def run_family_training(torch) -> tuple[dict, dict, list]:
     return out, launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh path
+# ---------------------------------------------------------------------------
+
+#: phase 17: the (data, model) mesh of four ranks on the one card
+MESH_SHAPE = (2, 2)
+MESH_ARCH = "qwen1.5-0.5b"
+#: (a)/(b): global batch (sequences over the P = 2 groups), tokens, steps;
+#: the masks of the two steps (group 1 misses the second)
+MESH_TRAIN = (4, 256)
+MESH_MASKS = ((True, True), (True, False))
+#: (c): prompts, prompt length, generated tokens (prefill + 4 decode steps)
+MESH_SERVE = (4, 512, 5)
+#: the bounds of each comparison with the unsharded port (PERF.md states
+#: them and why, written before the first run): bf16 at full depth sums the
+#: TP partial products in bf16 over 48 reduction sites and adamw normalizes
+#: each gradient element; float32 at 2 layers differs by float32 rounding
+MESH_TOL = {"bf16_loss": 1e-2, "bf16_params": 2e-2, "bf16_logits": SERVE_TOL["k6_vs_plain"],
+            "f32_loss": 1e-5, "f32_params": 1e-4, "f32_logits": 1e-4}
+
+
+def mesh_train_config(dtype: str):
+    from repro_torch.configs.base import TrainConfig
+
+    return TrainConfig(dsag=True, dsag_groups="dp", fsdp=True,
+                       dsag_cache_dtype="bfloat16" if dtype == "bfloat16" else "float32")
+
+
+def _cut_config(layers):
+    from repro_torch.configs import get_config
+
+    def cut(arch):
+        cfg = get_config(arch)
+        return cfg if layers is None else __import__("dataclasses").replace(cfg, num_layers=layers)
+
+    return cut
+
+
+def mesh_batches(torch, cfg, groups: int):
+    from repro_torch.data import make_batch_iterator
+
+    it = make_batch_iterator(cfg, groups, MESH_TRAIN[0], MESH_TRAIN[1], seed=0)
+    return [next(it) for _ in MESH_MASKS]
+
+
+def mesh_unsharded_train(torch, dtype: str, layers, path: str) -> list:
+    """(a)/(b)'s yardstick: the unsharded port's step (P = 2, the same
+    config, inputs and masks) on the card; its final parameters (each leaf in
+    its dtype) saved to ``path``; each step's metrics."""
+    from repro_torch.core.dsag_pjit import GroupSpec, init_train_state, make_train_step
+    from repro_torch.models import build_model
+
+    cfg = __import__("dataclasses").replace(_cut_config(layers)(MESH_ARCH), dtype=dtype)
+    tc = mesh_train_config(dtype)
+    model = build_model(cfg)
+    gs = GroupSpec(2, ())
+    step = make_train_step(lambda p, b: model.train_loss(p, b, remat=tc.remat), tc, gs,
+                           backend="cuda", layout=model.layout)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(model.layout.flatten(model.init(gen)), tc, gs, model.layout)
+    out = []
+    for batch, mask in zip(mesh_batches(torch, cfg, 2), MESH_MASKS):
+        m = torch.tensor(mask, device="cuda")
+        state, met = step(state, {k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                          m, torch.zeros_like(m), torch.zeros_like(m))
+        out.append({k: v.detach().cpu().numpy().tolist() for k, v in met.items()})
+    torch.save({k: v.cpu() for k, v in _paths(model.layout.tree(state["params"], cast=True))},
+               path)
+    del state
+    return out
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    else:
+        yield "/".join(prefix), tree
+
+
+def mesh_train_rank(dtype: str, layers, want_path: str) -> dict:
+    """One rank of (a)/(b): ``Trainer(TrainerOptions(mesh=))`` builds the
+    mesh run (placing, degathering, the step); its step runs the phase's
+    inputs and masks, the second step under ``count_cost``.  Returns the
+    rank's metrics, launches, collectives, K4's local shape and its
+    parameters' squared distance from the unsharded run's (each element
+    counted once over the ranks that hold it)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    import repro_torch.launch.train as train_mod
+    from repro_torch.analysis.cost import count_cost
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.layers import get_path
+
+    mesh = make_test_mesh(MESH_SHAPE, device_type="cuda")
+    try:
+        with mock.patch.object(train_mod, "get_config", _cut_config(layers)):
+            trn = train_mod.Trainer(train_mod.TrainerOptions(
+                arch=MESH_ARCH, smoke=False, global_batch=MESH_TRAIN[0], seq_len=MESH_TRAIN[1],
+                dtype=dtype, mesh=mesh, train_config=mesh_train_config(dtype),
+                log_every=10**6, engine=EngineConfig(device="cuda", kernel_backend="cuda")))
+        state = trn.init_state()
+        layouts = trn.step_fn.layouts
+        dev = trn.device
+        batches = mesh_batches(torch, trn.cfg, trn.gs.num_groups)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        metrics, seconds, cost = [], [], None
+        for i, (batch, mask) in enumerate(zip(batches, MESH_MASKS)):
+            m = torch.tensor(mask, device=dev)
+            args = (trn.batch_on_device(batch), m, torch.zeros_like(m), torch.zeros_like(m))
+            t0 = time.perf_counter()
+            if i == 1:
+                held = {}
+                cost = count_cost(lambda: held.update(out=trn.step_fn(state, *args)))
+                state, met = held.pop("out")
+            else:
+                state, met = trn.step_fn(state, *args)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            metrics.append({k: v.detach().cpu().numpy().tolist() for k, v in met.items()})
+            if torch.distributed.get_rank() == 0:
+                print(f"      rank 0: step {i + 1} {seconds[-1]:.2f} s", flush=True)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        # the parameters against the unsharded run's: this rank's shard of
+        # each leaf, weighted by how many ranks hold it
+        want = torch.load(want_path)
+        mine = layouts.store.tree(state["params"], cast=True)
+        d2 = n2 = 0.0
+        for x in layouts.store.leaves:
+            spec = get_path(layouts.specs, x.path)
+            w = sharding.local_shard(want["/".join(x.path)], spec, mesh).to(dev).float()
+            rep = sharding.replication(spec, mesh)
+            d2 += float(((get_path(mine, x.path).float() - w) ** 2).sum()) / rep
+            n2 += float((w ** 2).sum()) / rep
+        return {"metrics": metrics, "seconds": seconds, "counts": counts, "peak": peak,
+                "k4_shape": [1, layouts.tp.numel], "store_numel": layouts.store.numel,
+                "coll_counts": cost.coll_counts, "coll_wire": cost.coll_wire_bytes,
+                "d2": d2, "n2": n2, "rank": torch.distributed.get_rank()}
+    finally:
+        sharding.set_mesh(None)
+
+
+def mesh_serve_rank(dtype: str | None, layers, batch, num_tokens: int) -> dict:
+    """One rank of (c): ``Server(mesh=)`` generates; every K6 call is held on
+    its own inputs against the plain attention (:func:`k6_violations`, as
+    phase 14 holds K6 on real activations; those comparisons launch
+    nothing); the prefill's logits kept."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import sharding
+
+    mesh = make_test_mesh(MESH_SHAPE, device_type="cuda")
+    try:
+        with mock.patch.object(serve_mod, "get_config", _cut_config(layers)):
+            srv = serve_mod.Server(MESH_ARCH, smoke=False, max_len=MESH_SERVE[1] + num_tokens + 8,
+                                   mesh=mesh, dtype=dtype)
+        real, calls = attn_mod.flash_attention_bshd, []
+
+        def held(q, k, v, *, causal=True):
+            out = real(q, k, v, causal=causal)
+            strict, wide, diff, _ = k6_violations(torch, q, k, v, out, causal)
+            calls.append((list(q.shape), list(k.shape), not wide and bool(
+                torch.isfinite(out).all()), float(diff.max()), strict))
+            return out
+
+        kept = {}
+        prefill = srv.model.prefill
+
+        def keep_logits(*a, **kw):
+            logits, cache = prefill(*a, **kw)
+            kept["logits"] = sharding.full(logits).float().cpu()
+            return logits, cache
+
+        reset_launch_counts()
+        with mock.patch.object(attn_mod, "flash_attention_bshd", held), \
+                mock.patch.object(srv.model, "prefill", keep_logits):
+            toks = srv.generate(batch, num_tokens)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        return {"tokens": toks.cpu().numpy(), "logits": kept["logits"].numpy(), "calls": calls,
+                "counts": counts, "timings": srv.timings, "max_len": srv.max_len,
+                "peak": torch.cuda.max_memory_allocated()}
+    finally:
+        sharding.set_mesh(None)
+
+
+def mesh_unsharded_serve(torch, dtype, layers, batch, num_tokens: int) -> dict:
+    """(c)'s yardstick: the unsharded ``Server`` (K6) on the same prompts."""
+    import repro_torch.launch.serve as serve_mod
+
+    with mock.patch.object(serve_mod, "get_config", _cut_config(layers)):
+        srv = serve_mod.Server(MESH_ARCH, smoke=False, max_len=MESH_SERVE[1] + num_tokens + 8,
+                               dtype=dtype)
+    kept, prefill = {}, srv.model.prefill
+
+    def keep_logits(*a, **kw):
+        logits, cache = prefill(*a, **kw)
+        kept["logits"] = logits.float().cpu()
+        return logits, cache
+
+    with mock.patch.object(srv.model, "prefill", keep_logits):
+        toks = srv.generate(batch, num_tokens)
+    out = {"tokens": toks.cpu().numpy(), "logits": kept["logits"].numpy()}
+    del srv
+    return out
+
+
+def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
+    """Phase 17: the mesh path (see the module docstring).  Returns its
+    numbers, every rank's K4 and K6 launches, and K4's and K6's rows at the
+    ranks' local shapes."""
+    import tempfile
+
+    from repro_torch.launch.mesh import RankPool
+    from repro_torch.launch.serve import stub_batch
+    from repro_torch.configs import get_config
+
+    res: dict = {"mesh": list(MESH_SHAPE), "card": smi}
+    launches = {"dsag_cache_update": 0, "flash_attention": 0}
+    cfg = get_config(MESH_ARCH)
+    b, s, n_tok = MESH_SERVE
+    prompts = stub_batch(cfg, b, s, seed=7)
+    with tempfile.TemporaryDirectory(prefix="mesh") as tmp:
+        runs = {"a": ("bfloat16", None), "b": ("float32", 2)}
+        want_train, want_serve = {}, {}
+        t0 = time.perf_counter()
+        for label, (dtype, layers) in runs.items():
+            free_cuda(torch)
+            want_train[label] = mesh_unsharded_train(torch, dtype, layers, f"{tmp}/{label}.pt")
+            free_cuda(torch)
+            want_serve[label] = mesh_unsharded_serve(torch, dtype, layers, prompts, n_tok)
+        free_cuda(torch)
+        res["unsharded_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with RankPool(MESH_SHAPE[0] * MESH_SHAPE[1], "cuda", timeout=600) as pool:
+            res["pool_s"] = time.perf_counter() - t0
+            print(f"  {pool.world} ranks on cuda:0 over {pool.backend} "
+                  f"(started in {res['pool_s']:.1f} s; the unsharded runs took "
+                  f"{res['unsharded_s']:.1f} s)")
+            for label, (dtype, layers) in runs.items():
+                t0 = time.perf_counter()
+                got = pool.run(mesh_train_rank, dtype, layers, f"{tmp}/{label}.pt")
+                res[f"train_{label}"] = mesh_train_check(label, dtype, layers, got,
+                                                         want_train[label], launches, smi)
+                res[f"train_{label}"]["phase_s"] = time.perf_counter() - t0
+            for label, (dtype, layers) in runs.items():
+                t0 = time.perf_counter()
+                got = pool.run(mesh_serve_rank, dtype, layers, prompts, n_tok)
+                res[f"serve_{label}"] = mesh_serve_check(torch, label, dtype, layers, got,
+                                                         want_serve[label], launches)
+                res[f"serve_{label}"]["phase_s"] = time.perf_counter() - t0
+    # the kernels at the ranks' local shapes, timed here (not counted)
+    rng = np.random.default_rng(17)
+    free_cuda(torch)
+    n_tp = res["train_a"]["k4_shape"][1]
+    rows = [check_dsag_update(torch, 1, n_tp, torch.bfloat16, rng, plain_reps=2),
+            check_flash(torch, b // MESH_SHAPE[0], cfg.num_heads // MESH_SHAPE[1], s, s,
+                        cfg.resolved_head_dim, rng, kvh=cfg.num_kv_heads // MESH_SHAPE[1])]
+    free_cuda(torch)
+    return res, launches, rows
+
+
+def mesh_train_check(label: str, dtype: str, layers, got: list, want: list, launches: dict,
+                     smi: str) -> dict:
+    """Hold one training run's ranks against the unsharded run (phase 17)."""
+    tol_loss, tol_params = MESH_TOL[f"{'bf16' if dtype == 'bfloat16' else 'f32'}_loss"], \
+        MESH_TOL[f"{'bf16' if dtype == 'bfloat16' else 'f32'}_params"]
+    r0 = got[0]
+    worst = 0.0
+    for step, (g, w) in enumerate(zip(r0["metrics"], want)):
+        for r in got[1:]:  # the metrics are the same on every rank
+            if r["metrics"][step] != g:
+                fail(f"phase 17 ({label}): rank {r['rank']}'s metrics differ from rank 0's")
+        if g["xi"] != w["xi"] or g["mask_count"] != w["mask_count"]:
+            fail(f"phase 17 ({label}): step {step}: xi/mask count {g['xi']}/{g['mask_count']} "
+                 f"!= {w['xi']}/{w['mask_count']}")
+        for key in ("loss", "per_group_loss"):
+            a, bb = np.asarray(g[key]), np.asarray(w[key])
+            rel = float(np.max(np.abs(a - bb) / np.abs(bb)))
+            worst = max(worst, rel)
+            if not np.all(np.isfinite(a)) or rel > tol_loss:
+                fail(f"phase 17 ({label}): step {step} {key} {a} against {bb} (rel {rel:.3g} "
+                     f"> {tol_loss})")
+    params_rms = (sum(r["d2"] for r in got) / sum(r["n2"] for r in got)) ** 0.5
+    if not params_rms <= tol_params:
+        fail(f"phase 17 ({label}): parameters' relative RMS {params_rms:.3g} > {tol_params}")
+    k4 = [r["counts"]["dsag_cache_update"] for r in got]
+    k6 = [r["counts"]["flash_attention"] for r in got]
+    if k4 != [len(MESH_MASKS)] * len(got) or any(k6):
+        fail(f"phase 17 ({label}): K4 launches per rank {k4} (want one per step), K6 {k6}")
+    launches["dsag_cache_update"] += sum(k4)
+    depth = "full depth" if layers is None else f"{layers} layers"
+    print(f"  ({label}) train {MESH_ARCH} {dtype}, {depth} ({smi}): losses "
+          f"{[round(m['loss'], 6) for m in r0['metrics']]} (unsharded "
+          f"{[round(m['loss'], 6) for m in want]}; worst rel {worst:.3g} <= {tol_loss}); "
+          f"per-group {r0['metrics'][1]['per_group_loss']}; xi "
+          f"{[m['xi'] for m in r0['metrics']]}; parameters' relative RMS {params_rms:.3g} <= "
+          f"{tol_params}; K4 {sum(k4)} launches ({k4} per rank) over the local "
+          f"{r0['k4_shape']} slots (store n = {r0['store_numel']}); step s per rank "
+          f"{[round(x, 3) for x in r0['seconds']]} (the second counted); peak per rank "
+          f"{max(r['peak'] for r in got) / 2**30:.2f} GiB")
+    wire = r0["coll_wire"]
+    print(f"      collectives of step 2 per rank (count_cost): "
+          + ", ".join(f"{k} x{r0['coll_counts'][k]} {wire[k] / 2**20:.2f} MiB"
+                      for k in sorted(wire))
+          + f"; total {sum(wire.values()) / 2**20:.2f} MiB on the wire")
+    return {"losses": [m["loss"] for m in r0["metrics"]], "unsharded": [m["loss"] for m in want],
+            "per_group": [m["per_group_loss"] for m in r0["metrics"]],
+            "xi": [m["xi"] for m in r0["metrics"]], "worst_loss_rel": worst,
+            "params_rel_rms": params_rms, "k4_launches": k4, "k4_shape": r0["k4_shape"],
+            "step_s": [r["seconds"] for r in got], "peak_bytes": [r["peak"] for r in got],
+            "coll_counts": r0["coll_counts"], "coll_wire_bytes": wire}
+
+
+def mesh_serve_check(torch, label: str, dtype: str, layers, got: list, want: dict,
+                     launches: dict) -> dict:
+    """Hold one serving run's ranks against the unsharded server (phase 17)."""
+    key = "bf16" if dtype == "bfloat16" else "f32"
+    toks = got[0]["tokens"]
+    for r in got[1:]:
+        if not np.array_equal(r["tokens"], toks):
+            fail(f"phase 17 ({label}): the ranks returned different tokens")
+    # each data rank's prefill logits: its slice of the batch
+    per = MESH_SERVE[0] // MESH_SHAPE[0]
+    logits = np.concatenate([got[d * MESH_SHAPE[1]]["logits"] for d in range(MESH_SHAPE[0])])
+    max_rel, norm_rel = logit_diff(torch, torch.as_tensor(logits), torch.as_tensor(want["logits"]))
+    if not max_rel <= MESH_TOL[f"{key}_logits"]:
+        fail(f"phase 17 ({label}): prefill logits {max_rel:.3g} > {MESH_TOL[key + '_logits']}")
+    agree = float(np.mean(toks == want["tokens"]))
+    if key == "f32" and agree != 1.0:
+        fail(f"phase 17 ({label}): float32 tokens differ from the unsharded server's")
+    calls = [c for r in got for c in r["calls"]]
+    bad = [c for c in calls if not c[2]]
+    if bad:
+        fail(f"phase 17 ({label}): {len(bad)} K6 calls outside tolerance: {bad[:2]}")
+    k6 = [r["counts"]["flash_attention"] for r in got]
+    L = len(calls) // len(got)
+    if k6 != [L] * len(got) or not L:
+        fail(f"phase 17 ({label}): K6 launches per rank {k6}, held calls {len(calls)}")
+    launches["flash_attention"] += sum(k6)
+    depth = "full depth" if layers is None else f"{layers} layers"
+    t = got[0]["timings"]
+    print(f"  ({label}) serve {MESH_ARCH} {dtype}, {depth}: {MESH_SERVE[0]} x {MESH_SERVE[1]} "
+          f"prompts ({per} per data rank), {MESH_SERVE[2]} tokens; prefill logits against the "
+          f"unsharded server {max_rel:.3g} max / {norm_rel:.3g} norm (<= "
+          f"{MESH_TOL[key + '_logits']}); tokens agree {agree:.3f}; K6 {sum(k6)} launches "
+          f"({k6} per rank) on local q {calls[0][0]} k {calls[0][1]}, each held against the "
+          f"plain attention within k6_within_tolerance widened by the float32 score "
+          f"rounding (worst |K6 - plain| {max(c[3] for c in calls):.3g}; outside the strict "
+          f"tolerance {sum(c[4] for c in calls)} outputs); prefill {t['prefill']:.3f} s, "
+          f"decode {t['decode']:.3f} s (rank 0)")
+    return {"logits_max_rel": max_rel, "logits_norm_rel": norm_rel, "token_agreement": agree,
+            "k6_launches": k6, "k6_local_q": calls[0][0], "k6_local_k": calls[0][1],
+            "k6_worst": max(c[3] for c in calls), "timings": t,
+            "peak_bytes": [r["peak"] for r in got]}
+
+
 def profile_run(torch, label: str, setup, iters: int) -> dict | None:
     """One warm run under ``torch.profiler``: host wall clock (ending in a
     synchronize), the union of device kernel intervals (busy time), the idle
@@ -4357,16 +4757,25 @@ def main() -> None:
     per_kernel["dsag_cache_update"] += k4_rows
     fam_train["seconds"] = time.perf_counter() - t0
     print(f"  phase 16 took {fam_train['seconds']:.1f} s")
-    print("phase 17: the kernels line")
+    print(f"phase 17: the mesh path: {MESH_ARCH} on a (data={MESH_SHAPE[0]}, "
+          f"model={MESH_SHAPE[1]}) mesh of four ranks on cuda:0, against the unsharded port")
+    t0 = time.perf_counter()
+    mesh_res, mesh_launches, (k4_mesh, k6_mesh) = run_mesh(torch, smi.stdout.strip())
+    per_kernel["dsag_cache_update"].append(k4_mesh)
+    per_kernel["flash_attention"].append(k6_mesh)
+    mesh_res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 17 took {mesh_res['seconds']:.1f} s")
+    print("phase 18: the kernels line")
     reg_train = registry.pop("train_launches")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
                 + engine_launches.get(k, 0) + lb_launches.get(k, 0)
                 + churn_launches.get(k, 0) + paper_launches.get(k, 0)
                 + sharding_launches.get(k, 0) + train_launches.get(k, 0)
                 + reg_train.get(k, 0) + fam_train_launches.get(k, 0)
+                + mesh_launches.get(k, 0)
                 for k in sweep_launches}
     launches["flash_attention"] = (serving["launches"] + families["k6_main"]
-                                   + registry["k6_main"])
+                                   + registry["k6_main"] + mesh_launches["flash_attention"])
 
     meta = {
         "logreg_block_sub": ("src/repro_torch/kernels/csrc/block_sub.cu",
@@ -4408,6 +4817,7 @@ def main() -> None:
             launches_registry=(registry["k6_main"] if name == "flash_attention"
                                else reg_train.get(name, 0)),
             launches_family_training=fam_train_launches.get(name, 0),
+            launches_mesh=mesh_launches.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -4420,6 +4830,7 @@ def main() -> None:
     print(json.dumps({"families": families}))
     print(json.dumps({"registry": registry}))
     print(json.dumps({"family_training": fam_train}))
+    print(json.dumps({"mesh": mesh_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,16 @@ trip counts.  The accounting keeps ``hlo.py``'s rules:
   the counterpart of ``hlo.sxs_buffer_bytes``), the part of the memory
   term a flash kernel keeps out of HBM.
 
+* **Collectives** (a mesh run): every collective this rank dispatches,
+  the ``_c10d_functional`` ops of a ``DTensor`` redistribution and the
+  ``c10d`` ops of an explicit ``torch.distributed`` call, counted by kind
+  with the reference's ring-model wire bytes (``hlo._collective_cost``):
+  all-reduce ``2(n-1)/n`` of its size, all-gather ``(n-1)/n`` of its result,
+  reduce-scatter ``(n-1)`` times its result, all-to-all ``(n-1)/n`` of its
+  size, over the ``n`` ranks of its group.  An op on ``DTensor`` operands
+  is not counted itself: the local ops and collectives it runs on this
+  rank are.
+
 What it cannot see: a kernel without a cost model; host work (the Python
 interpreter, launches, synchronizations); and bytes that the caches keep
 out of HBM or that an op moves beyond its inputs and outputs (a
@@ -42,6 +52,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -106,6 +117,42 @@ def _written(func, args, ins, outs) -> int:
     return _nbytes(target)
 
 
+#: collective ops (``_c10d_functional`` and ``c10d`` names) -> the reference's kind
+COLLECTIVES = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce", "allreduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+}
+
+
+def _group_size(func, args) -> int:
+    """The ranks of a collective's group, from its group argument (a size,
+    a group name, or a process group object)."""
+    from torch.distributed import distributed_c10d as c10d
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            return int(torch.distributed.ProcessGroup.unbox(a).size())
+    if isinstance(args[-1], str):
+        return c10d._resolve_process_group(args[-1]).size()
+    return 1
+
+
+def _wire_bytes(kind: str, size: float, result: float, n: int) -> float:
+    if kind == "all-reduce":
+        return 2.0 * (n - 1) / n * size
+    if kind == "all-gather":
+        return (n - 1) / n * result
+    if kind == "reduce-scatter":
+        return float(n - 1) * result
+    if kind == "all-to-all":
+        return (n - 1) / n * size
+    return float(size)
+
+
 @dataclasses.dataclass
 class CostRow:
     """One op (``aten.<name>``) or kernel's share of a counted run."""
@@ -126,6 +173,17 @@ class Cost:
     attn_score_bytes: float = 0.0
     flops_at_peak: dict = dataclasses.field(default_factory=dict)
     rows: dict = dataclasses.field(default_factory=dict)
+    #: collectives by kind: calls and ring-model wire bytes
+    coll_counts: dict = dataclasses.field(default_factory=dict)
+    coll_wire_bytes: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def total_wire_bytes(self) -> float:
+        return sum(self.coll_wire_bytes.values())
+
+    def add_collective(self, kind: str, wire: float) -> None:
+        self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
+        self.coll_wire_bytes[kind] = self.coll_wire_bytes.get(kind, 0.0) + wire
 
     def add(self, name: str, flops: float, nbytes: float, peak: float | None = None) -> None:
         row = self.rows.get(name)
@@ -171,6 +229,9 @@ class _CostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(isinstance(t, DTensor) for t in tree_flatten((args, kwargs))[0]):
+            # DTensor runs it: its local ops and collectives come back here
+            return NotImplemented
         if composite(func):
             # under inference_mode composite ops (einsum, matmul, to) arrive
             # whole: count the ops they decompose into
@@ -185,6 +246,17 @@ class _CostMode(TorchDispatchMode):
 
     def _count(self, func, args, kwargs, out) -> None:
         op = func.overloadpacket.__name__
+        if func.namespace in ("_c10d_functional", "c10d"):
+            kind = COLLECTIVES.get(op)
+            if kind is not None:
+                # a c10d op's first argument is its output (or, for an
+                # all-reduce, its operand): its size is the result's
+                size = sum(_nbytes(t) for t in _tensors(args[:1]))
+                result = sum(_nbytes(t) for t in _tensors(out)) if func.namespace == (
+                    "_c10d_functional") else size
+                n = _group_size(func, args)
+                self.cost.add_collective(kind, _wire_bytes(kind, size, result, n))
+            return
         name = f"aten.{op}"
         if func in _FREE or func.is_view:
             self.cost.add(name, 0.0, 0.0)

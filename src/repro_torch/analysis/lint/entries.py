@@ -49,6 +49,10 @@ F64 = torch.float64
 #: times, in-flight latencies and values, the cache, the iterate
 SCAN_CARRIES = ("free_at", "iter_end", "draw_idx", "flight_comp", "flight_comm",
                 "flight_titer", "flight_val", "cache", "V")
+#: the tiled §6 cache's per-rank walk (TL002, TL005) and its large tables:
+#: the value table (frozen at loop entry, and its write copy) and the entry tables
+TILED_WALK = (lambda: fused._apply_cache_events_tiled,
+              ("values0", "values", "iters", "slots", "wmap"))
 #: float32 tolerance of K1, K2 and K5 against themselves at another pad width
 PAD_RTOL, PAD_ATOL_REL = 1e-4, 1e-5
 
@@ -62,6 +66,8 @@ class EntryProbe:
     TL001's fused-multiply-add scan and TL004's leak scan apply to its ops.
     ``latency_probe`` is ``(fn, batches)`` for TL001's comparison with
     numpy, ``loop`` ``(function, carry names)`` for TL004's carries,
+    ``region`` ``(getter of a function, table names)`` for the per-rank loop
+    TL002 and TL005 audit,
     ``padded_axis_sizes`` the pad widths TL003 audits reductions over, and
     ``declared_output_dtypes`` the dtypes of ``run``'s tensor outputs, in
     order (TL004).  ``card_checks`` are ``(code, check)`` pairs: ``check()``
@@ -76,6 +82,7 @@ class EntryProbe:
     event_algebra: bool = False
     latency_probe: tuple | None = None
     loop: tuple | None = None
+    region: tuple | None = None
     padded_axis_sizes: tuple = ()
     declared_output_dtypes: tuple | None = None
     card_checks: list = dataclasses.field(default_factory=list)
@@ -188,7 +195,7 @@ def _fused_probe(name: str, description: str, device, problem, config, *, traces
                                 slot_budget=slot_budget))
 
     probe = EntryProbe(name, description, device, event_algebra=True,
-                       loop=(fused._run_scan, SCAN_CARRIES))
+                       loop=(fused._run_scan, SCAN_CARRIES), region=TILED_WALK)
     k3 = []
 
     def run():

@@ -3,10 +3,9 @@
 The codes and names are the reference's (``repro.analysis.lint.findings``);
 each invariant is re-stated for eager torch.  TL002 (carry-copy) and TL005
 (cond-capture) name XLA behaviours (copy-on-read of loop carries,
-``lax.cond`` copying its captures) that eager torch does not have; their
-eager counterparts (a clone of a large table inside the per-rank loop, a
-host synchronization inside it) are later work, and no rule of this package
-checks them yet.
+``lax.cond`` copying its captures) that eager torch does not have; the port
+checks their eager counterparts in the tiled §6 cache's per-rank walk: no
+copy of a large table, and no host synchronization, once per rank.
 """
 
 from __future__ import annotations
@@ -25,8 +24,9 @@ RULES = {
     ),
     "TL002": (
         "carry-copy",
-        "scatter-updated loop-carried tables must be write-only inside their loop "
-        "(not checked by the port: see the module docstring)",
+        "the per-rank loop copies none of its large tables (the §5 value table, the "
+        "tiled cache's entry tables): live values come from the frozen loop-entry "
+        "table and the ranked event rows",
     ),
     "TL003": (
         "pad-variant-reduce",
@@ -41,8 +41,9 @@ RULES = {
     ),
     "TL005": (
         "cond-capture",
-        "lax.cond inside a rank loop must not close over large non-carry buffers "
-        "(not checked by the port: see the module docstring)",
+        "the per-rank loop never makes the host wait for the device (no .item(), "
+        "data-sized op or device-to-host copy per rank): trip counts are read "
+        "once, before the loop",
     ),
 }
 

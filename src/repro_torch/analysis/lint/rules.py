@@ -1,9 +1,10 @@
-"""The TL001, TL003 and TL004 rules, re-stated for eager torch.
+"""The TL001–TL005 rules, re-stated for eager torch.
 
 Each rule is a function ``(EntryProbe) -> list[Finding]`` over the entry's
 recorded run (``entry.trace``, :mod:`repro_torch.analysis.lint.trace`) and
 its card checks; rules skip entries their annotations do not apply to.
-TL002 and TL005 have no port rule (:mod:`repro_torch.analysis.lint.findings`).
+TL002 and TL005 read the ops run inside an entry's audited loop (its
+``region``: the tiled §6 cache's per-rank walk).
 """
 
 from __future__ import annotations
@@ -13,7 +14,14 @@ import torch
 
 from repro_torch.analysis.lint.entries import EntryProbe
 from repro_torch.analysis.lint.findings import Finding
-from repro_torch.analysis.lint.trace import FMA_OPS, NARROW_FLOATS, PRODUCTS, REDUCTIONS
+from repro_torch.analysis.lint.trace import (
+    COPY_OPS,
+    FMA_OPS,
+    NARROW_FLOATS,
+    PRODUCTS,
+    REDUCTIONS,
+    SYNC_OPS,
+)
 
 #: the event algebra's dtypes
 WIDE = frozenset({torch.float64, torch.int64})
@@ -160,9 +168,75 @@ def check_dtype_leak(entry: EntryProbe) -> list:
     return findings
 
 
+def _loop_findings(entry: EntryProbe, code: str, hit) -> list:
+    """One finding per distinct ``hit(op)`` symbol among the ops inside the
+    entry's audited loop."""
+    if entry.trace is None or entry.region is None:
+        return []
+    findings, seen = [], set()
+    for op in entry.trace.ops:
+        if not op.in_loop:
+            continue
+        found = hit(op)
+        if found and found[0] not in seen:
+            seen.add(found[0])
+            findings.append(Finding(code, entry.name, *found))
+    return findings
+
+
+def check_carry_copy(entry: EntryProbe) -> list:
+    """TL002: the large tables are not copied inside the per-rank loop.
+
+    The reference's cliff was XLA copying a scatter-updated loop carry once
+    per trip; eager torch copies only when told to, so the eager form is a
+    ``clone``, a ``.to``/``.contiguous`` copy or a ``copy_`` out of one of
+    the loop's large tables (the §5 value table, the tiled cache's entry
+    tables, or a view of them) inside the loop.  Live values are read from
+    the frozen loop-entry table and the ranked event rows instead
+    (``fused._apply_cache_events_tiled``)."""
+
+    def hit(op):
+        if op.name not in COPY_OPS:
+            return None
+        src = op.inputs[1:2] if op.name == "copy_" else op.inputs[:1]
+        tables = [o for o in src if o.table]
+        if not tables:
+            return None
+        return (f"op:{op.name}:{_fmt(tables[0])}",
+                f"{op.name} copies the loop's table {_fmt(tables[0])} once per rank: read "
+                f"the live values from the frozen table and the ranked event rows")
+
+    return _loop_findings(entry, "TL002", hit)
+
+
+def check_cond_capture(entry: EntryProbe) -> list:
+    """TL005: no host synchronisation inside the per-rank loop.
+
+    The reference's cliff was a ``lax.cond`` deep in the rank loop copying
+    its captures on every trip.  Eager torch's counterpart of a per-trip
+    stall is the host waiting for the device: ``.item()``/``int()``/``bool()``
+    of a tensor (``_local_scalar_dense``), an op whose result's size depends
+    on the data (``nonzero``, ``masked_select``, ``unique``), or a copy from
+    the card to the host, once per rank.  A loop's trip count is read once,
+    before the loop."""
+
+    def hit(op):
+        d2h = op.name in ("_to_copy", "copy_") and any(o.device == "cuda" for o in op.inputs) \
+            and any(o.device == "cpu" for o in op.outputs + op.inputs[:1])
+        if op.name not in SYNC_OPS and not d2h:
+            return None
+        what = ", ".join(_fmt(o) for o in op.inputs[:1])
+        return (f"op:{op.name}:{what}",
+                f"{op.name} of {what} makes the host wait for the device once per rank")
+
+    return _loop_findings(entry, "TL005", hit)
+
+
 #: rule code -> implementation, in reporting order
 ALL_RULES = (
     ("TL001", check_fma_seam),
+    ("TL002", check_carry_copy),
     ("TL003", check_pad_variant_reduce),
     ("TL004", check_dtype_leak),
+    ("TL005", check_cond_capture),
 )

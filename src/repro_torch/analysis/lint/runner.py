@@ -57,7 +57,7 @@ def run_lint(entries="all", baseline_path=DEFAULT_BASELINE, device="cuda",
     probes = build_entries(entries, device)
     active, suppressed, notes = [], [], []
     for probe in probes:
-        probe.trace = run_traced(probe.run, probe.loop)
+        probe.trace = run_traced(probe.run, probe.loop, probe.region)
         for _, rule in rules:
             for finding in rule(probe):
                 match = next((s for s in suppressions if s.matches(finding)), None)

@@ -25,7 +25,14 @@ gather).  An in-place op adds its operands' taints to the tensor it writes.
 With ``loop=(function, names)``, :func:`run_traced` also snapshots the
 dtypes of the named local variables of ``function`` (its loop carries) at
 each pass over its ``for`` line, i.e. at every iteration boundary, through
-``sys.settrace`` in this thread.
+``sys.settrace`` in this thread.  With ``region=(getter, names)`` it marks
+every op run while the function ``getter()`` returns (looked up when the
+run starts, so a replaced function is the one traced) is inside its
+outermost ``for`` loop (``OpRecord.in_loop``, for TL002 and TL005), and
+tags the named locals (its large tables) when the loop starts: a third
+taint, **table**, that flows to views of them only (``Operand.table``).
+Ops inside that loop are recorded whatever they yield when they copy or
+synchronise (:data:`LOOP_OPS`).
 """
 
 from __future__ import annotations
@@ -48,6 +55,14 @@ REDUCTIONS = frozenset({"sum", "mean", "nansum", "prod"})
 #: ops that multiply and add with one rounding (or may: a BLAS product) (TL001)
 FMA_OPS = frozenset({"addcmul", "addcdiv", "lerp", "addmm", "baddbmm", "addmv", "addbmm",
                      "addr"})
+#: ops that copy a whole operand (TL002)
+COPY_OPS = frozenset({"clone", "_to_copy", "copy", "copy_"})
+#: ops that make the host wait for the device (TL005); a device-to-host
+#: ``_to_copy`` / ``copy_`` does too
+SYNC_OPS = frozenset({"_local_scalar_dense", "nonzero", "masked_select", "unique",
+                      "_unique2", "item"})
+#: ops recorded inside a traced region's loop whatever they yield
+LOOP_OPS = COPY_OPS | SYNC_OPS
 #: ops recorded whatever their results (the others only where they yield a
 #: narrow float, what TL004 looks at)
 _RECORDED = REDUCTIONS | set(PRODUCTS) | FMA_OPS
@@ -67,6 +82,8 @@ class Operand:
     shape: tuple
     evidence: bool
     value: bool
+    table: bool = False
+    device: str = "cpu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +96,7 @@ class OpRecord:
     inputs: tuple
     outputs: tuple
     reduced: tuple = ()
+    in_loop: bool = False
 
 
 @dataclasses.dataclass
@@ -117,17 +135,22 @@ def _flags(t: torch.Tensor) -> tuple:
 
 
 def _operand(t: torch.Tensor) -> Operand:
-    return Operand(t.dtype, tuple(t.shape), *_flags(t))
+    return Operand(t.dtype, tuple(t.shape), *_flags(t), getattr(t, _TABLE, False),
+                   t.device.type)
 
 
 #: the attribute that holds a tensor's taints while it lives
 _TAINT = "_tracelint_taint"
+#: the attribute that marks a region's table (and its views)
+_TABLE = "_tracelint_table"
 
 
 class _TaintMode(TorchDispatchMode):
     def __init__(self, trace: Trace):
         super().__init__()
         self.trace = trace
+        #: whether the traced region is inside its loop (set by the line tracer)
+        self.in_loop = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -146,14 +169,19 @@ class _TaintMode(TorchDispatchMode):
         ev = name in COMPARISONS or any(f[0] for f in flags)
         val = any(f[1] for f in flags)
         outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
+        table = func.is_view and any(getattr(t, _TABLE, False) for t in ins)
         for t in outs:
             old = getattr(t, _TAINT, (False, False))
             setattr(t, _TAINT, (ev or old[0], val or old[1]))
-        if name in _RECORDED or any(t.dtype in NARROW_FLOATS for t in outs):
+            if table:
+                setattr(t, _TABLE, True)
+        in_loop = self.in_loop
+        if (name in _RECORDED or any(t.dtype in NARROW_FLOATS for t in outs)
+                or (in_loop and name in LOOP_OPS)):
             reduced = _reduced_axes(name, args, kwargs) \
                 if name in REDUCTIONS or name in PRODUCTS else ()
             self.trace.ops.append(OpRecord(name, tuple(_operand(t) for t in ins),
-                                           tuple(_operand(t) for t in outs), reduced))
+                                           tuple(_operand(t) for t in outs), reduced, in_loop))
         return out
 
 
@@ -165,41 +193,76 @@ def _dtypes(x):
     return None
 
 
-def _loop_line(fn) -> int:
-    """The line of ``fn``'s outermost ``for`` statement (the first of the
-    least indented ones)."""
+def _loop_lines(fn) -> tuple[int, int]:
+    """The first and last line of ``fn``'s outermost ``for`` statement (the
+    first of the least indented ones) and its body."""
     lines, first = inspect.getsourcelines(fn)
-    loops = [(len(line) - len(line.lstrip()), i) for i, line in enumerate(lines)
+
+    def indent(line):
+        return len(line) - len(line.lstrip())
+
+    loops = [(indent(line), i) for i, line in enumerate(lines)
              if line.lstrip().startswith("for ")]
     if not loops:
         raise ValueError(f"{fn.__qualname__} has no for loop")
-    return first + min(loops)[1]
+    depth, start = min(loops)
+    end = start
+    for i in range(start + 1, len(lines)):
+        if lines[i].strip() and indent(lines[i]) <= depth:
+            break
+        if lines[i].strip():
+            end = i
+    return first + start, first + end
 
 
-def run_traced(fn, loop: tuple | None = None) -> Trace:
+def run_traced(fn, loop: tuple | None = None, region: tuple | None = None) -> Trace:
     """Run ``fn()`` once under the taint mode (see the module docstring);
     ``loop=(function, names)`` also snapshots the carries' dtypes at each of
-    ``function``'s iteration boundaries."""
+    ``function``'s iteration boundaries, ``region=(getter, names)`` marks
+    the ops inside ``getter()``'s loop and its tables."""
     trace = Trace([], [])
+    mode = _TaintMode(trace)
     prev = sys.gettrace()
+    tracers = {}
     if loop is not None:
         func, names = loop
-        code, line = func.__code__, _loop_line(func)
+        line = _loop_lines(func)[0]
 
-        def local(frame, event, arg):
+        def carries(frame, event, arg):
             if event == "line" and frame.f_lineno == line:
                 trace.carries.append({n: _dtypes(frame.f_locals[n]) for n in names
                                       if n in frame.f_locals})
-            return local
+            return carries
 
-        def calls(frame, event, arg):
-            return local if event == "call" and frame.f_code is code else None
+        tracers[func.__code__] = carries
+    if region is not None:
+        getter, tables = region
+        func = getter()
+        lo, hi = _loop_lines(func)
 
+        def marks(frame, event, arg):
+            if event == "line":
+                if frame.f_lineno == lo and not mode.in_loop:
+                    for n in tables:
+                        t = frame.f_locals.get(n)
+                        if isinstance(t, torch.Tensor):
+                            setattr(t, _TABLE, True)
+                mode.in_loop = lo <= frame.f_lineno <= hi
+            elif event == "return":
+                mode.in_loop = False
+            return marks
+
+        tracers[func.__code__] = marks
+
+    def calls(frame, event, arg):
+        return tracers.get(frame.f_code) if event == "call" else None
+
+    if tracers:
         sys.settrace(calls)
     try:
-        with _TaintMode(trace):
+        with mode:
             trace.outputs = fn()
     finally:
-        if loop is not None:
+        if tracers:
             sys.settrace(prev)
     return trace

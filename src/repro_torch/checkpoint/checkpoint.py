@@ -16,8 +16,11 @@ read back by :func:`train_state_from_tree`, so a checkpoint of the
 reference's model-zoo trainer restores in the port and the other way
 round.  Writes go to ``step_<n>.tmp`` and are renamed into place; a
 :class:`CheckpointManager` writes on a background thread, at most one write
-in flight, and keeps the newest ``keep``.  Restoring onto a mesh
-(``shardings``) is refused with ``mesh-not-ported``.
+in flight, and keeps the newest ``keep``.  On a mesh, saving gathers each
+``DTensor`` leaf's full value (every rank takes part; rank 0 writes), so a
+checkpoint is the same with or without a mesh, and ``restore_checkpoint(...,
+shardings=)`` reads full arrays and gives each rank its shard, laid out by
+a tree of :class:`~repro_torch.models.sharding.NamedSharding`.
 """
 
 from __future__ import annotations
@@ -32,14 +35,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.dsag_pjit import CAP_MESH
-from repro_torch.experiments.engine import refuse
+from repro_torch.models import sharding
 from repro_torch.optim.compression import Quantized
 
 
 def _encode(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A host numpy array and its dtype tag (bfloat16 as its uint16 bits)."""
-    t = t.detach().cpu()
+    t = sharding.full(t.detach()).cpu()
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy().view(np.uint16), "bfloat16"
     a = t.numpy()
@@ -80,13 +82,21 @@ def _to_host(tree):
         return {k: _to_host(v) for k, v in tree.items()}
     if isinstance(tree, Quantized):
         return Quantized(_to_host(tree.q), _to_host(tree.scale), tree.block)
-    return tree.detach().to("cpu", copy=True)
+    return sharding.full(tree.detach()).to("cpu", copy=True)
 
 
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Blocking atomic save.  Returns the final checkpoint path."""
-    os.makedirs(directory, exist_ok=True)
+    """Blocking atomic save.  Returns the final checkpoint path.  A tree of
+    DTensors is gathered on every rank and written by rank 0 (all ranks
+    call this; they leave it once the file is in place)."""
     final = os.path.join(directory, f"step_{step:08d}")
+    if any(sharding.is_sharded(leaf) for _, leaf in _flatten_with_paths(tree)):
+        tree = _to_host(tree)
+        if torch.distributed.get_rank() == 0:
+            save_checkpoint(directory, step, tree)
+        torch.distributed.barrier()
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -123,9 +133,9 @@ def latest_checkpoint(directory: str) -> str | None:
 
 def restore_checkpoint(path: str, like: Any, shardings: Any | None = None) -> Any:
     """Restore into the structure of ``like``, each leaf on ``like``'s
-    leaf's device."""
-    if shardings is not None:
-        raise refuse(CAP_MESH, "restoring onto a mesh (shardings) is not ported yet")
+    leaf's device; with ``shardings`` (a tree like ``like`` of
+    :class:`~repro_torch.models.sharding.NamedSharding`), each leaf as a
+    ``DTensor`` holding this rank's shard."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     flat_like = [leaf for _, leaf in _flatten_with_paths(like)]
@@ -139,7 +149,22 @@ def restore_checkpoint(path: str, like: Any, shardings: Any | None = None) -> An
         if tuple(a.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch {a.shape} vs {tuple(leaf.shape)}")
         leaves.append(_decode(a, dt, leaf.device))
-    return _unflatten(like, leaves)
+    restored = _unflatten(like, leaves)
+    if shardings is not None:
+        restored = _place(restored, shardings)
+    return restored
+
+
+def _place(tree, shardings):
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, Quantized):
+        return Quantized(_place(tree.q, shardings.q), _place(tree.scale, shardings.scale),
+                         tree.block)
+    if not isinstance(shardings, sharding.NamedSharding):
+        raise TypeError(f"shardings holds a NamedSharding per leaf "
+                        f"(repro_torch.models.sharding), got {type(shardings).__name__}")
+    return shardings.place(tree)
 
 
 #: optimizer entries that are flat like the parameters (adafactor's ``stats``

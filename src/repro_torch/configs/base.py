@@ -6,11 +6,12 @@ describes the model zoo, every family of which the port serves
 (``repro_torch.launch.serve``: dense, MoE, MLA, SSM, hybrid, VLM and
 enc-dec) and trains through the model-zoo branch of
 ``repro_torch.launch.train``.  :class:`TrainConfig` configures the live trainer, for the paper
-problems (``launch/paper_jobs.py``) and the model zoo; fields that
-configure the model zoo's sharding are kept for parity and must stay at
-their defaults here (a mesh is refused by ``core/dsag_pjit.py``).
-:class:`MeshConfig` is the reference's mesh description, kept for parity:
-nothing in the port builds a mesh from it yet.  :class:`ShapeConfig` names
+problems (``launch/paper_jobs.py``) and the model zoo; its sharding
+fields (``fsdp``, ``quantized_fsdp_allgather``, ``dsag_groups``) configure
+the mesh step of ``core/dsag_pjit.py``.  :class:`MeshConfig` is the
+reference's mesh description: the spec functions (``make_group_spec``,
+``models/sharding.py``) read its axes and sizes, and a run builds the
+``DeviceMesh`` it describes with ``launch/mesh.py``.  :class:`ShapeConfig` names
 one input shape (what :func:`repro_torch.analysis.roofline.model_flops`
 counts), and :data:`SHAPES` the reference's cells.
 """

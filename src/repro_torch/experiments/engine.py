@@ -38,6 +38,8 @@ CAP_TILED = "slot-universe-tiled"
 CAP_ACTIVE_SET = "active-slots-exceed-budget"
 #: a model architecture (or a model feature) the port does not run yet
 CAP_ARCH = "arch-not-ported"
+#: what a mesh run does not run yet (a layout, a slot type, a family)
+CAP_MESH = "mesh-not-ported"
 #: kernel_backend="cuda" for shapes past a CUDA kernel's remaining limits
 #: (a grid dimension past CUDA's, K3's event ranks past its shared memory)
 CAP_CUDA_SHAPE = "cuda-shape-unsupported"

@@ -378,7 +378,23 @@ def _apply_cache_events_tiled(spec: _StaticSpec, tabs: dict, ev_worker, cache_st
     s_idx = torch.arange(S, device=dev)
     s_col = s_idx[:, None]
     a_idx = torch.arange(A, device=dev)
-    n_ranks = int(valid_r.sum(dim=1).max())
+    # the walk's trip counts, read on the host once, before it: the ranks, and
+    # each rank's evictions bound by the event worker's entries that overlap
+    # the event's interval with another slot (an exact entry is never
+    # evicted), those active on entry and those the earlier ranks insert
+    e_r = slot_r.clamp(0, E - 1)
+    lo_r, hi_r = starts[e_r], stops[e_r]
+    es0 = st["slots"][s_col, worker_r]  # [S, R, A]
+    es0_safe = es0.clamp(0, E - 1)
+    on_entry = ((st["iters"][s_col, worker_r] >= 0) & (es0 != e_r[..., None])
+                & (starts[es0_safe] <= hi_r[..., None]) & (lo_r[..., None] <= stops[es0_safe]))
+    earlier = (torch.ones(R, R, dtype=torch.bool, device=dev).tril(-1)[None]
+               & valid_r[:, None, :] & (worker_r[:, :, None] == worker_r[:, None, :])
+               & (e_r[:, :, None] != e_r[:, None, :])
+               & (lo_r[:, None, :] <= hi_r[:, :, None]) & (lo_r[:, :, None] <= hi_r[:, None, :]))
+    bound = torch.where(valid_r, on_entry.sum(dim=2) + earlier.sum(dim=2), 0).amax(dim=0)
+    trips = torch.cat([valid_r.sum(dim=1).max()[None], bound]).tolist()
+    n_ranks, trips = trips[0], trips[1:]
     for j in range(n_ranks):
         valid, slot, tag, v64 = valid_r[:, j], slot_r[:, j], tag_r[:, j], vals_r[:, j]
         w_e = worker_r[:, j]
@@ -399,10 +415,11 @@ def _apply_cache_events_tiled(spec: _StaticSpec, tabs: dict, ev_worker, cache_st
         # live entry values, reconstructed (write-only table discipline)
         v_live = torch.where(_bcast(wm >= 0, vdim), vals_r[s_col, wm.clamp(0, R - 1)],
                              values0[s_col, w_e[:, None], a_idx[None, :]])  # [S, A, ...]
-        # eviction subtraction in interval-start order (distinct starts)
+        # eviction subtraction in interval-start order (distinct starts),
+        # masked trips up to the rank's bound (past its evictions a trip
+        # changes nothing)
         ord_e = torch.argsort(torch.where(evict, e_lo, _IMAX), dim=1, stable=True)
-        n_sub = int(evict.sum(dim=1).max())
-        for o in range(n_sub):
+        for o in range(min(trips[j], A)):
             eidx = ord_e[:, o]
             m = evict[s_idx, eidx]
             sums = torch.where(_bcast(m, vdim), sums - v_live[s_idx, eidx], sums)

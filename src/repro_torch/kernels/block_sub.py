@@ -32,6 +32,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
@@ -112,6 +113,12 @@ def _require(t: torch.Tensor, what: str, dtype, shape: tuple, device) -> None:
 
 
 def _on_cpu(*tensors) -> bool:
+    """Whether a wrapper takes its plain version (every tensor on the CPU)
+    or its kernel (every tensor on a card).  A ``DTensor`` is refused: a
+    kernel takes raw pointers, and a mesh run hands it the local shard."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError("a kernel takes plain tensors: pass a DTensor's local shard "
+                        "(.to_local())")
     if all(t.is_cuda for t in tensors):
         return False
     devices = {t.device.type for t in tensors}

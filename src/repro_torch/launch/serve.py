@@ -15,11 +15,21 @@ model, nor qwen1.5-32b, whole).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --kernel-backend torch
   PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 4 --prompt-len 2048 --tokens 32
+
+``Server(mesh=)`` serves on a ``(data, model)`` device mesh, one server per
+rank (``repro_torch.launch.mesh.RankPool``): the weights placed by
+``Model.param_specs(num_params > 1e9)`` and degathered inside prefill and
+every decode step, as the reference's dry-run cells lower them; each data
+rank serves its slice of the batch on the ``model`` axis (K6 on its own
+heads, the decode cache split over its sequence), and every rank returns
+the whole batch's tokens.  The MoE family is refused there
+(``mesh-not-ported``).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -31,7 +41,11 @@ from repro_torch.experiments.engine import (
     EngineConfig,
     engine_capability,
 )
+from repro_torch.core.dsag_pjit import mesh_sizes
 from repro_torch.models import build_model
+from repro_torch.models import sharding
+from repro_torch.models.layers import round_up, tree_map
+from repro_torch.models.model import check_mesh
 
 
 class Server:
@@ -41,21 +55,39 @@ class Server:
     ``cuda-device-unavailable``), ``kernel_backend`` is ``"cuda"`` (prefill
     attention through K6) or ``"torch"`` (the plain attention, on either
     device), and the weights come from the model's init drawn from a
-    ``torch.Generator`` seeded with ``seed``.
+    ``torch.Generator`` seeded with ``seed``; ``dtype`` replaces the
+    config's (e.g. ``"float32"``).  With ``mesh`` (a
+    ``DeviceMesh``) every rank draws the same weights and keeps its shard;
+    ``max_len`` is rounded up to a multiple of the ``model`` axis, over
+    which the cache's sequence is split.
     """
 
     def __init__(self, arch: str, *, smoke: bool = True, max_len: int = 256,
-                 device: str = "cuda", kernel_backend: str = "cuda", seed: int = 0):
+                 device: str = "cuda", kernel_backend: str = "cuda", seed: int = 0,
+                 mesh=None, dtype: str | None = None):
         cap = engine_capability(EngineConfig(device=device, kernel_backend=kernel_backend))
         if not cap.supported:
             raise EngineCapabilityError(cap)
         self.cfg = get_smoke_config(arch) if smoke else get_config(arch)
+        if dtype is not None:
+            self.cfg = dataclasses.replace(self.cfg, dtype=dtype)
         self.model = build_model(self.cfg, kernel_backend=kernel_backend)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.max_len = max_len
+        self.mesh = mesh
+        if mesh is not None:
+            sizes = mesh_sizes(mesh)
+            check_mesh(self.cfg)
+            sharding.set_mesh(mesh)
+            self.max_len = round_up(max_len, sizes.get("model", 1))
+            self.param_specs = self.model.param_specs(self.model.num_params() > 1e9)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         self.params = self.model.init(gen)
+        if mesh is not None:
+            self.params = _place(self.params, self.param_specs, mesh)
         #: host seconds of the last ``generate``: prefill and all decode steps
         self.timings: dict[str, float] = {}
 
@@ -78,6 +110,8 @@ class Server:
                  for k, v in batch.items()}
         batch = {k: v.to(self.device) for k, v in batch.items()}
         batch["tokens"] = batch["tokens"].to(torch.int32)
+        if self.mesh is not None:
+            return self._generate_sharded(batch, num_tokens)
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(self.params, batch, cache_len=self.max_len)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
@@ -94,6 +128,56 @@ class Server:
         self._sync()
         self.timings = {"prefill": t1 - t0, "decode": time.perf_counter() - t1}
         return result
+
+    def _weights(self):
+        """The weights degathered to their TP-only layout, as DTensors on the
+        compute mesh (the ``model`` axis)."""
+        gathered = sharding.degather(self.params, self.param_specs, self.mesh)
+        return tree_map(sharding.to_compute_mesh, gathered)
+
+    def _generate_sharded(self, batch, num_tokens: int) -> torch.Tensor:
+        """``generate`` on the mesh: this data rank's slice of the batch, then
+        the whole batch's tokens gathered from every data rank."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        cfg, mesh = self.cfg, self.mesh
+        idx, n_dp = sharding.dp_coordinate(mesh)
+        b = batch["tokens"].shape[0]
+        if b % n_dp:
+            raise ValueError(f"a batch of {b} does not split over {n_dp} data ranks")
+        rows = slice(idx * (b // n_dp), (idx + 1) * (b // n_dp))
+        batch = {k: v[rows] for k, v in batch.items()}
+
+        def pick(logits):
+            return torch.argmax(sharding.full(logits)[:, -1], dim=-1)[:, None].to(torch.int32)
+
+        with implicit_replication():
+            t0 = time.perf_counter()
+            logits, cache = self.model.prefill(self._weights(), batch, cache_len=self.max_len)
+            tok = pick(logits)
+            self._sync()
+            t1 = time.perf_counter()
+            out = [tok]
+            index = prompt_positions(cfg, batch["tokens"].shape[1])
+            for _ in range(num_tokens - 1):
+                logits, cache = self.model.decode_step(self._weights(), tok, cache, index)
+                tok = pick(logits)
+                out.append(tok)
+                index += 1
+            local = torch.cat(out, dim=1)
+            result = DTensor.from_local(local, mesh, sharding.placements(
+                sharding.batch_spec(None), mesh), run_check=False).full_tensor()
+        self._sync()
+        self.timings = {"prefill": t1 - t0, "decode": time.perf_counter() - t1}
+        return result
+
+
+def _place(params, specs, mesh):
+    """Each rank's shard of the full ``params`` as DTensors laid out by
+    ``specs`` on ``mesh``."""
+    return sharding.map_specs(lambda t, spec: sharding.NamedSharding(mesh, spec).place(t),
+                              params, specs)
 
 
 def prompt_positions(cfg, prompt_len: int) -> int:

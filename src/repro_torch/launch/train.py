@@ -41,8 +41,18 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch logreg --steps 40 \\
       --checkpoint-dir ckpt [--restore]
 
-Not ported (refused with a capability code): a mesh, through the Tier-1
-step.  An arch the registry does not hold is refused with :data:`CAP_ARCH`.
+On a device mesh (``TrainerOptions(mesh=)``: a ``DeviceMesh`` with the
+axes ``("data", "model")``, one trainer per rank, run through
+``repro_torch.launch.mesh.RankPool``) a model-zoo arch trains with the
+reference's sharding: one DSAG group per data rank, parameters placed by
+``Model.param_specs(fsdp)``, the step of ``core/dsag_pjit.py``'s mesh
+branch; every rank runs the same Tier-2 controller on the same draws, so
+their decisions agree.  The paper problems ignore the mesh, as the
+reference's trainer does.  What a mesh does not run is refused with
+``mesh-not-ported`` before any launch: the MoE family, the ``zero`` and
+``none`` group layouts, int8 slots, adafactor, and checkpoints of a mesh
+trainer (``restore_checkpoint(shardings=)`` restores a state onto a mesh).
+An arch the registry does not hold is refused with :data:`CAP_ARCH`.
 """
 
 from __future__ import annotations
@@ -61,6 +71,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.dsag_pjit import (
     GroupSpec,
+    check_mesh_step,
+    init_mesh_train_state,
     init_train_state,
     make_group_spec,
     make_train_step,
@@ -68,15 +80,19 @@ from repro_torch.core.dsag_pjit import (
 from repro_torch.data import make_batch_iterator
 from repro_torch.experiments.engine import (
     CAP_ARCH,
+    CAP_MESH,
     EngineCapabilityError,
     EngineConfig,
     engine_capability,
+    refuse,
 )
 from repro_torch.ft.runtime import DeadlineController, FailureDetector
 from repro_torch.ft.validation import trace_latency_fn
 from repro_torch.latency.model import make_heterogeneous_cluster
 from repro_torch.launch.paper_jobs import PAPER_ARCHES, make_paper_job, paper_train_config
 from repro_torch.models import build_model
+from repro_torch.models.model import check_mesh
+from repro_torch.models.sharding import set_mesh
 
 __all__ = ["CAP_ARCH", "Trainer", "TrainerOptions", "check_history", "main"]
 
@@ -133,7 +149,7 @@ class Trainer:
             self.device = self.job.device
             self.data = self.job.batch_iterator()
             project_fn = self.job.project_fn if opts.arch == "pca" else None
-            self.step_fn = make_train_step(self.job, tc, self.gs, opts.mesh,
+            self.step_fn = make_train_step(self.job, tc, self.gs, None,
                                            project_fn=project_fn, backend=backend)
         else:
             cap = engine_capability(opts.engine)
@@ -146,7 +162,17 @@ class Trainer:
             self.model = build_model(cfg)
             self.layout = self.model.layout
             self.device = torch.device(opts.engine.device)
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
             self.gs = make_group_spec(tc, opts.mesh)
+            param_specs = None
+            if opts.mesh is not None:
+                check_mesh(cfg)
+                check_mesh_step(tc, self.gs, opts.mesh)
+                if opts.checkpoint_dir:
+                    raise refuse(CAP_MESH, "checkpoints of a mesh trainer")
+                set_mesh(opts.mesh)
+                param_specs = self.model.param_specs(tc.fsdp)
             if opts.global_batch % self.gs.num_groups:
                 raise ValueError(f"global batch {opts.global_batch} not divisible by "
                                  f"{self.gs.num_groups} DSAG groups")
@@ -156,8 +182,8 @@ class Trainer:
             def loss_fn(params, batch):
                 return self.model.train_loss(params, batch, remat=tc.remat)
 
-            self.step_fn = make_train_step(loss_fn, tc, self.gs, opts.mesh, backend=backend,
-                                           layout=self.layout)
+            self.step_fn = make_train_step(loss_fn, tc, self.gs, opts.mesh, param_specs,
+                                           backend=backend, layout=self.layout)
         G = self.gs.num_groups
 
         # Tier-2 control plane
@@ -191,6 +217,13 @@ class Trainer:
                 else None
             )
 
+    @property
+    def _rank(self) -> int:
+        """This process's rank in a mesh run (0 otherwise): only rank 0 logs."""
+        if self.opts.mesh is None:
+            return 0
+        return torch.distributed.get_rank()
+
     # -- lifecycle ---------------------------------------------------------
     def init_state(self):
         """A fresh train state; a model's parameters drawn from a seeded
@@ -199,7 +232,11 @@ class Trainer:
             params = self.job.init_params(self.opts.seed)
         else:
             gen = torch.Generator(device=self.device).manual_seed(self.opts.seed)
-            params = self.layout.flatten(self.model.init(gen))
+            tree = self.model.init(gen)
+            if self.opts.mesh is not None:  # every rank draws the same, keeps its shard
+                return init_mesh_train_state(tree, self.opts.train_config, self.gs,
+                                             self.step_fn.layouts, self.opts.mesh)
+            params = self.layout.flatten(tree)
         return init_train_state(params, self.opts.train_config, self.gs, self.layout)
 
     def _tree(self, state):
@@ -325,12 +362,13 @@ class Trainer:
                 )
             if step % opts.log_every == 0:
                 drain()
-                print(
-                    f"[train] step {step:5d} loss {history['loss'][-1]:.4f} "
-                    f"xi {history['xi'][-1]:.2f} "
-                    f"fresh {history['mask_count'][-1]}/{G} "
-                    f"({history['step_time'][-1]*1e3:.0f} ms)"
-                )
+                if self._rank == 0:
+                    print(
+                        f"[train] step {step:5d} loss {history['loss'][-1]:.4f} "
+                        f"xi {history['xi'][-1]:.2f} "
+                        f"fresh {history['mask_count'][-1]}/{G} "
+                        f"({history['step_time'][-1]*1e3:.0f} ms)"
+                    )
             if self.ckpt and (step + 1) % tc.checkpoint_every == 0:
                 self.ckpt.save(step, self._tree(state))
         drain()

@@ -3,8 +3,13 @@ prefill and KV-cached decode paths, from ``repro.models.attention``.
 
 The math follows the reference op for op: scores are formed in the
 activation dtype and softmaxed in float32, probabilities cast back, and
-masked scores set to ``NEG_INF`` (-1e30).  The port has no mesh, so the
-reference's sharding constraints are gone.
+masked scores set to ``NEG_INF`` (-1e30).  The reference's sharding
+constraints are kept at its sites (``models/sharding.py``): query heads
+over ``model``, the output projection a TP contraction
+(:func:`~repro_torch.models.layers.tp_contract`), and decode caches split
+over their sequence on ``model``, each rank writing its own part
+(:func:`~repro_torch.models.sharding.write_slice`).  Without a mesh they
+are no-ops.
 
 Prefill attention (:func:`_attend`) on CUDA tensors with the ``"cuda"``
 kernel backend runs CUDA kernel K6 (``kernels/flash_attention.py``), which
@@ -39,7 +44,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention_bshd
-from repro_torch.models.layers import ParamDecl, apply_rope
+from repro_torch.models.layers import ParamDecl, apply_rope, tp_contract
+from repro_torch.models.sharding import is_sharded, shard_batch, write_slice
 
 NEG_INF = -1e30
 # materialize full scores only below this many query positions
@@ -109,6 +115,7 @@ def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         mask = kpos[None, :] <= qpos[:, None]
         scores = torch.where(mask[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = shard_batch(probs, "model", None, None)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
@@ -142,6 +149,7 @@ def _attend(q, k, v, *, causal: bool, q_offset: int = 0, scale: float | None = N
     prefill and cross-attention calls of this model (q_offset 0, the default
     scale, sq == sk when causal, any sk when not) and refuses others;
     everything else is the reference's plain path over repeated kv heads.
+    On a mesh either runs on each rank's own heads (:func:`_on_local_heads`).
     """
     if backend == "cuda" and q.device.type == "cuda":
         if q_offset or scale is not None or (causal and q.shape[1] != k.shape[1]):
@@ -150,12 +158,92 @@ def _attend(q, k, v, *, causal: bool, q_offset: int = 0, scale: float | None = N
                 f"default scale, sq == sk); got q_offset={q_offset}, scale={scale}, "
                 f"sq={q.shape[1]}, sk={k.shape[1]}"
             )
+        if is_sharded(q):
+            return _on_local_heads(lambda a, b, c: flash_attention_bshd(a, b, c, causal=causal),
+                                   q, k, v)
         return flash_attention_bshd(q, k, v, causal=causal)
+    if is_sharded(q):
+        return _on_local_heads(lambda a, b, c: _attend(
+            a, b, c, causal=causal, q_offset=q_offset, scale=scale, backend="torch"), q, k, v)
     groups = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
     if q.shape[1] > CHUNKED_ATTENTION_THRESHOLD:
         return chunked_attention(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
     return full_attention(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
+
+
+def _on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` on this rank's heads of ``DTensor`` q [b, s, h, d]
+    (heads split over the compute mesh's ``model`` axis) and k, v [b, sk,
+    kvh, d] (split the same way, or replicated: the GQA models whose kv
+    heads the rules leave whole).  ``fn`` sees plain local tensors: the
+    rank's query heads and the kv heads they read, which are its own shard
+    of k and v or a slice of the replicated ones.  Attention is independent
+    per head, so nothing is communicated; the local output comes back as a
+    ``DTensor`` laid out as q (differentiably: training's plain attention
+    runs here too)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    q = shard_batch(q, None, "model", None)
+    mesh = q.device_mesh
+    if mesh.ndim != 1 or list(q.placements) != [Shard(2)]:
+        raise ValueError(f"attention on a mesh takes q split over heads on a 1-D compute "
+                         f"mesh, got {q.placements} on {mesh.mesh_dim_names}")
+    h, kvh, m = q.shape[2], k.shape[2], mesh.size(0)
+    if h % m or h % kvh:
+        raise ValueError(f"{h} query heads do not split over {m} ranks in groups of "
+                         f"{kvh} kv heads")
+    hl, start, group = h // m, mesh.get_local_rank(0) * (h // m), h // kvh
+    if hl % group and group % hl:
+        raise ValueError(f"a rank's {hl} query heads straddle the {group}-head kv groups")
+    k0, nk = start // group, max(hl // group, 1)
+
+    def local(t):
+        if list(t.placements) == [Shard(2)] and t.shape[2] // m == nk and (
+                mesh.get_local_rank(0) * nk == k0):
+            return t.to_local()
+        full = t if list(t.placements) == [Replicate()] else t.redistribute(mesh, [Replicate()])
+        # each rank reads its own kv heads of the whole: their gradients are
+        # one rank's addends of the whole's gradient
+        return full.to_local(grad_placements=[Partial()])[:, :, k0:k0 + nk]
+
+    out = fn(q.to_local(), local(k), local(v))
+    return DTensor.from_local(out, mesh, q.placements, run_check=False)
+
+
+def _decode_attend_sharded(q, k, v, index: int, scale: float, dtype):
+    """Decode attention of one query position over a cache split along its
+    sequence (``DTensor`` k, v [b, S, kvh, d] on the compute mesh; q [b, 1,
+    h, d]), as the reference shards it: each rank scores every head against
+    its own positions, and the softmax's max and sum and the weighted values
+    are all-reduced (``Partial`` max and sum).  The probabilities are the
+    reference's up to the order of the float32 sums; the values are summed
+    in float32 before the cast to ``dtype``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = k.device_mesh
+    qf = q.full_tensor() if is_sharded(q) else q
+    kl, vl = k.to_local(), v.to_local()
+    s_loc = kl.shape[1]
+    off = mesh.get_local_rank(0) * s_loc
+    groups = qf.shape[2] // kl.shape[2]
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, _repeat_kv(kl, groups)).to(torch.float32)
+    scores = scores * scale
+    valid = torch.arange(off, off + s_loc, device=scores.device)[None, None, None, :] <= index
+
+    def reduced(t, op):
+        return DTensor.from_local(t, mesh, [Partial(op)], run_check=False).redistribute(
+            mesh, [Replicate()]).to_local()
+
+    scores = torch.where(valid, scores, NEG_INF)
+    mx = reduced(scores.amax(dim=-1, keepdim=True), "max")
+    p = torch.exp(scores - mx)
+    denom = reduced(p.sum(dim=-1, keepdim=True), "sum")
+    probs = (p / denom).to(dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(torch.float32),
+                       _repeat_kv(vl, groups).to(torch.float32))
+    out = reduced(out, "sum").to(dtype)
+    return DTensor.from_local(out, mesh, [Replicate()], run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +269,10 @@ def gqa_forward(cfg: ModelConfig, params, x, positions, *, causal: bool = True,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_batch(q, None, "model", None)
     out = _attend(q, k, v, causal=causal, backend=backend)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    out = shard_batch(out, None, "model", None)
+    return tp_contract("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
 
 
 def gqa_prefill_with_cache(cfg: ModelConfig, params, x, positions, *,
@@ -194,7 +284,8 @@ def gqa_prefill_with_cache(cfg: ModelConfig, params, x, positions, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = _attend(q, k, v, causal=True, backend=backend)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    out = shard_batch(out, None, "model", None)
+    y = tp_contract("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, {"k": k, "v": v}
 
 
@@ -212,8 +303,14 @@ def gqa_decode_step(cfg: ModelConfig, params, x, cache, index: int,
         q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
     k, v = cache["k"], cache["v"]
-    k[:, index:index + 1] = k_new.to(k.dtype)
-    v[:, index:index + 1] = v_new.to(v.dtype)
+    write_slice(k, 1, index, k_new.to(k.dtype))
+    write_slice(v, 1, index, v_new.to(v.dtype))
+    k = shard_batch(k, "model", None, None)
+    v = shard_batch(v, "model", None, None)
+    if is_sharded(k):
+        out = _decode_attend_sharded(q, k, v, index, 1.0 / math.sqrt(q.shape[-1]), x.dtype)
+        y = tp_contract("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+        return y, {"k": k, "v": v}
     groups = q.shape[2] // k.shape[2]
     kk = _repeat_kv(k, groups)
     vv = _repeat_kv(v, groups)
@@ -223,7 +320,7 @@ def gqa_decode_step(cfg: ModelConfig, params, x, cache, index: int,
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    y = tp_contract("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, {"k": k, "v": v}
 
 
@@ -266,8 +363,11 @@ def mla_prefill_with_cache(cfg: ModelConfig, params, x, positions, *, causal: bo
     k_rope_b = k_rope[:, :, None, :].expand(*k_rope.shape[:2], h, k_rope.shape[-1])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
+    q = shard_batch(q, None, "model", None)
+    k = shard_batch(k, None, "model", None)
     out = _attend(q, k, v, causal=causal, scale=mla_scale(cfg), backend="torch")
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    out = shard_batch(out, None, "model", None)
+    y = tp_contract("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, {"c_kv": c_kv, "k_rope": k_rope}
 
 
@@ -288,8 +388,10 @@ def mla_decode_step(cfg: ModelConfig, params, x, cache, index: int):
     pos = torch.full((x.shape[0], 1), index, dtype=torch.int32, device=x.device)
     q_nope, q_rope = _mla_q(cfg, params, x, pos)
     c_new, kr_new = _mla_ckv(cfg, params, x, pos)
-    c_kv[:, index:index + 1] = c_new.to(c_kv.dtype)
-    k_rope[:, index:index + 1] = kr_new.to(k_rope.dtype)
+    write_slice(c_kv, 1, index, c_new.to(c_kv.dtype))
+    write_slice(k_rope, 1, index, kr_new.to(k_rope.dtype))
+    c_kv = shard_batch(c_kv, "model", None)
+    k_rope = shard_batch(k_rope, "model", None)
     # absorb W_uk into the query:  q~ = W_uk^T q_nope   [b, 1, h, lora]
     q_t = torch.einsum("bqhn,lhn->bqhl", q_nope, params["w_uk"].to(x.dtype))
     scores = (torch.einsum("bqhl,bsl->bhqs", q_t, c_kv)
@@ -299,7 +401,7 @@ def mla_decode_step(cfg: ModelConfig, params, x, cache, index: int):
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhqs,bsl->bqhl", probs, c_kv)  # attend in compressed space
     out = torch.einsum("bqhl,lhn->bqhn", ctx, params["w_uv"].to(x.dtype))
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    y = tp_contract("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
     return y, {"c_kv": c_kv, "k_rope": k_rope}
 
 
@@ -317,7 +419,7 @@ def cross_attention_forward(cfg: ModelConfig, params, x, enc_k, enc_v, *,
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
     out = _attend(q, enc_k, enc_v, causal=False, backend=backend)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
+    return tp_contract("bshk,hkd->bsd", out, params["wo"].to(x.dtype))
 
 
 def encoder_kv(cfg: ModelConfig, params, enc_out):

@@ -3,9 +3,13 @@
 
 Every parameter is declared once (shape, per-dim logical axes, init) and
 :func:`init_from_decls` materializes the declarations as a nested dict of
-tensors drawn from an explicit ``torch.Generator``.  The port has no mesh:
-the logical axes are kept for parity, the reference's sharding rules and
-``tp_contract`` become plain einsums.  Dtype handling follows the
+tensors drawn from an explicit ``torch.Generator``.  The logical axes map
+to mesh axes through the reference's rules (:func:`make_rules`: TP over
+``model``, FSDP over ``data``), and :func:`specs_from_decls` gives each
+leaf its :class:`~repro_torch.models.sharding.PartitionSpec`; on a mesh the
+parameters are DTensors laid out by those specs, and each rank's flat
+layout (:meth:`FlatLayout.local`) is built from its own shards.  Dtype
+handling follows the
 reference op for op (f32 inside the norms, the rotary angles, the SiLU and
 the GELU, cast back to the activation dtype), so a float32 model equals the
 reference's within float32 rounding.
@@ -21,11 +25,36 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.sharding import P, local_shape, placements
 
 
 def torch_dtype(name) -> torch.dtype:
     """``"bfloat16"`` / ``"float32"`` (or a torch dtype) as a torch dtype."""
     return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# TP-reduction dtype: projections that contract a 'model'-sharded dim emit
+# partial sums that are all-reduced in the product's dtype.  bf16 halves
+# that wire volume.
+# ---------------------------------------------------------------------------
+
+_TP_REDUCE_DTYPE = None  # None -> the product's own dtype
+
+
+def set_tp_reduce_dtype(dtype) -> None:
+    global _TP_REDUCE_DTYPE
+    _TP_REDUCE_DTYPE = None if dtype is None else torch_dtype(dtype)
+
+
+def tp_contract(subscript: str, x, w):
+    """einsum whose contraction dim is TP-sharded (the psum site): with a
+    reduce dtype set, its partial sums are cast to it before the reduction
+    (the reference's ``preferred_element_type``)."""
+    out = torch.einsum(subscript, x, w)
+    if _TP_REDUCE_DTYPE is not None:
+        out = out.to(_TP_REDUCE_DTYPE)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +126,48 @@ def init_from_decls(decls, gen: torch.Generator, dtype) -> Any:
     return out
 
 
+def make_rules(cfg: ModelConfig, fsdp: bool) -> dict[str, str | None]:
+    """Logical-axis -> mesh-axis mapping.  TP over 'model'; FSDP adds 'data'
+    on the embed axis.  MoE: shard the expert dim when it divides the TP
+    degree (deepseek 160/16), else shard each expert's ffn dim (grok 8e)."""
+    rules: dict[str, str | None] = {
+        "vocab": "model",
+        "heads": "model",
+        # kv weights replicated unless the (padded) kv head count is TP-
+        # divisible (MHA models like qwen1.5-32b shard kv over 'model')
+        "kv_heads": "model"
+        if (cfg.num_kv_heads + cfg.kv_pad_to - 1) // cfg.kv_pad_to * cfg.kv_pad_to % 16 == 0
+        else None,
+        "head": None,
+        "mlp": "model",
+        "lora": None,
+        "d_inner": "model",
+        "ssm_heads": "model",
+        "state": None,
+        "groups": None,
+        "conv": None,
+        "layers": None,
+        "pos": None,
+        "none": None,
+        "embed": "data" if fsdp else None,
+        "embed2": "data" if fsdp else None,
+        "expert": "model",
+        "expert_mlp": None,
+    }
+    if cfg.num_experts and cfg.num_experts % 16 != 0:
+        rules["expert"] = None
+        rules["expert_mlp"] = "model"
+    return rules
+
+
+def to_spec(d: ParamDecl, rules: dict[str, str | None]) -> P:
+    return P(*[rules.get(ax) for ax in d.logical])
+
+
+def specs_from_decls(decls, rules: dict[str, str | None]) -> Any:
+    return tree_map(lambda d: to_spec(d, rules), decls)
+
+
 def num_elements(decls) -> int:
     return sum(math.prod(d.shape) for _, d in _leaves(decls))
 
@@ -153,11 +224,39 @@ class FlatLayout:
 
     @classmethod
     def from_decls(cls, decls, dtype) -> "FlatLayout":
-        leaves, off = [], 0
-        for path, d in _leaves(decls):
-            leaves.append(FlatLeaf(path, tuple(d.shape), torch_dtype(d.dtype or dtype), off))
-            off = round_up(off + math.prod(d.shape), FLAT_ALIGN)
-        return cls(tuple(leaves), off)
+        return cls.from_shapes([(path, tuple(d.shape), torch_dtype(d.dtype or dtype))
+                                for path, d in _leaves(decls)])
+
+    @classmethod
+    def from_shapes(cls, leaves) -> "FlatLayout":
+        """The layout of ``(path, shape, dtype)`` leaves, in that order."""
+        out, off = [], 0
+        for path, shape, dtype in leaves:
+            out.append(FlatLeaf(path, tuple(shape), dtype, off))
+            off = round_up(off + math.prod(shape), FLAT_ALIGN)
+        return cls(tuple(out), off)
+
+    def local(self, specs, mesh) -> "FlatLayout":
+        """This rank's layout on ``mesh``: each leaf at the shape of its own
+        shard under ``specs`` (every split dim dividing evenly).  K4, sgd,
+        adamw and ``apply_updates`` stay elementwise on it."""
+        return FlatLayout.from_shapes([
+            (x.path, local_shape(x.shape, get_path(specs, x.path), mesh), x.dtype)
+            for x in self.leaves])
+
+    def dtensors(self, flat: torch.Tensor, specs, mesh, cast: bool = False) -> dict:
+        """The tree of DTensors on ``mesh`` whose local shards are this
+        (local) layout's views of ``flat``, each laid out by its spec (cast
+        to its leaf's dtype with ``cast``, differentiably)."""
+        from torch.distributed.tensor import DTensor
+
+        tree = self.unflatten(flat) if cast else self.tree(flat)
+        out: dict = {}
+        for x in self.leaves:
+            local = get_path(tree, x.path)
+            set_path(out, x.path, DTensor.from_local(
+                local, mesh, placements(get_path(specs, x.path), mesh), run_check=False))
+        return out
 
     def views(self, flat: torch.Tensor) -> list[torch.Tensor]:
         """Each leaf's view of ``flat`` [..., numel] as [..., *shape]: no copy."""
@@ -306,10 +405,10 @@ def mlp_apply(params, x, swiglu: bool = True) -> torch.Tensor:
         gate = torch.einsum("...d,df->...f", x, params["w_gate"])
         up = torch.einsum("...d,df->...f", x, params["w_up"])
         h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-        return torch.einsum("...f,fd->...d", h, params["w_down"])
+        return tp_contract("...f,fd->...d", h, params["w_down"])
     h = torch.einsum("...d,df->...f", x, params["w_up"]) + params["b_up"].to(x.dtype)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return torch.einsum("...f,fd->...d", h, params["w_down"]) + params["b_down"].to(x.dtype)
+    return tp_contract("...f,fd->...d", h, params["w_down"]) + params["b_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -33,22 +33,35 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.experiments.engine import CAP_ARCH, refuse
+from repro_torch.experiments.engine import CAP_ARCH, CAP_MESH, refuse
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     FlatLayout,
     ParamDecl,
+    _leaves,
     apply_norm,
     embed_decls,
     init_from_decls,
+    make_rules,
     mlp_apply,
     mlp_decls,
     norm_decls,
     num_elements,
+    set_path,
+    specs_from_decls,
     torch_dtype,
     tree_map,
+)
+from repro_torch.models.sharding import (
+    P,
+    dp_axes,
+    is_sharded,
+    local_shape,
+    placements,
+    shard_batch,
+    write_slice,
 )
 from repro_torch.models.transformer import (
     AUX_LOSS_COEF,
@@ -174,22 +187,61 @@ def cache_abstract(cfg: ModelConfig, batch: int, cache_len: int, dtype=None) -> 
     return {"k": sd(kv), "v": sd(kv)}
 
 
+def cache_specs(cfg: ModelConfig) -> Any:
+    """PartitionSpec tree matching :func:`cache_abstract`: the batch over the
+    data-parallel axes, the sequence (or the SSM's heads, or the conv's
+    channels) over ``model``."""
+    dp = dp_axes()
+    dp = dp if len(dp) > 1 else (dp[0] if dp else None)
+    kv = P(None, dp, "model", None, None)
+    if cfg.family == "enc_dec":
+        cross = P(None, dp, None, None, None)  # enc_seq (1500) not shardable
+        return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
+    if cfg.use_mla:
+        return {"c_kv": P(None, dp, "model", None), "k_rope": P(None, dp, "model", None)}
+    ssm_spec = {
+        "state": P(None, dp, "model", None, None),
+        "conv": {
+            "x": P(None, dp, None, "model"),
+            "B": P(None, dp, None, None),
+            "C": P(None, dp, None, None),
+        },
+    }
+    if cfg.family == "ssm":
+        return ssm_spec
+    if cfg.family == "hybrid":
+        return {"mamba": ssm_spec, "shared": {"k": kv, "v": kv}}
+    return {"k": kv, "v": kv}
+
+
+def check_mesh(cfg: ModelConfig) -> None:
+    """Refuse, with ``mesh-not-ported``, a config with experts (grok-1,
+    deepseek-v2) on a mesh: DTensor has no sharding rule for
+    ``moe_apply``'s ``aten.bincount`` (nor its index tables' ``scatter_``).
+    Every other family runs there."""
+    if cfg.num_experts:
+        raise refuse(CAP_MESH, f"{cfg.name}: the moe family on a mesh: DTensor has no "
+                               f"sharding rule for moe_apply's aten.bincount (nor the index "
+                               f"tables' scatter_)")
+
+
 def _layer(cache: dict, i: int) -> dict:
     """Layer (or shared-block group) ``i``'s views of a stacked cache."""
     return tree_map(lambda a: a[i], cache)
 
 
 def _write_prompt(cache: dict, new: dict, i: int) -> None:
-    """Write a prefill's per-layer sequence cache (``[b, s, ...]``) at layer ``i``."""
+    """Write a prefill's per-layer sequence cache (``[b, s, ...]``) at layer
+    ``i`` (on a mesh, each rank its own part of the sequence)."""
     for name, t in new.items():
-        cache[name][i, :, :t.shape[1]] = t
+        write_slice(cache[name][i], 1, 0, t)
 
 
 def _write_state(cache: dict, new: dict, i: int) -> None:
     """Write a Mamba2 layer's recurrent state and conv tails at layer ``i``."""
-    cache["state"][i] = new["state"]
+    write_slice(cache["state"], 0, i, new["state"][None])
     for name, t in new["conv"].items():
-        cache["conv"][name][i] = t
+        write_slice(cache["conv"][name], 0, i, t[None])
 
 
 @dataclasses.dataclass
@@ -207,6 +259,19 @@ class Model:
     def init(self, generator: torch.Generator) -> Any:
         """Parameters drawn from ``generator``, on its device."""
         return init_from_decls(self.decls, generator, self.cfg.dtype)
+
+    def abstract(self) -> Any:
+        """The parameters as meta tensors (shape and dtype, no storage): the
+        reference's ``ShapeDtypeStruct`` tree."""
+        out: dict = {}
+        for path, d in _leaves(self.decls):
+            set_path(out, path, torch.empty(d.shape, dtype=torch_dtype(d.dtype or self.cfg.dtype),
+                                            device="meta"))
+        return out
+
+    def param_specs(self, fsdp: bool = False) -> Any:
+        """Each parameter's PartitionSpec (:func:`make_rules`)."""
+        return specs_from_decls(self.decls, make_rules(self.cfg, fsdp))
 
     def num_params(self) -> int:
         return num_elements(self.decls)
@@ -268,6 +333,7 @@ class Model:
             return self._prefill_encdec(params, batch, cache_len)
         tokens = batch["tokens"]
         x = embed_inputs(cfg, params, tokens, image_embed=batch.get("image_embed"))
+        x = shard_batch(x, None, None)
         b, s = x.shape[:2]
         if cfg.family in ("ssm", "hybrid") and s < cfg.ssm_conv - 1:
             raise ValueError(f"a prompt of {s} tokens is shorter than the conv's "
@@ -296,6 +362,8 @@ class Model:
         the prompt's ``s`` positions (the reference pads the prompt's keys
         with zeros); the rest is written whole by the prefill."""
         cfg = self.cfg
+        if is_sharded(x):
+            return self._empty_sharded_cache(b, cache_len, x)
         cache = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=x.device),
                          cache_abstract(cfg, b, cache_len, x.dtype))
         if cfg.family != "ssm":
@@ -304,6 +372,26 @@ class Model:
                 if not name.startswith("cross_"):
                     t[:, :, s:].zero_()
         return cache
+
+    def _empty_sharded_cache(self, b: int, cache_len: int, x) -> dict:
+        """The decode cache of a mesh run: DTensors on ``x``'s compute
+        mesh laid out by :func:`cache_specs` (this rank's batch slice, the
+        sequence over ``model``), zero."""
+        from torch.distributed.tensor import DTensor
+
+        mesh = x.device_mesh
+        abstract = cache_abstract(self.cfg, b, cache_len, x.dtype)
+        specs = cache_specs(self.cfg)
+        out: dict = {}
+        for path, t in _leaves(abstract):
+            spec = specs
+            for key in path:
+                spec = spec[key]
+            local = torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype,
+                                device=x.to_local().device)
+            set_path(out, path, DTensor.from_local(local, mesh, placements(spec, mesh),
+                                                   run_check=False))
+        return out
 
     def _prefill_encdec(self, params, batch, cache_len: int):
         """Encode the audio, then the decoder over the prompt: its self-
@@ -381,6 +469,7 @@ class Model:
         its cross-attention runs through K6 with the ``"cuda"`` backend."""
         cfg = self.cfg
         x = embed_inputs(cfg, params, tokens, offset=index)
+        x = shard_batch(x, None, None)
         if cfg.family == "enc_dec":
             for i in range(cfg.num_layers):
                 lp, c = layer_params(params["blocks"], i), _layer(cache, i)

@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamDecl, round_up
+from repro_torch.models.layers import ParamDecl, round_up, tp_contract
+from repro_torch.models.sharding import P, shard
 
 
 def moe_decls(cfg: ModelConfig) -> dict[str, ParamDecl]:
@@ -74,11 +75,19 @@ def route(cfg: ModelConfig, params, tokens):
     return probs, gate_vals, gate_idx
 
 
-def _swiglu(x, w_gate, w_up, w_down, eq_in: str, eq_out: str):
+def _ep_mode(cfg: ModelConfig) -> bool:
+    """True -> expert dim sharded over 'model' (deepseek); False -> per-
+    expert ffn dim sharded (grok)."""
+    return cfg.num_experts % 16 == 0
+
+
+def _swiglu(x, w_gate, w_up, w_down, eq_in: str, eq_out: str, hspec=None):
     g = torch.einsum(eq_in, x, w_gate.to(x.dtype))
     u = torch.einsum(eq_in, x, w_up.to(x.dtype))
+    if hspec is not None:
+        g, u = shard(g, hspec), shard(u, hspec)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-    return torch.einsum(eq_out, h, w_down.to(x.dtype))
+    return tp_contract(eq_out, h, w_down.to(x.dtype))
 
 
 def _shared(params, tokens):
@@ -160,7 +169,7 @@ def moe_apply(cfg: ModelConfig, params, x, *, capacity_factor: float | None = No
     cf = capacity_factor or cfg.capacity_factor
     nx = dispatch_chunks(cfg, b)
     t = (b // nx) * s  # tokens per chunk
-    tokens = x.reshape(nx, t, d)
+    tokens = shard(x.reshape(nx, t, d), P("data", None, None))
     dev = x.device
 
     probs, gate_vals, gate_idx = route(cfg, params, tokens)  # [x, t, k]
@@ -196,14 +205,19 @@ def moe_apply(cfg: ModelConfig, params, x, *, capacity_factor: float | None = No
 
     # ---- gather dispatch (its backward a gather too) ----
     grouped = _Dispatch.apply(tokens, src_of_slot, slot_of_pair).reshape(nx, e, capacity, d)
+    grouped = shard(grouped, P("data", None, None, None))
 
     # ---- grouped expert FFN (swiglu) ----
+    hspec = P("data", "model", None, None) if _ep_mode(cfg) else P("data", None, None, "model")
     y_grouped = _swiglu(grouped, params["w_gate"], params["w_up"], params["w_down"],
-                        "xecd,edf->xecf", "xecf,efd->xecd")
+                        "xecd,edf->xecf", "xecf,efd->xecd", hspec)
+    # combine collective: EP all-gather (deepseek) / ffn psum (grok)
+    y_grouped = shard(y_grouped, P("data", None, None, None))
 
     # ---- gather combine ----
     out = _Combine.apply(y_grouped.reshape(nx, n_slots, d), gate_vals.to(x.dtype),
                          slot_of_pair, src_of_slot, pair_of_slot)
+    out = shard(out, P("data", None, None))
 
     if cfg.num_shared_experts:
         out = out + _shared(params, tokens)

@@ -15,8 +15,9 @@ the activation dtype), SiLU in float32, the SSD in float32, and the
 softplus of the step size as ``logaddexp(x, 0)`` (``jax.nn.softplus``;
 ``torch.nn.functional.softplus`` returns ``x`` above its threshold).  The
 reference runs all of this as plain XLA ops, outside any Pallas kernel; so
-does the port, as plain torch ops.  The port has no mesh, so the
-reference's sharding constraints are gone.
+does the port, as plain torch ops.  The reference's sharding constraint
+is kept (the SSD's heads over ``model``, ``models/sharding.py``), and the
+output projection is its TP contraction; without a mesh both are plain.
 
 Training differentiates :func:`mamba_forward` with autograd.  Each ``exp``
 there has a non-positive exponent (the intra-chunk decay's is masked before
@@ -32,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamDecl
+from repro_torch.models.layers import ParamDecl, tp_contract
+from repro_torch.models.sharding import shard_batch
 
 N_GROUPS = 1
 
@@ -156,7 +158,7 @@ def _gated_out(cfg: ModelConfig, params, y, z, dtype):
     g = y * F.silu(z.to(torch.float32))
     g = g * torch.rsqrt(torch.mean(torch.square(g), dim=-1, keepdim=True) + cfg.norm_eps)
     g = (g * params["norm"]).to(dtype)
-    return torch.einsum("bse,ed->bsd", g, params["out_proj"].to(dtype))
+    return tp_contract("bse,ed->bsd", g, params["out_proj"].to(dtype))
 
 
 def _project(params, x):
@@ -178,6 +180,7 @@ def mamba_forward(cfg: ModelConfig, params, x, *, return_state: bool = False):
     d_inner, h, n = ssm_dims(cfg)
     p = cfg.ssm_head_dim
     xh = xc.reshape(*xc.shape[:2], h, p)
+    xh = shard_batch(xh, None, "model", None)
     dt = softplus(dt_raw.to(torch.float32) + params["dt_bias"])
     A = -torch.exp(params["A_log"])  # [h]
 

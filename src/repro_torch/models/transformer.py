@@ -55,6 +55,7 @@ from repro_torch.models.layers import (
     tree_map,
     unembed,
 )
+from repro_torch.models.sharding import is_sharded, shard_batch
 
 AUX_LOSS_COEF = 0.01
 
@@ -204,6 +205,7 @@ def backbone_forward(cfg: ModelConfig, params, x, positions, *, remat: str = "fu
     group of ``attn_every`` Mamba2 layers and the shared block after it).
     Returns (x, aux_loss)."""
     check_ported(cfg)
+    x = shard_batch(x, None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = unstack_layers(params["blocks"], cfg.num_layers)
     if cfg.family == "hybrid":
@@ -247,7 +249,7 @@ def embed_inputs(cfg: ModelConfig, params, tokens, *, image_embed=None, offset: 
 
 
 def lm_logits(cfg: ModelConfig, params, x):
-    return unembed(cfg, params["embed"], x)
+    return shard_batch(unembed(cfg, params["embed"], x), None, "model")
 
 
 def fused_next_token_loss(cfg: ModelConfig, params, x, tokens, *, text_offset: int = 0,
@@ -293,6 +295,10 @@ def next_token_loss(cfg: ModelConfig, logits, tokens, *, text_offset: int = 0):
     if text_offset:
         logits = logits[:, text_offset:]
     pred = logits[:, :-1].to(torch.float32)
+    if is_sharded(pred):
+        # the target logit's gather runs on whole rows (DTensor has no rule
+        # for take_along_dim over a split vocab): the logits are all-gathered
+        pred = shard_batch(pred, None, None)
     targets = tokens[:, 1:].long()
     lse = torch.logsumexp(pred, dim=-1)
     true_logit = torch.take_along_dim(pred, targets[..., None], dim=-1)[..., 0]

@@ -46,10 +46,9 @@ import pytest
 import torch
 
 from repro_torch import interop
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import MeshConfig, TrainConfig
 from repro_torch.core.dsag_pjit import (
     CAP_GROUP_GRAD,
-    CAP_MESH,
     GroupSpec,
     dsag_update,
     init_dsag_state,
@@ -576,9 +575,11 @@ def test_capability_codes(tmp_path):
         opt = make_optimizer(TrainConfig(optimizer=name))
         upd, state = opt.update(torch.ones(3), opt.init(torch.zeros(3)), torch.zeros(3))
         assert upd.shape == (3,) and int(state["step"]) == 1 and bool((upd < 0).all())
-    with pytest.raises(EngineCapabilityError) as e:
+    # a mesh's groups lie on its data axes; what is not a mesh is refused
+    assert make_group_spec(TrainConfig(), MeshConfig((2, 4), ("data", "model"))) == GroupSpec(
+        2, ("data",))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_group_spec(TrainConfig(), mesh=object())
-    assert _code(e) == CAP_MESH
     with pytest.raises(EngineCapabilityError) as e:
         make_train_step(object(), paper_train_config(0.1), GroupSpec(2, ()))
     assert _code(e) == CAP_GROUP_GRAD

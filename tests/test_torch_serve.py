@@ -490,8 +490,9 @@ TRAIN_REFUSED = [("grok-1-314b", {}), ("deepseek-v2-236b", {}), ("mamba2-370m", 
 @pytest.mark.parametrize(("arch", "change"), TRAIN_REFUSED,
                          ids=["moe", "mla", "ssm", "hybrid", "moe-learned-pos", "vlm-moe"])
 def test_unported_model_features_are_refused(arch, change):
-    """What stays refused for these features is a mesh; without one each
-    config trains: its loss is finite, and the trainer's group gradient
+    """What stays refused for these features on a mesh is the experts (an
+    object that is not a mesh is refused for all); without one each config
+    trains: its loss is finite, and the trainer's group gradient
     (``autograd_group_value_and_grad`` over the flat layout) is, group by
     group, the gradient of ``Model.train_loss`` on that group's batch, bit
     for bit (the four registry families are held against the reference in
@@ -503,15 +504,21 @@ def test_unported_model_features_are_refused(arch, change):
         autograd_group_value_and_grad,
         make_train_step,
     )
+    from repro_torch.models.model import check_mesh
 
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **change)
     model = build_model(cfg, kernel_backend="torch")  # served
     params = model.init(torch.Generator().manual_seed(0))
     layout = model.layout
-    with pytest.raises(EngineCapabilityError) as e:
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(model.train_loss, TrainConfig(), GroupSpec(2, ()), mesh=object(),
                         layout=layout)
-    assert _code(e) == CAP_MESH
+    if cfg.num_experts:  # the experts do not run on a mesh (DTensor: aten.bincount)
+        with pytest.raises(EngineCapabilityError) as e:
+            check_mesh(cfg)
+        assert _code(e) == CAP_MESH
+    else:
+        check_mesh(cfg)
     batch = {"tokens": torch.as_tensor(
         np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 2, 12)))}
     if cfg.family == "vlm":

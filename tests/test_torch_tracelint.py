@@ -1,4 +1,4 @@
-"""The port's tracelint (``repro_torch.analysis.lint``): TL001, TL003, TL004.
+"""The port's tracelint (``repro_torch.analysis.lint``): TL001 to TL005.
 
 Mirrors ``tests/test_tracelint.py``: every registered entry is clean at HEAD
 on the CPU (the kernels' plain versions), and a seeded violation of each
@@ -6,7 +6,9 @@ rule fires with its code: a fused multiply-add (``torch.addcmul``) or a
 regrouped product in the §3 latency chain (TL001), the width mask removed
 from the plain K1 and K2 (TL003), a float32 leak into the event times, an
 int64 times a python float, a loop carry that changes dtype, and a plain
-version's output at the wrong dtype (TL004).  The card-only checks (event
+version's output at the wrong dtype (TL004), a clone of the §5 value table
+inside the tiled cache's per-rank walk (TL002) and an ``.item()`` inside it
+(TL005).  The card-only checks (event
 streams and K3/K7 outputs against the CPU run, K1/K2/K5 at two pad widths)
 run on the card (``gpu``); their helpers are exercised here on CPU tensors.
 No test imports ``jax`` or ``repro``.
@@ -15,7 +17,9 @@ No test imports ``jax`` or ``repro``.
 from __future__ import annotations
 
 import ast
+import inspect
 import json
+import linecache
 import os
 import subprocess
 import sys
@@ -251,10 +255,56 @@ def test_cli_exits_nonzero_on_a_finding_the_baseline_does_not_hold(monkeypatch, 
                  "--no-baseline", "--json"]) == 1
 
 
+# -- TL002 / TL005 ---------------------------------------------------------------------------
+
+
+def _seeded_walk(line: str):
+    """``fused._apply_cache_events_tiled`` with ``line`` run first in every
+    trip of its per-rank loop (compiled from its source, kept in linecache
+    so the tracer finds the loop)."""
+    src = inspect.getsource(fused._apply_cache_events_tiled)
+    anchor = "        w_e = worker_r[:, j]\n"
+    assert anchor in src
+    src = src.replace(anchor, anchor + f"        {line}\n")
+    name = f"<seeded walk {line}>"
+    linecache.cache[name] = (len(src), None, src.splitlines(True), name)
+    ns = dict(vars(fused))
+    exec(compile(src, name, "exec"), ns)
+    return ns["_apply_cache_events_tiled"]
+
+
+_TABLE_CLONE = _seeded_walk("values0.clone()")
+_WALK_ITEM = _seeded_walk("n_live = int(valid.sum().item())")
+
+
+@pytest.mark.parametrize("code,fn,what", [("TL002", _TABLE_CLONE, "op:clone"),
+                                          ("TL005", _WALK_ITEM, "op:_local_scalar_dense")])
+def test_walk_rules_fire_on_their_seeded_violation(monkeypatch, code, fn, what):
+    monkeypatch.setattr(fused, "_apply_cache_events_tiled", fn)
+    report = run_lint(["fused_logreg_lb", "fused_logreg_grid"], device="cpu",
+                      baseline_path=None)
+    # the grid entry never walks the tiled cache: only the §6 entry fires
+    assert {(f.code, f.entry) for f in report.findings} == {(code, "fused_logreg_lb")}
+    assert all(f.symbol.startswith(what) for f in report.findings), report.render_text()
+
+
+def test_walk_rules_see_the_loop_and_its_tables():
+    """The §6 entry's trace marks the walk's ops (its reductions); the grid
+    entry never enters the walk."""
+    probe = ENTRIES["fused_logreg_lb"](torch.device("cpu"))
+    trace = run_traced(probe.run, probe.loop, probe.region)
+    inside = [op for op in trace.ops if op.in_loop]
+    assert inside and {op.name for op in inside} >= {"sum"}
+    grid = ENTRIES["fused_logreg_grid"](torch.device("cpu"))
+    assert not any(op.in_loop for op in run_traced(grid.run, grid.loop, grid.region).ops)
+
+
 @pytest.mark.parametrize("code,entry,module,name,fn", [
     ("TL001", "latency", simulator, "task_finish_time", _addcmul_finish),
+    ("TL002", "fused_logreg_lb", fused, "_apply_cache_events_tiled", _TABLE_CLONE),
     ("TL003", "kernels_logreg", block_sub, "_window", _unmasked_window),
     ("TL004", "kernels_logreg", block_sub, "logreg_block_sub_plain", _float64_plain),
+    ("TL005", "fused_logreg_lb", fused, "_apply_cache_events_tiled", _WALK_ITEM),
 ])
 def test_cli_exits_nonzero_with_the_code_of_each_seeded_violation(monkeypatch, capsys, code,
                                                                  entry, module, name, fn):
