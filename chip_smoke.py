@@ -283,7 +283,33 @@ Phases (any failure raises and the script exits non-zero):
    logits within :data:`MESH_TOL`, the float32 tokens equal; every rank's K4
    and K6 launches counted into the kernels line; K4 and K6 then timed at
    the ranks' local shapes in this process;
-18. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+18. the reference's production DSAG layouts on a mesh (qwen1.5-0.5b at full
+   width, four ranks on the card over gloo; each run against the unsharded
+   port on the same groups, inputs and ``TrainConfig``, computed first in
+   this process), :data:`LAYOUT_RUNS`: (a) the reference's above-50 B
+   configuration (adafactor, int8 slots, ``zero`` groups, P = 2) on (2, 2),
+   bf16 at full depth (:data:`MESH_TOL`'s bf16 bounds) and float32 at 2
+   layers (float32 bounds; after the first step ``filled`` and
+   ``pending_valid`` equal; per int8 slot leaf every element within one
+   step of the unsharded port's, but for a share of each leaf on the
+   attention scores' path, :data:`INT8_SCORE_PATH`, whose random-init
+   gradient is ill-conditioned); (b) ``pod`` groups with
+   int8 slots and adamw on (pod=2, data=2, model=1); (c) ``none`` groups
+   and ``dsag=False`` (no K4); every K4-int8 launch held on every row
+   (:class:`Int8LaunchChecks`: row axes from the state's slot spec, a split
+   launch's maxima the MAX over them and its outputs its plain twin's given
+   them, ``torch.equal``; in float32 the second step's split launches also
+   against the whole-row update on their rows gathered over those axes);
+   launches, seconds per step per rank, peak memory per rank and wire bytes
+   of a step by kind and by site (``count_cost``); (d) a mesh trainer's
+   checkpoint: (a) in float32 saves after its 2 steps, takes 2 more, then
+   restores and takes them again: bit for bit the uninterrupted run, and
+   the file restored into the unsharded port equal leaf for leaf to the
+   gathered mesh state; (e) K4 at (c)'s local float32 slots and K4-int8's
+   split form (the row-max kernel and the update given maxima) at the
+   largest split local shape of (a), each against its plain twin, timed
+   beside its bound;
+19. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -752,11 +778,9 @@ def check_dsag_update(torch, p: int, n: int, slot_dtype, rng, inputs=None,
                 other_path_device_ms=other_ms, plain_ms=p_ms, library_ms=None, **bound)
 
 
-def check_dsag_update_int8(torch, p: int, rows: int, b: int, rng) -> dict:
-    """Phase 3 for K4's int8 entry at one shape (``p`` groups of ``rows``
-    rows of ``b`` elements, one bf16 scale per row); ``torch.equal`` to the
-    plain version, every output."""
-    from repro_torch.analysis import roofline
+def _int8_inputs(torch, p: int, rows: int, b: int, rng) -> tuple:
+    """K4-int8's operands at one shape, the live mix of row sources:
+    ``(g, cq, cs, pq, ps, h, code)`` on the card."""
     from repro_torch.kernels import dsag_update
     from repro_torch.optim.compression import quantize
 
@@ -771,27 +795,77 @@ def check_dsag_update_int8(torch, p: int, rows: int, b: int, rng) -> dict:
                       dsag_update.KEEP], size=p, p=[0.7, 0.1, 0.02, 0.18])
     take = np.where(rng.random(p) < 0.8, dsag_update.TAKE_NEW, 0)
     code = torch.as_tensor(src + take, dtype=torch.uint8, device=dev)
-    args = (f32(p, rows, b), c.q, c.scale[..., 0].contiguous(), pe.q,
+    return (f32(p, rows, b), c.q, c.scale[..., 0].contiguous(), pe.q,
             pe.scale[..., 0].contiguous(), f32(rows, b), code)
-    got = dsag_update.dsag_cache_update_int8(*args)
-    want = dsag_update.dsag_cache_update_int8_plain(*args)
+
+
+def _int8_update_row(torch, args, maxima, shape: str, plain_reps: int) -> dict:
+    """K4-int8 (``maxima``: its split form) against its plain twin on
+    ``args``, ``torch.equal`` on every output; timed beside its bound."""
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import dsag_update
+
+    split = maxima is not None
+    p, rows, b = args[0].shape
+    got = dsag_update.dsag_cache_update_int8(*args, maxima)
+    want = dsag_update.dsag_cache_update_int8_plain(*args, maxima)
     torch.cuda.synchronize()
     for name, a, w in zip(("cache q", "cache scale", "pending q", "pending scale", "h"),
                           got, want):
         if not torch.equal(a, w):
-            fail(f"dsag_cache_update_int8 [{p}, {rows}, {b}]: {name} is not equal to its "
-                 f"plain version")
-    k_ms, p_ms = timed_pair(torch, lambda: dsag_update.dsag_cache_update_int8(*args),
-                            lambda: dsag_update.dsag_cache_update_int8_plain(*args),
-                            reps=50, plain_reps=10)
-    dev_ms, dev_kernels = device_ms(torch, lambda: dsag_update.dsag_cache_update_int8(*args), 50)
-    bound = bound_of(roofline.dsag_cache_update_int8_cost(p, rows, b))
+            fail(f"dsag_cache_update_int8 {shape}{' split' if split else ''}: {name} is not "
+                 f"equal to its plain version")
+    k_ms, p_ms = timed_pair(torch, lambda: dsag_update.dsag_cache_update_int8(*args, maxima),
+                            lambda: dsag_update.dsag_cache_update_int8_plain(*args, maxima),
+                            reps=50, plain_reps=plain_reps)
+    dev_ms, dev_kernels = device_ms(
+        torch, lambda: dsag_update.dsag_cache_update_int8(*args, maxima), 50)
+    bound = bound_of(roofline.dsag_cache_update_int8_cost(p, rows, b, split=split))
     b_ms, b_by = bound["bound_ms"], bound["bound_by"]
-    print(f"  dsag_cache_update_int8 [{p}, {rows}, {b}]: equal; kernel {k_ms:.4f} ms (device "
-          f"{fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by}); no single PyTorch call computes it")
-    return dict(call=f"p{p}_rows{rows}_b{b}", max_abs_err=0.0, ms=k_ms, device_ms=dev_ms,
-                plain_ms=p_ms, library_ms=None, **bound)
+    print(f"  dsag_cache_update_int8 {shape}{' (split form: given row maxima)' if split else ''}"
+          f": equal; kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); no single PyTorch call computes it")
+    return dict(call=f"p{p}_rows{rows}_b{b}" + ("_split" if split else ""), max_abs_err=0.0,
+                ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, library_ms=None, **bound)
+
+
+def check_dsag_update_int8(torch, p: int, rows: int, b: int, rng) -> dict:
+    """Phase 3 for K4's int8 entry at one shape (``p`` groups of ``rows``
+    rows of ``b`` elements, one bf16 scale per row); ``torch.equal`` to the
+    plain version, every output."""
+    return _int8_update_row(torch, _int8_inputs(torch, p, rows, b, rng), None,
+                            f"[{p}, {rows}, {b}]", plain_reps=10)
+
+
+def check_dsag_int8_split(torch, p: int, rows: int, b: int, rng, plain_reps: int = 2):
+    """Phase 18 for K4-int8's split form at a rank's shard of each row: the
+    row-max kernel and the update given maxima, each against its plain twin
+    (``torch.equal``) and timed; returns ``(row-max row, update row)``."""
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import dsag_update
+
+    args = _int8_inputs(torch, p, rows, b, rng)
+    mx_args = args[:5] + (args[6],)
+    shape = f"[{p}, {rows}, {b}]"
+    got = dsag_update.dsag_int8_row_max(*mx_args)
+    want = dsag_update.dsag_int8_row_max_plain(*mx_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+        fail(f"dsag_int8_row_max {shape}: not equal to its plain version")
+    k_ms, p_ms = timed_pair(torch, lambda: dsag_update.dsag_int8_row_max(*mx_args),
+                            lambda: dsag_update.dsag_int8_row_max_plain(*mx_args),
+                            reps=50, plain_reps=plain_reps)
+    dev_ms, dev_kernels = device_ms(torch, lambda: dsag_update.dsag_int8_row_max(*mx_args), 50)
+    bound = bound_of(roofline.dsag_int8_row_max_cost(p, rows, b))
+    print(f"  dsag_int8_row_max {shape}: equal; kernel {k_ms:.4f} ms (device "
+          f"{fmt_ms(dev_ms)}: {dev_kernels}), plain {p_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}); no single PyTorch call "
+          f"computes it")
+    row_max = dict(call=f"p{p}_rows{rows}_b{b}_split", max_abs_err=0.0, ms=k_ms,
+                   device_ms=dev_ms, plain_ms=p_ms, library_ms=None, **bound)
+    # a whole row's maxima are at least the shard's: twice the shard's stands
+    # for the other shards' larger values
+    return row_max, _int8_update_row(torch, args, (got[0] * 2, got[1] * 2), shape, plain_reps)
 
 
 def check_gram_matvec(torch, x, v) -> dict:
@@ -3983,11 +4057,11 @@ def _cut_config(layers):
     return cut
 
 
-def mesh_batches(torch, cfg, groups: int):
+def mesh_batches(torch, cfg, groups: int, steps: int = len(MESH_MASKS)):
     from repro_torch.data import make_batch_iterator
 
     it = make_batch_iterator(cfg, groups, MESH_TRAIN[0], MESH_TRAIN[1], seed=0)
-    return [next(it) for _ in MESH_MASKS]
+    return [next(it) for _ in range(steps)]
 
 
 def mesh_unsharded_train(torch, dtype: str, layers, path: str) -> list:
@@ -4312,6 +4386,566 @@ def mesh_serve_check(torch, label: str, dtype: str, layers, got: list, want: dic
             "k6_launches": k6, "k6_local_q": calls[0][0], "k6_local_k": calls[0][1],
             "k6_worst": max(c[3] for c in calls), "timings": t,
             "peak_bytes": [r["peak"] for r in got]}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the reference's production DSAG layouts on a mesh
+# ---------------------------------------------------------------------------
+
+#: the reference's production training settings (``launch/dryrun.py``
+#: ``default_train_config``), and its above-50 B configuration (layout (a))
+PROD_TC = dict(fsdp=True, dsag=True, remat="full")
+LAYOUT_A = dict(PROD_TC, optimizer="adafactor", dsag_cache_dtype="int8", dsag_groups="zero",
+                dsag_num_groups=2)
+#: phase 18's runs of qwen1.5-0.5b at full width: label -> (mesh shape,
+#: TrainConfig fields, groups, dtype, decoder layers (None: all 24))
+LAYOUT_RUNS = {
+    "a bf16": ((2, 2), LAYOUT_A, 2, "bfloat16", None),
+    "a f32": ((2, 2), LAYOUT_A, 2, "float32", 2),
+    "b pod": ((2, 2, 1), dict(PROD_TC, dsag_cache_dtype="int8", dsag_groups="pod"), 2,
+              "float32", 2),
+    "c none": ((2, 2), dict(PROD_TC, dsag_cache_dtype="float32", dsag_groups="none"), 1,
+               "float32", 2),
+    "c no dsag": ((2, 2), dict(PROD_TC, dsag=False, dsag_groups="none"), 1, "float32", 2),
+}
+#: the Tier-2 bits of the two steps by group count (group 1 misses the second)
+LAYOUT_MASKS = {2: MESH_MASKS, 1: ((True,), (True,))}
+#: an int8 slot element's absolute slack beside its steps, relative to the
+#: slots' largest magnitude
+INT8_ATOL = 1e-5
+#: the int8 slot leaves whose gradient goes through the attention scores'
+#: softmax (the embedding, ln1, q and k): near one-hot at random init, so
+#: float32 rounding moves a few of their elements by more than a step; at
+#: most this share of each of them may lie beyond one step after the first
+#: step, none of any other leaf's (layouts_states_check)
+INT8_SCORE_PATH = ("embed/tok", "ln1/scale", "attn/wq", "attn/wk", "attn/bq", "attn/bk")
+INT8_SCORE_PATH_SHARE = 1e-2
+#: (d): the run that checkpoints after its two compared steps, and the
+#: Tier-2 bits and flushes of the two steps it then takes
+CKPT_RUN = "a f32"
+CKPT_MASKS = ((False, True), (True, False))
+CKPT_FLUSH = ((False, False), (False, True))
+
+
+def _layout(label: str):
+    from repro_torch.configs.base import TrainConfig
+
+    shape, fields, groups, dtype, layers = LAYOUT_RUNS[label]
+    return shape, TrainConfig(**fields), groups, dtype, layers
+
+
+def _dsag_state(tree) -> dict:
+    """The DSAG part of an unsharded train-state tree (the checkpoint's
+    paths), on the host: ``filled``, ``pending_valid`` and the int8 slots'
+    payloads and scales."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+
+    return {path: leaf.detach().cpu() for path, leaf in _flatten_with_paths(tree)
+            if path.startswith("['dsag']") and ("['filled']" in path or "['pending_valid']" in path
+                                               or "[<flat index" in path)}
+
+
+def layouts_unsharded(torch, label: str, path: str) -> dict:
+    """A phase-18 run's yardstick: the unsharded port's step on the card
+    (the same config, groups, inputs and masks); its final parameters saved
+    to ``path`` and, in float32, its DSAG state after the first step to
+    ``path.state1``; each step's metrics."""
+    import dataclasses
+
+    from repro_torch.checkpoint.checkpoint import train_state_tree
+    from repro_torch.core.dsag_pjit import GroupSpec, init_train_state, make_train_step
+    from repro_torch.models import build_model
+
+    _, tc, groups, dtype, layers = _layout(label)
+    cfg = dataclasses.replace(_cut_config(layers)(MESH_ARCH), dtype=dtype)
+    model = build_model(cfg)
+    gs = GroupSpec(groups, ())
+    step = make_train_step(lambda p, b: model.train_loss(p, b, remat=tc.remat), tc, gs,
+                           backend="cuda", layout=model.layout)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_train_state(model.layout.flatten(model.init(gen)), tc, gs, model.layout)
+    out = []
+    for batch, mask in zip(mesh_batches(torch, cfg, groups), LAYOUT_MASKS[groups]):
+        m = torch.tensor(mask, device="cuda")
+        state, met = step(state, {k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                          m, torch.zeros_like(m), torch.zeros_like(m))
+        out.append({k: v.detach().cpu().numpy().tolist() for k, v in met.items()})
+        if dtype == "float32" and len(out) == 1:
+            torch.save(_dsag_state(train_state_tree(state, model.layout)),
+                       path + ".state1")
+    torch.save({k: v.cpu() for k, v in _paths(model.layout.tree(state["params"], cast=True))},
+               path)
+    del state
+    return {"metrics": out}
+
+
+class Int8LaunchChecks:
+    """Inside a rank: every K4-int8 launch of the step, one per int8 leaf in
+    the slot layout's order, held on every row (``torch.equal``) against
+    ``dsag_cache_update_int8_plain``, which phase 3 holds bit-equal to the
+    kernel and which launches and counts nothing.  A leaf's row axes come
+    from the train state's slot spec (``sharding.dim_axes`` of its payload's
+    last dim), not from the step: a leaf with none must launch whole (no
+    maxima); a leaf with some must launch split, its maxima must equal the
+    shard's plain row maxima MAX-reduced over those axes (so the step
+    reduced over them), and its outputs the plain twin's given those
+    maxima.  While :attr:`gather` is set, each split launch's rows are also
+    gathered whole over those axes (through the host) and held against the
+    whole-row plain update.  The checks run outside any ``count_cost``;
+    their time is kept apart in :attr:`seconds`."""
+
+    def __init__(self, trn, mesh):
+        from repro_torch.models import sharding
+        from repro_torch.models.layers import get_path
+
+        L, tc = trn.step_fn.layouts, trn.opts.train_config
+        specs = trn.state_specs["dsag"]["cache"]
+        self.leaves = [(x.path, tuple(x.shape),
+                        sharding.dim_axes(get_path(specs, x.path).q, -1, mesh))
+                       for x in L.slot.leaves] if tc.dsag and tc.dsag_cache_dtype == "int8" else []
+        self.k = L.rows.stop - L.rows.start
+        self.mesh, self.log, self.gather, self.seconds = mesh, [], False, 0.0
+
+    def __enter__(self):
+        from repro_torch.kernels import dsag_update as k4
+
+        self._patch = mock.patch.object(k4, "dsag_cache_update_int8",
+                                        self._held(k4.dsag_cache_update_int8))
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def _held(self, real):
+        def held(*args):
+            import torch
+            from torch.utils._python_dispatch import _disable_current_modes
+
+            out = real(*args)
+            path, shape, axes = self.leaves[len(self.log) % len(self.leaves)]
+            t0 = time.perf_counter()
+            with _disable_current_modes():
+                err = self._hold(torch, args[:7], args[7] if len(args) > 7 else None, out,
+                                 shape, axes)
+            self.seconds += time.perf_counter() - t0
+            self.log.append(("split" if axes else "whole", tuple(args[0].shape),
+                             "/".join(path), err, self.gather and bool(axes)))
+            return out
+
+        return held
+
+    def _max_over(self, torch, t, axes):
+        t = t.cpu()
+        for a in axes:
+            torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                         group=self.mesh.get_group(a))
+        return t
+
+    def _gather(self, torch, t, axes):
+        """``t`` [..., b] from every rank along ``axes``, whole along b."""
+        t = t.cpu().contiguous()
+        for a in reversed(axes):  # the minor axis first
+            group = self.mesh.get_group(a)
+            parts = [torch.empty_like(t) for _ in range(torch.distributed.get_world_size(group))]
+            torch.distributed.all_gather(parts, t, group=group)
+            t = torch.cat(parts, dim=-1)
+        return t
+
+    def _hold(self, torch, args, maxima, out, shape, axes) -> str | None:
+        from repro_torch.kernels import dsag_update as k4
+
+        g, cq, cs, pq, ps, h, code = args
+        b = shape[-1] if shape else 1
+        if tuple(g.shape) != (self.k, math.prod(shape) // b, b):
+            return f"launched on {tuple(g.shape)}, not on its leaf's {shape}"
+        if (maxima is not None) != bool(axes):
+            return f"maxima {'given' if maxima is not None else 'absent'}, row axes {axes}"
+        if not axes:
+            return None
+        want_max = self._max_over(torch, torch.stack(k4.dsag_int8_row_max_plain(
+            g, cq, cs, pq, ps, code)), axes).to(g.device)
+        if not torch.equal(torch.stack(maxima), want_max):
+            return f"row maxima not the MAX over {axes}"
+        names = ("cache q", "cache scale", "pending q", "pending scale", "h")
+        plain = k4.dsag_cache_update_int8_plain(*args, (want_max[0], want_max[1]))
+        bad = [n for n, a, w in zip(names, out, plain) if not torch.equal(a, w)]
+        if bad:
+            return f"{bad} differ from the plain twin's given the maxima"
+        if not self.gather:
+            return None
+        g_, cq_, pq_, h_ = (self._gather(torch, t, axes).to(g.device) for t in (g, cq, pq, h))
+        want = k4.dsag_cache_update_int8_plain(g_, cq_, cs, pq_, ps, h_, code)
+        got = [self._gather(torch, t, axes).to(g.device) if i in (0, 2, 4) else t
+               for i, t in enumerate(out)]
+        bad = [n for n, a, w in zip(names, got, want) if not torch.equal(a, w)]
+        return f"{bad} differ from the whole-row update on the gathered rows" if bad else None
+
+
+def layouts_train_rank(label: str, want_path: str, ckpt_dir: str | None = None) -> dict:
+    """One rank of a phase-18 run: ``Trainer(TrainerOptions(mesh=))`` builds
+    it, its step runs the phase's inputs and masks (the second step under
+    ``count_cost``), every K4-int8 launch held (:class:`Int8LaunchChecks`;
+    in float32 the second step's split launches also on their gathered
+    rows).  Returns the rank's metrics, launches, collectives (by kind and
+    by site), seconds per step, peak memory, K4's local shape, the
+    parameters' squared distance from the unsharded run's, (float32, int8)
+    the DSAG state after the first step against the unsharded port's and,
+    with ``ckpt_dir``, (d): :func:`checkpoint_resume` from the state after
+    the two steps."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    import repro_torch.launch.train as train_mod
+    from repro_torch.analysis.cost import count_cost
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.layers import get_path
+
+    shape, tc, groups, dtype, layers = _layout(label)
+    int8 = tc.dsag and tc.dsag_cache_dtype == "int8"
+    masks = LAYOUT_MASKS[groups]
+    mesh = make_test_mesh(shape, device_type="cuda")
+    try:
+        with mock.patch.object(train_mod, "get_config", _cut_config(layers)):
+            trn = train_mod.Trainer(train_mod.TrainerOptions(
+                arch=MESH_ARCH, smoke=False, global_batch=MESH_TRAIN[0], seq_len=MESH_TRAIN[1],
+                dtype=dtype, mesh=mesh, train_config=tc, log_every=10**6,
+                checkpoint_dir=ckpt_dir, restore=ckpt_dir is not None,
+                engine=EngineConfig(device="cuda", kernel_backend="cuda")))
+        state = trn.init_state()
+        L = trn.step_fn.layouts
+        dev = trn.device
+        batches = [trn.batch_on_device(b) for b in mesh_batches(
+            torch, trn.cfg, groups, len(masks) + (len(CKPT_MASKS) if ckpt_dir else 0))]
+        metrics, seconds, check_s, states, cost = [], [], [], {}, None
+        with Int8LaunchChecks(trn, mesh) as checks:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            for i, mask in enumerate(masks):
+                m = torch.tensor(mask, device=dev)
+                args = (batches[i], m, torch.zeros_like(m), torch.zeros_like(m))
+                checks.gather = dtype == "float32" and i == len(masks) - 1
+                t0, c0 = time.perf_counter(), checks.seconds
+                if i == 1:
+                    held = {}
+                    cost = count_cost(lambda: held.update(out=trn.step_fn(state, *args)))
+                    state, met = held.pop("out")
+                else:
+                    state, met = trn.step_fn(state, *args)
+                torch.cuda.synchronize()
+                check_s.append(checks.seconds - c0)
+                seconds.append(time.perf_counter() - t0 - check_s[-1])
+                metrics.append({k: v.detach().cpu().numpy().tolist() for k, v in met.items()})
+                if i == 0 and dtype == "float32" and int8:
+                    states = int8_slots_against(torch, trn, state, mesh, want_path + ".state1")
+            counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = torch.load(want_path)
+        mine = L.store.tree(state["params"], cast=True)
+        d2 = n2 = 0.0
+        for x in L.store.leaves:
+            spec = get_path(L.specs, x.path)
+            w = sharding.local_shard(want["/".join(x.path)], spec, mesh).to(dev).float()
+            rep = sharding.replication(spec, mesh)
+            d2 += float(((get_path(mine, x.path).float() - w) ** 2).sum()) / rep
+            n2 += float((w ** 2).sum()) / rep
+        return {"metrics": metrics, "seconds": seconds, "check_s": check_s, "counts": counts,
+                "peak": peak, "k4_shape": [L.rows.stop - L.rows.start, L.slot.numel],
+                "store_numel": L.store.numel, "coll_counts": cost.coll_counts,
+                "coll_wire": cost.coll_wire_bytes, "coll_sites": cost.coll_site_wire_bytes,
+                "d2": d2, "n2": n2, "rank": torch.distributed.get_rank(),
+                "int8_launches": checks.log, "states": states,
+                "ckpt": None if ckpt_dir is None else checkpoint_resume(
+                    torch, trn, state, batches[len(masks):], len(masks), ckpt_dir, groups)}
+    finally:
+        sharding.set_mesh(None)
+
+
+def checkpoint_resume(torch, trn, state, batches: list, done: int, directory: str,
+                      groups: int) -> dict:
+    """(d), inside a rank, from ``state`` after ``done`` steps: the trainer's
+    manager saves it (gathered, rank 0 writes); the uninterrupted run takes
+    the steps of :data:`CKPT_MASKS` (``batches``), then ``maybe_restore``
+    (each rank's shards, by the state's specs) and the restored run takes
+    them again.  Returns whether the two final states are equal bit for bit
+    on this rank, the checkpoint's step and, on rank 0, whether the file
+    restored into the unsharded port (its flat state) equals the gathered
+    mesh state leaf for leaf."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.models import sharding
+
+    def run(state):
+        for batch, mask, flush in zip(batches, CKPT_MASKS, CKPT_FLUSH):
+            m = torch.tensor(mask, device=trn.device)
+            state, _ = trn.step_fn(state, batch, m, torch.tensor(flush, device=trn.device),
+                                   torch.zeros_like(m))
+        return state
+
+    t0 = time.perf_counter()
+    trn.ckpt.save(done - 1, trn._tree(state), blocking=True)
+    save_s = time.perf_counter() - t0
+    saved = {p: sharding.full(t).detach().cpu() for p, t in _flatten_with_paths(trn._tree(state))}
+    whole = run(state)
+    t0 = time.perf_counter()
+    restored, start = trn.maybe_restore(trn.init_state())
+    restore_s = time.perf_counter() - t0
+    resumed = run(restored)
+    a = [t for _, t in _flatten_with_paths(trn._tree(whole))]
+    b = [t for _, t in _flatten_with_paths(trn._tree(resumed))]
+    same = start == done and all(torch.equal(x.to_local(), y.to_local()) for x, y in zip(a, b))
+    unsharded_equal = None
+    if torch.distributed.get_rank() == 0:  # the file into the unsharded port
+        from repro_torch.checkpoint.checkpoint import (
+            restore_checkpoint,
+            train_state_from_tree,
+            train_state_tree,
+        )
+        from repro_torch.core.dsag_pjit import GroupSpec, init_train_state
+
+        layout = trn.layout
+        like = init_train_state(layout.flatten(trn.model.init(
+            torch.Generator(device=trn.device).manual_seed(0))), trn.opts.train_config,
+            GroupSpec(groups, ()),
+            layout)
+        back = restore_checkpoint(f"{directory}/step_{done - 1:08d}",
+                                  train_state_tree(like, layout))
+        flat = dict(_flatten_with_paths(train_state_tree(train_state_from_tree(back, layout),
+                                                         layout)))
+        unsharded_equal = sorted(flat) == sorted(saved) and all(
+            torch.equal(flat[k].cpu(), saved[k]) for k in saved)
+    return {"same": bool(same), "start": start, "save_s": save_s, "restore_s": restore_s,
+            "leaves": len(saved), "unsharded_equal": unsharded_equal}
+
+
+def int8_slots_against(torch, trn, state, mesh, path: str) -> dict:
+    """Inside a rank, after the first step of (a)/(b) in float32: this
+    rank's DSAG state against its shards of the unsharded port's (``path``,
+    the whole state on the host): ``filled`` and ``pending_valid`` equal;
+    for each int8 slot leaf (the cache and the pending slot of each
+    parameter), each element's dequantized value in steps of its row's scale
+    (the larger of the two, plus 127 bf16 ulps of it: a row whose absmax
+    moves by float32 rounding may round to the neighbouring bf16 scale)
+    beyond :data:`INT8_ATOL` of the slots' largest magnitude.  Returns, per
+    leaf, its elements more than one step apart, all its elements (each
+    counted once however many ranks hold it) and its worst steps."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.models import sharding
+
+    dev = trn.device
+    want = torch.load(path)
+    mine = dict(_flatten_with_paths(trn._tree(state)))
+    specs = dict(_flatten_with_paths(trn.state_specs))
+    out = {"flags_equal": all(bool((mine[p].to_local().cpu() == w).all())
+                              for p, w in want.items() if "[<flat index" not in p)}
+    pairs = []
+    for qp in (p for p in want if p.endswith("[<flat index 0>]")):
+        leaf = qp[:-len("[<flat index 0>]")]
+        sp = leaf + "[<flat index 1>]"
+        q, s = (sharding.local_shard(want[p], specs[p], mesh).to(dev) for p in (qp, sp))
+        mq, ms = (mine[p].to_local() for p in (qp, sp))
+        pairs.append((leaf, mq.float() * ms.float(), ms.float(), q.float() * s.float(),
+                      s.float(), sharding.replication(specs[qp], mesh)))
+    top = torch.tensor(max(float(max(a.abs().max(), w.abs().max())) for _, a, _, w, _, _ in pairs))
+    torch.distributed.all_reduce(top, op=torch.distributed.ReduceOp.MAX)
+    atol = INT8_ATOL * float(top)
+    leaves = {}
+    for leaf, ga, gs, wa, ws, rep in pairs:
+        sc = gs.maximum(ws)
+        step = (sc + 127 * torch_exp2_floor(sc) / 128.0) * (1 + 1e-6)
+        steps = ((ga - wa).abs() - atol).clamp_min(0) / step
+        name = "/".join(k.strip("[]'") for k in leaf.strip("/").split("/")[1:])
+        leaves[name] = [float((steps > 1).sum()) / rep, steps.numel() / rep, float(steps.max())]
+    return {**out, "leaves": leaves}
+
+
+def layouts_states_check(label: str, got: list) -> dict:
+    """(a)/(b) in float32: the ranks' :func:`int8_slots_against` after the
+    first step: the flags equal everywhere; per int8 slot leaf, every
+    element within one step of the unsharded port's, but for at most
+    :data:`INT8_SCORE_PATH_SHARE` of each leaf on the attention scores' path
+    (:data:`INT8_SCORE_PATH`: at random init the scores are near one-hot
+    and these gradients ill-conditioned, so the mesh's float32 rounding
+    moves a few of their elements by several steps; see PERF.md).  A fault
+    of the layout (a wrong shard, group, mean or scale) moves most of a
+    leaf's elements."""
+    if not all(r["states"]["flags_equal"] for r in got):
+        fail(f"phase 18 ({label}): filled/pending_valid differ from the unsharded port's")
+    leaves = {}
+    for r in got:
+        for leaf, (beyond, total, worst) in r["states"]["leaves"].items():
+            b, t, w = leaves.get(leaf, (0.0, 0.0, 0.0))
+            leaves[leaf] = (b + beyond, t + total, max(w, worst))
+    def allowed(leaf, total):
+        return INT8_SCORE_PATH_SHARE * total if leaf.endswith(INT8_SCORE_PATH) else 0
+
+    over = {leaf: v for leaf, v in leaves.items() if v[0] > allowed(leaf, v[1])}
+    beyond = {leaf: v for leaf, v in leaves.items() if v[0]}
+    rest = max((v[2] for k, v in leaves.items() if k not in beyond), default=0.0)
+    print(f"      after step 1, int8 slot elements more than one step from the unsharded "
+          f"port's, per leaf (share, worst steps; at most {INT8_SCORE_PATH_SHARE} on the "
+          f"scores' path, none elsewhere): "
+          + ("; ".join(f"{leaf} {v[0]:.0f} of {v[1]:.0f} ({v[0] / v[1]:.2g}, {v[2]:.3g})"
+                       for leaf, v in sorted(beyond.items())) or "none")
+          + f"; every other leaf's worst {rest:.3g} steps")
+    if over:
+        fail(f"phase 18 ({label}): int8 slot leaves beyond one step of the unsharded port's "
+             f"after step 1 (beyond, elements, worst steps): {over}")
+    return {"step1_beyond_one_step": {k: list(v) for k, v in beyond.items()},
+            "step1_worst_steps": max(v[2] for v in leaves.values())}
+
+
+def torch_exp2_floor(x):
+    """``2^floor(log2 x)`` elementwise (x > 0): a bf16 ulp is this / 128."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.clamp_min(torch.finfo(torch.float32).tiny))))
+
+
+def layouts_train_check(label: str, got: list, want: dict, launches: dict, smi: str) -> dict:
+    """Hold one phase-18 run's ranks against the unsharded run."""
+    shape, tc, groups, dtype, layers = _layout(label)
+    key = "bf16" if dtype == "bfloat16" else "f32"
+    tol_loss, tol_params = MESH_TOL[f"{key}_loss"], MESH_TOL[f"{key}_params"]
+    r0 = got[0]
+    worst = 0.0
+    for step, (g, w) in enumerate(zip(r0["metrics"], want["metrics"])):
+        for r in got[1:]:
+            if r["metrics"][step] != g:
+                fail(f"phase 18 ({label}): rank {r['rank']}'s metrics differ from rank 0's")
+        if g["xi"] != w["xi"] or g["mask_count"] != w["mask_count"]:
+            fail(f"phase 18 ({label}): step {step}: xi/mask count {g['xi']}/{g['mask_count']} "
+                 f"!= {w['xi']}/{w['mask_count']}")
+        for k in ("loss", "per_group_loss"):
+            a, bb = np.asarray(g[k]), np.asarray(w[k])
+            rel = float(np.max(np.abs(a - bb) / np.abs(bb)))
+            worst = max(worst, rel)
+            if not np.all(np.isfinite(a)) or rel > tol_loss:
+                fail(f"phase 18 ({label}): step {step} {k} {a} against {bb} (rel {rel:.3g} > "
+                     f"{tol_loss})")
+    params_rms = (sum(r["d2"] for r in got) / sum(r["n2"] for r in got)) ** 0.5
+    if not params_rms <= tol_params:
+        fail(f"phase 18 ({label}): parameters' relative RMS {params_rms:.3g} > {tol_params}")
+    states = layouts_states_check(label, got) if dtype == "float32" and tc.dsag and (
+        tc.dsag_cache_dtype == "int8") else {}
+    counts = {k: [r["counts"][k] for r in got]
+              for k in ("dsag_cache_update", "dsag_cache_update_int8", "dsag_int8_row_max",
+                        "flash_attention")}
+    steps = len(MESH_MASKS)
+    int8 = tc.dsag and tc.dsag_cache_dtype == "int8"
+    split = [sum(1 for x in r["int8_launches"] if x[0] == "split") for r in got]
+    gathered = [sum(1 for x in r["int8_launches"] if x[4]) for r in got]
+    bad = [(r["rank"], x[2], x[3]) for r in got for x in r["int8_launches"] if x[3]]
+    if bad:
+        fail(f"phase 18 ({label}): K4-int8 launches not held: {bad[:4]}")
+    if any(counts["flash_attention"]) or (
+            counts["dsag_cache_update"] != [0 if int8 or not tc.dsag else steps] * len(got)) or (
+            int8 and (not all(counts["dsag_int8_row_max"]) or split != counts["dsag_int8_row_max"]
+                      or counts["dsag_cache_update_int8"] != [len(r["int8_launches"])
+                                                             for r in got])) or (
+            not int8 and any(counts["dsag_cache_update_int8"] + counts["dsag_int8_row_max"])):
+        fail(f"phase 18 ({label}): launches per rank {counts}, split K4-int8 held {split}")
+    for k in ("dsag_cache_update", "dsag_cache_update_int8", "dsag_int8_row_max"):
+        launches[k] = launches.get(k, 0) + sum(counts[k])
+    depth = "full depth" if layers is None else f"{layers} layers"
+    wire = r0["coll_wire"]
+    print(f"  ({label}) {MESH_ARCH} {dtype}, {depth}, mesh {shape}, {tc.dsag_groups} groups "
+          f"(P = {groups}), dsag={tc.dsag}, {tc.optimizer}, {tc.dsag_cache_dtype} slots ({smi}): "
+          f"losses {[round(m['loss'], 6) for m in r0['metrics']]} (unsharded "
+          f"{[round(m['loss'], 6) for m in want['metrics']]}; worst rel {worst:.3g} <= "
+          f"{tol_loss}); xi {[m['xi'] for m in r0['metrics']]}; parameters' relative RMS "
+          f"{params_rms:.3g} <= {tol_params}; launches per rank {counts} (K4-int8 held on "
+          f"every row: the split form's {split} against the plain twin given the row maxima "
+          f"over the slot spec's row axes, {gathered} also against the whole-row update on "
+          f"the gathered rows); local slots {r0['k4_shape']} (store n = "
+          f"{r0['store_numel']}); s per step per rank "
+          f"{[[round(x, 3) for x in r['seconds']] for r in got]} (the second counted; the "
+          f"launch checks' {[[round(x, 2) for x in r['check_s']] for r in got]} s left "
+          f"out); peak per rank (the checks' buffers in) "
+          f"{[round(r['peak'] / 2**30, 2) for r in got]} GiB")
+    print(f"      wire bytes of step 2 per rank by kind: " + ", ".join(
+        f"{k} x{r0['coll_counts'][k]} {wire[k] / 2**20:.2f} MiB" for k in sorted(wire))
+        + f" (total {sum(wire.values()) / 2**20:.2f} MiB); by site: " + ", ".join(
+        f"{k} {v / 2**20:.2f}" for k, v in sorted(r0["coll_sites"].items())))
+    shapes = sorted({x[1] for r in got for x in r["int8_launches"] if x[0] == "split"},
+                    key=lambda s: -math.prod(s))
+    return {"losses": [m["loss"] for m in r0["metrics"]],
+            "unsharded": [m["loss"] for m in want["metrics"]],
+            "xi": [m["xi"] for m in r0["metrics"]], "worst_loss_rel": worst,
+            "params_rel_rms": params_rms, "launches": counts, "split_held": split,
+            "split_held_gathered": gathered,
+            "k4_shape": r0["k4_shape"], "store_numel": r0["store_numel"],
+            "step_s": [r["seconds"] for r in got], "check_s": [r["check_s"] for r in got],
+            "peak_bytes": [r["peak"] for r in got],
+            "coll_counts": r0["coll_counts"], "coll_wire_bytes": wire,
+            "coll_site_wire_bytes": r0["coll_sites"], "int8_split_shapes": shapes[:3], **states}
+
+
+def run_layouts(torch, smi: str) -> tuple[dict, dict, list]:
+    """Phase 18: the reference's production DSAG layouts on a mesh (see the
+    module docstring).  Returns its numbers, every rank's K4, K4-int8 and
+    row-max launches, and the kernels' rows at the ranks' local shapes."""
+    import tempfile
+
+    from repro_torch.launch.mesh import RankPool
+
+    res: dict = {"card": smi}
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(prefix="layouts") as tmp:
+        want = {}
+        t0 = time.perf_counter()
+        for label in LAYOUT_RUNS:
+            free_cuda(torch)
+            want[label] = layouts_unsharded(torch, label, f"{tmp}/{label}.pt")
+        free_cuda(torch)
+        res["unsharded_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with RankPool(4, "cuda", timeout=600) as pool:
+            res["pool_s"] = time.perf_counter() - t0
+            print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (started in "
+                  f"{res['pool_s']:.1f} s; the unsharded runs took {res['unsharded_s']:.1f} s)")
+            for label in LAYOUT_RUNS:
+                t0 = time.perf_counter()
+                got = pool.run(layouts_train_rank, label, f"{tmp}/{label}.pt",
+                               f"{tmp}/ckpt" if label == CKPT_RUN else None)
+                res[label] = layouts_train_check(label, got, want[label], launches, smi)
+                res[label]["phase_s"] = time.perf_counter() - t0
+                if label == CKPT_RUN:
+                    res["checkpoint"] = checkpoint_check([r["ckpt"] for r in got])
+    # (e) the kernels at the ranks' local shapes, timed here (not counted): K4
+    # at (c)'s float32 slots under ``none``, K4-int8's split form at (a)'s
+    # largest split shard
+    rng = np.random.default_rng(18)
+    free_cuda(torch)
+    k4_row = check_dsag_update(torch, *res["c none"]["k4_shape"], torch.float32, rng,
+                               plain_reps=2)
+    row_max_row, int8_row = check_dsag_int8_split(torch, *res["a bf16"]["int8_split_shapes"][0],
+                                                  rng)
+    free_cuda(torch)
+    return res, launches, [k4_row, row_max_row, int8_row]
+
+
+def checkpoint_check(ck: list) -> dict:
+    """(d): the resumed run equals the uninterrupted one on every rank, and
+    the checkpoint restores into the unsharded port leaf for leaf."""
+    done = len(MESH_MASKS)
+    if not all(r["same"] for r in ck) or {r["start"] for r in ck} != {done}:
+        fail(f"phase 18 (d): the resumed mesh run differs from the uninterrupted one "
+             f"({[(r['same'], r['start']) for r in ck]})")
+    if not ck[0]["unsharded_equal"]:
+        fail("phase 18 (d): the mesh checkpoint restored unsharded differs from the gathered "
+             "mesh state")
+    steps = done + len(CKPT_MASKS)
+    print(f"  (d) checkpoint of ({CKPT_RUN}): saved after step {done} of {steps} "
+          f"({ck[0]['save_s']:.2f} s: gathered, rank 0 writes), restored by the state's specs "
+          f"({max(r['restore_s'] for r in ck):.2f} s) and run on: equal bit for bit to the "
+          f"uninterrupted run on every rank; the file restored into the unsharded port: "
+          f"{ck[0]['leaves']} leaves equal to the gathered mesh state")
+    return {"resumed_equal": True, "unsharded_equal": True, "leaves": ck[0]["leaves"],
+            "save_s": ck[0]["save_s"], "restore_s": [r["restore_s"] for r in ck]}
 
 
 def profile_run(torch, label: str, setup, iters: int) -> dict | None:
@@ -4765,14 +5399,26 @@ def main() -> None:
     per_kernel["flash_attention"].append(k6_mesh)
     mesh_res["seconds"] = time.perf_counter() - t0
     print(f"  phase 17 took {mesh_res['seconds']:.1f} s")
-    print("phase 18: the kernels line")
+    print(f"phase 18: the reference's production DSAG layouts: {MESH_ARCH} on (2, 2) and "
+          f"(pod=2, data=2, model=1) meshes of four ranks on cuda:0 (zero, pod and none "
+          f"groups, dsag=False, int8 slots, adafactor, a mesh trainer's checkpoint), against "
+          f"the unsharded port")
+    t0 = time.perf_counter()
+    layouts_res, layouts_launches, (k4_lay, row_max_lay, int8_lay) = run_layouts(
+        torch, smi.stdout.strip())
+    per_kernel["dsag_cache_update"].append(k4_lay)
+    per_kernel["dsag_cache_update_int8"].append(int8_lay)
+    per_kernel["dsag_int8_row_max"] = [row_max_lay]
+    layouts_res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18 took {layouts_res['seconds']:.1f} s")
+    print("phase 19: the kernels line")
     reg_train = registry.pop("train_launches")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
                 + engine_launches.get(k, 0) + lb_launches.get(k, 0)
                 + churn_launches.get(k, 0) + paper_launches.get(k, 0)
                 + sharding_launches.get(k, 0) + train_launches.get(k, 0)
                 + reg_train.get(k, 0) + fam_train_launches.get(k, 0)
-                + mesh_launches.get(k, 0)
+                + mesh_launches.get(k, 0) + layouts_launches.get(k, 0)
                 for k in sweep_launches}
     launches["flash_attention"] = (serving["launches"] + families["k6_main"]
                                    + registry["k6_main"] + mesh_launches["flash_attention"])
@@ -4789,6 +5435,9 @@ def main() -> None:
         # K4's int8 entry: the reference's int8 leaf update (jnp, no Pallas)
         "dsag_cache_update_int8": ("src/repro_torch/kernels/csrc/dsag_update.cu",
                                    "src/repro/core/dsag_pjit.py:165"),
+        # K4-int8's split form's row-max pass (phase 18): the same reference line
+        "dsag_int8_row_max": ("src/repro_torch/kernels/csrc/dsag_update.cu",
+                              "src/repro/core/dsag_pjit.py:165"),
         "gram_matvec": ("src/repro_torch/kernels/csrc/gram_matvec.cu",
                         "src/repro/kernels/gram_matvec.py:41"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4818,6 +5467,7 @@ def main() -> None:
                                else reg_train.get(name, 0)),
             launches_family_training=fam_train_launches.get(name, 0),
             launches_mesh=mesh_launches.get(name, 0),
+            launches_layouts=layouts_launches.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -4831,6 +5481,7 @@ def main() -> None:
     print(json.dumps({"registry": registry}))
     print(json.dumps({"family_training": fam_train}))
     print(json.dumps({"mesh": mesh_res}))
+    print(json.dumps({"layouts": layouts_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,11 @@ trip counts.  The accounting keeps ``hlo.py``'s rules:
   reduce-scatter ``(n-1)`` times its result, all-to-all ``(n-1)/n`` of its
   size, over the ``n`` ranks of its group.  An op on ``DTensor`` operands
   is not counted itself: the local ops and collectives it runs on this
-  rank are.
+  rank are.  A caller names the site of the collectives it dispatches with
+  ``models/sharding.py::collective_site`` (the mesh step's degather,
+  gradient mean, H sum, int8 row max, adafactor means, norm and losses);
+  the rest (the model's tensor-parallel all-reduces) count under
+  ``"model"``.
 
 What it cannot see: a kernel without a cost model; host work (the Python
 interpreter, launches, synchronizations); and bytes that the caches keep
@@ -58,6 +62,7 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch.analysis.kernel_costs import peak_for
 from repro_torch.kernels import _build
+from repro_torch.models import sharding
 
 aten = torch.ops.aten
 
@@ -176,14 +181,20 @@ class Cost:
     #: collectives by kind: calls and ring-model wire bytes
     coll_counts: dict = dataclasses.field(default_factory=dict)
     coll_wire_bytes: dict = dataclasses.field(default_factory=dict)
+    #: the same by ``"<site>: <kind>"`` (``sharding.collective_site``)
+    coll_site_counts: dict = dataclasses.field(default_factory=dict)
+    coll_site_wire_bytes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def total_wire_bytes(self) -> float:
         return sum(self.coll_wire_bytes.values())
 
-    def add_collective(self, kind: str, wire: float) -> None:
+    def add_collective(self, kind: str, wire: float, site: str = "model") -> None:
         self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
         self.coll_wire_bytes[kind] = self.coll_wire_bytes.get(kind, 0.0) + wire
+        key = f"{site}: {kind}"
+        self.coll_site_counts[key] = self.coll_site_counts.get(key, 0) + 1
+        self.coll_site_wire_bytes[key] = self.coll_site_wire_bytes.get(key, 0.0) + wire
 
     def add(self, name: str, flops: float, nbytes: float, peak: float | None = None) -> None:
         row = self.rows.get(name)
@@ -255,7 +266,8 @@ class _CostMode(TorchDispatchMode):
                 result = sum(_nbytes(t) for t in _tensors(out)) if func.namespace == (
                     "_c10d_functional") else size
                 n = _group_size(func, args)
-                self.cost.add_collective(kind, _wire_bytes(kind, size, result, n))
+                self.cost.add_collective(kind, _wire_bytes(kind, size, result, n),
+                                         sharding.collective_site_name() or "model")
             return
         name = f"aten.{op}"
         if func in _FREE or func.is_view:

@@ -93,13 +93,28 @@ def dsag_cache_update_cost(p: int, n: int, slot_bytes: int) -> tuple[int, int, f
     return p * n * 3 * slot_bytes + 2 * n * 4 + p * 4, 6 * p * n, PEAK_F32
 
 
-def dsag_cache_update_int8_cost(p: int, rows: int, b: int) -> tuple[int, int, float]:
+def dsag_cache_update_int8_cost(p: int, rows: int, b: int,
+                                split: bool = False) -> tuple[int, int, float]:
     """K4's int8 entry: g (float32) and two int8 slots read, two written;
     four bfloat16 scale rows; h read and written; the per-group code.  Two
     dequantizations, two absmax, two divisions, the delta and its sum: 20
+    float32 FLOPs per element.  The split form (``split``) reads each row's
+    two maxima instead of taking them: 18 FLOPs per element, ``[2, p,
+    rows]`` float32 more read."""
+    n = p * rows * b
+    nbytes = n * 4 + 4 * n + 4 * p * rows * 2 + 2 * rows * b * 4 + p
+    if split:
+        return nbytes + 2 * p * rows * 4, 18 * n, PEAK_F32
+    return nbytes, 20 * n, PEAK_F32
+
+
+def dsag_int8_row_max_cost(p: int, rows: int, b: int) -> tuple[int, int, float]:
+    """K4-int8's row-max pass (its split form's first kernel): g (float32)
+    and two int8 slots read with their bfloat16 scales, the code; ``[2, p,
+    rows]`` float32 maxima written.  Two dequantizations and two absmax: 4
     float32 FLOPs per element."""
     n = p * rows * b
-    return n * 4 + 4 * n + 4 * p * rows * 2 + 2 * rows * b * 4 + p, 20 * n, PEAK_F32
+    return n * 4 + 2 * n + 2 * p * rows * 2 + p + 2 * p * rows * 4, 4 * n, PEAK_F32
 
 
 def gram_matvec_cost(B: int, m: int, d: int, k: int) -> tuple[int, int, float]:

@@ -31,6 +31,7 @@ from repro_torch.analysis.kernel_costs import (  # noqa: F401  (re-exported)
     causal_pairs,
     dsag_cache_update_cost,
     dsag_cache_update_int8_cost,
+    dsag_int8_row_max_cost,
     flash_attention_cost,
     gram_matvec_cost,
     grid_cache_update_cost,

@@ -17,10 +17,15 @@ reference's model-zoo trainer restores in the port and the other way
 round.  Writes go to ``step_<n>.tmp`` and are renamed into place; a
 :class:`CheckpointManager` writes on a background thread, at most one write
 in flight, and keeps the newest ``keep``.  On a mesh, saving gathers each
-``DTensor`` leaf's full value (every rank takes part; rank 0 writes), so a
-checkpoint is the same with or without a mesh, and ``restore_checkpoint(...,
-shardings=)`` reads full arrays and gives each rank its shard, laid out by
-a tree of :class:`~repro_torch.models.sharding.NamedSharding`.
+``DTensor`` leaf's full value (every rank takes part; rank 0 writes; the
+manager's saves are then blocking), so a checkpoint is the same with or
+without a mesh, and ``restore_checkpoint(..., shardings=)`` reads full
+arrays and gives each rank its shard, laid out by a tree of
+:class:`~repro_torch.models.sharding.NamedSharding`.  A mesh trainer's flat
+state goes to and from that tree through :func:`mesh_train_state_tree` and
+:func:`mesh_train_state_from_tree` (its store and slot layouts, int8 slot
+trees, adafactor's statistics), so a mesh checkpoint restores unsharded and
+the other way round.
 """
 
 from __future__ import annotations
@@ -172,13 +177,14 @@ def _place(tree, shardings):
 _FLAT_OPT = ("m", "v", "mu")
 
 
-def train_state_tree(state: dict, layout) -> dict:
+def train_state_tree(state: dict, layout, slot_layout=None) -> dict:
     """A model's flat train state as the reference's tree (views of the
-    flat tensors; the parameters cast to their leaves' dtypes)."""
+    flat tensors; the parameters cast to their leaves' dtypes); float DSAG
+    slots laid out by ``slot_layout`` when it differs (a mesh rank's)."""
     dsag = dict(state["dsag"])
     for k in ("cache", "pending"):
         if torch.is_tensor(dsag[k]):  # int8 slots are a tree of leaves already
-            dsag[k] = layout.tree(dsag[k])
+            dsag[k] = (slot_layout or layout).tree(dsag[k])
     dsag["h"] = layout.tree(dsag["h"])
     return {
         "params": layout.tree(state["params"], cast=True),
@@ -188,7 +194,7 @@ def train_state_tree(state: dict, layout) -> dict:
     }
 
 
-def train_state_from_tree(tree: dict, layout) -> dict:
+def train_state_from_tree(tree: dict, layout, slot_layout=None) -> dict:
     """The flat train state of a tree in :func:`train_state_tree`'s layout
     (new tensors; float DSAG slots keep the tree's dtype)."""
     dsag = dict(tree["dsag"])
@@ -197,7 +203,7 @@ def train_state_from_tree(tree: dict, layout) -> dict:
         while isinstance(first, dict):
             first = next(iter(first.values()))
         if torch.is_tensor(first):  # int8 slots stay a tree of leaves
-            dsag[k] = layout.flatten(dsag[k], first.dtype)
+            dsag[k] = (slot_layout or layout).flatten(dsag[k], first.dtype)
     dsag["h"] = layout.flatten(dsag["h"])
     return {
         "params": layout.flatten(tree["params"]),
@@ -205,6 +211,42 @@ def train_state_from_tree(tree: dict, layout) -> dict:
         "dsag": dsag,
         "step": tree["step"],
     }
+
+
+def _map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its spec tree (a
+    :class:`Quantized` slot and its ``Quantized`` of specs leaf by leaf)."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, Quantized):
+        return Quantized(fn(tree.q, specs.q), fn(tree.scale, specs.scale), tree.block)
+    return fn(tree, specs)
+
+
+def mesh_train_state_tree(state: dict, layouts, specs, mesh) -> dict:
+    """A mesh rank's train state as the reference's tree of ``DTensor``
+    leaves, each laid out by ``specs`` (``train_state_specs``): what a mesh
+    trainer saves (:func:`save_checkpoint` gathers them, rank 0 writes the
+    unsharded trainer's file).  ``layouts`` is the step's
+    ``core.dsag_pjit.MeshLayouts``."""
+    from torch.distributed.tensor import DTensor
+
+    local = train_state_tree(state, layouts.store, layouts.slot)
+    return _map_specs(lambda t, spec: DTensor.from_local(
+        t, mesh, sharding.placements(spec, mesh), run_check=False), local, specs)
+
+
+def mesh_train_state_from_tree(tree: dict, layouts) -> dict:
+    """A mesh rank's flat train state from a tree of ``DTensor`` leaves laid
+    out by the train state's specs (``restore_checkpoint(shardings=)``'s)."""
+    local = _map_specs(lambda t, _: t.to_local(), tree, tree)
+    return train_state_from_tree(local, layouts.store, layouts.slot)
+
+
+def state_shardings(specs, mesh) -> Any:
+    """A :class:`~repro_torch.models.sharding.NamedSharding` per leaf of a
+    spec tree (``restore_checkpoint``'s ``shardings``)."""
+    return _map_specs(lambda spec, _: sharding.NamedSharding(mesh, spec), specs, specs)
 
 
 class CheckpointManager:
@@ -231,6 +273,13 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         self.wait()
+        if any(sharding.is_sharded(leaf) for _, leaf in _flatten_with_paths(tree)):
+            # a mesh run: every rank gathers, rank 0 writes; blocking
+            save_checkpoint(self.directory, step, tree)
+            if torch.distributed.get_rank() == 0:
+                self._gc()
+            self.saved_steps.append(step)
+            return
         # copied to the host before the writer thread sees it
         host_tree = _to_host(tree)
 

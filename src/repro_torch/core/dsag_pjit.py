@@ -29,27 +29,41 @@ group at a time (:func:`autograd_group_value_and_grad`).  A job that
 offers neither a loss nor per-group gradients is refused
 (:data:`CAP_GROUP_GRAD`).
 
-On a ``(data, model)`` device mesh (``mesh=``, ``param_specs=``) every rank
-runs the step on its own shards (:func:`make_train_step`; the layout is
-``models/sharding.py``'s).  The groups lie on the data axes, one group per
-data rank: the rank all-gathers its parameters over ``data`` to their
-TP-only layout (``degather``, int8 with ``quantized_fsdp_allgather``),
-computes its group's gradient over DTensors on the ``model`` axis,
-and updates its own cache and pending slot with K4 over its local ``[1,
-n]`` shard.  H is the sum of the groups' deltas: each rank's delta is
-reduce-scattered over ``data`` to H's FSDP layout, so H, the optimizer
-moments and the parameters stay sharded as ``train_state_specs`` says.
-The spec functions (``opt_state_specs``, ``dsag_state_specs``,
-``train_state_specs``, ``batch_group_specs``) are the reference's.  What a
-mesh step does not run is refused before any launch with
-:data:`CAP_MESH`: groups off the data axes (the ``zero`` and ``none``
-layouts, and ``dsag=False``), int8 slots and adafactor (their per-row
-statistics span shards).
+On a ``(data, model)`` or ``(pod, data, model)`` device mesh (``mesh=``,
+``param_specs=``) every rank runs the step on its own shards
+(:func:`make_train_step`; the layout is ``models/sharding.py``'s), under any
+group layout of :func:`make_group_spec`.  The groups lie on the group axes G
+(``data`` or ``(pod, data)`` for ``dp``, ``pod`` for ``pod``, none for
+``zero`` and ``none``); the other data-parallel axes D split each group's
+batch.  A rank computes the groups its coordinate along G owns (``dp``: one;
+``pod``: its pod's; ``zero``, ``none``: every group, one after another), each
+on its slice of the group's batch along D, over its parameters all-gathered
+to their TP-only layout (``degather``, int8 with
+``quantized_fsdp_allgather``) as DTensors on the ``model`` axis.  Each
+group's gradient is averaged over D into the *slot layout*, the parameter
+specs with G stripped (a reduce-scatter over ``data`` where FSDP splits it;
+every slice is the same size, so the mean of the ranks' means is the
+group's), and K4 (or K4-int8) updates the rank's cache and pending slots
+``[k, n_slot]`` in place.  int8 slots hold a shard of each row of a leaf
+whose last dim G does not strip: K4-int8's split form takes the row maxima
+MAX-reduced over the row's ranks (exact: bit for bit the unsharded form).
+H takes the deltas summed over G: a reduce-scatter over ``data`` for
+``dp``, an all-reduce over ``pod`` for ``pod`` (H's spec has no ``pod``),
+nothing for ``zero`` and ``none``, whose slots are laid out as H.  Without
+DSAG (``dsag=False``) Ĥ is the mean gradient and no K4 launches.  H, the
+optimizer state and the parameters stay sharded as ``train_state_specs``
+says; adafactor's means sum over the ranks that split the dim they reduce
+(:class:`MeshMeans`).  The spec functions (``opt_state_specs``,
+``dsag_state_specs``, ``train_state_specs``, ``batch_group_specs``) are the
+reference's.  A projected (PCA) step on a mesh is refused with
+:data:`CAP_MESH` (the reference's trainer never puts a paper problem on a
+mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -62,6 +76,7 @@ from repro_torch.models.layers import get_path, set_path, tree_map
 from repro_torch.models.sharding import P, strip_axis
 from repro_torch.optim.compression import Quantized
 from repro_torch.optim.optimizers import (
+    LocalMeans,
     apply_updates,
     clip_by_global_norm,
     global_norm,
@@ -180,7 +195,8 @@ def _update_slots(dsag, group_grads, mask, eff_flush, evict, take_new, backend):
     return new_c.reshape(cache.shape), new_pending, new_h.reshape(dsag["h"].shape)
 
 
-def _update_int8(dsag, group_grads, mask, eff_flush, evict, take_new, backend):
+def _update_int8(dsag, group_grads, mask, eff_flush, evict, take_new, backend,
+                 reduce_max=None):
     """int8 slots through K4's int8 entry: ``(cache, pending, h)``.
 
     Each group's cache row becomes ``evict ? 0 : mask ? g : flush ? pending
@@ -188,37 +204,49 @@ def _update_int8(dsag, group_grads, mask, eff_flush, evict, take_new, backend):
     ``· (1 − evict)``: every product is by 0 or 1, so exact), requantized,
     with H's delta taken from the stored, dequantized value; the pending
     slot is requantized too.  Every row of every group is requantized each
-    step, as in the reference.
+    step, as in the reference.  ``reduce_max`` (a mesh, where these slots
+    hold a shard of each row) MAX-reduces the shard's ``[2, p, rows]`` row
+    maxima over the row's ranks in place; K4-int8's split form then scales
+    each row by them.
     """
     cache, pending = dsag["cache"], dsag["pending"]
-    p, b = mask.shape[0], cache.block
+    p = mask.shape[0]
+    b = cache.q.shape[-1] if cache.q.dim() > 1 else 1  # this shard's part of a row
     code = torch.where(evict, k4.ZERO, torch.where(
         mask, k4.TAKE_G, torch.where(eff_flush, k4.TAKE_PENDING, k4.KEEP)))
     code = (code + torch.where(take_new, k4.TAKE_NEW, 0)).to(torch.uint8)
-    update = (k4.dsag_cache_update_int8 if backend == "cuda"
-              else k4.dsag_cache_update_int8_plain)
-    cq, cs, pq, ps, new_h = update(
-        group_grads.to(torch.float32).reshape(p, -1, b).contiguous(),
-        cache.q.reshape(p, -1, b), cache.scale.reshape(p, -1),
-        pending.q.reshape(p, -1, b), pending.scale.reshape(p, -1),
-        dsag["h"].reshape(-1, b), code)
-    return (Quantized(cq.reshape(cache.q.shape), cs.reshape(cache.scale.shape), b),
-            Quantized(pq.reshape(pending.q.shape), ps.reshape(pending.scale.shape), b),
+    cuda = backend == "cuda"
+    update = k4.dsag_cache_update_int8 if cuda else k4.dsag_cache_update_int8_plain
+    args = (group_grads.to(torch.float32).reshape(p, -1, b).contiguous(),
+            cache.q.reshape(p, -1, b), cache.scale.reshape(p, -1),
+            pending.q.reshape(p, -1, b), pending.scale.reshape(p, -1))
+    maxima = None
+    if reduce_max is not None:
+        row_max = k4.dsag_int8_row_max if cuda else k4.dsag_int8_row_max_plain
+        cmax, pmax = row_max(*args, code)
+        both = torch.stack([cmax, pmax])
+        reduce_max(both)
+        maxima = (both[0], both[1])
+    cq, cs, pq, ps, new_h = update(*args, dsag["h"].reshape(-1, b), code, maxima)
+    return (Quantized(cq.reshape(cache.q.shape), cs.reshape(cache.scale.shape), cache.block),
+            Quantized(pq.reshape(pending.q.shape), ps.reshape(pending.scale.shape), cache.block),
             new_h.reshape(dsag["h"].shape))
 
 
 def _update_int8_leaves(dsag, group_grads, mask, eff_flush, evict, take_new, backend,
-                        layout):
+                        layout, reducers=None):
     """A model's int8 slots (a tree of one :class:`Quantized` per leaf of
     ``layout``): :func:`_update_int8` per leaf, ``(cache tree, pending
-    tree, flat h)``."""
+    tree, flat h)``; ``reducers(path)``, on a mesh, a split leaf's row-max
+    reduction (None for a leaf whose rows are whole on the rank)."""
     cache, pending = {}, {}
     new_h = torch.zeros_like(dsag["h"])
     for x, g, h, out in zip(layout.leaves, layout.views(group_grads), layout.views(dsag["h"]),
                             layout.views(new_h)):
         leaf = {"cache": get_path(dsag["cache"], x.path),
                 "pending": get_path(dsag["pending"], x.path), "h": h}
-        c, pend, hh = _update_int8(leaf, g, mask, eff_flush, evict, take_new, backend)
+        c, pend, hh = _update_int8(leaf, g, mask, eff_flush, evict, take_new, backend,
+                                   None if reducers is None else reducers(x.path))
         set_path(cache, x.path, c)
         set_path(pending, x.path, pend)
         out.copy_(hh)
@@ -495,42 +523,80 @@ def batch_group_specs(gs: GroupSpec, inner_spec_tail=(None,)) -> P:
 
 
 def check_mesh_step(tc: TrainConfig, gs: GroupSpec, mesh) -> None:
-    """Refuse, before any launch, what a mesh step does not run."""
+    """Refuse, before any launch, a group geometry no mesh step lays out:
+    group axes that are not data-parallel axes of ``mesh``, or groups that
+    do not split evenly over them (``make_group_spec`` makes neither)."""
     dp = tuple(a for a in mesh.mesh_dim_names if a in sharding.DP_AXES)
-    if not tc.dsag or gs.axes != dp:
-        raise refuse(CAP_MESH, f"a mesh step runs DSAG with one group per data-parallel rank "
-                               f"(dsag_groups='dp'); got dsag={tc.dsag}, groups on {gs.axes}")
-    if tc.dsag_cache_dtype == "int8":
-        raise refuse(CAP_MESH, "int8 DSAG slots on a mesh: their per-row scales span the "
-                               "row's TP shards")
-    if tc.optimizer == "adafactor":
-        raise refuse(CAP_MESH, "adafactor on a mesh: its factored statistics span shards")
+    if any(a not in dp for a in gs.axes):
+        raise refuse(CAP_MESH, f"groups on {gs.axes}: a mesh's groups lie on its "
+                               f"data-parallel axes {dp}")
+    _, n = sharding.coordinate(mesh, gs.axes)
+    if gs.num_groups % n:
+        raise refuse(CAP_MESH, f"{gs.num_groups} groups do not split evenly over the {n} ranks "
+                               f"of {gs.axes}")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshLayouts:
-    """A rank's two flat layouts: ``store`` (its shards under the parameter
-    specs: parameters, moments, H) and ``tp`` (its shards with the
-    data-parallel axes stripped: the degathered parameters, its group's
-    gradient and cache slots)."""
+    """A rank's flat layouts of the global ``full`` one, and its share of
+    the groups.
 
+    ``store``: its shards under the parameter specs (parameters, optimizer
+    moments, H).  ``tp``: the data-parallel axes stripped (the degathered
+    parameters, and each group's gradient as autograd gives it).  ``slot``:
+    the group axes stripped (the DSAG slots, and each group's gradient after
+    its mean over ``inner_axes``): ``tp`` for ``dp`` groups, ``store`` for
+    ``pod``, ``zero`` and ``none``.  The rank computes groups ``rows`` (its
+    coordinate along ``group_axes``), each on slice ``inner`` of ``n_inner``
+    of the group's batch (its coordinate along ``inner_axes``, the
+    data-parallel axes the groups do not take)."""
+
+    full: Any
     store: Any
     tp: Any
+    slot: Any
     specs: Any
     tp_specs: Any
+    slot_specs: Any
+    group_axes: tuple
+    inner_axes: tuple
+    rows: slice
+    inner: int
+    n_inner: int
+
+    def local_batch(self, a: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a global batch leaf ``[P, b, ...]``: its groups,
+        and its slice of each one's ``b`` (the reference's
+        ``P(group axes, inner axes)`` batch layout)."""
+        a = a[self.rows]
+        if self.n_inner == 1:
+            return a
+        if a.shape[1] % self.n_inner:
+            raise ValueError(f"a group's batch of {a.shape[1]} does not split over the "
+                             f"{self.n_inner} ranks of {self.inner_axes}")
+        b = a.shape[1] // self.n_inner
+        return a.narrow(1, self.inner * b, b)
 
 
-def mesh_layouts(layout, param_specs, mesh) -> MeshLayouts:
-    """The rank's layouts of the global ``layout`` under ``param_specs``."""
+def _strip(spec, axes):
+    for a in axes:  # group axes cannot repeat in the param dims
+        spec = strip_axis(spec, a)
+    return spec
 
-    def strip_dp(spec):
-        for a in sharding.DP_AXES:
-            spec = strip_axis(spec, a)
-        return spec
 
-    tp_specs = sharding.tree_specs_map(strip_dp, param_specs)
-    return MeshLayouts(layout.local(param_specs, mesh), layout.local(tp_specs, mesh),
-                       param_specs, tp_specs)
+def mesh_layouts(layout, param_specs, mesh, gs: GroupSpec) -> MeshLayouts:
+    """The rank's layouts of the global ``layout`` under ``param_specs`` and
+    its groups under ``gs``."""
+    tp_specs = sharding.tree_specs_map(lambda s: _strip(s, sharding.DP_AXES), param_specs)
+    slot_specs = sharding.tree_specs_map(lambda s: _strip(s, gs.axes), param_specs)
+    g_idx, n_g = sharding.coordinate(mesh, gs.axes)
+    k = gs.num_groups // n_g
+    inner_axes = tuple(a for a in mesh.mesh_dim_names
+                       if a in sharding.DP_AXES and a not in gs.axes)
+    d_idx, n_d = sharding.coordinate(mesh, inner_axes)
+    return MeshLayouts(layout, layout.local(param_specs, mesh), layout.local(tp_specs, mesh),
+                       layout.local(slot_specs, mesh), param_specs, tp_specs, slot_specs,
+                       tuple(gs.axes), inner_axes, slice(g_idx * k, (g_idx + 1) * k), d_idx, n_d)
 
 
 def _shards(layout, tree, specs, mesh) -> dict:
@@ -544,17 +610,25 @@ def _shards(layout, tree, specs, mesh) -> dict:
 def init_mesh_train_state(params_tree, tc: TrainConfig, gs: GroupSpec, layouts: MeshLayouts,
                           mesh) -> dict:
     """A rank's train state from the full parameter tree (the same on every
-    rank): its shard of the parameters, zero moments and H (all in the
-    ``store`` layout), its group's empty cache and pending slot ``[k, n_tp]``
-    in the slots' dtype."""
+    rank): its shard of the parameters, zero optimizer state and H (all in
+    the ``store`` layout), and its groups' empty cache and pending slots
+    ``[k, n_slot]`` in the slot layout (int8: a tree of :class:`Quantized`
+    shards, each keeping its whole row's length as ``block``)."""
     params = layouts.store.flatten(_shards(layouts.store, params_tree, layouts.specs, mesh))
-    k = gs.num_groups // sharding.dp_coordinate(mesh)[1]
+    k = layouts.rows.stop - layouts.rows.start
     state = init_train_state(params, tc, GroupSpec(k, ()), layouts.store)
     dev = params.device
-    slot = torch.zeros((k, layouts.tp.numel), dtype=_SLOT_DTYPES[tc.dsag_cache_dtype], device=dev)
-    state["dsag"].update(cache=slot, pending=slot.clone(),
-                         pending_valid=torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
-                         filled=torch.zeros(gs.num_groups, dtype=torch.bool, device=dev))
+    dsag = init_dsag_state(torch.zeros(layouts.slot.numel, device=dev), GroupSpec(k, ()), tc,
+                           layouts.slot)
+    if tc.dsag_cache_dtype == "int8":
+        for key in ("cache", "pending"):
+            for x in layouts.full.leaves:
+                q = get_path(dsag[key], x.path)
+                set_path(dsag[key], x.path, Quantized(q.q, q.scale, x.shape[-1] if x.shape else 1))
+    dsag.update(pending_valid=torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
+                filled=torch.zeros(gs.num_groups, dtype=torch.bool, device=dev),
+                h=state["dsag"]["h"])
+    state["dsag"] = dsag
     return state
 
 
@@ -575,11 +649,43 @@ def mesh_global_norm(x: torch.Tensor, layouts: MeshLayouts, mesh) -> torch.Tenso
     return torch.sqrt(total)
 
 
+class MeshMeans(LocalMeans):
+    """adafactor's means over one leaf's shard on a mesh (the reference's
+    statistics specs: ``vr`` drops the last dim's axes, ``vc`` the
+    second-to-last's): a mean over a dim the leaf's spec splits is the
+    local sum, all-reduced over the ranks along that dim's axes, over the
+    dim's global size; the RMS clip's mean over the whole leaf sums over
+    every axis the spec splits, so it counts each element once however many
+    ranks replicate it."""
+
+    def __init__(self, spec, shape: tuple, mesh):
+        self.spec, self.shape, self.mesh = spec, shape, mesh
+
+    def mean(self, x, dim, pdim, keepdim=False):
+        axes = sharding.dim_axes(self.spec, pdim, self.mesh)
+        if not axes:
+            return super().mean(x, dim, pdim, keepdim)
+        total = x.sum(dim=dim, keepdim=keepdim)
+        with sharding.collective_site("adafactor means"):
+            sharding.all_reduce_over(total, self.mesh, axes)
+        return total / self.shape[pdim]
+
+    def mean_all(self, x):
+        axes = sharding.spec_axes(self.spec, self.mesh)
+        if not axes:
+            return super().mean_all(x)
+        total = torch.sum(x)
+        with sharding.collective_site("adafactor means"):
+            sharding.all_reduce_over(total, self.mesh, axes)
+        return total / math.prod(self.shape)
+
+
 def mesh_value_and_grad(loss_fn, layouts: MeshLayouts, mesh, grad_dtype):
     """Per-group ``(losses [k], grads [k, n_tp])`` of this rank's ``k``
-    groups: each group's loss over the degathered parameters as ``DTensor``
-    leaves on the compute mesh, through autograd, one group at a time."""
-    from torch.distributed.tensor import DTensor
+    groups on its slice of each group's batch: each group's loss over the
+    degathered parameters as ``DTensor`` leaves on the compute mesh, through
+    autograd, one group at a time."""
+    from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import implicit_replication
 
     cmesh = sharding.compute_mesh(mesh)
@@ -594,7 +700,9 @@ def mesh_value_and_grad(loss_fn, layouts: MeshLayouts, mesh, grad_dtype):
                 tree = layouts.tp.dtensors(leaf, layouts.tp_specs, cmesh, cast=True)
                 loss = loss_fn(tree, tree_map(lambda a, i=i: a[i], batch))
                 if isinstance(loss, DTensor):
-                    loss = loss.full_tensor()
+                    # a mean over a split dim is Partial(avg) (whisper's
+                    # loss): its gradient comes back replicated
+                    loss = loss.full_tensor(grad_placements=[Replicate()] * cmesh.ndim)
                 (grad,) = torch.autograd.grad(loss, leaf)
             grads[i] = grad
             losses[i] = loss.detach()
@@ -606,67 +714,121 @@ def mesh_value_and_grad(loss_fn, layouts: MeshLayouts, mesh, grad_dtype):
 def _make_mesh_step(job, tc: TrainConfig, gs: GroupSpec, mesh, param_specs, project_fn,
                     backend: str, layout):
     """The step of one rank of ``mesh``: see the module docstring."""
-    from torch.distributed.tensor import DTensor
-
     if param_specs is None or layout is None or not callable(job):
         raise ValueError("a mesh step needs the model's loss_fn, param_specs and layout")
     if project_fn is not None:
         raise refuse(CAP_MESH, "a projected (PCA) step on a mesh")
     check_mesh_step(tc, gs, mesh)
-    layouts = mesh_layouts(layout, param_specs, mesh)
-    opt = make_optimizer(tc, layouts.store)
-    value_and_grad = mesh_value_and_grad(job, layouts, mesh, _SLOT_DTYPES[tc.dsag_cache_dtype])
-    g_idx, n_dp = sharding.dp_coordinate(mesh)
-    k = gs.num_groups // n_dp
-    rows = slice(g_idx * k, (g_idx + 1) * k)
+    if not tc.dsag and gs != GroupSpec(1, ()):
+        raise ValueError(f"a mesh step without DSAG takes make_group_spec's one group on no "
+                         f"axes, not {gs}")
+    L = mesh_layouts(layout, param_specs, mesh, gs)
+    G, D = L.group_axes, L.inner_axes
+    full_shape = {x.path: x.shape for x in layout.leaves}
+    opt = make_optimizer(tc, L.store, means=lambda path: MeshMeans(
+        get_path(param_specs, path), full_shape[path], mesh))
+    float_slots = tc.dsag and tc.dsag_cache_dtype in _SLOT_DTYPES
+    # a group's gradient is rounded to its float slots' dtype at once, unless
+    # it is first averaged over the inner axes (in float32)
+    grad_dtype = _SLOT_DTYPES[tc.dsag_cache_dtype] if float_slots and not D else torch.float32
+    value_and_grad = mesh_value_and_grad(job, L, mesh, grad_dtype)
 
-    def reduce_delta(delta_tp: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        """Σ over the data-parallel ranks of each one's delta, laid out as H."""
-        out = torch.empty_like(like)
-        for x, d, o in zip(layouts.tp.leaves, layouts.tp.views(delta_tp),
-                           layouts.store.views(out)):
-            summed = sharding.partial_sum(d, mesh, get_path(layouts.tp_specs, x.path), gs.axes)
-            o.copy_(summed.redistribute(mesh, sharding.placements(
-                get_path(layouts.specs, x.path), mesh)).to_local())
+    def lead(spec) -> P:
+        return P(None, *tuple(spec))
+
+    def mean_over_inner(grads: torch.Tensor) -> torch.Tensor:
+        """``[k, n_tp]`` per-rank gradients to ``[k, n_slot]``: each group's
+        gradient averaged over the inner axes (every rank's slice is the
+        same size, so the mean of their means is the group's)."""
+        if not D:
+            return grads  # the slot layout is the TP one
+        out = torch.zeros((grads.shape[0], L.slot.numel), dtype=torch.float32,
+                          device=grads.device)
+        with sharding.collective_site("gradient mean"):
+            for x, g, o in zip(L.tp.leaves, L.tp.views(grads), L.slot.views(out)):
+                o.copy_(sharding.sum_to(g, mesh, lead(get_path(L.tp_specs, x.path)), D,
+                                        lead(get_path(L.slot_specs, x.path))))
+        return out.div_(L.n_inner)
+
+    def sum_over_groups(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """A slot-layout ``[n_slot]`` tensor summed over the group axes, laid
+        out as H (``like``): a reduce-scatter over ``data`` for ``dp``
+        groups, an all-reduce over ``pod`` for ``pod``; for ``zero`` and
+        ``none`` every group is on the rank and the layouts agree."""
+        if not G:
+            return x
+        out = torch.zeros_like(like)
+        with sharding.collective_site("H sum"):
+            for x_, v, o in zip(L.slot.leaves, L.slot.views(x), L.store.views(out)):
+                o.copy_(sharding.sum_to(v, mesh, get_path(L.slot_specs, x_.path), G,
+                                        get_path(param_specs, x_.path)))
         return out
 
-    def step(state, batch, mask, flush, evict=None):
-        params = state["params"]
-        tree = layouts.store.dtensors(params, param_specs, mesh, cast=True)
-        gathered = sharding.degather(tree, param_specs, mesh,
-                                     quantized=tc.quantized_fsdp_allgather)
-        flat_tp = layouts.tp.flatten(tree_map(lambda t: t.to_local(), gathered))
-        local_batch = tree_map(lambda a: a[rows], batch)
-        losses_l, grads = value_and_grad(flat_tp, local_batch)
+    def row_reducer(path):
+        axes = sharding.dim_axes(get_path(L.slot_specs, path), -1, mesh)
+        if not axes:
+            return None
 
-        dsag = state["dsag"]
-        mask_count = mask.sum()
-        if evict is None:
-            evict = torch.zeros_like(mask)
+        def reduce(maxima):
+            with sharding.collective_site("int8 row max"):
+                sharding.all_reduce_max(maxima, mesh, axes)
+
+        return reduce
+
+    def update(dsag, g, mask, flush, evict):
+        """The cache rule on this rank's groups and slot shards (K4 or
+        K4-int8), H from their deltas summed over the group axes."""
         mask = mask & ~evict
         eff_flush = flush & ~mask & dsag["pending_valid"]
         take_new = mask | eff_flush | ~dsag["pending_valid"]
-        local = {"cache": dsag["cache"], "pending": dsag["pending"],
-                 "h": torch.zeros(layouts.tp.numel, dtype=torch.float32, device=params.device)}
-        new_c, new_pending, delta = _update_slots(
-            local, grads, mask[rows], eff_flush[rows], evict[rows], take_new[rows], backend)
-        new_h = dsag["h"] + reduce_delta(delta, dsag["h"])
-        new_dsag, h_hat, xi = _finish_update(dsag, new_c, new_pending, new_h, mask, eff_flush,
-                                             evict)
+        r = L.rows
+        # with no group axes H is laid out as the slots: K4 adds into it
+        h_in = dsag["h"] if not G else torch.zeros(L.slot.numel, dtype=torch.float32,
+                                                   device=g.device)
+        local = {"cache": dsag["cache"], "pending": dsag["pending"], "h": h_in}
+        if isinstance(dsag["cache"], dict):
+            new_c, new_pending, h_out = _update_int8_leaves(
+                local, g, mask[r], eff_flush[r], evict[r], take_new[r], backend, L.slot,
+                row_reducer)
+        else:
+            new_c, new_pending, h_out = _update_slots(
+                local, g, mask[r], eff_flush[r], evict[r], take_new[r], backend)
+        new_h = h_out if not G else dsag["h"] + sum_over_groups(h_out, dsag["h"])
+        return _finish_update(dsag, new_c, new_pending, new_h, mask, eff_flush, evict)
 
-        gnorm = mesh_global_norm(h_hat, layouts, mesh)
+    def step(state, batch, mask, flush, evict=None):
+        params = state["params"]
+        tree = L.store.dtensors(params, param_specs, mesh, cast=True)
+        with sharding.collective_site("degather"):
+            gathered = sharding.degather(tree, param_specs, mesh,
+                                         quantized=tc.quantized_fsdp_allgather)
+        flat_tp = L.tp.flatten(tree_map(lambda t: t.to_local(), gathered))
+        losses_l, grads = value_and_grad(flat_tp, tree_map(L.local_batch, batch))
+        g = mean_over_inner(grads)
+        mask_count = mask.sum()
+        if evict is None:
+            evict = torch.zeros_like(mask)
+        if tc.dsag:
+            new_dsag, h_hat, xi = update(state["dsag"], g, mask, flush, evict)
+        else:  # the reference's branch: Ĥ is the (one group's) gradient, no cache
+            new_dsag = state["dsag"]
+            xi = torch.ones((), dtype=torch.float32, device=params.device)
+            h_hat = g[0].to(torch.float32)
+
+        with sharding.collective_site("norm"):
+            gnorm = mesh_global_norm(h_hat, L, mesh)
         if tc.grad_clip > 0:
             h_hat = h_hat * torch.clamp(tc.grad_clip / (gnorm + 1e-9), max=1.0)
         updates, new_opt = opt.update(h_hat, state["opt"], params)
-        new_params = apply_updates(params, updates, layouts.store)
-        losses = DTensor.from_local(losses_l, mesh, sharding.placements(
-            P(gs.group_partition), mesh), run_check=False).full_tensor()
+        new_params = apply_updates(params, updates, L.store)
+        with sharding.collective_site("losses"):
+            losses = sharding.partial_sum(losses_l, mesh, P(gs.group_partition),
+                                          D).full_tensor() / L.n_inner
         new_state = {"params": new_params, "opt": new_opt, "dsag": new_dsag,
                      "step": state["step"] + 1}
         metrics = {"loss": losses.mean(), "per_group_loss": losses, "grad_norm": gnorm,
                    "xi": xi, "mask_count": mask_count}
         return new_state, metrics
 
-    step.layouts = layouts
+    step.layouts = L
     return step
-

@@ -42,7 +42,8 @@ SIGNATURES = {
     "dsag_pca_block_sub": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
     "dsag_grid_cache_update": (_P,) * 15 + (_I32,) * 8 + (_P,),
     "dsag_dsag_cache_update": (_P,) * 6 + (_I64, _I64, _I32, _I32, _I32, _I32, _P),
-    "dsag_dsag_cache_update_int8": (_P,) * 12 + (_I64, _I64, _I64, _I32, _P),
+    "dsag_dsag_cache_update_int8": (_P,) * 14 + (_I64, _I64, _I64, _I32, _P),
+    "dsag_dsag_int8_row_max": (_P,) * 8 + (_I64, _I64, _I64, _I32, _P),
     "dsag_gram_matvec": (_P,) * 4 + (_I64, _I64) + (_I32,) * 6 + (_P,),
     "dsag_gram_tile_rows": (_I32, _I32),
     "dsag_wide_block_sub": (_P,) * 8 + (_I64, _I64, _I32, _I32, _I64, _I32, _I64, _I32, _I32, _P),

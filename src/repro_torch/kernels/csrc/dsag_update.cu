@@ -60,6 +60,15 @@
 // row, absmax is a warp-shuffle max, and each lane carries its elements'
 // running sums in new_h.  Rows are short on the live steps (B = 29 for
 // logreg, 3 for PCA's [64, 3] iterate), so it is bound by latency.
+//
+// The split form, for a device mesh where a row's B elements lie on several
+// ranks (a column-parallel or FSDP-split leaf) and its one scale is the
+// absmax of the whole row: dsag_int8_row_max_kernel writes each (group, row)'s
+// absmax of the new cache row and of the new pending row over this rank's
+// shard, the caller MAX-all-reduces them over the row's ranks, and
+// dsag_int8_kernel takes those maxima in place of its warp maxima.  A maximum
+// is exact, so every shard quantizes as the whole row would: bit for bit the
+// unsharded update, whatever the split.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -174,11 +183,55 @@ __device__ __forceinline__ float cache_source(int src, float gv, float cf, float
   return src == 1 ? gv : src == 2 ? pf : src == 3 ? 0.f : cf;
 }
 
+// the cache row's new value and the pending row's, from the dequantized slots
+struct Int8Row {
+  const float* g;
+  const int8_t* cq;
+  const int8_t* pq;
+  float csf, psf;
+  int src;
+  bool take;
+  __device__ __forceinline__ float cache(int64_t e, float* cf_out) const {
+    const float cf = __fmul_rn((float)cq[e], csf);
+    *cf_out = cf;
+    return cache_source(src, g[e], cf, __fmul_rn((float)pq[e], psf));
+  }
+  __device__ __forceinline__ float pending(int64_t e) const {
+    return take ? g[e] : __fmul_rn((float)pq[e], psf);
+  }
+};
+
+__device__ __forceinline__ Int8Row int8_row(const float* g, const int8_t* cq,
+                                            const __nv_bfloat16* cs, const int8_t* pq,
+                                            const __nv_bfloat16* ps, uint8_t code, int64_t row,
+                                            int64_t b) {
+  const int64_t at = row * b;
+  return Int8Row{g + at, cq + at, pq + at, __bfloat162float(cs[row]), __bfloat162float(ps[row]),
+                 code & 3, ((code >> 2) & 1) != 0};
+}
+
+// this row's absmax of the new cache row and of the new pending row, over
+// the lane's elements (the caller reduces over the warp)
+__device__ __forceinline__ void int8_local_max(const Int8Row& w, int64_t b, int lane,
+                                               float* cmax, float* pmax) {
+  float cm = 0.f, pm = 0.f, cf;
+  for (int64_t e = lane; e < b; e += 32) {
+    cm = fmaxf(cm, fabsf(w.cache(e, &cf)));
+    pm = fmaxf(pm, fabsf(w.pending(e)));
+  }
+  *cmax = cm;
+  *pmax = pm;
+}
+
+// cmax_in / pmax_in: null, or [p, rows] float32 maxima of each whole row (the
+// split form: these slots hold a shard of each row, the maxima come from
+// dsag_int8_row_max_kernel on every shard, MAX-reduced across them)
 __global__ void __launch_bounds__(kInt8Warps * 32) dsag_int8_kernel(
     const float* __restrict__ g, const int8_t* __restrict__ cq,
     const __nv_bfloat16* __restrict__ cs, const int8_t* __restrict__ pq,
     const __nv_bfloat16* __restrict__ ps, const float* __restrict__ h,
-    const uint8_t* __restrict__ code, int8_t* __restrict__ ncq,
+    const uint8_t* __restrict__ code, const float* __restrict__ cmax_in,
+    const float* __restrict__ pmax_in, int8_t* __restrict__ ncq,
     __nv_bfloat16* __restrict__ ncs, int8_t* __restrict__ npq,
     __nv_bfloat16* __restrict__ nps, float* __restrict__ nh, int64_t p, int64_t rows,
     int64_t b) {
@@ -187,19 +240,18 @@ __global__ void __launch_bounds__(kInt8Warps * 32) dsag_int8_kernel(
   if (r >= rows) return;
   float* acc = nh + r * b;  // each element's running sum, one lane each
   for (int64_t i = 0; i < p; ++i) {
-    const int src = code[i] & 3;
-    const bool take = (code[i] >> 2) & 1;
     const int64_t row = i * rows + r, at = row * b;
-    const float csf = __bfloat162float(cs[row]), psf = __bfloat162float(ps[row]);
-    float cmax = 0.f, pmax = 0.f;
-    for (int64_t e = lane; e < b; e += 32) {
-      const float gv = g[at + e];
-      const float cf = __fmul_rn((float)cq[at + e], csf);
-      const float pf = __fmul_rn((float)pq[at + e], psf);
-      cmax = fmaxf(cmax, fabsf(cache_source(src, gv, cf, pf)));
-      pmax = fmaxf(pmax, fabsf(take ? gv : pf));
+    const Int8Row w = int8_row(g, cq, cs, pq, ps, code[i], row, b);
+    float cmax, pmax;
+    if (cmax_in != nullptr) {
+      cmax = cmax_in[row];
+      pmax = pmax_in[row];
+    } else {
+      int8_local_max(w, b, lane, &cmax, &pmax);
+      cmax = warp_max(cmax);
+      pmax = warp_max(pmax);
     }
-    const float sc = row_scale(warp_max(cmax)), sp = row_scale(warp_max(pmax));
+    const float sc = row_scale(cmax), sp = row_scale(pmax);
     const __nv_bfloat16 sc16 = __float2bfloat16_rn(sc);
     const float scb = __bfloat162float(sc16);
     if (lane == 0) {
@@ -207,17 +259,39 @@ __global__ void __launch_bounds__(kInt8Warps * 32) dsag_int8_kernel(
       nps[row] = __float2bfloat16_rn(sp);
     }
     for (int64_t e = lane; e < b; e += 32) {
-      const float gv = g[at + e];
-      const float cf = __fmul_rn((float)cq[at + e], csf);
-      const float pf = __fmul_rn((float)pq[at + e], psf);
-      const int8_t q = quantize_one(cache_source(src, gv, cf, pf), sc);
+      float cf;
+      const int8_t q = quantize_one(w.cache(e, &cf), sc);
       ncq[at + e] = q;
       const float d = __fsub_rn(__fmul_rn((float)q, scb), cf);
       acc[e] = __fadd_rn(i == 0 ? 0.f : acc[e], d);
-      npq[at + e] = quantize_one(take ? gv : pf, sp);
+      npq[at + e] = quantize_one(w.pending(e), sp);
     }
   }
   for (int64_t e = lane; e < b; e += 32) nh[r * b + e] = __fadd_rn(h[r * b + e], acc[e]);
+}
+
+// the split form's first pass: one warp per row and group writes the absmax
+// of the group's new cache row and new pending row over this shard of it
+__global__ void __launch_bounds__(kInt8Warps * 32) dsag_int8_row_max_kernel(
+    const float* __restrict__ g, const int8_t* __restrict__ cq,
+    const __nv_bfloat16* __restrict__ cs, const int8_t* __restrict__ pq,
+    const __nv_bfloat16* __restrict__ ps, const uint8_t* __restrict__ code,
+    float* __restrict__ cmax_out, float* __restrict__ pmax_out, int64_t p, int64_t rows,
+    int64_t b) {
+  const int lane = threadIdx.x % 32;
+  const int64_t r = (int64_t)blockIdx.x * kInt8Warps + threadIdx.x / 32;
+  if (r >= rows) return;
+  for (int64_t i = 0; i < p; ++i) {
+    const int64_t row = i * rows + r;
+    float cmax, pmax;
+    int8_local_max(int8_row(g, cq, cs, pq, ps, code[i], row, b), b, lane, &cmax, &pmax);
+    cmax = warp_max(cmax);
+    pmax = warp_max(pmax);
+    if (lane == 0) {
+      cmax_out[row] = cmax;
+      pmax_out[row] = pmax;
+    }
+  }
 }
 
 }  // namespace
@@ -228,21 +302,38 @@ int dsag_int8_rows_per_block() { return kInt8Warps; }
 
 // int8 slots: g [p, rows, b] float32; cq, pq [p, rows, b] int8 with cs, ps
 // [p, rows] bf16 scales; h [rows, b] float32; code [p] uint8 (bits 0-1 the
-// cache row's source as in cache_source, bit 2: pending takes g); outputs
-// of the same shapes.  p >= 1 (the wrapper returns h itself for p = 0).
+// cache row's source as in cache_source, bit 2: pending takes g); cmax,
+// pmax null or [p, rows] float32 whole-row maxima (the split form); outputs
+// of the slots' and h's shapes.  p >= 1 (the wrapper returns h itself for
+// p = 0).
 int dsag_dsag_cache_update_int8(const float* g, const int8_t* cq, const void* cs,
                                 const int8_t* pq, const void* ps, const float* h,
-                                const uint8_t* code, int8_t* ncq, void* ncs, int8_t* npq,
-                                void* nps, float* nh, int64_t p, int64_t rows, int64_t b,
-                                int device, void* stream) {
+                                const uint8_t* code, const float* cmax, const float* pmax,
+                                int8_t* ncq, void* ncs, int8_t* npq, void* nps, float* nh,
+                                int64_t p, int64_t rows, int64_t b, int device, void* stream) {
   const DeviceGuard guard(device);
   cudaError_t err = guard.error();
   if (err != cudaSuccess) return (int)err;
   if (p <= 0 || rows <= 0 || b <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((rows + kInt8Warps - 1) / kInt8Warps);
   dsag_int8_kernel<<<blocks, kInt8Warps * 32, 0, (cudaStream_t)stream>>>(
-      g, cq, (const __nv_bfloat16*)cs, pq, (const __nv_bfloat16*)ps, h, code, ncq,
+      g, cq, (const __nv_bfloat16*)cs, pq, (const __nv_bfloat16*)ps, h, code, cmax, pmax, ncq,
       (__nv_bfloat16*)ncs, npq, (__nv_bfloat16*)nps, nh, p, rows, b);
+  return (int)cudaGetLastError();
+}
+
+// the split form's row maxima: inputs as above; cmax, pmax [p, rows] float32
+int dsag_dsag_int8_row_max(const float* g, const int8_t* cq, const void* cs, const int8_t* pq,
+                           const void* ps, const uint8_t* code, float* cmax, float* pmax,
+                           int64_t p, int64_t rows, int64_t b, int device, void* stream) {
+  const DeviceGuard guard(device);
+  cudaError_t err = guard.error();
+  if (err != cudaSuccess) return (int)err;
+  if (p <= 0 || rows <= 0 || b <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((rows + kInt8Warps - 1) / kInt8Warps);
+  dsag_int8_row_max_kernel<<<blocks, kInt8Warps * 32, 0, (cudaStream_t)stream>>>(
+      g, cq, (const __nv_bfloat16*)cs, pq, (const __nv_bfloat16*)ps, code, cmax, pmax, p, rows,
+      b);
   return (int)cudaGetLastError();
 }
 

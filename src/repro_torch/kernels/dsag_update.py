@@ -30,6 +30,16 @@ pending slot (kept or the gradient); ``h + Σ_i delta_i``, the groups summed
 in order first, as the reference does.  The plain version
 :func:`dsag_cache_update_int8_plain` quantizes through
 :func:`repro_torch.optim.compression.quantize`; the kernel is bit-equal to it.
+
+Its split form serves a device mesh, where the slots hold a shard of each
+row (the row's scale is the absmax of the whole row, as the reference's
+``_cache_like`` has it): :func:`dsag_int8_row_max` (a second kernel) writes
+each (group, row)'s absmax of the new cache and pending rows over the shard,
+the caller MAX-all-reduces them over the row's ranks, and
+``dsag_cache_update_int8(..., maxima=)`` scales each row by them.  A maximum
+is exact, so the split form is bit for bit the unsharded update whatever the
+split; plain twins :func:`dsag_int8_row_max_plain` and
+``dsag_cache_update_int8_plain(..., maxima=)``.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
-launch_counts = {"dsag_cache_update": 0, "dsag_cache_update_int8": 0}
+launch_counts = {"dsag_cache_update": 0, "dsag_cache_update_int8": 0, "dsag_int8_row_max": 0}
 
 _SLOT_DTYPES = (torch.float32, torch.bfloat16)
 #: elements from which K4 streams (one thread per element walks the groups):
@@ -129,31 +139,53 @@ KEEP, TAKE_G, TAKE_PENDING, ZERO = 0, 1, 2, 3
 TAKE_NEW = 4
 
 
-def _requantize(x: torch.Tensor):
-    """``(q [p, rows, b] int8, scale [p, rows] bf16)``: each row one block."""
-    from repro_torch.optim.compression import quantize
+def _requantize(x: torch.Tensor, absmax=None):
+    """``(q [p, rows, b] int8, scale [p, rows] bf16)``: each row one block;
+    with ``absmax`` [p, rows], each row's scale from that (the whole row's,
+    when ``x`` holds a shard of each row)."""
+    from repro_torch.optim.compression import quantize, quantize_rows
 
-    qx = quantize(x, block=x.shape[-1])
+    qx = (quantize(x, block=x.shape[-1]) if absmax is None
+          else quantize_rows(x, absmax, x.shape[-1]))
     return qx.q, qx.scale[..., 0]
 
 
-def dsag_cache_update_int8_plain(g, cq, cs, pq, ps, h, code):
-    """``(new_cq, new_cs, new_pq, new_ps, new_h)``: the int8 update in eager
-    torch (every select and quantization at once, then the deltas summed
-    over the groups in order and added to h)."""
+def _int8_sources(g, cq, cs, pq, ps, code):
+    """The int8 update's dequantized slots and the two rows it requantizes:
+    ``(cache, new cache row, new pending row)``, float32 ``[p, rows, b]``."""
     cf = cq.to(torch.float32) * cs.to(torch.float32)[..., None]
     pf = pq.to(torch.float32) * ps.to(torch.float32)[..., None]
     src = (code & 3).reshape(-1, 1, 1)
     zero = torch.zeros((), dtype=torch.float32, device=g.device)
     new = torch.where(src == TAKE_G, g,
                       torch.where(src == TAKE_PENDING, pf, torch.where(src == ZERO, zero, cf)))
-    new_cq, new_cs = _requantize(new)
+    take = (code & TAKE_NEW).reshape(-1, 1, 1) != 0
+    return cf, new, torch.where(take, g, pf)
+
+
+def dsag_int8_row_max_plain(g, cq, cs, pq, ps, code):
+    """``(cmax, pmax)`` [p, rows] float32: the absmax of each group's new
+    cache row and new pending row over this shard of the rows (the split
+    form's first pass; MAX-reduced over the row's shards, they are the
+    whole rows' absmax)."""
+    _, new, pend = _int8_sources(g, cq, cs, pq, ps, code)
+    return new.abs().amax(dim=-1), pend.abs().amax(dim=-1)
+
+
+def dsag_cache_update_int8_plain(g, cq, cs, pq, ps, h, code, maxima=None):
+    """``(new_cq, new_cs, new_pq, new_ps, new_h)``: the int8 update in eager
+    torch (every select and quantization at once, then the deltas summed
+    over the groups in order and added to h).  ``maxima = (cmax, pmax)``
+    [p, rows] gives each row's absmax (the split form: the slots hold a
+    shard of each row) instead of taking it over ``b``."""
+    cf, new, pend = _int8_sources(g, cq, cs, pq, ps, code)
+    cmax, pmax = maxima if maxima is not None else (None, None)
+    new_cq, new_cs = _requantize(new, cmax)
     delta = new_cq.to(torch.float32) * new_cs.to(torch.float32)[..., None] - cf
     acc = torch.zeros_like(h)
     for i in range(g.shape[0]):
         acc = acc + delta[i]
-    take = (code & TAKE_NEW).reshape(-1, 1, 1) != 0
-    new_pq, new_ps = _requantize(torch.where(take, g, pf))
+    new_pq, new_ps = _requantize(pend, pmax)
     return new_cq, new_cs, new_pq, new_ps, h + acc
 
 
@@ -171,10 +203,12 @@ def int8_shape_error(rows: int) -> str | None:
     return None
 
 
-def _check_int8(g, cq, cs, pq, ps, h, code) -> None:
+def _check_int8(g, cq, cs, pq, ps, h, code, maxima=None) -> None:
     """Raise unless the operands are what the int8 entry takes: contiguous
     ``[p, rows, b]`` float32 g and int8 slots, ``[p, rows]`` bfloat16
-    scales, ``[rows, b]`` float32 h and a ``[p]`` uint8 code, on one device."""
+    scales, ``[rows, b]`` float32 h (``None`` for the row-max pass), a
+    ``[p]`` uint8 code and, for the split form, ``[p, rows]`` float32
+    maxima, on one device."""
     if g.dim() != 3:
         raise ValueError(f"g: expected [p, rows, b], got {tuple(g.shape)}")
     p, rows, b = g.shape
@@ -184,32 +218,66 @@ def _check_int8(g, cq, cs, pq, ps, h, code) -> None:
         _require(t, what, torch.int8, (p, rows, b), dev)
     for t, what in ((cs, "cache scale"), (ps, "pending scale")):
         _require(t, what, torch.bfloat16, (p, rows), dev)
-    _require(h, "h", torch.float32, (rows, b), dev)
+    if h is not None:
+        _require(h, "h", torch.float32, (rows, b), dev)
     _require(code, "code", torch.uint8, (p,), dev)
+    for t, what in zip(maxima or (), ("cache row maxima", "pending row maxima")):
+        _require(t, what, torch.float32, (p, rows), dev)
     err = int8_shape_error(rows)
     if err:
         raise ValueError(err)
 
 
-def dsag_cache_update_int8(g, cq, cs, pq, ps, h, code):
-    """K4 over int8 slots; see the module docstring and
-    :func:`dsag_cache_update_int8_plain` (what CPU tensors take).  Returns
-    new tensors; the inputs are not modified.  ``p == 0`` returns the slots
-    and ``h`` unchanged (copies)."""
-    if _on_cpu(g, cq, cs, pq, ps, h, code):
-        return dsag_cache_update_int8_plain(g, cq, cs, pq, ps, h, code)
-    _check_int8(g, cq, cs, pq, ps, h, code)
+def dsag_int8_row_max(g, cq, cs, pq, ps, code):
+    """The split form's first pass (kernel ``dsag_int8_row_max_kernel``):
+    ``(cmax, pmax)`` [p, rows] float32, each group's new cache row's and
+    new pending row's absmax over this shard of the rows; see
+    :func:`dsag_int8_row_max_plain` (what CPU tensors take)."""
+    if _on_cpu(g, cq, cs, pq, ps, code):
+        return dsag_int8_row_max_plain(g, cq, cs, pq, ps, code)
+    _check_int8(g, cq, cs, pq, ps, None, code)
     p, rows, b = g.shape
-    outs = (torch.empty_like(cq), torch.empty_like(cs), torch.empty_like(pq),
-            torch.empty_like(ps), torch.empty_like(h))
+    maxima = torch.empty((2, p, rows), dtype=torch.float32, device=g.device)
+    if p == 0 or rows == 0:
+        return maxima[0], maxima[1]
+    if b == 0:
+        maxima.zero_()
+        return maxima[0], maxima[1]
+    dev = g.device
+    _build.launch(
+        "dsag_dsag_int8_row_max",
+        *(t.data_ptr() for t in (g, cq, cs, pq, ps, code)), maxima[0].data_ptr(),
+        maxima[1].data_ptr(), p, rows, b, dev.index or 0, _stream(dev),
+    )
+    _build.count_launch(launch_counts, "dsag_int8_row_max",
+                        cost=lambda: kernel_costs.dsag_int8_row_max_cost(p, rows, b))
+    return maxima[0], maxima[1]
+
+
+def dsag_cache_update_int8(g, cq, cs, pq, ps, h, code, maxima=None):
+    """K4 over int8 slots; see the module docstring and
+    :func:`dsag_cache_update_int8_plain` (what CPU tensors take).  With
+    ``maxima = (cmax, pmax)`` (the split form: each row's absmax over all
+    its shards, from :func:`dsag_int8_row_max` and a MAX all-reduce) the
+    kernel scales each row by those instead of its own warp's maximum.
+    Returns new tensors; the inputs are not modified.  ``p == 0`` returns
+    the slots and ``h`` unchanged (copies)."""
+    if _on_cpu(g, cq, cs, pq, ps, h, code, *(maxima or ())):
+        return dsag_cache_update_int8_plain(g, cq, cs, pq, ps, h, code, maxima)
+    _check_int8(g, cq, cs, pq, ps, h, code, maxima)
+    p, rows, b = g.shape
     if p == 0 or rows == 0 or b == 0:
         return cq.clone(), cs.clone(), pq.clone(), ps.clone(), h.clone()
+    outs = (torch.empty_like(cq), torch.empty_like(cs), torch.empty_like(pq),
+            torch.empty_like(ps), torch.empty_like(h))
+    cmax, pmax = (t.data_ptr() for t in maxima) if maxima is not None else (None, None)
     dev = g.device
     _build.launch(
         "dsag_dsag_cache_update_int8",
-        *(t.data_ptr() for t in (g, cq, cs, pq, ps, h, code) + outs),
-        p, rows, b, dev.index or 0, _stream(dev),
+        *(t.data_ptr() for t in (g, cq, cs, pq, ps, h, code)), cmax, pmax,
+        *(t.data_ptr() for t in outs), p, rows, b, dev.index or 0, _stream(dev),
     )
     _build.count_launch(launch_counts, "dsag_cache_update_int8",
-                        cost=lambda: kernel_costs.dsag_cache_update_int8_cost(p, rows, b))
+                        cost=lambda: kernel_costs.dsag_cache_update_int8_cost(
+                            p, rows, b, split=maxima is not None))
     return outs

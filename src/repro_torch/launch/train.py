@@ -42,17 +42,20 @@ Usage:
       --checkpoint-dir ckpt [--restore]
 
 On a device mesh (``TrainerOptions(mesh=)``: a ``DeviceMesh`` with the
-axes ``("data", "model")``, one trainer per rank, run through
-``repro_torch.launch.mesh.RankPool``) a model-zoo arch trains with the
-reference's sharding: one DSAG group per data rank, parameters placed by
-``Model.param_specs(fsdp)``, the step of ``core/dsag_pjit.py``'s mesh
-branch; every rank runs the same Tier-2 controller on the same draws, so
-their decisions agree.  The paper problems ignore the mesh, as the
-reference's trainer does.  What a mesh does not run is refused with
-``mesh-not-ported`` before any launch: the MoE family, the ``zero`` and
-``none`` group layouts, int8 slots, adafactor, and checkpoints of a mesh
-trainer (``restore_checkpoint(shardings=)`` restores a state onto a mesh).
-An arch the registry does not hold is refused with :data:`CAP_ARCH`.
+axes ``("data", "model")`` or ``("pod", "data", "model")``, one trainer
+per rank, run through ``repro_torch.launch.mesh.RankPool``) a model-zoo
+arch trains with the reference's sharding: groups laid out by
+``tc.dsag_groups`` (``dp``, ``pod``, ``zero``, ``none``; ``dsag=False``),
+parameters placed by ``Model.param_specs(fsdp)``, the step of
+``core/dsag_pjit.py``'s mesh branch, which takes the global batch and
+keeps each rank's groups and its slice of each group's batch; every rank
+runs the same Tier-2 controller on the same draws, so their decisions
+agree.  Checkpoints of a mesh trainer are the unsharded trainer's files
+(gathered, rank 0 writes), restored onto the mesh with the train state's
+specs.  The paper problems ignore the mesh, as the reference's trainer
+does.  The MoE family is refused on a mesh with ``mesh-not-ported`` before
+any launch.  An arch the registry does not hold is refused with
+:data:`CAP_ARCH`.
 """
 
 from __future__ import annotations
@@ -66,25 +69,29 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.checkpoint.checkpoint import train_state_from_tree, train_state_tree
+from repro_torch.checkpoint.checkpoint import (
+    mesh_train_state_from_tree,
+    mesh_train_state_tree,
+    state_shardings,
+    train_state_from_tree,
+    train_state_tree,
+)
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.dsag_pjit import (
     GroupSpec,
-    check_mesh_step,
     init_mesh_train_state,
     init_train_state,
     make_group_spec,
     make_train_step,
+    train_state_specs,
 )
 from repro_torch.data import make_batch_iterator
 from repro_torch.experiments.engine import (
     CAP_ARCH,
-    CAP_MESH,
     EngineCapabilityError,
     EngineConfig,
     engine_capability,
-    refuse,
 )
 from repro_torch.ft.runtime import DeadlineController, FailureDetector
 from repro_torch.ft.validation import trace_latency_fn
@@ -168,11 +175,10 @@ class Trainer:
             param_specs = None
             if opts.mesh is not None:
                 check_mesh(cfg)
-                check_mesh_step(tc, self.gs, opts.mesh)
-                if opts.checkpoint_dir:
-                    raise refuse(CAP_MESH, "checkpoints of a mesh trainer")
                 set_mesh(opts.mesh)
                 param_specs = self.model.param_specs(tc.fsdp)
+                #: the train state's specs: a mesh checkpoint's layout
+                self.state_specs = train_state_specs(tc, self.gs, param_specs)
             if opts.global_batch % self.gs.num_groups:
                 raise ValueError(f"global batch {opts.global_batch} not divisible by "
                                  f"{self.gs.num_groups} DSAG groups")
@@ -240,20 +246,31 @@ class Trainer:
         return init_train_state(params, self.opts.train_config, self.gs, self.layout)
 
     def _tree(self, state):
-        """What a checkpoint holds: a model's state as the reference's tree."""
+        """What a checkpoint holds: a model's state as the reference's tree
+        (on a mesh, of ``DTensor`` leaves laid out by the state's specs)."""
+        if self.opts.mesh is not None:
+            return mesh_train_state_tree(state, self.step_fn.layouts, self.state_specs,
+                                         self.opts.mesh)
         return state if self.layout is None else train_state_tree(state, self.layout)
 
     def maybe_restore(self, state):
         """``(state, first step)``: the newest checkpoint's state and the
-        step after it when ``restore`` is set and one exists."""
+        step after it when ``restore`` is set and one exists (on a mesh,
+        each rank's shards of it, as the reference's ``restore_latest(state,
+        state_shardings)``)."""
         if self.ckpt is None or not self.opts.restore:
             return state, 0
-        restored, step = self.ckpt.restore_latest(self._tree(state))
+        mesh = self.opts.mesh
+        shardings = None if mesh is None else state_shardings(self.state_specs, mesh)
+        restored, step = self.ckpt.restore_latest(self._tree(state), shardings)
         if restored is None:
             return state, 0
-        if self.layout is not None:
+        if mesh is not None:
+            restored = mesh_train_state_from_tree(restored, self.step_fn.layouts)
+        elif self.layout is not None:
             restored = train_state_from_tree(restored, self.layout)
-        print(f"[train] restored checkpoint at step {step}")
+        if self._rank == 0:
+            print(f"[train] restored checkpoint at step {step}")
         return restored, step + 1
 
     def batch_on_device(self, batch):

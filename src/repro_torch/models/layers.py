@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.sharding import P, local_shape, placements
+from repro_torch.models.sharding import P, local_shape, placements, shard_batch
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -329,8 +329,11 @@ def layernorm_decls(dim: int, axis: str = "embed2") -> dict[str, ParamDecl]:
 
 def layernorm(params, x, eps: float) -> torch.Tensor:
     """LayerNorm in float32 over the last dim: the population variance
-    (``jnp.var``'s; torch's default would be the unbiased one)."""
+    (``jnp.var``'s; torch's default would be the unbiased one).  On a mesh
+    its input is made whole along the last dim first: a mean over a split
+    dim is a ``Partial(avg)``, whose backward DTensor cannot take."""
     dt = x.dtype
+    x = shard_batch(x, *([None] * (x.dim() - 1)))
     x = x.to(torch.float32)
     mean = torch.mean(x, dim=-1, keepdim=True)
     var = torch.var(x, dim=-1, keepdim=True, correction=0)

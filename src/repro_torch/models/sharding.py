@@ -10,9 +10,10 @@ names, and tensors as DTensors whose placements come from the specs
 (:func:`placements`).
 
 Groups and batches lie on the data-parallel axes (``pod``, ``data``): a
-DSAG group's batch, gradient and cache slot live on its data rank, and a
-served batch is split over them.  So a rank computes its own group or
-batch slice on the *compute mesh*, the sub-mesh of the other axes
+DSAG group's batch is split over the data-parallel ranks its group axes
+leave (``core/dsag_pjit.py``), and a served batch is split over them.  So
+a rank computes its own group or batch slice on the *compute mesh*, the
+sub-mesh of the other axes
 (``model``; :func:`compute_mesh`), and a spec's data-parallel entries are
 carried by the rank itself.  :func:`shard` therefore maps a spec onto the
 mesh a tensor lies on and skips the axes that mesh does not have: on the
@@ -23,12 +24,17 @@ a no-op, so the same model code runs everywhere, as in the reference.
 
 A kernel takes raw pointers and refuses a ``DTensor``: its callers hand it
 the rank's local shard (``models/attention.py`` for K6, ``core/dsag_pjit.py``
-for K4).
+for K4).  The mesh step's own reductions run here: :func:`sum_to` (a sum
+over some axes, laid out by another spec), :func:`all_reduce_over` and
+:func:`all_reduce_max` over the axes :func:`dim_axes` names (a row's axes
+for int8 slots' row maxima, a reduced dim's for adafactor's means).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any
 
 import torch
@@ -174,13 +180,74 @@ def compute_mesh(mesh):
 def dp_coordinate(mesh) -> tuple[int, int]:
     """``(index, count)`` of this rank along the mesh's data-parallel axes
     (the first one major)."""
+    return coordinate(mesh, tuple(a for a in _names(mesh) if a in DP_AXES))
+
+
+def coordinate(mesh, axes) -> tuple[int, int]:
+    """``(index, count)`` of this rank along the mesh axes ``axes`` (in the
+    mesh's order, the first one major); ``(0, 1)`` for none."""
     idx, count = 0, 1
     for a in _names(mesh):
-        if a in DP_AXES:
+        if a in axes:
             size = mesh.size(_names(mesh).index(a))
             idx = idx * size + mesh.get_local_rank(a)
             count *= size
     return idx, count
+
+
+def dim_axes(spec, dim: int, mesh) -> tuple[str, ...]:
+    """The axes of ``mesh`` that split tensor dim ``dim`` (negative from the
+    end of a tensor of ``len(spec)`` dims) of a tensor laid out by ``spec``;
+    a row's axes are ``dim_axes(spec, -1, mesh)``."""
+    entries = tuple(spec)
+    if dim < 0:
+        dim += len(entries)
+    if not 0 <= dim < len(entries):
+        return ()
+    return tuple(a for a in _entry_axes(entries[dim]) if a in _names(mesh)
+                 and mesh.size(_names(mesh).index(a)) > 1)
+
+
+def spec_axes(spec, mesh) -> tuple[str, ...]:
+    """Every axis of ``mesh`` (of size > 1) that splits some dim of ``spec``."""
+    return tuple(a for d in range(len(tuple(spec))) for a in dim_axes(spec, d, mesh))
+
+
+_site = threading.local()
+
+
+@contextlib.contextmanager
+def collective_site(name: str):
+    """Name the site of the collectives this thread dispatches inside:
+    ``analysis/cost.py::count_cost`` counts them under ``name`` in its
+    ``coll_site_*`` (free when nothing counts)."""
+    prev = getattr(_site, "name", None)
+    _site.name = name
+    try:
+        yield
+    finally:
+        _site.name = prev
+
+
+def collective_site_name() -> str | None:
+    """The innermost :func:`collective_site` of this thread, or None."""
+    return getattr(_site, "name", None)
+
+
+def all_reduce_over(t: torch.Tensor, mesh, axes, op=None) -> torch.Tensor:
+    """``t`` reduced in place over the ranks that differ only along the mesh
+    axes ``axes`` (a sum, or ``op``, e.g. ``ReduceOp.MAX``): one all-reduce
+    per axis, each over that axis's group; a no-op for no axes."""
+    op = torch.distributed.ReduceOp.SUM if op is None else op
+    for a in axes:
+        torch.distributed.all_reduce(t, op=op, group=mesh.get_group(a))
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t``'s elementwise maximum over the ranks along ``axes``, in place:
+    exact, whatever the order (int8 slots' row maxima across a row's shards)."""
+    return all_reduce_over(t, mesh, axes, torch.distributed.ReduceOp.MAX)
 
 
 def local_shape(shape, spec, mesh) -> tuple[int, ...]:
@@ -306,6 +373,19 @@ def partial_sum(local: torch.Tensor, mesh, spec, over: tuple[str, ...]) -> DTens
     for a in over:
         pl[_names(mesh).index(a)] = Partial()
     return DTensor.from_local(local, mesh, pl, run_check=False)
+
+
+def sum_to(local: torch.Tensor, mesh, spec, over: tuple[str, ...], target) -> torch.Tensor:
+    """This rank's shard, laid out by ``target``, of the sum over the mesh
+    axes ``over`` of every rank's ``local`` (laid out by ``spec``): an
+    all-reduce over an axis ``target`` replicates (``pod`` for a ``pod``
+    group's H), a reduce-scatter over one it splits (``data`` under FSDP);
+    ``local`` itself (no copy) when there is nothing to sum or move."""
+    src = placements(spec, mesh)
+    want = placements(target, mesh)
+    if not over and src == want:
+        return local
+    return partial_sum(local, mesh, spec, over).redistribute(mesh, want).to_local()
 
 
 def write_slice(dst, dim: int, start: int, src) -> None:

@@ -9,6 +9,11 @@ while the stored scale, and so :func:`dequantize`, is that scale rounded to
 **bfloat16**.  The divisions are tensor by tensor, because CUDA turns a
 division by a Python number into a product with its reciprocal.
 
+On a device mesh a row may be split over ranks (a DSAG slot of a
+column-parallel or FSDP-split leaf): :func:`quantize_rows` quantizes a
+rank's part of each row with the whole row's absmax, reduced over the
+row's shards by the caller.
+
 The trees of this package are dicts of tensors (the live trainer holds one
 parameter tensor per slot), so :func:`quantize_tree` and
 :func:`dequantize_tree` map over nested dicts.
@@ -58,6 +63,17 @@ def quantize(x: torch.Tensor, block: int = DEFAULT_BLOCK) -> Quantized:
     q = torch.clamp(torch.round(shaped / scale), -127, 127).to(torch.int8)
     q = q.reshape(*shaped.shape[:-2], -1)[..., :n]  # stored at the original length
     return Quantized(q=q, scale=scale[..., 0].to(torch.bfloat16), block=block)
+
+
+def quantize_rows(x: torch.Tensor, absmax: torch.Tensor, block: int) -> Quantized:
+    """:func:`quantize` of a shard of rows (``x`` [..., b], the rank's part
+    of each row of ``block`` elements) given each whole row's ``absmax``
+    [...] (float32, from every shard of the row): the same payload and
+    scales as quantizing the whole rows, since each element depends only on
+    its value and its row's scale."""
+    scale = _scale_f32(absmax.to(torch.float32))[..., None]
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127).to(torch.int8)
+    return Quantized(q=q, scale=scale.to(torch.bfloat16), block=block)
 
 
 def dequantize(qx: Quantized, dtype=torch.bfloat16) -> torch.Tensor:

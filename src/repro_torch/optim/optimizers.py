@@ -87,13 +87,33 @@ def adamw(lr: float, beta1: float = 0.9, beta2: float = 0.95, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
+class LocalMeans:
+    """The means adafactor takes over one leaf that is whole on this rank:
+    ``torch.mean`` itself.  On a device mesh a leaf is a shard, and its
+    means also sum over the ranks that split the reduced dim
+    (``core/dsag_pjit.py::MeshMeans``)."""
+
+    def mean(self, x: torch.Tensor, dim: int, pdim: int, keepdim: bool = False):
+        """``x``'s mean over its ``dim``, which is the parameter's ``pdim``."""
+        return x.mean(dim=dim, keepdim=keepdim)
+
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` (laid out as the parameter) over all of it."""
+        return torch.mean(x)
+
+
 def adafactor(lr: float, decay: float = 0.99, eps: float = 1e-30, weight_decay: float = 0.0,
-              clip_threshold: float = 1.0, layout=None) -> Optimizer:
+              clip_threshold: float = 1.0, layout=None, means=None) -> Optimizer:
     """Factored second-moment optimizer (Shazeer & Stern), no first moment.
 
     With ``layout`` the parameters are a flat tensor of that layout: every
     leaf keeps its own statistics (a tree, as the reference's) and its own
-    RMS clip, and the update is written into the leaf's span."""
+    RMS clip, and the update is written into the leaf's span.  ``means(path)``
+    gives a leaf's means (:class:`LocalMeans` without it): on a mesh the
+    layout holds this rank's shards, and the row and column means of the
+    squared gradient, ``r_factor``'s mean of ``vr`` and the RMS clip sum
+    over the ranks that split the dim they reduce."""
+    local = LocalMeans()
 
     def _factored(shape) -> bool:
         return len(shape) >= 2
@@ -105,13 +125,13 @@ def adafactor(lr: float, decay: float = 0.99, eps: float = 1e-30, weight_decay: 
         return ({"vr": z(shape[:-1]), "vc": z(shape[:-2] + shape[-1:])}
                 if _factored(shape) else {"v": z(shape)})
 
-    def leaf_update(g, s, p):
+    def leaf_update(g, s, p, m=local):
         g = g.to(torch.float32)
         g2 = torch.square(g) + eps
         if _factored(g.shape):
-            vr = decay * s["vr"] + (1 - decay) * g2.mean(dim=-1)
-            vc = decay * s["vc"] + (1 - decay) * g2.mean(dim=-2)
-            r_factor = torch.rsqrt(vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30))
+            vr = decay * s["vr"] + (1 - decay) * m.mean(g2, -1, -1)
+            vc = decay * s["vc"] + (1 - decay) * m.mean(g2, -2, -2)
+            r_factor = torch.rsqrt(vr / torch.clamp(m.mean(vr, -1, -2, keepdim=True), min=1e-30))
             c_factor = torch.rsqrt(vc)
             u = g * r_factor[..., None] * c_factor[..., None, :]
             new_s = {"vr": vr, "vc": vc}
@@ -120,7 +140,7 @@ def adafactor(lr: float, decay: float = 0.99, eps: float = 1e-30, weight_decay: 
             u = g * torch.rsqrt(v)
             new_s = {"v": v}
         # update clipping (RMS)
-        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+        rms = torch.sqrt(m.mean_all(torch.square(u)) + 1e-30)
         u = u / torch.clamp(rms / clip_threshold, min=1.0)
         return -lr * (u + weight_decay * p.to(torch.float32)), new_s
 
@@ -143,7 +163,8 @@ def adafactor(lr: float, decay: float = 0.99, eps: float = 1e-30, weight_decay: 
         stats = {}
         for x, g, p, u in zip(layout.leaves, layout.views(grads), layout.views(params),
                               layout.views(upd)):
-            leaf_u, leaf_s = leaf_update(g, get_path(state["stats"], x.path), p)
+            leaf_u, leaf_s = leaf_update(g, get_path(state["stats"], x.path), p,
+                                         local if means is None else means(x.path))
             u.copy_(leaf_u)
             set_path(stats, x.path, leaf_s)
         return upd, {"stats": stats, "step": step}
@@ -151,13 +172,15 @@ def adafactor(lr: float, decay: float = 0.99, eps: float = 1e-30, weight_decay: 
     return Optimizer(init, update)
 
 
-def make_optimizer(tc: TrainConfig, layout=None) -> Optimizer:
+def make_optimizer(tc: TrainConfig, layout=None, means=None) -> Optimizer:
     """``tc``'s optimizer; ``layout`` when the parameters are a flat tensor of
-    a :class:`~repro_torch.models.layers.FlatLayout` (only adafactor reads it)."""
+    a :class:`~repro_torch.models.layers.FlatLayout`, and ``means`` a leaf's
+    means on a mesh (only adafactor reads them)."""
     if tc.optimizer == "adamw":
         return adamw(tc.learning_rate, tc.beta1, tc.beta2, tc.eps, tc.weight_decay)
     if tc.optimizer == "adafactor":
-        return adafactor(tc.learning_rate, weight_decay=tc.weight_decay, layout=layout)
+        return adafactor(tc.learning_rate, weight_decay=tc.weight_decay, layout=layout,
+                         means=means)
     if tc.optimizer == "sgd":
         return sgd(tc.learning_rate, momentum=tc.beta1, weight_decay=tc.weight_decay)
     raise ValueError(f"unknown optimizer {tc.optimizer}")

@@ -199,3 +199,123 @@ def kernels_refuse_dtensors(shape):
         except TypeError as e:
             out.append(str(e))
     return out
+
+
+def state_by_path(tree) -> dict:
+    """A train-state tree (the reference's layout; ``DTensor`` leaves
+    gathered, every rank taking part) as numpy by checkpoint path, bf16
+    widened to float32."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.models.sharding import full
+
+    out = {}
+    for path, leaf in _flatten_with_paths(tree):
+        t = full(leaf).detach()
+        out[path] = np.asarray(t.float() if t.dtype == torch.bfloat16 else t)
+    return out
+
+
+def layout_run(arch: str, tc: TrainConfig, shape, batches, masks, seed: int = 0):
+    """The mesh step of ``arch``'s float32 smoke model under ``tc`` on a
+    ``shape`` mesh, from the seeded init, over ``batches`` / ``masks``; the
+    last step runs under ``count_cost``.  Rank 0 returns each step's
+    metrics and train state by checkpoint path (gathered), and the counted
+    step's collectives by site."""
+    from repro_torch.analysis.cost import count_cost
+    from repro_torch.checkpoint.checkpoint import mesh_train_state_tree
+    from repro_torch.core.dsag_pjit import train_state_specs
+
+    mesh = make_test_mesh(shape, device_type="cpu")
+    set_mesh(mesh)
+    try:
+        cfg, model = smoke_model(arch, "float32")
+        gs = make_group_spec(tc, mesh)
+        specs = model.param_specs(tc.fsdp)
+        step = make_train_step(lambda p, b: model.train_loss(p, b, remat=tc.remat), tc, gs,
+                               mesh, specs, backend="torch", layout=model.layout)
+        state = init_mesh_train_state(model.init(torch.Generator().manual_seed(seed)), tc, gs,
+                                      step.layouts, mesh)
+        out, states, held = [], [], {}
+        for i, (batch, bits) in enumerate(zip(batches, masks)):
+            args = ({k: torch.as_tensor(v) for k, v in batch.items()},
+                    *(torch.as_tensor(x) for x in bits))
+            if i == len(batches) - 1:
+                cost = count_cost(lambda: held.update(out=step(state, *args)))
+                state, met = held.pop("out")
+            else:
+                state, met = step(state, *args)
+            out.append({k: np.asarray(v.detach()) for k, v in met.items()})
+            states.append(state_by_path(mesh_train_state_tree(
+                state, step.layouts, train_state_specs(tc, gs, specs), mesh)))
+        if torch.distributed.get_rank() != 0:
+            return None
+        return out, states, dict(cost.coll_site_wire_bytes)
+    finally:
+        set_mesh(None)
+
+
+def checkpoint_resume(arch: str, tc: TrainConfig, shape, batches, masks, directory: str,
+                      restore_from: str | None = None):
+    """A mesh ``Trainer``'s checkpoints.  Its step runs ``batches`` /
+    ``masks`` through; the state after half of them is saved by the
+    trainer's manager (gathered; rank 0 writes), restored by
+    ``maybe_restore`` (each rank's shards, by the state's specs) and run on.
+    ``Trainer.run`` also saves through its own loop.  Rank 0 returns whether
+    every rank's resumed state equals its uninterrupted state bit for bit,
+    the checkpoint's path, the saved state by path and, with
+    ``restore_from`` (an unsharded trainer's checkpoint directory), the
+    state restored from there by path."""
+    from repro_torch.experiments.engine import EngineConfig
+    from repro_torch.launch.train import Trainer, TrainerOptions
+
+    mesh = make_test_mesh(shape, device_type="cpu")
+    try:
+        half = len(batches) // 2
+        trn = Trainer(TrainerOptions(arch=arch, steps=half, dtype="float32", mesh=mesh,
+                                     train_config=tc, log_every=10**6,
+                                     checkpoint_dir=directory, restore=True,
+                                     engine=EngineConfig(device="cpu", kernel_backend="torch")))
+
+        def run(state, lo, hi):
+            for batch, bits in zip(batches[lo:hi], masks[lo:hi]):
+                state, _ = trn.step_fn(state, {k: torch.as_tensor(v) for k, v in batch.items()},
+                                       *(torch.as_tensor(x) for x in bits))
+            return state
+
+        state = run(trn.init_state(), 0, half)
+        trn.ckpt.save(half - 1, trn._tree(state), blocking=True)
+        saved = state_by_path(trn._tree(state))
+        whole = run(state, half, len(batches))
+        restored, start = trn.maybe_restore(trn.init_state())
+        resumed = run(restored, start, len(batches))
+        same = start == half and all(
+            torch.equal(a, b) for a, b in zip(_tensors(whole), _tensors(resumed)))
+        same = torch.tensor([int(same)])
+        torch.distributed.all_reduce(same, op=torch.distributed.ReduceOp.MIN)
+        trn.opts.restore = False
+        trn.ckpt = type(trn.ckpt)(directory + "/loop")
+        hist = trn.run()  # the loop's own saves (every rank gathers, rank 0 writes)
+        other = None
+        if restore_from is not None:
+            trn.opts.restore = True
+            trn.ckpt = type(trn.ckpt)(restore_from)
+            back, _ = trn.maybe_restore(trn.init_state())
+            other = state_by_path(trn._tree(back))
+        if torch.distributed.get_rank() != 0:
+            return None
+        return bool(same.item()), len(hist["loss"]), saved, other
+    finally:
+        set_mesh(None)
+
+
+def _tensors(tree):
+    from repro_torch.optim.compression import Quantized
+
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensors(tree[k])
+    elif isinstance(tree, Quantized):
+        yield tree.q
+        yield tree.scale
+    else:
+        yield tree

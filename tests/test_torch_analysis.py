@@ -406,6 +406,9 @@ def _kernel_calls(rng, fakes):
     calls["dsag_cache_update_int8"] = (lambda: dsag_update.dsag_cache_update_int8(
         f32(4, 2, 8), q8, s8, q8, s8, f32(2, 8), torch.ones(4, dtype=torch.uint8)),
         roofline.dsag_cache_update_int8_cost(4, 2, 8))
+    calls["dsag_int8_row_max"] = (lambda: dsag_update.dsag_int8_row_max(
+        f32(4, 2, 8), q8, s8, q8, s8, torch.ones(4, dtype=torch.uint8)),
+        roofline.dsag_int8_row_max_cost(4, 2, 8))
     q = f32(2, 4, 64, 64).to(torch.bfloat16)
     calls["flash_attention"] = (lambda: flash_attention.flash_attention_op(q, q, q),
                                 roofline.flash_attention_cost(2, 4, 4, 64, 64, 64, True, q.dtype))

@@ -273,8 +273,33 @@ def test_production_meshes_over_a_fake_world():
 
 
 def test_what_is_not_a_mesh_and_what_a_mesh_does_not_run_are_refused():
+    """What stays refused: an object that is not a mesh, the MoE family, a
+    projected (PCA) step, group axes off the data axes.  Every group layout
+    of ``make_group_spec`` (``dp``, ``pod``, ``zero``, ``none``, and
+    ``dsag=False``) with bf16, float32 or int8 slots and adamw or adafactor
+    is one a mesh step runs (``tests/test_torch_mesh_layouts.py`` runs
+    them)."""
+    from repro_torch.core.dsag_pjit import check_mesh_step
+
     with pytest.raises(TypeError, match="DeviceMesh"):
         make_group_spec(TrainConfig(), mesh=object())
+    meshes = [MeshConfig((2, 4), ("data", "model")), MeshConfig((2, 2, 2), ("pod", "data", "model"))]
+    for mesh in meshes:
+        for groups in ("dp", "pod", "zero", "none"):
+            for dsag in (True, False):
+                for dt in ("bfloat16", "float32", "int8"):
+                    for opt in ("adamw", "adafactor"):
+                        tc = TrainConfig(dsag=dsag, dsag_groups=groups, dsag_cache_dtype=dt,
+                                         optimizer=opt, dsag_num_groups=2)
+                        check_mesh_step(tc, make_group_spec(tc, mesh), _SizedMesh(mesh))
+    with pytest.raises(EngineCapabilityError) as e:
+        check_mesh_step(TrainConfig(), GroupSpec(2, ("model",)), _SizedMesh(meshes[0]))
+    assert e.value.capability.code == CAP_MESH
+    with pytest.raises(EngineCapabilityError) as e:
+        make_train_step(lambda p, b: 0.0, TrainConfig(), GroupSpec(2, ("data",)),
+                        mesh=meshes[0], param_specs={}, project_fn=lambda v: v,
+                        layout=object())
+    assert e.value.capability.code == CAP_MESH and "PCA" in str(e.value)
     for arch in ("grok-1-314b", "deepseek-v2-236b"):
         with pytest.raises(EngineCapabilityError) as e:
             check_mesh(get_config(arch))
@@ -282,6 +307,20 @@ def test_what_is_not_a_mesh_and_what_a_mesh_does_not_run_are_refused():
     for arch in ARCHS:
         if not get_config(arch).num_experts:
             check_mesh(get_config(arch))
+
+
+class _SizedMesh:
+    """A :class:`MeshConfig` with the ``DeviceMesh`` calls the group
+    geometry reads (every coordinate 0)."""
+
+    def __init__(self, cfg):
+        self.mesh_dim_names, self.shape = tuple(cfg.axes), tuple(cfg.shape)
+
+    def size(self, i):
+        return self.shape[i]
+
+    def get_local_rank(self, axis):
+        return 0
 
 
 # -- runs on a (2, 4) gloo mesh -----------------------------------------------------------------

@@ -356,9 +356,12 @@ def test_launch_counters_stay_zero_on_cpu():
     dsag_update.dsag_cache_update_int8(torch.randn(2, 1, 5), q.q, q.scale[..., 0], q.q,
                                        q.scale[..., 0], torch.zeros(1, 5),
                                        torch.tensor([1, 6], dtype=torch.uint8))
+    dsag_update.dsag_int8_row_max(torch.randn(2, 1, 5), q.q, q.scale[..., 0], q.q,
+                                  q.scale[..., 0], torch.tensor([1, 6], dtype=torch.uint8))
     assert launch_counts() == {"logreg_block_sub": 0, "pca_block_sub": 0, "grid_cache_update": 0,
                                "dsag_cache_update": 0, "dsag_cache_update_int8": 0,
-                               "gram_matvec": 0, "flash_attention": 0, "what_if_replay": 0}
+                               "dsag_int8_row_max": 0, "gram_matvec": 0, "flash_attention": 0,
+                               "what_if_replay": 0}
 
 
 def test_wrappers_on_cpu_take_the_plain_versions():
