@@ -277,7 +277,8 @@ Phases (any failure raises and the script exits non-zero):
    collectives of one step per rank (``count_cost``: kinds, calls and
    ring-model wire bytes); (b) the same in float32 at 2 layers with float32
    slots, held tight; (c) serving: ``Server(mesh=)`` prefill and 4 decode
-   steps (:data:`MESH_SERVE`), bf16 at full depth and float32 at 2 layers,
+   steps (:data:`MESH_SERVE`), bf16 at :data:`MESH_SERVE_BF16_LAYERS` of 24
+   layers (cut to make room for phase 19) and float32 at 2 layers,
    against the unsharded ``Server``: every K6 call (each rank's 8 local
    heads) held on its own inputs against the plain attention, the prefill
    logits within :data:`MESH_TOL`, the float32 tokens equal; every rank's K4
@@ -288,7 +289,8 @@ Phases (any failure raises and the script exits non-zero):
    port on the same groups, inputs and ``TrainConfig``, computed first in
    this process), :data:`LAYOUT_RUNS`: (a) the reference's above-50 B
    configuration (adafactor, int8 slots, ``zero`` groups, P = 2) on (2, 2),
-   bf16 at full depth (:data:`MESH_TOL`'s bf16 bounds) and float32 at 2
+   bf16 at :data:`LAYOUT_BF16_LAYERS` of 24 layers (cut to make room for
+   phase 19; :data:`MESH_TOL`'s bf16 bounds) and float32 at 2
    layers (float32 bounds; after the first step ``filled`` and
    ``pending_valid`` equal; per int8 slot leaf every element within one
    step of the unsharded port's, but for a share of each leaf on the
@@ -309,7 +311,43 @@ Phases (any failure raises and the script exits non-zero):
    split form (the row-max kernel and the update given maxima) at the
    largest split local shape of (a), each against its plain twin, timed
    beside its bound;
-19. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+19. the MoE family on a mesh: grok-1-314b (its 8 experts ffn-sharded: each
+   ``model`` rank a share of every expert's hidden dim, the
+   down-projection's partial sums all-reduced) and deepseek-v2-236b (160
+   experts expert-parallel, 80 per rank, the outputs all-gathered; MLA) on
+   (data=2, model=2), four ranks on the card over gloo, each run against the
+   unsharded port on the same weights and inputs, computed first in this
+   process and freed before the ranks start.  (a) ``Server(mesh=)`` at
+   published widths, 2 layers in bf16 and 1 in float32
+   (:data:`MOE_SERVE_F32_FIELDS`: in float32 the experts' hidden width
+   halved and grok-1's vocab cut, to fit four ranks on the card), :data:`MOE_SERVE` (16 prompts: the configs'
+   ``moe_dispatch_chunks``, whole chunks on each data rank), prefill and 2
+   decode steps: every K6 call of grok-1's prefill held on its own inputs
+   against the plain attention; in float32 every token's experts equal the
+   unsharded run's and the logits within :data:`MESH_TOL`; in bf16 the
+   logits' gap and the share of flipped routes printed; (b) one full-width
+   MoE layer of each, bf16, :data:`MOE_LAYER_TRAFFIC` (one dispatch chunk
+   over both data ranks: its expert choices all-gathered), forward and
+   backward on the unsharded layer's routes (:class:`RouteForcer`; at most
+   :data:`MOE_FLIP_CAP` of the mesh's own may differ): the output, the aux,
+   ``x``'s gradient and the router's and experts' gradients within
+   :data:`MOE_MESH_BF16_TOL`; the experts' collective counted once forward
+   and once backward; seconds, peak memory and wire bytes by kind and site
+   per rank; (c) the
+   production DSAG mesh step at reduced widths (:data:`MOE_REDUCED`,
+   0.35-0.4 B parameters each, float32), :data:`MOE_LAYOUT_RUNS`: adafactor,
+   int8 slots, ``zero`` groups, P = 2, FSDP on (2, 2) for both, and ``pod``
+   groups with float32 slots (K4) on (pod=2, data=2, model=1) for
+   deepseek-v2, phase 18's checks and bounds but the gathered whole-row
+   comparison (for time), the mesh on the unsharded run's routes (at most
+   :data:`MOE_FLIP_CAP` of its own differing in a step), and the int8 slots after
+   the first step are held within one step but for :data:`MOE_SPREAD_MULT`
+   times the share a one-ulp nudge of the parameters moves in the
+   unsharded port (its attention scores are near one-hot at random init);
+   (d) K6 at grok-1's
+   rank-local prefill shape and K4-int8's split form at (c)'s largest split
+   expert shard, each against its plain twin, timed beside its bound;
+20. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -318,6 +356,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3722,6 +3761,11 @@ def free_cuda(torch) -> None:
     import gc
 
     gc.collect()
+    # cuBLAS's workspaces live in the caching allocator: a small one left in
+    # a large segment keeps the whole segment reserved
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
     torch.cuda.empty_cache()
 
 
@@ -4032,6 +4076,9 @@ MESH_TRAIN = (4, 256)
 MESH_MASKS = ((True, True), (True, False))
 #: (c): prompts, prompt length, generated tokens (prefill + 4 decode steps)
 MESH_SERVE = (4, 512, 5)
+#: (c): the bf16 server's decoder layers (of 24), cut to make room for
+#: phase 19 in the script's time
+MESH_SERVE_BF16_LAYERS = 4
 #: the bounds of each comparison with the unsharded port (PERF.md states
 #: them and why, written before the first run): bf16 at full depth sums the
 #: TP partial products in bf16 over 48 reduction sites and adamw normalizes
@@ -4255,11 +4302,13 @@ def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
     prompts = stub_batch(cfg, b, s, seed=7)
     with tempfile.TemporaryDirectory(prefix="mesh") as tmp:
         runs = {"a": ("bfloat16", None), "b": ("float32", 2)}
+        serve_runs = {"a": ("bfloat16", MESH_SERVE_BF16_LAYERS), "b": ("float32", 2)}
         want_train, want_serve = {}, {}
         t0 = time.perf_counter()
         for label, (dtype, layers) in runs.items():
             free_cuda(torch)
             want_train[label] = mesh_unsharded_train(torch, dtype, layers, f"{tmp}/{label}.pt")
+        for label, (dtype, layers) in serve_runs.items():
             free_cuda(torch)
             want_serve[label] = mesh_unsharded_serve(torch, dtype, layers, prompts, n_tok)
         free_cuda(torch)
@@ -4276,7 +4325,7 @@ def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
                 res[f"train_{label}"] = mesh_train_check(label, dtype, layers, got,
                                                          want_train[label], launches, smi)
                 res[f"train_{label}"]["phase_s"] = time.perf_counter() - t0
-            for label, (dtype, layers) in runs.items():
+            for label, (dtype, layers) in serve_runs.items():
                 t0 = time.perf_counter()
                 got = pool.run(mesh_serve_rank, dtype, layers, prompts, n_tok)
                 res[f"serve_{label}"] = mesh_serve_check(torch, label, dtype, layers, got,
@@ -4397,10 +4446,13 @@ def mesh_serve_check(torch, label: str, dtype: str, layers, got: list, want: dic
 PROD_TC = dict(fsdp=True, dsag=True, remat="full")
 LAYOUT_A = dict(PROD_TC, optimizer="adafactor", dsag_cache_dtype="int8", dsag_groups="zero",
                 dsag_num_groups=2)
+#: phase 18's bf16 run's decoder layers (of 24), cut to make room for phase
+#: 19 in the script's time
+LAYOUT_BF16_LAYERS = 4
 #: phase 18's runs of qwen1.5-0.5b at full width: label -> (mesh shape,
 #: TrainConfig fields, groups, dtype, decoder layers (None: all 24))
 LAYOUT_RUNS = {
-    "a bf16": ((2, 2), LAYOUT_A, 2, "bfloat16", None),
+    "a bf16": ((2, 2), LAYOUT_A, 2, "bfloat16", LAYOUT_BF16_LAYERS),
     "a f32": ((2, 2), LAYOUT_A, 2, "float32", 2),
     "b pod": ((2, 2, 1), dict(PROD_TC, dsag_cache_dtype="int8", dsag_groups="pod"), 2,
               "float32", 2),
@@ -4428,10 +4480,17 @@ CKPT_FLUSH = ((False, False), (False, True))
 
 
 def _layout(label: str):
+    """A phase-18 or phase-19 (c) run: ``(mesh shape, TrainConfig, groups,
+    dtype, arch, the config function that cuts it, a depth label, phase)``."""
     from repro_torch.configs.base import TrainConfig
 
+    if label in MOE_LAYOUT_RUNS:
+        shape, fields, groups, dtype, arch = MOE_LAYOUT_RUNS[label]
+        return (shape, TrainConfig(**fields), groups, dtype, arch, moe_reduced_config,
+                "reduced widths", 19)
     shape, fields, groups, dtype, layers = LAYOUT_RUNS[label]
-    return shape, TrainConfig(**fields), groups, dtype, layers
+    depth = "full depth" if layers is None else f"{layers} layers"
+    return shape, TrainConfig(**fields), groups, dtype, MESH_ARCH, _cut_config(layers), depth, 18
 
 
 def _dsag_state(tree) -> dict:
@@ -4449,34 +4508,69 @@ def layouts_unsharded(torch, label: str, path: str) -> dict:
     """A phase-18 run's yardstick: the unsharded port's step on the card
     (the same config, groups, inputs and masks); its final parameters saved
     to ``path`` and, in float32, its DSAG state after the first step to
-    ``path.state1``; each step's metrics."""
+    ``path.state1``, an MoE's routes (per step, every ``route`` call's) to
+    ``path.routes``; each step's metrics."""
     import dataclasses
 
     from repro_torch.checkpoint.checkpoint import train_state_tree
     from repro_torch.core.dsag_pjit import GroupSpec, init_train_state, make_train_step
     from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
 
-    _, tc, groups, dtype, layers = _layout(label)
-    cfg = dataclasses.replace(_cut_config(layers)(MESH_ARCH), dtype=dtype)
+    _, tc, groups, dtype, arch, cut, _, _ = _layout(label)
+    cfg = dataclasses.replace(cut(arch), dtype=dtype)
     model = build_model(cfg)
     gs = GroupSpec(groups, ())
     step = make_train_step(lambda p, b: model.train_loss(p, b, remat=tc.remat), tc, gs,
                            backend="cuda", layout=model.layout)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = init_train_state(model.layout.flatten(model.init(gen)), tc, gs, model.layout)
-    out = []
-    for batch, mask in zip(mesh_batches(torch, cfg, groups), LAYOUT_MASKS[groups]):
-        m = torch.tensor(mask, device="cuda")
-        state, met = step(state, {k: torch.as_tensor(v).cuda() for k, v in batch.items()},
-                          m, torch.zeros_like(m), torch.zeros_like(m))
-        out.append({k: v.detach().cpu().numpy().tolist() for k, v in met.items()})
-        if dtype == "float32" and len(out) == 1:
-            torch.save(_dsag_state(train_state_tree(state, model.layout)),
-                       path + ".state1")
+    out, rec = [], RouteRecorder(moe_mod)
+    with mock.patch.object(moe_mod, "route", rec):
+        for batch, mask in zip(mesh_batches(torch, cfg, groups), LAYOUT_MASKS[groups]):
+            m = torch.tensor(mask, device="cuda")
+            state, met = step(state, {k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                              m, torch.zeros_like(m), torch.zeros_like(m))
+            out.append({k: v.detach().cpu().numpy().tolist() for k, v in met.items()})
+            rec.step()
+            if dtype == "float32" and len(out) == 1:
+                torch.save(_dsag_state(train_state_tree(state, model.layout)),
+                           path + ".state1")
     torch.save({k: v.cpu() for k, v in _paths(model.layout.tree(state["params"], cast=True))},
                path)
+    torch.save(rec.steps, path + ".routes")
     del state
-    return {"metrics": out}
+    witness = spread = None
+    if label in MOE_LAYOUT_RUNS:
+        # the same steps again from parameters one ulp up: the unsharded
+        # port's own float32 spread (losses, parameters, int8 slots after the
+        # first step), the witness beside MESH_TOL in layouts_train_check
+        params = model.layout.flatten(model.init(torch.Generator(device="cuda").manual_seed(0)))
+        nudged = init_train_state(torch.nextafter(params, torch.full_like(params, math.inf)),
+                                  tc, gs, model.layout)
+        del params
+        loss_spread = []
+        for i, (batch, mask) in enumerate(zip(mesh_batches(torch, cfg, groups),
+                                              LAYOUT_MASKS[groups])):
+            m = torch.tensor(mask, device="cuda")
+            nudged, met = step(nudged, {k: torch.as_tensor(v).cuda() for k, v in batch.items()},
+                               m, torch.zeros_like(m), torch.zeros_like(m))
+            loss_spread.append(max(float(np.max(np.abs(
+                np.asarray(met[k].detach().cpu()) - np.asarray(out[i][k]))
+                / np.abs(np.asarray(out[i][k])))) for k in ("loss", "per_group_loss")))
+            if i == 0 and tc.dsag_cache_dtype == "int8":
+                torch.save(_dsag_state(train_state_tree(nudged, model.layout)), path + ".state1n")
+        want = torch.load(path)
+        d2 = n2 = 0.0
+        for k, v in _paths(model.layout.tree(nudged["params"], cast=True)):
+            w = want[k].cuda().float()
+            d2 += float(((v.float() - w) ** 2).sum())
+            n2 += float((w ** 2).sum())
+        spread = {"loss": loss_spread, "params": (d2 / n2) ** 0.5}
+        del nudged, want
+        if tc.dsag_cache_dtype == "int8":
+            witness = int8_one_ulp_witness(torch, path)
+    return {"metrics": out, "witness": witness, "spread": spread}
 
 
 class Int8LaunchChecks:
@@ -4601,17 +4695,19 @@ def layouts_train_rank(label: str, want_path: str, ckpt_dir: str | None = None) 
     from repro_torch.experiments.engine import EngineConfig
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import sharding
     from repro_torch.models.layers import get_path
 
-    shape, tc, groups, dtype, layers = _layout(label)
+    free_cuda(torch)  # the last task's cached blocks: the card is shared
+    shape, tc, groups, dtype, arch, cut, _, _ = _layout(label)
     int8 = tc.dsag and tc.dsag_cache_dtype == "int8"
     masks = LAYOUT_MASKS[groups]
     mesh = make_test_mesh(shape, device_type="cuda")
     try:
-        with mock.patch.object(train_mod, "get_config", _cut_config(layers)):
+        with mock.patch.object(train_mod, "get_config", cut):
             trn = train_mod.Trainer(train_mod.TrainerOptions(
-                arch=MESH_ARCH, smoke=False, global_batch=MESH_TRAIN[0], seq_len=MESH_TRAIN[1],
+                arch=arch, smoke=False, global_batch=MESH_TRAIN[0], seq_len=MESH_TRAIN[1],
                 dtype=dtype, mesh=mesh, train_config=tc, log_every=10**6,
                 checkpoint_dir=ckpt_dir, restore=ckpt_dir is not None,
                 engine=EngineConfig(device="cuda", kernel_backend="cuda")))
@@ -4621,14 +4717,21 @@ def layouts_train_rank(label: str, want_path: str, ckpt_dir: str | None = None) 
         batches = [trn.batch_on_device(b) for b in mesh_batches(
             torch, trn.cfg, groups, len(masks) + (len(CKPT_MASKS) if ckpt_dir else 0))]
         metrics, seconds, check_s, states, cost = [], [], [], {}, None
-        with Int8LaunchChecks(trn, mesh) as checks:
+        # an MoE takes the unsharded run's routes (its own are counted)
+        forcer = RouteForcer(moe_mod, rank_routes(torch.load(want_path + ".routes"), groups, L)) \
+            if label in MOE_LAYOUT_RUNS else None
+        with Int8LaunchChecks(trn, mesh) as checks, mock.patch.object(
+                moe_mod, "route", forcer or moe_mod.route):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
             for i, mask in enumerate(masks):
                 m = torch.tensor(mask, device=dev)
                 args = (batches[i], m, torch.zeros_like(m), torch.zeros_like(m))
-                checks.gather = dtype == "float32" and i == len(masks) - 1
+                # the whole-row comparison on gathered rows: phase 18's (its
+                # host gathers of every split row are too slow for phase 19)
+                checks.gather = (dtype == "float32" and i == len(masks) - 1
+                                 and label not in MOE_LAYOUT_RUNS)
                 t0, c0 = time.perf_counter(), checks.seconds
                 if i == 1:
                     held = {}
@@ -4640,6 +4743,8 @@ def layouts_train_rank(label: str, want_path: str, ckpt_dir: str | None = None) 
                 check_s.append(checks.seconds - c0)
                 seconds.append(time.perf_counter() - t0 - check_s[-1])
                 metrics.append({k: v.detach().cpu().numpy().tolist() for k, v in met.items()})
+                if forcer is not None:
+                    forcer.step()
                 if i == 0 and dtype == "float32" and int8:
                     states = int8_slots_against(torch, trn, state, mesh, want_path + ".state1")
             counts = launch_counts()
@@ -4659,10 +4764,26 @@ def layouts_train_rank(label: str, want_path: str, ckpt_dir: str | None = None) 
                 "coll_wire": cost.coll_wire_bytes, "coll_sites": cost.coll_site_wire_bytes,
                 "d2": d2, "n2": n2, "rank": torch.distributed.get_rank(),
                 "int8_launches": checks.log, "states": states,
+                "route_flips": forcer.flips if forcer else None,
+                "route_tokens": forcer.tokens if forcer else None,
+                "inner": L.inner, "groups": [L.rows.start, L.rows.stop],
                 "ckpt": None if ckpt_dir is None else checkpoint_resume(
                     torch, trn, state, batches[len(masks):], len(masks), ckpt_dir, groups)}
     finally:
         sharding.set_mesh(None)
+
+
+def rank_routes(steps: list, groups: int, L) -> list:
+    """Per step, the unsharded run's ``route`` calls (``steps``: each
+    group's calls in turn) that a rank of layouts ``L`` makes: its groups'
+    calls, each cut to the rank's slice of the group's batch."""
+    out = []
+    for calls in steps:
+        per = len(calls) // groups
+        out.append([c.reshape(L.n_inner, -1, c.shape[-1])[L.inner]
+                    for g in range(L.rows.start, L.rows.stop)
+                    for c in calls[g * per:(g + 1) * per]])
+    return out
 
 
 def checkpoint_resume(torch, trn, state, batches: list, done: int, directory: str,
@@ -4754,48 +4875,106 @@ def int8_slots_against(torch, trn, state, mesh, path: str) -> dict:
     atol = INT8_ATOL * float(top)
     leaves = {}
     for leaf, ga, gs, wa, ws, rep in pairs:
-        sc = gs.maximum(ws)
-        step = (sc + 127 * torch_exp2_floor(sc) / 128.0) * (1 + 1e-6)
-        steps = ((ga - wa).abs() - atol).clamp_min(0) / step
-        name = "/".join(k.strip("[]'") for k in leaf.strip("/").split("/")[1:])
-        leaves[name] = [float((steps > 1).sum()) / rep, steps.numel() / rep, float(steps.max())]
+        steps = int8_steps_apart(ga, gs, wa, ws, atol)
+        leaves[int8_leaf_name(leaf)] = [float((steps > 1).sum()) / rep, steps.numel() / rep,
+                                        float(steps.max())]
     return {**out, "leaves": leaves}
 
 
-def layouts_states_check(label: str, got: list) -> dict:
+def int8_leaf_name(leaf: str) -> str:
+    """An int8 slot leaf's name (``cache/blocks/attn/wq``) from its state path."""
+    return "/".join(k.strip("[]'") for k in leaf.strip("/").split("/")[1:])
+
+
+def int8_steps_apart(ga, gs, wa, ws, atol: float):
+    """Two int8 slots' dequantized values ``ga``, ``wa`` (row scales ``gs``,
+    ``ws``) apart, in steps of the larger row scale (plus 127 bf16 ulps of
+    it: a row whose absmax moves by float32 rounding may round to the
+    neighbouring bf16 scale), beyond ``atol``."""
+    sc = gs.maximum(ws)
+    step = (sc + 127 * torch_exp2_floor(sc) / 128.0) * (1 + 1e-6)
+    return ((ga - wa).abs() - atol).clamp_min(0) / step
+
+
+def int8_one_ulp_witness(torch, path: str) -> dict:
+    """Per int8 slot leaf, the share of elements more than one step apart
+    between the unsharded port's state after step 1 (``path.state1``) and
+    the same step from parameters one ulp up (``path.state1n``): how far
+    float32 rounding alone moves each leaf's gradient."""
+    a, b = torch.load(path + ".state1"), torch.load(path + ".state1n")
+    deq = {}
+    for qp in (p for p in a if p.endswith("[<flat index 0>]")):
+        leaf = qp[:-len("[<flat index 0>]")]
+        sp = leaf + "[<flat index 1>]"
+        deq[leaf] = tuple((t[qp].cuda().float() * t[sp].cuda().float(), t[sp].cuda().float())
+                          for t in (a, b))
+    atol = INT8_ATOL * max(float(max(x.abs().max(), y.abs().max()))
+                           for (x, _), (y, _) in deq.values())
+    return {int8_leaf_name(leaf): float((int8_steps_apart(x, xs, y, ys, atol) > 1).float().mean())
+            for leaf, ((x, xs), (y, ys)) in deq.items()}
+
+
+def layouts_states_check(label: str, got: list, witness: dict | None = None) -> dict:
     """(a)/(b) in float32: the ranks' :func:`int8_slots_against` after the
     first step: the flags equal everywhere; per int8 slot leaf, every
     element within one step of the unsharded port's, but for at most
     :data:`INT8_SCORE_PATH_SHARE` of each leaf on the attention scores' path
     (:data:`INT8_SCORE_PATH`: at random init the scores are near one-hot
     and these gradients ill-conditioned, so the mesh's float32 rounding
-    moves a few of their elements by several steps; see PERF.md).  A fault
+    moves a few of their elements by several steps; see PERF.md) and, with
+    ``witness`` (phase 19 (c): :func:`int8_one_ulp_witness`), at most
+    :data:`MOE_SPREAD_MULT` times the share that a one-ulp nudge of the
+    parameters moves beyond one step in the unsharded port itself.  A fault
     of the layout (a wrong shard, group, mean or scale) moves most of a
     leaf's elements."""
+    phase = _layout(label)[-1]
+    witness = witness or {}
     if not all(r["states"]["flags_equal"] for r in got):
-        fail(f"phase 18 ({label}): filled/pending_valid differ from the unsharded port's")
+        fail(f"phase {phase} ({label}): filled/pending_valid differ from the unsharded port's")
     leaves = {}
     for r in got:
         for leaf, (beyond, total, worst) in r["states"]["leaves"].items():
             b, t, w = leaves.get(leaf, (0.0, 0.0, 0.0))
             leaves[leaf] = (b + beyond, t + total, max(w, worst))
     def allowed(leaf, total):
-        return INT8_SCORE_PATH_SHARE * total if leaf.endswith(INT8_SCORE_PATH) else 0
+        score = INT8_SCORE_PATH_SHARE if leaf.endswith(INT8_SCORE_PATH) else 0.0
+        return max(score, MOE_SPREAD_MULT * witness.get(leaf, 0.0)) * total
 
     over = {leaf: v for leaf, v in leaves.items() if v[0] > allowed(leaf, v[1])}
     beyond = {leaf: v for leaf, v in leaves.items() if v[0]}
     rest = max((v[2] for k, v in leaves.items() if k not in beyond), default=0.0)
     print(f"      after step 1, int8 slot elements more than one step from the unsharded "
           f"port's, per leaf (share, worst steps; at most {INT8_SCORE_PATH_SHARE} on the "
-          f"scores' path, none elsewhere): "
+          f"scores' path, none elsewhere"
+          + (f", or {MOE_SPREAD_MULT} x the unsharded port's one-ulp share" if witness else "")
+          + "): "
           + ("; ".join(f"{leaf} {v[0]:.0f} of {v[1]:.0f} ({v[0] / v[1]:.2g}, {v[2]:.3g})"
                        for leaf, v in sorted(beyond.items())) or "none")
-          + f"; every other leaf's worst {rest:.3g} steps")
+          + f"; every other leaf's worst {rest:.3g} steps"
+          + ("; the one-ulp witness's non-zero shares: " + ", ".join(
+              f"{k} {v:.2g}" for k, v in sorted(witness.items()) if v) if witness else ""))
     if over:
-        fail(f"phase 18 ({label}): int8 slot leaves beyond one step of the unsharded port's "
+        fail(f"phase {phase} ({label}): int8 slot leaves beyond one step of the unsharded port's "
              f"after step 1 (beyond, elements, worst steps): {over}")
     return {"step1_beyond_one_step": {k: list(v) for k, v in beyond.items()},
-            "step1_worst_steps": max(v[2] for v in leaves.values())}
+            "step1_worst_steps": max(v[2] for v in leaves.values()),
+            "step1_one_ulp_witness": witness}
+
+
+def layout_route_flips(got: list) -> tuple[list[int], list[int]]:
+    """Per step, an MoE run's token routes (the forward's and the remat
+    recomputation's) whose own experts differ from the unsharded run's, and
+    the routes compared: each (inner coordinate, groups) once."""
+    seen, flips, tokens = set(), None, None
+    for r in got:
+        key = (r["inner"], tuple(r["groups"]))
+        if r["route_flips"] is None or key in seen:
+            continue
+        seen.add(key)
+        flips = [a + b for a, b in zip(flips or [0] * len(r["route_flips"]), r["route_flips"])]
+        tokens = [a + b for a, b in zip(tokens or [0] * len(r["route_tokens"]),
+                                        r["route_tokens"])]
+    return flips or [], tokens or []
 
 
 def torch_exp2_floor(x):
@@ -4806,31 +4985,46 @@ def torch_exp2_floor(x):
 
 
 def layouts_train_check(label: str, got: list, want: dict, launches: dict, smi: str) -> dict:
-    """Hold one phase-18 run's ranks against the unsharded run."""
-    shape, tc, groups, dtype, layers = _layout(label)
+    """Hold one phase-18 (or 19 (c)) run's ranks against the unsharded run.
+    An MoE's mesh run took the unsharded run's routes (:class:`RouteForcer`):
+    the share of its own that differ (near-ties that the mesh's float32
+    rounding decides the other way) is held under :data:`MOE_FLIP_CAP` per
+    step, and every value at :data:`MESH_TOL`'s bound plus
+    :data:`MOE_SPREAD_MULT` times the unsharded port's own spread under a
+    one-ulp nudge of its parameters (``want["spread"]``: at these reduced
+    widths adafactor's first update moves the second step by more than
+    1e-5 from rounding alone)."""
+    shape, tc, groups, dtype, arch, _, depth, phase = _layout(label)
     key = "bf16" if dtype == "bfloat16" else "f32"
-    tol_loss, tol_params = MESH_TOL[f"{key}_loss"], MESH_TOL[f"{key}_params"]
+    spread = want.get("spread") or {"loss": [0.0] * len(want["metrics"]), "params": 0.0}
+    tol_loss = [MESH_TOL[f"{key}_loss"] + MOE_SPREAD_MULT * x for x in spread["loss"]]
+    tol_params = MESH_TOL[f"{key}_params"] + MOE_SPREAD_MULT * spread["params"]
     r0 = got[0]
+    flips, routes = layout_route_flips(got)
+    if any(f > MOE_FLIP_CAP * n for f, n in zip(flips, routes)):
+        fail(f"phase {phase} ({label}): token routes whose own experts differ from the "
+             f"unsharded run's, per step, {flips} of {routes} (more than {MOE_FLIP_CAP})")
     worst = 0.0
     for step, (g, w) in enumerate(zip(r0["metrics"], want["metrics"])):
         for r in got[1:]:
             if r["metrics"][step] != g:
-                fail(f"phase 18 ({label}): rank {r['rank']}'s metrics differ from rank 0's")
+                fail(f"phase {phase} ({label}): rank {r['rank']}'s metrics differ from rank 0's")
         if g["xi"] != w["xi"] or g["mask_count"] != w["mask_count"]:
-            fail(f"phase 18 ({label}): step {step}: xi/mask count {g['xi']}/{g['mask_count']} "
+            fail(f"phase {phase} ({label}): step {step}: xi/mask count {g['xi']}/{g['mask_count']} "
                  f"!= {w['xi']}/{w['mask_count']}")
         for k in ("loss", "per_group_loss"):
             a, bb = np.asarray(g[k]), np.asarray(w[k])
             rel = float(np.max(np.abs(a - bb) / np.abs(bb)))
             worst = max(worst, rel)
-            if not np.all(np.isfinite(a)) or rel > tol_loss:
-                fail(f"phase 18 ({label}): step {step} {k} {a} against {bb} (rel {rel:.3g} > "
-                     f"{tol_loss})")
+            if not np.all(np.isfinite(a)) or rel > tol_loss[step]:
+                fail(f"phase {phase} ({label}): step {step} {k} {a} against {bb} (rel {rel:.3g} > "
+                     f"{tol_loss[step]:.3g})")
     params_rms = (sum(r["d2"] for r in got) / sum(r["n2"] for r in got)) ** 0.5
     if not params_rms <= tol_params:
-        fail(f"phase 18 ({label}): parameters' relative RMS {params_rms:.3g} > {tol_params}")
-    states = layouts_states_check(label, got) if dtype == "float32" and tc.dsag and (
-        tc.dsag_cache_dtype == "int8") else {}
+        fail(f"phase {phase} ({label}): parameters' relative RMS {params_rms:.3g} > "
+             f"{tol_params:.3g}")
+    states = layouts_states_check(label, got, want.get("witness")) if dtype == "float32" and (
+        tc.dsag and tc.dsag_cache_dtype == "int8") else {}
     counts = {k: [r["counts"][k] for r in got]
               for k in ("dsag_cache_update", "dsag_cache_update_int8", "dsag_int8_row_max",
                         "flash_attention")}
@@ -4840,24 +5034,30 @@ def layouts_train_check(label: str, got: list, want: dict, launches: dict, smi: 
     gathered = [sum(1 for x in r["int8_launches"] if x[4]) for r in got]
     bad = [(r["rank"], x[2], x[3]) for r in got for x in r["int8_launches"] if x[3]]
     if bad:
-        fail(f"phase 18 ({label}): K4-int8 launches not held: {bad[:4]}")
+        fail(f"phase {phase} ({label}): K4-int8 launches not held: {bad[:4]}")
     if any(counts["flash_attention"]) or (
             counts["dsag_cache_update"] != [0 if int8 or not tc.dsag else steps] * len(got)) or (
             int8 and (not all(counts["dsag_int8_row_max"]) or split != counts["dsag_int8_row_max"]
                       or counts["dsag_cache_update_int8"] != [len(r["int8_launches"])
                                                              for r in got])) or (
             not int8 and any(counts["dsag_cache_update_int8"] + counts["dsag_int8_row_max"])):
-        fail(f"phase 18 ({label}): launches per rank {counts}, split K4-int8 held {split}")
+        fail(f"phase {phase} ({label}): launches per rank {counts}, split K4-int8 held {split}")
     for k in ("dsag_cache_update", "dsag_cache_update_int8", "dsag_int8_row_max"):
         launches[k] = launches.get(k, 0) + sum(counts[k])
-    depth = "full depth" if layers is None else f"{layers} layers"
     wire = r0["coll_wire"]
-    print(f"  ({label}) {MESH_ARCH} {dtype}, {depth}, mesh {shape}, {tc.dsag_groups} groups "
+    print(f"  ({label}) {arch} {dtype}, {depth}, mesh {shape}, {tc.dsag_groups} groups "
           f"(P = {groups}), dsag={tc.dsag}, {tc.optimizer}, {tc.dsag_cache_dtype} slots ({smi}): "
           f"losses {[round(m['loss'], 6) for m in r0['metrics']]} (unsharded "
           f"{[round(m['loss'], 6) for m in want['metrics']]}; worst rel {worst:.3g} <= "
-          f"{tol_loss}); xi {[m['xi'] for m in r0['metrics']]}; parameters' relative RMS "
-          f"{params_rms:.3g} <= {tol_params}; launches per rank {counts} (K4-int8 held on "
+          f"{[float(f'{x:.3g}') for x in tol_loss]} per step); xi "
+          f"{[m['xi'] for m in r0['metrics']]}; parameters' relative RMS {params_rms:.3g} <= "
+          f"{tol_params:.3g}"
+          + (f" (MESH_TOL + {MOE_SPREAD_MULT} x the unsharded port's one-ulp spread: losses "
+             f"{[float(f'{x:.3g}') for x in spread['loss']]}, parameters "
+             f"{spread['params']:.3g})" if want.get("spread") else "") + "; "
+          + (f"own routes differing from the unsharded run's per step {flips} of {routes} "
+             f"(<= {MOE_FLIP_CAP}; the unsharded run's taken); " if routes else "")
+          + f"launches per rank {counts} (K4-int8 held on "
           f"every row: the split form's {split} against the plain twin given the row maxima "
           f"over the slot spec's row axes, {gathered} also against the whole-row update on "
           f"the gathered rows); local slots {r0['k4_shape']} (store n = "
@@ -4881,7 +5081,9 @@ def layouts_train_check(label: str, got: list, want: dict, launches: dict, smi: 
             "step_s": [r["seconds"] for r in got], "check_s": [r["check_s"] for r in got],
             "peak_bytes": [r["peak"] for r in got],
             "coll_counts": r0["coll_counts"], "coll_wire_bytes": wire,
-            "coll_site_wire_bytes": r0["coll_sites"], "int8_split_shapes": shapes[:3], **states}
+            "coll_site_wire_bytes": r0["coll_sites"], "int8_split_shapes": shapes[:3],
+            "route_flips_per_step": flips, "routes_per_step": routes,
+            "one_ulp_spread": want.get("spread"), **states}
 
 
 def run_layouts(torch, smi: str) -> tuple[dict, dict, list]:
@@ -4946,6 +5148,596 @@ def checkpoint_check(ck: list) -> dict:
           f"{ck[0]['leaves']} leaves equal to the gathered mesh state")
     return {"resumed_equal": True, "unsharded_equal": True, "leaves": ck[0]["leaves"],
             "save_s": ck[0]["save_s"], "restore_s": [r["restore_s"] for r in ck]}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the MoE family on a mesh
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("grok-1-314b", "deepseek-v2-236b")
+MOE_MESH = (2, 2)
+#: (a): requests (the configs' ``moe_dispatch_chunks``: one request per
+#: chunk, eight whole chunks on each data rank), prompt tokens, generated
+#: tokens (prefill + 2 decode steps: each step of four ranks through gloo
+#: takes 1.6-5.4 s, so the script keeps its time)
+MOE_SERVE = (16, 512, 3)
+#: (a): label -> (dtype, decoder layers)
+MOE_SERVE_RUNS = {"bf16": ("bfloat16", 2), "f32": ("float32", 1)}
+#: (a) in float32: fields replaced besides the depth.  Four ranks of one
+#: full-width layer hold its FSDP shards (the model once over the four), a
+#: degathered half each (twice) and gloo's staging of a gathered leaf (two
+#: copies): past the card's 80 GB for grok-1 (26 GB in float32) and
+#: deepseek-v2 (20 GB).  So the experts' hidden width is halved and grok-1's
+#: vocab cut to a quarter; d_model, the router, the attention (K6's shapes)
+#: and the expert count, top-k and mode stay published
+MOE_SERVE_F32_FIELDS = {"grok-1-314b": {"vocab_size": 32768, "d_ff_expert": 16384},
+                        "deepseek-v2-236b": {"d_ff_expert": 768}}
+#: (a) in float32 the logits, (c) the losses and parameters, are held within
+#: MESH_TOL's bound plus this many times the unsharded port's own change
+#: under a one-ulp nudge of every parameter (``tests/test_torch_registry.py``'s
+#: rule), (c)'s int8 slots within this many times its share: at random init a
+#: stack of one or two layers draws its weights with std 1 or 0.707 (the
+#: reference's fan-in is the layer count), so float32 rounding moves
+#: deepseek-v2's logits past 1e-4 of their largest (2.19e-4 between the mesh
+#: and the unsharded port, every route equal, in an H100 run) and, through
+#: adafactor's first update, (c)'s second step past 1e-5 (3.38e-4 for grok-1
+#: on the same routes), while a layout fault moves them by O(1)
+MOE_SPREAD_MULT = 4
+#: (b): sequences x tokens of one full-width MoE layer, and the gradient
+#: rows held: the first this many of each expert leaf's d_model dim
+MOE_LAYER_TRAFFIC = (4, 256)
+MOE_GRAD_ROWS = 256
+#: (b): the bf16 bound of the mesh layer against the unsharded one, of each
+#: tensor's largest value: the ffn mode sums its two ranks' bf16 partial
+#: products (one more bf16 rounding than the unsharded product)
+MOE_MESH_BF16_TOL = MOE_BWD_TOL
+#: (b), (c): the most token routes of a step whose own experts may differ
+#: from the unsharded run's (near-ties that the mesh's reduction order
+#: decides the other way: 0.1 % in (b) in bf16, up to 2.4 % in (c) after
+#: adafactor's first update, in H100 runs); a layout fault that moves routes
+#: moves most of them.  Below it the mesh takes the unsharded run's routes
+#: (:class:`RouteForcer`), so every value is held at its bound
+MOE_FLIP_CAP = 0.05
+#: (c): the reduced widths (PERF.md §4): ~0.35-0.4 B parameters (the
+#: ``pod`` run holds a whole float32 copy per rank: model = 1), each arch's
+#: structure kept (grok-1: 8 experts, top-2, GQA; deepseek-v2: MLA with its
+#: published head dims and kv rank, 160 routed experts, top-6, 2 shared);
+#: ``moe_dispatch_chunks`` by the reference's rule, the DP degree (2)
+MOE_REDUCED = {
+    "grok-1-314b": dict(num_layers=2, d_model=2048, num_heads=16, num_kv_heads=4,
+                        vocab_size=16384, d_ff_expert=3072, moe_dispatch_chunks=2),
+    "deepseek-v2-236b": dict(num_layers=2, d_model=2048, num_heads=16, num_kv_heads=16,
+                             vocab_size=16384, d_ff_expert=128, moe_dispatch_chunks=2),
+}
+#: (c): label -> (mesh shape, TrainConfig fields, groups, dtype, arch)
+MOE_LAYOUT_RUNS = {
+    "grok zero": ((2, 2), LAYOUT_A, 2, "float32", "grok-1-314b"),
+    "deepseek zero": ((2, 2), LAYOUT_A, 2, "float32", "deepseek-v2-236b"),
+    "deepseek pod": ((2, 2, 1), dict(PROD_TC, dsag_cache_dtype="float32", dsag_groups="pod"), 2,
+                     "float32", "deepseek-v2-236b"),
+}
+
+
+def moe_reduced_config(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), **MOE_REDUCED[arch])
+
+
+def moe_serve_cut(dtype: str, layers: int):
+    """(a)'s config function: ``layers`` decoder layers (and, in float32,
+    :data:`MOE_SERVE_F32_FIELDS`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    def cut(arch):
+        fields = MOE_SERVE_F32_FIELDS.get(arch, {}) if dtype == "float32" else {}
+        return dataclasses.replace(get_config(arch), num_layers=layers, **fields)
+
+    return cut
+
+
+class RouteRecorder:
+    """Records each ``route`` call's expert indices ``[tokens, k]`` (on the
+    host, outside any ``count_cost``), in call order; :meth:`step` closes a
+    training step's calls into :attr:`steps`."""
+
+    def __init__(self, moe_mod):
+        self.real, self.calls, self.steps = moe_mod.route, [], []
+
+    def __call__(self, cfg, params, tokens):
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        out = self.real(cfg, params, tokens)
+        with _disable_current_modes():
+            self.calls.append(out[2].reshape(-1, cfg.top_k).cpu())
+        return out
+
+    def step(self) -> None:
+        self.steps.append(self.calls)
+        self.calls = []
+
+
+class RouteForcer:
+    """Each ``route`` call takes its experts from the unsharded run's
+    (``forced``: per step, its calls' ``[tokens, k]`` in call order) and
+    its gates from its own probabilities, renormalized over them, so that
+    the mesh dispatches the unsharded run's pairs; :attr:`flips` counts per
+    step the tokens whose own choice differs, :attr:`tokens` those compared.
+    Raises where the calls do not match the unsharded run's."""
+
+    def __init__(self, moe_mod, forced: list):
+        self.real, self.forced = moe_mod.route, forced
+        self.step_i = self.call_i = 0
+        self.flips, self.tokens = [0] * len(forced), [0] * len(forced)
+
+    def __call__(self, cfg, params, tokens):
+        import torch
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        probs, _, own = self.real(cfg, params, tokens)
+        calls = self.forced[self.step_i]
+        if self.call_i >= len(calls) or calls[self.call_i].numel() != own.numel():
+            raise RuntimeError(f"route call {self.call_i} of step {self.step_i}: "
+                               f"{list(own.shape)} against the unsharded run's "
+                               f"{[list(c.shape) for c in calls]}")
+        with _disable_current_modes():
+            want = calls[self.call_i].to(own.device).reshape(own.shape)
+            self.flips[self.step_i] += int(
+                (own.sort(-1).values != want.sort(-1).values).any(-1).sum())
+            self.tokens[self.step_i] += own.numel() // own.shape[-1]
+        self.call_i += 1
+        vals = torch.gather(probs, -1, want)
+        return probs, vals / vals.sum(-1, keepdim=True).clamp(min=1e-9), want
+
+    def step(self) -> None:
+        if self.call_i != len(self.forced[self.step_i]):
+            raise RuntimeError(f"step {self.step_i}: {self.call_i} route calls, the unsharded "
+                               f"run {len(self.forced[self.step_i])}")
+        self.step_i, self.call_i = self.step_i + 1, 0
+
+
+def moe_unsharded_serve(torch, arch: str, dtype: str, layers: int, batch, n_tok: int) -> dict:
+    """(a)'s yardstick: the unsharded ``Server`` (K6 for grok-1) on the same
+    prompts: tokens, prefill logits, every route."""
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.models import moe as moe_mod
+
+    with mock.patch.object(serve_mod, "get_config", moe_serve_cut(dtype, layers)):
+        srv = serve_mod.Server(arch, smoke=False, max_len=MOE_SERVE[1] + n_tok + 8, dtype=dtype)
+    kept, prefill, rec = {}, srv.model.prefill, RouteRecorder(moe_mod)
+
+    def keep_logits(*a, **kw):
+        logits, cache = prefill(*a, **kw)
+        kept["logits"] = logits.float().cpu()
+        return logits, cache
+
+    with mock.patch.object(srv.model, "prefill", keep_logits), \
+            mock.patch.object(moe_mod, "route", rec):
+        toks = srv.generate(batch, n_tok)
+    out = {"tokens": toks.cpu().numpy(), "logits": kept["logits"].numpy(), "routes": rec.calls,
+           "timings": srv.timings, "spread": None}
+    if dtype == "float32":
+        # the model's own float32 conditioning: its prefill logits with every
+        # parameter one ulp up (tests/test_torch_registry.py's spread)
+        from repro_torch.models.layers import tree_map
+
+        nudged = tree_map(lambda t: torch.nextafter(t, torch.full_like(t, math.inf)),
+                          srv.params)
+        with torch.inference_mode():
+            logits, _ = srv.model.prefill(nudged, {k: torch.as_tensor(v).to(srv.device) for k, v
+                                                   in batch.items()}, MOE_SERVE[1] + n_tok + 8)
+        want = kept["logits"]
+        out["spread"] = float((logits.float().cpu() - want).abs().max() / want.abs().max())
+        del nudged, logits
+    del srv
+    return out
+
+
+def moe_serve_rank(arch: str, dtype: str, layers: int, batch, n_tok: int) -> dict:
+    """One rank of (a): ``Server(mesh=)`` generates on (2, 2); every K6 call
+    held on its own inputs against the plain attention (those comparisons
+    launch nothing); the prefill's logits and every route kept."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import sharding
+
+    free_cuda(torch)  # the last task's cached blocks: the card is shared
+    mesh = make_test_mesh(MOE_MESH, device_type="cuda")
+    try:
+        t0 = time.perf_counter()
+        with mock.patch.object(serve_mod, "get_config", moe_serve_cut(dtype, layers)):
+            srv = serve_mod.Server(arch, smoke=False, max_len=MOE_SERVE[1] + n_tok + 8,
+                                   mesh=mesh, dtype=dtype)
+        init_s = time.perf_counter() - t0
+        real, calls = attn_mod.flash_attention_bshd, []
+
+        def held(q, k, v, *, causal=True):
+            out = real(q, k, v, causal=causal)
+            strict, wide, diff, _ = k6_violations(torch, q, k, v, out, causal)
+            calls.append((list(q.shape), list(k.shape), not wide and bool(
+                torch.isfinite(out).all()), float(diff.max()), strict))
+            return out
+
+        kept, prefill, rec = {}, srv.model.prefill, RouteRecorder(moe_mod)
+
+        def keep_logits(*a, **kw):
+            logits, cache = prefill(*a, **kw)
+            kept["logits"] = sharding.full(logits).float().cpu()
+            return logits, cache
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with mock.patch.object(attn_mod, "flash_attention_bshd", held), \
+                mock.patch.object(srv.model, "prefill", keep_logits), \
+                mock.patch.object(moe_mod, "route", rec):
+            toks = srv.generate(batch, n_tok)
+        torch.cuda.synchronize()
+        return {"tokens": toks.cpu().numpy(), "logits": kept["logits"].numpy(), "calls": calls,
+                "counts": launch_counts(), "timings": srv.timings, "init_s": init_s,
+                "routes": rec.calls, "data": sharding.dp_coordinate(mesh)[0],
+                "peak": torch.cuda.max_memory_allocated()}
+    finally:
+        sharding.set_mesh(None)
+
+
+def route_flips(got: list, want: list, data: int, n_dp: int) -> tuple[int, int]:
+    """Tokens whose expert set differs between a data rank's route calls and
+    the unsharded calls' rows of its batch slice, and the tokens compared."""
+    flips = total = 0
+    for g, w in zip(got, want):
+        n = w.shape[0] // n_dp
+        w = w[data * n:(data + 1) * n]
+        flips += int((g.sort(-1).values != w.sort(-1).values).any(-1).sum())
+        total += g.shape[0]
+    return flips, total
+
+
+def moe_serve_check(torch, arch: str, label: str, got: list, want: dict, launches: dict) -> dict:
+    """Hold one (a) run's ranks against the unsharded server."""
+    dtype, layers = MOE_SERVE_RUNS[label]
+    key = "bf16" if dtype == "bfloat16" else "f32"
+    toks = got[0]["tokens"]
+    if any(not np.array_equal(r["tokens"], toks) for r in got[1:]):
+        fail(f"phase 19 (a) {arch} {label}: the ranks returned different tokens")
+    logits = np.concatenate([got[d * MOE_MESH[1]]["logits"] for d in range(MOE_MESH[0])])
+    max_rel, norm_rel = logit_diff(torch, torch.as_tensor(logits), torch.as_tensor(want["logits"]))
+    agree = float(np.mean(toks == want["tokens"]))
+    n_calls = len(want["routes"])
+    if any(len(r["routes"]) != n_calls for r in got):
+        fail(f"phase 19 (a) {arch} {label}: route calls per rank "
+             f"{[len(r['routes']) for r in got]}, unsharded {n_calls}")
+    prefill_calls = layers  # one route per layer at prefill, then per decode step
+    flips = [route_flips(r["routes"][:prefill_calls], want["routes"][:prefill_calls], r["data"],
+                         MOE_MESH[0]) for r in got]
+    flips_all = [route_flips(r["routes"], want["routes"], r["data"], MOE_MESH[0]) for r in got]
+    share = sum(f for f, _ in flips) / sum(t for _, t in flips)
+    if key == "f32":
+        if any(f for f, _ in flips_all) or agree != 1.0:
+            fail(f"phase 19 (a) {arch} float32: routes flipped {flips_all} or tokens differ "
+                 f"(agreement {agree})")
+        bound = MESH_TOL["f32_logits"] + MOE_SPREAD_MULT * want["spread"]
+        if not max_rel <= bound:
+            fail(f"phase 19 (a) {arch} float32: prefill logits {max_rel:.3g} > {bound:.3g} "
+                 f"({MESH_TOL['f32_logits']} + {MOE_SPREAD_MULT} x the one-ulp spread "
+                 f"{want['spread']:.3g})")
+    calls = [c for r in got for c in r["calls"]]
+    bad = [c for c in calls if not c[2]]
+    if bad:
+        fail(f"phase 19 (a) {arch} {label}: {len(bad)} K6 calls outside tolerance: {bad[:2]}")
+    k6 = [r["counts"]["flash_attention"] for r in got]
+    want_k6 = layers if arch == "grok-1-314b" else 0
+    if k6 != [want_k6] * len(got) or len(calls) != sum(k6):
+        fail(f"phase 19 (a) {arch} {label}: K6 launches per rank {k6} (want {want_k6} per "
+             f"prefill), held calls {len(calls)}")
+    launches["flash_attention"] = launches.get("flash_attention", 0) + sum(k6)
+    t = got[0]["timings"]
+    k6_txt = (f"K6 {sum(k6)} launches ({k6} per rank) on local q {calls[0][0]} k {calls[0][1]}, "
+              f"each held against the plain attention (worst |K6 - plain| "
+              f"{max(c[3] for c in calls):.3g})" if calls else "K6 0 (MLA: the plain attention)")
+    cut = MOE_SERVE_F32_FIELDS.get(arch, {}) if key == "f32" else {}
+    print(f"  (a) serve {arch} {dtype}, {layers} layers{f' {cut}' if cut else ''}: "
+          f"{MOE_SERVE[0]} x {MOE_SERVE[1]} prompts, {MOE_SERVE[2]} tokens on {MOE_MESH}; prefill "
+          f"logits against the unsharded server {max_rel:.3g} max / {norm_rel:.3g} norm"
+          + (f" (<= {MESH_TOL['f32_logits']} + {MOE_SPREAD_MULT} x the unsharded logits' "
+             f"one-ulp spread {want['spread']:.3g})" if key == "f32" else " (printed)") + "; "
+          f"tokens agree {agree:.4f}; prefill routes flipped {sum(f for f, _ in flips)} of "
+          f"{sum(t_ for _, t_ in flips)} tokens ({share:.3g}), all calls "
+          f"{sum(f for f, _ in flips_all)}; {k6_txt}; init {got[0]['init_s']:.1f} s, prefill "
+          f"{t['prefill']:.3f} s, decode {t['decode']:.3f} s (rank 0; unsharded "
+          f"{want['timings']['prefill']:.3f} / {want['timings']['decode']:.3f} s); peak per rank "
+          f"{[round(r['peak'] / 2**30, 2) for r in got]} GiB")
+    return {"logits_max_rel": max_rel, "logits_norm_rel": norm_rel, "token_agreement": agree,
+            "unsharded_one_ulp_spread": want["spread"],
+            "prefill_route_flips": [sum(f for f, _ in flips), sum(t_ for _, t_ in flips)],
+            "route_flips_all_calls": [sum(f for f, _ in flips_all),
+                                      sum(t_ for _, t_ in flips_all)],
+            "k6_launches": k6, "k6_local_q": calls[0][0] if calls else None,
+            "k6_local_k": calls[0][1] if calls else None,
+            "k6_worst": max((c[3] for c in calls), default=None), "timings": t,
+            "unsharded_timings": want["timings"], "init_s": [r["init_s"] for r in got],
+            "peak_bytes": [r["peak"] for r in got]}
+
+
+def moe_layer_setup(torch, arch: str):
+    """(b)'s config, its MoE declarations and FSDP specs, and the traffic
+    ``x`` and the output weights ``w`` (bf16, from seed 19, on the card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import make_rules, specs_from_decls
+
+    cfg = dataclasses.replace(get_config(arch), dtype="bfloat16")
+    decls = moe_mod.moe_decls(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    b, s = MOE_LAYER_TRAFFIC
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    return cfg, decls, specs_from_decls(decls, make_rules(cfg, True)), x, w
+
+
+def grad_rows(name: str, g):
+    """The first :data:`MOE_GRAD_ROWS` of an expert leaf's d_model dim (the
+    router's gradient whole)."""
+    if name == "router":
+        return g
+    dim = 2 if name in ("w_down", "shared_down") else 1
+    if name.startswith("shared"):
+        dim = 1 if name == "shared_down" else 0
+    return g.narrow(dim, 0, MOE_GRAD_ROWS)
+
+
+def moe_layer_unsharded(torch, arch: str, path: str) -> dict:
+    """(b)'s yardstick: the unsharded layer forward and backward on the
+    card (the gradients of the parameters and of ``x``, as a layer inside a
+    model takes them); its output, aux, routes, ``x``'s gradient and the
+    parameters' gradient rows saved to ``path``."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import init_from_decls
+
+    cfg, decls, _, x, w = moe_layer_setup(torch, arch)
+    params = init_from_decls(decls, torch.Generator(device="cuda").manual_seed(0), cfg.dtype)
+    leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+    x = x.requires_grad_(True)
+    rec = RouteRecorder(moe_mod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(moe_mod, "route", rec):
+        out, aux = moe_mod.moe_apply(cfg, leaves, x)
+        dx, *grads = torch.autograd.grad((out.float() * w.float()).sum() + aux,
+                                         [x] + list(leaves.values()))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.save({"out": out.detach().cpu(), "aux": float(aux), "routes": rec.calls[0],
+                "dx": dx.cpu(),
+                "grads": {k: grad_rows(k, g).cpu() for k, g in zip(leaves, grads)}}, path)
+    del params, leaves, grads, out, dx
+    free_cuda(torch)
+    return {"seconds": seconds}
+
+
+def moe_layer_rank(arch: str, want_path: str) -> dict:
+    """One rank of (b): the layer's parameters drawn in turns (each rank's
+    FSDP shards), degathered, and ``moe_apply`` forward and backward on the
+    rank's slice of the traffic (one token stream over ``data``) on the
+    unsharded run's routes (:class:`RouteForcer`), once timed and once under
+    ``count_cost`` (its output and aux bit-equal to the first run's).
+    Returns its seconds, peak memory, collectives, the tokens whose own
+    routes differ, and its gaps from the unsharded layer: the output, the
+    aux, ``x``'s gradient on its slice and the gradient rows' mean over the
+    data ranks (the router whole; each expert leaf's first
+    :data:`MOE_GRAD_ROWS` d_model rows, the rank's shard of them)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.analysis.cost import count_cost
+    from repro_torch.launch.mesh import card_turns, make_test_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import sharding
+    from repro_torch.models.layers import init_from_decls
+
+    free_cuda(torch)  # the last task's cached blocks: the card is shared
+    mesh = make_test_mesh(MOE_MESH, device_type="cuda")
+    sharding.set_mesh(mesh)
+    try:
+        cfg, decls, specs, x, w = moe_layer_setup(torch, arch)
+        dev = x.device
+        shards = card_turns(lambda: init_from_decls(
+            decls, torch.Generator(device=dev).manual_seed(0), cfg.dtype, specs, mesh), dev)
+        cm = sharding.compute_mesh(mesh)
+        placed = {k: DTensor.from_local(v, mesh, sharding.placements(specs[k], mesh),
+                                        run_check=False) for k, v in shards.items()}
+        tp = {k: DTensor.from_local(v.to_local().detach().requires_grad_(True), cm,
+                                    v.placements[-cm.ndim:], run_check=False)
+              for k, v in sharding.degather(placed, specs, mesh).items()}
+        del placed, shards
+        idx, R = sharding.dp_coordinate(mesh)
+        b = x.shape[0] // R
+        x_loc = x[idx * b:(idx + 1) * b].detach().requires_grad_(True)
+        w_loc = w[idx * b:(idx + 1) * b]
+        xd = DTensor.from_local(x_loc, cm, [Replicate()] * cm.ndim, run_check=False)
+        want = torch.load(want_path)
+        n = b * x.shape[1]
+        routes, forcers = want["routes"][idx * n:(idx + 1) * n], []
+
+        def run():
+            forcers.append(RouteForcer(moe_mod, [[routes]]))
+            with implicit_replication(), sharding.token_stream(sharding.dp_axes()), \
+                    mock.patch.object(moe_mod, "route", forcers[-1]):
+                out, aux = moe_mod.moe_apply(cfg, tp, xd)
+                loc = out.to_local()
+                loss = R * (loc.float() * w_loc.float()).sum() + aux.to_local()
+                dx, *grads = torch.autograd.grad(loss, [x_loc] + list(tp.values()))
+            forcers[-1].step()
+            return loc.detach(), aux.to_local().detach(), dx, grads
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, aux, dx, grads = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+
+        def gap(got, ref):
+            ref = ref.to(dev).float()
+            return float((got.float() - ref).abs().max() / ref.abs().max())
+
+        # each rank's loss carries R times its slice's share and its own
+        # probabilities' aux gradient: x's gradient over R is the unsharded one
+        rel = {"aux": abs(float(aux) - want["aux"]) / abs(want["aux"]),
+               "out": gap(out, want["out"][idx * b:(idx + 1) * b]),
+               "dx": gap(dx / R, want["dx"][idx * b:(idx + 1) * b])}
+        data = mesh.get_group("data")
+        for k, g in zip(tp, grads):
+            mine = grad_rows(k, g.to_local()).float().contiguous()
+            torch.distributed.all_reduce(mine, group=data)
+            mine /= R
+            ref = sharding.local_shard(want["grads"][k], sharding.strip_axis(specs[k], "data"),
+                                       mesh).to(dev).float()
+            rel[f"grad {k}"] = float((mine - ref).abs().max() / ref.abs().max())
+        del grads, want, dx
+        held: dict = {}
+        cost = count_cost(lambda: held.update(again=run()[:2]))
+        same_runs = torch.equal(out, held["again"][0]) and torch.equal(aux, held["again"][1])
+        return {"seconds": seconds, "peak": peak, "rel": rel, "flips": forcers[0].flips[0],
+                "tokens": n, "same_runs": same_runs, "coll_counts": cost.coll_counts,
+                "coll_wire": cost.coll_wire_bytes, "coll_sites": cost.coll_site_wire_bytes,
+                "coll_site_counts": cost.coll_site_counts, "rank": torch.distributed.get_rank()}
+    finally:
+        sharding.set_mesh(None)
+
+
+def moe_layer_check(arch: str, got: list, want: dict, smi: str) -> dict:
+    """Hold (b)'s ranks against the unsharded layer."""
+    from repro_torch.models.moe import _ep_mode
+    from repro_torch.configs import get_config
+
+    # the ranks of one data coordinate route the same tokens: count them once
+    flips = sum(r["flips"] for r in got) // MOE_MESH[1]
+    total = sum(r["tokens"] for r in got) // MOE_MESH[1]
+    worst = {k: max(r["rel"][k] for r in got) for k in got[0]["rel"]}
+    if not all(r["same_runs"] for r in got):
+        fail(f"phase 19 (b) {arch}: two runs of the mesh layer differ")
+    if not flips <= MOE_FLIP_CAP * total:
+        fail(f"phase 19 (b) {arch}: {flips} of {total} token routes differ from the unsharded "
+             f"layer's (more than {MOE_FLIP_CAP})")
+    over = {k: v for k, v in worst.items() if not v <= MOE_MESH_BF16_TOL}
+    if over:
+        fail(f"phase 19 (b) {arch}: the mesh layer against the unsharded one beyond "
+             f"{MOE_MESH_BF16_TOL} of each tensor's largest value: {over}")
+    ep = _ep_mode(get_config(arch))
+    site = "moe EP combine: all-gather" if ep else "moe ffn all-reduce: all-reduce"
+    if any(r["coll_site_counts"].get(site) != 2 for r in got):
+        fail(f"phase 19 (b) {arch}: {site} counted {[r['coll_site_counts'].get(site) for r in got]}"
+             f" times per rank, not once forward and once backward")
+    mode = "expert-parallel" if ep else "ffn-sharded"
+    r0 = got[0]
+    wire = r0["coll_wire"]
+    print(f"  (b) one {arch} MoE layer at full width, {mode}, bf16, {MOE_LAYER_TRAFFIC[0]} x "
+          f"{MOE_LAYER_TRAFFIC[1]} tokens (one chunk over both data ranks) on {MOE_MESH} ({smi}): "
+          f"own routes differ on {flips} of {total} tokens (<= {MOE_FLIP_CAP}; the unsharded "
+          f"layer's taken); gaps from the unsharded layer (of each tensor's largest value): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (<= {MOE_MESH_BF16_TOL}); forward + backward s per rank "
+          f"{[round(r['seconds'], 3) for r in got]} (unsharded {want['seconds']:.3f} s); peak "
+          f"per rank {[round(r['peak'] / 2**30, 2) for r in got]} GiB")
+    print(f"      wire bytes per rank (count_cost) by kind: " + ", ".join(
+        f"{k} x{r0['coll_counts'][k]} {wire[k] / 2**20:.2f} MiB" for k in sorted(wire))
+        + "; by site: " + ", ".join(f"{k} {v / 2**20:.2f}" for k, v in
+                                     sorted(r0["coll_sites"].items())))
+    return {"mode": mode, "route_flips": [flips, total], "worst_rel": worst,
+            "seconds": [r["seconds"] for r in got], "unsharded_s": want["seconds"],
+            "peak_bytes": [r["peak"] for r in got], "coll_counts": r0["coll_counts"],
+            "coll_wire_bytes": wire, "coll_site_wire_bytes": r0["coll_sites"]}
+
+
+def run_moe_mesh(torch, smi: str) -> tuple[dict, dict, list]:
+    """Phase 19: the MoE family on a mesh (see the module docstring).
+    Returns its numbers, every rank's launches, and K6's and K4-int8's rows
+    at its local shapes."""
+    import tempfile
+
+    from repro_torch.launch.mesh import RankPool
+    from repro_torch.launch.serve import stub_batch
+
+    res: dict = {"card": smi, "mesh": list(MOE_MESH)}
+    launches: dict = {}
+    b, s, n_tok = MOE_SERVE
+    prompts = {(arch, label): stub_batch(moe_serve_cut(dtype, layers)(arch), b, s, seed=19)
+               for arch in MOE_ARCHS for label, (dtype, layers) in MOE_SERVE_RUNS.items()}
+    with tempfile.TemporaryDirectory(prefix="moe_mesh") as tmp:
+        t0 = time.perf_counter()
+        want_serve, want_layer, want_layout = {}, {}, {}
+        for (arch, label), batch in prompts.items():
+            free_cuda(torch)
+            dtype, layers = MOE_SERVE_RUNS[label]
+            want_serve[arch, label] = moe_unsharded_serve(torch, arch, dtype, layers, batch, n_tok)
+        for arch in MOE_ARCHS:
+            free_cuda(torch)
+            want_layer[arch] = moe_layer_unsharded(torch, arch, f"{tmp}/{arch}.pt")
+        for label in MOE_LAYOUT_RUNS:
+            free_cuda(torch)
+            want_layout[label] = layouts_unsharded(torch, label, f"{tmp}/{label}.pt")
+        free_cuda(torch)
+        res["unsharded_s"] = time.perf_counter() - t0
+        free, total = torch.cuda.mem_get_info()
+        t0 = time.perf_counter()
+        # the ranks' allocators grow segments in place: four ranks' gathered
+        # layers and staging copies come and go on one card
+        with mock.patch.dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"), \
+                RankPool(MOE_MESH[0] * MOE_MESH[1], "cuda", timeout=900) as pool:
+            res["pool_s"] = time.perf_counter() - t0
+            print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (started in "
+                  f"{res['pool_s']:.1f} s; the unsharded runs took {res['unsharded_s']:.1f} s; "
+                  f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card, this process "
+                  f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)", flush=True)
+            for (arch, label), batch in prompts.items():
+                t0 = time.perf_counter()
+                dtype, layers = MOE_SERVE_RUNS[label]
+                got = pool.run(moe_serve_rank, arch, dtype, layers, batch, n_tok)
+                r = moe_serve_check(torch, arch, label, got, want_serve[arch, label], launches)
+                r["phase_s"] = time.perf_counter() - t0
+                res[f"serve {arch} {label}"] = r
+            for arch in MOE_ARCHS:
+                t0 = time.perf_counter()
+                got = pool.run(moe_layer_rank, arch, f"{tmp}/{arch}.pt")
+                res[f"layer {arch}"] = moe_layer_check(arch, got, want_layer[arch], smi)
+                res[f"layer {arch}"]["phase_s"] = time.perf_counter() - t0
+            for label in MOE_LAYOUT_RUNS:
+                t0 = time.perf_counter()
+                got = pool.run(layouts_train_rank, label, f"{tmp}/{label}.pt")
+                res[label] = layouts_train_check(label, got, want_layout[label], launches, smi)
+                res[label]["phase_s"] = time.perf_counter() - t0
+    # (d) the kernels at this phase's local launch shapes, timed here (not
+    # counted): K6 at grok-1's rank-local prefill (24 q / 4 kv heads of its
+    # 48 / 8 over model = 2, 8 of the 16 prompts per data rank), K4-int8's
+    # split form at (c)'s largest split expert leaf
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(19)
+    free_cuda(torch)
+    grok = get_config("grok-1-314b")
+    k6_row = check_flash(torch, b // MOE_MESH[0], grok.num_heads // MOE_MESH[1], s, s,
+                         grok.resolved_head_dim, rng, kvh=grok.num_kv_heads // MOE_MESH[1])
+    shapes = sorted((sh for label in MOE_LAYOUT_RUNS for sh in res[label]["int8_split_shapes"]),
+                    key=lambda sh: -math.prod(sh))
+    row_max_row, int8_row = check_dsag_int8_split(torch, *shapes[0], rng)
+    free_cuda(torch)
+    return res, launches, [k6_row, row_max_row, int8_row]
 
 
 def profile_run(torch, label: str, setup, iters: int) -> dict | None:
@@ -5411,7 +6203,20 @@ def main() -> None:
     per_kernel["dsag_int8_row_max"] = [row_max_lay]
     layouts_res["seconds"] = time.perf_counter() - t0
     print(f"  phase 18 took {layouts_res['seconds']:.1f} s")
-    print("phase 19: the kernels line")
+    print(f"phase 19: the MoE family on a mesh: grok-1-314b (ffn-sharded experts) and "
+          f"deepseek-v2-236b (expert-parallel, MLA) on {MOE_MESH} meshes of four ranks on cuda:0: "
+          f"served at published widths (2 layers bf16, 1 layer float32), one full-width MoE "
+          f"layer forward and backward, the production DSAG step at reduced widths, against the "
+          f"unsharded port")
+    t0 = time.perf_counter()
+    moe_res, moe_launches, (k6_moe, row_max_moe, int8_moe) = run_moe_mesh(
+        torch, smi.stdout.strip())
+    per_kernel["flash_attention"].append(k6_moe)
+    per_kernel["dsag_int8_row_max"].append(row_max_moe)
+    per_kernel["dsag_cache_update_int8"].append(int8_moe)
+    moe_res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 19 took {moe_res['seconds']:.1f} s")
+    print("phase 20: the kernels line")
     reg_train = registry.pop("train_launches")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
                 + engine_launches.get(k, 0) + lb_launches.get(k, 0)
@@ -5419,9 +6224,11 @@ def main() -> None:
                 + sharding_launches.get(k, 0) + train_launches.get(k, 0)
                 + reg_train.get(k, 0) + fam_train_launches.get(k, 0)
                 + mesh_launches.get(k, 0) + layouts_launches.get(k, 0)
+                + moe_launches.get(k, 0)
                 for k in sweep_launches}
     launches["flash_attention"] = (serving["launches"] + families["k6_main"]
-                                   + registry["k6_main"] + mesh_launches["flash_attention"])
+                                   + registry["k6_main"] + mesh_launches["flash_attention"]
+                                   + moe_launches["flash_attention"])
 
     meta = {
         "logreg_block_sub": ("src/repro_torch/kernels/csrc/block_sub.cu",
@@ -5468,6 +6275,7 @@ def main() -> None:
             launches_family_training=fam_train_launches.get(name, 0),
             launches_mesh=mesh_launches.get(name, 0),
             launches_layouts=layouts_launches.get(name, 0),
+            launches_moe_mesh=moe_launches.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], kernel_ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -5482,6 +6290,7 @@ def main() -> None:
     print(json.dumps({"family_training": fam_train}))
     print(json.dumps({"mesh": mesh_res}))
     print(json.dumps({"layouts": layouts_res}))
+    print(json.dumps({"moe_mesh": moe_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,9 +40,14 @@ trip counts.  The accounting keeps ``hlo.py``'s rules:
   is not counted itself: the local ops and collectives it runs on this
   rank are.  A caller names the site of the collectives it dispatches with
   ``models/sharding.py::collective_site`` (the mesh step's degather,
-  gradient mean, H sum, int8 row max, adafactor means, norm and losses);
-  the rest (the model's tensor-parallel all-reduces) count under
-  ``"model"``.
+  gradient mean, H sum, int8 row max, adafactor means, norm and losses;
+  the MoE's ``moe EP combine`` all-gather of the experts' outputs, and of
+  their input's cotangent in the backward, ``moe ffn all-reduce`` of the
+  down-projection's partial sums, and of the experts' input's cotangent in
+  the backward, ``moe routing gather`` of a straddled chunk's expert
+  choices and ``moe aux``'s all-reduce of the stream's expert counts and
+  mean probabilities); the rest (the model's tensor-parallel all-reduces)
+  count under ``"model"``.
 
 What it cannot see: a kernel without a cost model; host work (the Python
 interpreter, launches, synchronizations); and bytes that the caches keep

@@ -599,22 +599,15 @@ def mesh_layouts(layout, param_specs, mesh, gs: GroupSpec) -> MeshLayouts:
                        tuple(gs.axes), inner_axes, slice(g_idx * k, (g_idx + 1) * k), d_idx, n_d)
 
 
-def _shards(layout, tree, specs, mesh) -> dict:
-    out: dict = {}
-    for x in layout.leaves:
-        set_path(out, x.path, sharding.local_shard(get_path(tree, x.path),
-                                                   get_path(specs, x.path), mesh))
-    return out
-
-
-def init_mesh_train_state(params_tree, tc: TrainConfig, gs: GroupSpec, layouts: MeshLayouts,
+def init_mesh_train_state(shards, tc: TrainConfig, gs: GroupSpec, layouts: MeshLayouts,
                           mesh) -> dict:
-    """A rank's train state from the full parameter tree (the same on every
-    rank): its shard of the parameters, zero optimizer state and H (all in
-    the ``store`` layout), and its groups' empty cache and pending slots
-    ``[k, n_slot]`` in the slot layout (int8: a tree of :class:`Quantized`
-    shards, each keeping its whole row's length as ``block``)."""
-    params = layouts.store.flatten(_shards(layouts.store, params_tree, layouts.specs, mesh))
+    """A rank's train state from its shards of the parameter tree
+    (``Model.init(gen, layouts.specs, mesh)``): its shard of the parameters,
+    zero optimizer state and H (all in the ``store`` layout), and its
+    groups' empty cache and pending slots ``[k, n_slot]`` in the slot layout
+    (int8: a tree of :class:`Quantized` shards, each keeping its whole row's
+    length as ``block``)."""
+    params = layouts.store.flatten(shards)
     k = layouts.rows.stop - layouts.rows.start
     state = init_train_state(params, tc, GroupSpec(k, ()), layouts.store)
     dev = params.device
@@ -684,7 +677,9 @@ def mesh_value_and_grad(loss_fn, layouts: MeshLayouts, mesh, grad_dtype):
     """Per-group ``(losses [k], grads [k, n_tp])`` of this rank's ``k``
     groups on its slice of each group's batch: each group's loss over the
     degathered parameters as ``DTensor`` leaves on the compute mesh, through
-    autograd, one group at a time."""
+    autograd, one group at a time.  The group's batch is one token stream
+    over the inner axes (``sharding.token_stream``): the MoE's dispatch
+    chunks and aux loss are the whole group's, as the reference's."""
     from torch.distributed.tensor import DTensor, Replicate
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -695,7 +690,8 @@ def mesh_value_and_grad(loss_fn, layouts: MeshLayouts, mesh, grad_dtype):
         losses = torch.empty(k, dtype=torch.float32, device=flat_tp.device)
         grads = torch.empty((k, flat_tp.shape[0]), dtype=grad_dtype, device=flat_tp.device)
         for i in range(k):
-            with torch.enable_grad(), implicit_replication():
+            with torch.enable_grad(), implicit_replication(), \
+                    sharding.token_stream(layouts.inner_axes):
                 leaf = flat_tp.detach().requires_grad_(True)
                 tree = layouts.tp.dtensors(leaf, layouts.tp_specs, cmesh, cast=True)
                 loss = loss_fn(tree, tree_map(lambda a, i=i: a[i], batch))

@@ -124,6 +124,32 @@ def make_test_mesh(devices_per_axis=(2, 4), device_type: str | None = None):
     return _device_mesh(tuple(devices_per_axis), axes, device_type)
 
 
+def card_turns(fn, device: torch.device):
+    """``fn()`` on this rank, the ranks whose ``device`` is the same card
+    taking turns (one at a time, a barrier after each turn), so that a
+    transient as large as a whole full-width leaf's draw is on the card once,
+    not once per rank; a single turn where every rank has a card of its own,
+    and on the CPU.  Every rank of the process group calls it.  Returns
+    ``fn()``."""
+    dist = torch.distributed
+    key = (os.uname().nodename, device.index) if device.type == "cuda" else None
+    keys: list = [None] * dist.get_world_size()
+    dist.all_gather_object(keys, key)
+    mine = [r for r, k in enumerate(keys) if k == key and key is not None]
+    turns = max((keys.count(k) for k in keys if k is not None), default=1)
+    turn = mine.index(dist.get_rank()) if mine else 0
+    out = None
+    for t in range(turns):
+        if t == turn:
+            out = fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                torch.cuda.empty_cache()
+        if turns > 1:
+            dist.barrier()
+    return out
+
+
 def choose_backend(device_type: str, world: int) -> str:
     """The process group's backend for ``world`` ranks on ``device_type``:
     gloo on the CPU; on CUDA, NCCL when every rank has a card of its own,

@@ -18,12 +18,17 @@ model, nor qwen1.5-32b, whole).
 
 ``Server(mesh=)`` serves on a ``(data, model)`` device mesh, one server per
 rank (``repro_torch.launch.mesh.RankPool``): the weights placed by
-``Model.param_specs(num_params > 1e9)`` and degathered inside prefill and
-every decode step, as the reference's dry-run cells lower them; each data
+``Model.param_specs(num_params > 1e9)`` and degathered inside each
+``generate`` (the reference's dry-run cells degather inside each prefill
+and decode step): the prefill gathers the stacked blocks one layer at a
+time, as the model reads them, and the decode steps share one gather of
+each layer (the prefill's last one included); each data
 rank serves its slice of the batch on the ``model`` axis (K6 on its own
 heads, the decode cache split over its sequence), and every rank returns
-the whole batch's tokens.  The MoE family is refused there
-(``mesh-not-ported``).
+the whole batch's tokens.  The MoE family runs there too: each data rank
+routes its slice of the batch, the dispatch chunks and capacity those of the
+whole batch, as the reference's (``models/moe.py``); its experts run
+expert-parallel (deepseek-v2) or ffn-sharded (grok-1) on the ``model`` axis.
 """
 
 from __future__ import annotations
@@ -42,10 +47,10 @@ from repro_torch.experiments.engine import (
     engine_capability,
 )
 from repro_torch.core.dsag_pjit import mesh_sizes
+from repro_torch.launch.mesh import card_turns
 from repro_torch.models import build_model
 from repro_torch.models import sharding
 from repro_torch.models.layers import round_up, tree_map
-from repro_torch.models.model import check_mesh
 
 
 class Server:
@@ -57,7 +62,8 @@ class Server:
     device), and the weights come from the model's init drawn from a
     ``torch.Generator`` seeded with ``seed``; ``dtype`` replaces the
     config's (e.g. ``"float32"``).  With ``mesh`` (a
-    ``DeviceMesh``) every rank draws the same weights and keeps its shard;
+    ``DeviceMesh``) every rank draws the same weights leaf by leaf and keeps
+    its shard of each;
     ``max_len`` is rounded up to a multiple of the ``model`` axis, over
     which the cache's sequence is split.
     """
@@ -77,17 +83,19 @@ class Server:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.max_len = max_len
         self.mesh = mesh
-        if mesh is not None:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        if mesh is None:
+            self.params = self.model.init(gen)
+        else:
             sizes = mesh_sizes(mesh)
-            check_mesh(self.cfg)
             sharding.set_mesh(mesh)
             self.max_len = round_up(max_len, sizes.get("model", 1))
             self.param_specs = self.model.param_specs(self.model.num_params() > 1e9)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        self.params = self.model.init(gen)
-        if mesh is not None:
-            self.params = _place(self.params, self.param_specs, mesh)
+            # ranks that share a card draw in turns (a whole leaf at a time)
+            shards = card_turns(lambda: self.model.init(gen, self.param_specs, mesh),
+                                self.device)
+            self.params = _place(shards, self.param_specs, mesh)
         #: host seconds of the last ``generate``: prefill and all decode steps
         self.timings: dict[str, float] = {}
 
@@ -131,9 +139,29 @@ class Server:
 
     def _weights(self):
         """The weights degathered to their TP-only layout, as DTensors on the
-        compute mesh (the ``model`` axis)."""
-        gathered = sharding.degather(self.params, self.param_specs, self.mesh)
-        return tree_map(sharding.to_compute_mesh, gathered)
+        compute mesh (the ``model`` axis); the stacked blocks' leaves layer by
+        layer, as the model reads them (:class:`_LayerDegather`)."""
+        out = {}
+        for key, tree in self.params.items():
+            specs = self.param_specs[key]
+            if key == "blocks":
+                out[key] = sharding.map_specs(lambda t, spec: _LayerDegather(
+                    t, sharding.P(*tuple(spec)[1:]), self.mesh), tree, specs)
+            else:
+                out[key] = tree_map(sharding.to_compute_mesh,
+                                    sharding.degather(tree, specs, self.mesh))
+        return out
+
+    @staticmethod
+    def _kept(weights):
+        """``weights`` whose blocks keep each layer once gathered: the decode
+        steps of one ``generate`` read every layer each, so they share one
+        gather of each (the prefill, whose activations are the larger,
+        gathers and drops layer by layer, keeping only its last layer, which
+        the first decode step reads last)."""
+        blocks = tree_map(lambda t: _LayerDegather(t.stored, t.spec, t.mesh, kept=t.kept),
+                          weights["blocks"])
+        return dict(weights, blocks=blocks)
 
     def _generate_sharded(self, batch, num_tokens: int) -> torch.Tensor:
         """``generate`` on the mesh: this data rank's slice of the batch, then
@@ -152,16 +180,19 @@ class Server:
         def pick(logits):
             return torch.argmax(sharding.full(logits)[:, -1], dim=-1)[:, None].to(torch.int32)
 
-        with implicit_replication():
+        # the batch is one token stream over the data-parallel axes
+        with implicit_replication(), sharding.token_stream(sharding.dp_axes()):
             t0 = time.perf_counter()
-            logits, cache = self.model.prefill(self._weights(), batch, cache_len=self.max_len)
+            weights = self._weights()
+            logits, cache = self.model.prefill(weights, batch, cache_len=self.max_len)
             tok = pick(logits)
             self._sync()
             t1 = time.perf_counter()
             out = [tok]
             index = prompt_positions(cfg, batch["tokens"].shape[1])
+            weights = self._kept(weights)
             for _ in range(num_tokens - 1):
-                logits, cache = self.model.decode_step(self._weights(), tok, cache, index)
+                logits, cache = self.model.decode_step(weights, tok, cache, index)
                 tok = pick(logits)
                 out.append(tok)
                 index += 1
@@ -173,11 +204,41 @@ class Server:
         return result
 
 
-def _place(params, specs, mesh):
-    """Each rank's shard of the full ``params`` as DTensors laid out by
-    ``specs`` on ``mesh``."""
-    return sharding.map_specs(lambda t, spec: sharding.NamedSharding(mesh, spec).place(t),
-                              params, specs)
+class _LayerDegather:
+    """A stacked ``[L, ...]`` leaf of the stored weights (a layer laid out by
+    ``spec``) whose layer ``i`` is degathered to its TP-only layout on the
+    compute mesh when the model reads it (``leaf[i]``: ``layer_params``), so
+    that a rank holds one layer's gathered weights at a time, not the whole
+    model's; the last layer, once gathered, is kept (the next reader of the
+    stack reads it last), and with ``kept`` (the layers gathered so far)
+    every layer is."""
+
+    def __init__(self, stored, spec, mesh, kept: dict | None = None):
+        self.stored, self.spec, self.mesh = stored, spec, mesh
+        self.keep = kept is not None
+        self.kept = dict(kept or {})
+
+    def __getitem__(self, i: int):
+        from torch.distributed.tensor import DTensor
+
+        if i in self.kept:
+            return self.kept[i]
+        # layer i of the rank's shard (the layer dim is never split), as a
+        # DTensor laid out by the layer's spec
+        layer = DTensor.from_local(self.stored.to_local()[i], self.mesh,
+                                   sharding.placements(self.spec, self.mesh), run_check=False)
+        out = sharding.to_compute_mesh(sharding.degather(layer, self.spec, self.mesh))
+        if self.keep or i == self.stored.shape[0] - 1:
+            self.kept[i] = out
+        return out
+
+
+def _place(shards, specs, mesh):
+    """This rank's ``shards`` as DTensors laid out by ``specs`` on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    return sharding.map_specs(lambda t, spec: DTensor.from_local(
+        t, mesh, sharding.placements(spec, mesh), run_check=False), shards, specs)
 
 
 def prompt_positions(cfg, prompt_len: int) -> int:

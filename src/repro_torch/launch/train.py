@@ -52,10 +52,11 @@ keeps each rank's groups and its slice of each group's batch; every rank
 runs the same Tier-2 controller on the same draws, so their decisions
 agree.  Checkpoints of a mesh trainer are the unsharded trainer's files
 (gathered, rank 0 writes), restored onto the mesh with the train state's
-specs.  The paper problems ignore the mesh, as the reference's trainer
-does.  The MoE family is refused on a mesh with ``mesh-not-ported`` before
-any launch.  An arch the registry does not hold is refused with
-:data:`CAP_ARCH`.
+specs.  Every family trains there, the MoE's dispatch chunks and aux loss
+those of each group's whole batch (``models/moe.py``).  Each rank draws the
+parameters leaf by leaf and keeps its shards.  The paper problems ignore
+the mesh, as the reference's trainer does.  An arch the registry does not
+hold is refused with :data:`CAP_ARCH`.
 """
 
 from __future__ import annotations
@@ -96,9 +97,9 @@ from repro_torch.experiments.engine import (
 from repro_torch.ft.runtime import DeadlineController, FailureDetector
 from repro_torch.ft.validation import trace_latency_fn
 from repro_torch.latency.model import make_heterogeneous_cluster
+from repro_torch.launch.mesh import card_turns
 from repro_torch.launch.paper_jobs import PAPER_ARCHES, make_paper_job, paper_train_config
 from repro_torch.models import build_model
-from repro_torch.models.model import check_mesh
 from repro_torch.models.sharding import set_mesh
 
 __all__ = ["CAP_ARCH", "Trainer", "TrainerOptions", "check_history", "main"]
@@ -174,7 +175,6 @@ class Trainer:
             self.gs = make_group_spec(tc, opts.mesh)
             param_specs = None
             if opts.mesh is not None:
-                check_mesh(cfg)
                 set_mesh(opts.mesh)
                 param_specs = self.model.param_specs(tc.fsdp)
                 #: the train state's specs: a mesh checkpoint's layout
@@ -238,11 +238,12 @@ class Trainer:
             params = self.job.init_params(self.opts.seed)
         else:
             gen = torch.Generator(device=self.device).manual_seed(self.opts.seed)
-            tree = self.model.init(gen)
-            if self.opts.mesh is not None:  # every rank draws the same, keeps its shard
-                return init_mesh_train_state(tree, self.opts.train_config, self.gs,
-                                             self.step_fn.layouts, self.opts.mesh)
-            params = self.layout.flatten(tree)
+            mesh = self.opts.mesh
+            if mesh is not None:  # every rank draws the same, keeps its shards
+                L = self.step_fn.layouts
+                shards = card_turns(lambda: self.model.init(gen, L.specs, mesh), self.device)
+                return init_mesh_train_state(shards, self.opts.train_config, self.gs, L, mesh)
+            params = self.layout.flatten(self.model.init(gen))
         return init_train_state(params, self.opts.train_config, self.gs, self.layout)
 
     def _tree(self, state):

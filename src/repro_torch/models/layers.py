@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.sharding import P, local_shape, placements, shard_batch
+from repro_torch.models.sharding import P, local_shape, local_shard, placements, shard_batch
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -74,13 +74,17 @@ class ParamDecl:
             raise ValueError(f"shape {self.shape} and logical axes {self.logical} differ in rank")
 
 
-def _init_leaf(decl: ParamDecl, gen: torch.Generator, dtype) -> torch.Tensor:
+def _init_leaf(decl: ParamDecl, gen: torch.Generator, dtype, part=None) -> torch.Tensor:
+    """One leaf's draw; with ``part``, ``part`` of the float32 draw, cast (a
+    rank's shard: the whole leaf's cast never held)."""
     dt = torch_dtype(decl.dtype or dtype)
     dev = gen.device
     if decl.init == "zeros":
-        return torch.zeros(decl.shape, dtype=dt, device=dev)
+        out = torch.zeros(decl.shape, dtype=dt, device=dev)
+        return out if part is None else part(out)
     if decl.init == "ones":
-        return torch.ones(decl.shape, dtype=dt, device=dev)
+        out = torch.ones(decl.shape, dtype=dt, device=dev)
+        return out if part is None else part(out)
     if decl.init == "scaled":
         # the reference's rule as it is: for a stacked [L, ...] leaf the fan-in
         # is the layer count
@@ -92,7 +96,8 @@ def _init_leaf(decl: ParamDecl, gen: torch.Generator, dtype) -> torch.Tensor:
         raise ValueError(decl.init)
     draw = torch.randn(decl.shape, generator=gen, dtype=torch.float32, device=dev)
     # scaled in place: a full-width MoE leaf's float32 draw is tens of GB
-    return draw.mul_(std).to(dt)
+    draw.mul_(std)
+    return (draw if part is None else part(draw)).to(dt)
 
 
 def is_decl(x) -> bool:
@@ -115,14 +120,20 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def init_from_decls(decls, gen: torch.Generator, dtype) -> Any:
-    """Materialize ``decls`` on ``gen``'s device, drawing in leaf order."""
+def init_from_decls(decls, gen: torch.Generator, dtype, specs=None, mesh=None) -> Any:
+    """Materialize ``decls`` on ``gen``'s device, drawing in leaf order.  With
+    ``specs`` and ``mesh``, each leaf is drawn whole and only this rank's
+    shard of it kept (a copy; the whole leaf freed before the next draw), so
+    the values are the unsharded draw's and a rank never holds more than its
+    shards and one whole leaf."""
     out: dict = {}
     for path, decl in _leaves(decls):
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = _init_leaf(decl, gen, dtype)
+        part = None if mesh is None else (
+            lambda t, spec=get_path(specs, path): local_shard(t, spec, mesh).clone())
+        node[path[-1]] = _init_leaf(decl, gen, dtype, part)
     return out
 
 

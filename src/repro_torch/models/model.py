@@ -33,7 +33,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.experiments.engine import CAP_ARCH, CAP_MESH, refuse
+from repro_torch.experiments.engine import CAP_ARCH, refuse
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -214,17 +214,6 @@ def cache_specs(cfg: ModelConfig) -> Any:
     return {"k": kv, "v": kv}
 
 
-def check_mesh(cfg: ModelConfig) -> None:
-    """Refuse, with ``mesh-not-ported``, a config with experts (grok-1,
-    deepseek-v2) on a mesh: DTensor has no sharding rule for
-    ``moe_apply``'s ``aten.bincount`` (nor its index tables' ``scatter_``).
-    Every other family runs there."""
-    if cfg.num_experts:
-        raise refuse(CAP_MESH, f"{cfg.name}: the moe family on a mesh: DTensor has no "
-                               f"sharding rule for moe_apply's aten.bincount (nor the index "
-                               f"tables' scatter_)")
-
-
 def _layer(cache: dict, i: int) -> dict:
     """Layer (or shared-block group) ``i``'s views of a stacked cache."""
     return tree_map(lambda a: a[i], cache)
@@ -256,9 +245,11 @@ class Model:
         self.layout = FlatLayout.from_decls(self.decls, self.cfg.dtype)
 
     # -- parameters -------------------------------------------------------
-    def init(self, generator: torch.Generator) -> Any:
-        """Parameters drawn from ``generator``, on its device."""
-        return init_from_decls(self.decls, generator, self.cfg.dtype)
+    def init(self, generator: torch.Generator, specs=None, mesh=None) -> Any:
+        """Parameters drawn from ``generator``, on its device; with ``specs``
+        and ``mesh``, this rank's shard of each (drawn leaf by leaf: the
+        values of the unsharded draw)."""
+        return init_from_decls(self.decls, generator, self.cfg.dtype, specs, mesh)
 
     def abstract(self) -> Any:
         """The parameters as meta tensors (shape and dtype, no storage): the
@@ -354,6 +345,7 @@ class Model:
                 x = x + y
                 x = x + self._ffn(lp, apply_norm(cfg, lp["ln2"], x))
                 _write_prompt(cache, c, i)
+                del lp  # a mesh server's gathered layer, before the next one's
         x = apply_norm(cfg, params["ln_f"], x)
         return lm_logits(cfg, params, x[:, -1:]), cache
 
@@ -498,6 +490,7 @@ class Model:
                 y, _ = step(cfg, lp["attn"], h, _layer(cache, i), index)
                 x = x + y
                 x = x + self._ffn(lp, apply_norm(cfg, lp["ln2"], x))
+                del lp  # a mesh server's gathered layer, before the next one's
         x = apply_norm(cfg, params["ln_f"], x)
         return lm_logits(cfg, params, x), cache
 

@@ -28,6 +28,33 @@ among equal values, and bfloat16 router logits do tie; its gradient reaches
 the selected entries, as ``top_k``'s does), the pairs' sort is stable
 (``jnp.argsort``), and the capacity is the reference's integer and float
 arithmetic.
+
+On a mesh (``x`` a ``DTensor`` on the compute mesh, replicated over
+``model``) the routing, the sort and the index tables run on the rank's
+local tokens, and only the collectives below cross ranks.  The reference's
+chunks are of the *whole* token stream: the batch that its ``moe_apply``
+sees, which the ranks of the stream axes (:func:`~repro_torch.models.
+sharding.token_stream`: the data-parallel axes in serving, a group's inner
+axes in training) split in equal slices.  So the chunk count is
+``dispatch_chunks`` of that whole batch.  Where the rank's slice is whole
+chunks, their tables are its own; where a chunk spans ranks, the chunk's
+expert choices (``[t, k]`` ints) are all-gathered over the stream
+(``moe routing gather``), the chunk's tables computed whole and then cut
+to the rank's own kept pairs (each expert's in the reference's order), so
+the rank's experts run over its own rows only.  The experts then run in
+the reference's two modes: expert-parallel (``E % 16 == 0``: deepseek-v2)
+with each ``model`` rank's experts over their slots and the outputs
+all-gathered over ``model`` (``moe EP combine``; its backward takes the
+rank's part, and the slice of the rank's experts all-gathers its
+cotangent); ffn-sharded (grok-1) with each rank's share of every
+expert's hidden dim and the down-projection's partial sums all-reduced
+over ``model`` (``moe ffn all-reduce``; the cotangent of the experts'
+input is all-reduced in the backward).  The aux loss is of the whole
+stream (``moe aux``): the expert counts are summed and the mean
+probabilities averaged over the stream's ranks; its gradient on each rank
+is that of its own probabilities against the stream's counts, so the mean
+of the ranks' gradients (the mesh step's mean over a group's inner axes)
+is the reference's.
 """
 
 from __future__ import annotations
@@ -38,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding
 from repro_torch.models.layers import ParamDecl, round_up, tp_contract
 from repro_torch.models.sharding import P, shard
 
@@ -81,11 +109,9 @@ def _ep_mode(cfg: ModelConfig) -> bool:
     return cfg.num_experts % 16 == 0
 
 
-def _swiglu(x, w_gate, w_up, w_down, eq_in: str, eq_out: str, hspec=None):
+def _swiglu(x, w_gate, w_up, w_down, eq_in: str, eq_out: str):
     g = torch.einsum(eq_in, x, w_gate.to(x.dtype))
     u = torch.einsum(eq_in, x, w_up.to(x.dtype))
-    if hspec is not None:
-        g, u = shard(g, hspec), shard(u, hspec)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     return tp_contract(eq_out, h, w_down.to(x.dtype))
 
@@ -162,66 +188,245 @@ class _Combine(torch.autograd.Function):
         return d_y, d_gates.to(gates.dtype), None, None, None
 
 
-def moe_apply(cfg: ModelConfig, params, x, *, capacity_factor: float | None = None):
-    """Returns (output [b, s, d], aux load-balance loss [])."""
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.top_k
-    cf = capacity_factor or cfg.capacity_factor
-    nx = dispatch_chunks(cfg, b)
-    t = (b // nx) * s  # tokens per chunk
-    tokens = shard(x.reshape(nx, t, d), P("data", None, None))
-    dev = x.device
-
-    probs, gate_vals, gate_idx = route(cfg, params, tokens)  # [x, t, k]
-
-    # aux loss (Switch-style), over the full stream
-    me = probs.mean(dim=(0, 1))  # [e]
-    ce = torch.bincount(gate_idx.reshape(-1), minlength=e).to(torch.float32) / (nx * t * k)
-    aux = (me * ce).sum() * e
-
-    # ---- chunk-local stable sort of (token, expert) pairs ----
-    flat_expert = gate_idx.reshape(nx, t * k)
+def _index_tables(flat_expert, e: int, k: int, capacity: int):
+    """The reference's index tables of chunks of (token, expert) pairs
+    ``flat_expert`` [x, t*k]: ``slot_of_pair`` [x, t*k], ``src_of_slot`` and
+    ``pair_of_slot`` [x, e*capacity] (pads: slot ``e*capacity``, token
+    ``t``, pair ``t*k``)."""
+    nx, tk = flat_expert.shape
+    dev = flat_expert.device
     sort_idx = torch.argsort(flat_expert, dim=-1, stable=True)  # [x, tk]
     sorted_expert = torch.gather(flat_expert, 1, sort_idx)
     counts = torch.zeros((nx, e), dtype=torch.int64, device=dev).scatter_add_(
         1, flat_expert, torch.ones_like(flat_expert))
     seg_start = torch.cumsum(counts, dim=-1) - counts  # [x, e]
-    pos_in_expert = (torch.arange(t * k, device=dev)[None]
+    pos_in_expert = (torch.arange(tk, device=dev)[None]
                      - torch.gather(seg_start, 1, sorted_expert))
-
-    capacity = capacity_of(cfg, t, cf)
     n_slots = e * capacity
     keep = pos_in_expert < capacity  # [x, tk]
     # kept pairs land in distinct slots (expert, position); every dropped pair
     # writes the same value into the pad column, which is cut off
     slot_sorted = torch.where(keep, sorted_expert * capacity + pos_in_expert, n_slots)
     src_token = sort_idx // k
-    slot_of_pair = torch.full((nx, t * k), n_slots, dtype=torch.int64, device=dev).scatter_(
+    slot_of_pair = torch.full((nx, tk), n_slots, dtype=torch.int64, device=dev).scatter_(
         1, sort_idx, slot_sorted)
-    src_of_slot = torch.full((nx, n_slots + 1), t, dtype=torch.int64, device=dev).scatter_(
-        1, slot_sorted, torch.where(keep, src_token, t))[:, :n_slots]
-    pair_of_slot = torch.full((nx, n_slots + 1), t * k, dtype=torch.int64, device=dev).scatter_(
-        1, slot_sorted, torch.where(keep, sort_idx, t * k))[:, :n_slots]
+    src_of_slot = torch.full((nx, n_slots + 1), tk // k, dtype=torch.int64, device=dev).scatter_(
+        1, slot_sorted, torch.where(keep, src_token, tk // k))[:, :n_slots]
+    pair_of_slot = torch.full((nx, n_slots + 1), tk, dtype=torch.int64, device=dev).scatter_(
+        1, slot_sorted, torch.where(keep, sort_idx, tk))[:, :n_slots]
+    return slot_of_pair, src_of_slot, pair_of_slot
+
+
+def _own_slots(own, slot_of_pair, src_of_slot, pair_of_slot, e: int, capacity: int, t: int,
+               k: int):
+    """The index tables cut to the slots that ``own`` [x, e*capacity] marks
+    (this rank's kept pairs of chunks that span ranks), each expert's in
+    their order at the front of its ``c`` slots, ``c`` the most any expert
+    of any chunk keeps here: so the rank's experts run over its own rows
+    only.  Every row of the expert FFN is independent, so its values are
+    those of the whole chunk's slots.  Returns the tables and ``c``."""
+    nx = own.shape[0]
+    per_expert = own.reshape(nx, e, capacity)
+    c = max(int(per_expert.sum(-1).max()), 1)
+    pad = e * c
+    pos = per_expert.cumsum(-1) - 1 + torch.arange(e, device=own.device)[:, None] * c
+    new = torch.where(per_expert, pos, pad).reshape(nx, e * capacity)
+    remap = torch.cat([new, new.new_full((nx, 1), pad)], dim=1)  # the pad slot stays pad
+
+    def cut(table, fill):
+        return torch.full((nx, pad + 1), fill, dtype=table.dtype, device=table.device).scatter_(
+            1, new, torch.where(own, table, fill))[:, :pad]
+
+    return (torch.gather(remap, 1, slot_of_pair), cut(src_of_slot, t), cut(pair_of_slot, t * k),
+            c)
+
+
+# ---------------------------------------------------------------------------
+# Collectives on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _all_gather(t, group, dim: int):
+    """``t`` from every rank of ``group``, concatenated along ``dim`` in the
+    group's rank order (a functional all-gather: counted by ``count_cost``,
+    and staged on the host where gloo runs CUDA tensors)."""
+    ops = torch.ops._c10d_functional
+    n = group.size()
+    out = ops.wait_tensor(ops.all_gather_into_tensor(t.contiguous(), n, group.group_name))
+    return torch.cat(out.chunk(n), dim=dim) if dim else out
+
+
+def _all_reduce(t, group):
+    """``t`` summed over the ranks of ``group`` (a functional all-reduce)."""
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(t.contiguous(), "sum", group.group_name))
+
+
+class _ExpertSlice(torch.autograd.Function):
+    """Expert-parallel: this ``model`` rank's experts (dim 1) of the
+    replicated grouped tokens; the backward all-gathers the ranks'
+    cotangents, so the dispatch's backward sees every expert's."""
+
+    @staticmethod
+    def forward(ctx, grouped, group, rank: int, n: int):
+        ctx.group = group
+        return grouped[:, rank * n:(rank + 1) * n]
+
+    @staticmethod
+    def backward(ctx, d_mine):
+        with sharding.collective_site("moe EP combine"):
+            return _all_gather(d_mine, ctx.group, 1), None, None, None
+
+
+class _GatherExperts(torch.autograd.Function):
+    """Expert-parallel combine: every rank's experts' outputs all-gathered
+    over ``model`` along dim 1 (the reference's EP combine collective); the
+    backward takes this rank's part of the replicated cotangent."""
+
+    @staticmethod
+    def forward(ctx, y_mine, group, rank: int):
+        ctx.rank, ctx.n = rank, y_mine.shape[1]
+        with sharding.collective_site("moe EP combine"):
+            return _all_gather(y_mine, group, 1)
+
+    @staticmethod
+    def backward(ctx, d_y):
+        return d_y[:, ctx.rank * ctx.n:(ctx.rank + 1) * ctx.n], None, None
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """ffn-sharded: the identity, whose backward sums the cotangent's
+    partial sums (each rank's share of the hidden dim) over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, d_x):
+        with sharding.collective_site("moe ffn all-reduce"):
+            return _all_reduce(d_x, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """ffn-sharded: the down-projection's partial sums all-reduced over
+    ``model`` (the reference's ``tp_contract`` psum); the backward is the
+    identity (the cotangent is replicated)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        with sharding.collective_site("moe ffn all-reduce"):
+            return _all_reduce(y, group)
+
+    @staticmethod
+    def backward(ctx, d_y):
+        return d_y, None
+
+
+def _stream_all_gather(t, mesh, axes):
+    """``t`` [n, ...] from every rank along the mesh axes ``axes`` (the first
+    one major), concatenated along dim 0 in the stream's order."""
+    for a in reversed(axes):  # the minor axis first
+        t = _all_gather(t, mesh.get_group(a), 0)
+    return t
+
+
+def moe_apply(cfg: ModelConfig, params, x, *, capacity_factor: float | None = None):
+    """Returns (output [b, s, d], aux load-balance loss []); on a mesh, see
+    the module docstring."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    e, k = cfg.num_experts, cfg.top_k
+    cf = capacity_factor or cfg.capacity_factor
+    names = ("router", "w_gate", "w_up", "w_down")
+    cm = x.device_mesh if sharding.is_sharded(x) else None
+    if cm is not None:
+        x = shard(x, P(None, None, None))  # whole on every rank (a pending TP sum reduced)
+        mesh, axes = sharding.get_mesh(), sharding.stream_axes()
+        r, R = sharding.coordinate(mesh, axes)
+        local = {name: params[name].to_local() for name in names}
+        x_loc = x.to_local()
+    else:
+        r, R = 0, 1
+        local = {name: params[name] for name in names}
+        x_loc = x
+    b_loc, s, d = x_loc.shape
+    B = b_loc * R  # the stream's batch: the reference's b
+    nx = dispatch_chunks(cfg, B)
+    t = (B // nx) * s  # tokens per chunk
+    n_loc = b_loc * s
+    lo, hi = r * n_loc, (r + 1) * n_loc  # this rank's tokens in the stream
+    c0, c1 = lo // t, (hi - 1) // t + 1  # the chunks they lie in
+    before, after = lo - c0 * t, c1 * t - hi
+
+    probs, gate_vals, gate_idx = route(cfg, local, x_loc)  # [b, s, e], [b, s, k]
+
+    # aux loss (Switch-style) over the whole stream: its expert counts summed
+    # and its mean probabilities averaged over the stream's ranks; the
+    # gradient that of this rank's own probabilities against them
+    counts = torch.bincount(gate_idx.reshape(-1), minlength=e).to(torch.float32)
+    me = probs.mean(dim=(0, 1))  # [e]
+    me_all = me.detach()
+    if R > 1:
+        with sharding.collective_site("moe aux"):
+            counts = torch.stack([counts, me_all])
+            for a in axes:
+                counts = _all_reduce(counts, mesh.get_group(a))
+            counts, me_all = counts[0], counts[1] / R
+    aux = ((me + (me_all - me).detach()) * (counts / (B * s * k))).sum() * e
+
+    # ---- chunk-local stable sort of (token, expert) pairs, index tables ----
+    if before or after:  # a chunk spans ranks: its expert choices from all of them
+        with sharding.collective_site("moe routing gather"):
+            stream = _stream_all_gather(gate_idx.reshape(n_loc, k), mesh, axes)
+        flat_expert = stream[c0 * t:c1 * t].reshape(c1 - c0, t * k)
+    else:
+        flat_expert = gate_idx.reshape(c1 - c0, t * k)
+    capacity = capacity_of(cfg, t, cf)
+    slot_of_pair, src_of_slot, pair_of_slot = _index_tables(flat_expert, e, k, capacity)
+    tok, gates = x_loc.reshape(n_loc, d), gate_vals.to(x_loc.dtype).reshape(n_loc, k)
+    if before or after:
+        # only this rank's kept pairs keep their slots (the other ranks' pairs
+        # go to the pad slot); its tokens and gates padded to the chunks
+        own = torch.zeros(((c1 - c0) * t,), dtype=torch.bool, device=tok.device)
+        own[before:before + n_loc] = True
+        own = own.reshape(c1 - c0, t)
+        own_slot = torch.gather(torch.cat([own, own.new_zeros((c1 - c0, 1))], 1), 1, src_of_slot)
+        slot_of_pair, src_of_slot, pair_of_slot, capacity = _own_slots(
+            own_slot, slot_of_pair, src_of_slot, pair_of_slot, e, capacity, t, k)
+        tok = torch.cat([tok.new_zeros((before, d)), tok, tok.new_zeros((after, d))])
+        gates = torch.cat([gates.new_zeros((before, k)), gates, gates.new_zeros((after, k))])
+    n_slots = e * capacity
 
     # ---- gather dispatch (its backward a gather too) ----
-    grouped = _Dispatch.apply(tokens, src_of_slot, slot_of_pair).reshape(nx, e, capacity, d)
-    grouped = shard(grouped, P("data", None, None, None))
+    grouped = _Dispatch.apply(tok.reshape(c1 - c0, t, d), src_of_slot, slot_of_pair)
+    grouped = grouped.reshape(c1 - c0, e, capacity, d)
 
-    # ---- grouped expert FFN (swiglu) ----
-    hspec = P("data", "model", None, None) if _ep_mode(cfg) else P("data", None, None, "model")
-    y_grouped = _swiglu(grouped, params["w_gate"], params["w_up"], params["w_down"],
-                        "xecd,edf->xecf", "xecf,efd->xecd", hspec)
-    # combine collective: EP all-gather (deepseek) / ffn psum (grok)
-    y_grouped = shard(y_grouped, P("data", None, None, None))
+    # ---- grouped expert FFN (swiglu), in the experts' mode on a mesh ----
+    w = (local["w_gate"], local["w_up"], local["w_down"])
+    eq = ("xecd,edf->xecf", "xecf,efd->xecd")
+    tp = 1 if cm is None else cm.size(cm.mesh_dim_names.index("model"))
+    if tp == 1:
+        y = _swiglu(grouped, *w, *eq)
+    elif _ep_mode(cfg):
+        group, rank = cm.get_group("model"), cm.get_local_rank("model")
+        mine = _ExpertSlice.apply(grouped, group, rank, w[0].shape[0])
+        y = _GatherExperts.apply(_swiglu(mine, *w, *eq), group, rank)
+    else:
+        group = cm.get_group("model")
+        y = _ReduceOut.apply(_swiglu(_ReduceGrad.apply(grouped, group), *w, *eq), group)
 
     # ---- gather combine ----
-    out = _Combine.apply(y_grouped.reshape(nx, n_slots, d), gate_vals.to(x.dtype),
+    out = _Combine.apply(y.reshape(c1 - c0, n_slots, d), gates.reshape(c1 - c0, t, k),
                          slot_of_pair, src_of_slot, pair_of_slot)
-    out = shard(out, P("data", None, None))
-
+    out = out.reshape(-1, d)[before:before + n_loc].reshape(b_loc, s, d)
+    if cm is not None:
+        out = DTensor.from_local(out, cm, [Replicate()] * cm.ndim, run_check=False)
+        aux = DTensor.from_local(aux, cm, [Replicate()] * cm.ndim, run_check=False)
     if cfg.num_shared_experts:
-        out = out + _shared(params, tokens)
-    return out.reshape(b, s, d), aux
+        out = shard(out + _shared(params, x), P(None, None, None))
+    return out, aux
 
 
 def moe_reference(cfg: ModelConfig, params, x):

@@ -213,6 +213,31 @@ def spec_axes(spec, mesh) -> tuple[str, ...]:
     return tuple(a for d in range(len(tuple(spec))) for a in dim_axes(spec, d, mesh))
 
 
+_STREAM: tuple[str, ...] | None = None
+
+
+@contextlib.contextmanager
+def token_stream(axes):
+    """Name the mesh axes whose ranks split one token stream in equal slices,
+    the rank's position along them its slice's (``models/moe.py``: the
+    reference's ``moe_apply`` sees the whole stream, its dispatch chunks and
+    aux loss are the stream's).  Serving's stream is the batch, over the
+    data-parallel axes (the default); a DSAG group's is its batch, over the
+    inner axes (``core/dsag_pjit.py``).  Process-wide, as the mesh is, so a
+    recomputation in the backward sees it too."""
+    global _STREAM
+    prev, _STREAM = _STREAM, tuple(axes)
+    try:
+        yield
+    finally:
+        _STREAM = prev
+
+
+def stream_axes() -> tuple[str, ...]:
+    """The axes of :func:`token_stream`; the data-parallel ones by default."""
+    return dp_axes() if _STREAM is None else _STREAM
+
+
 _site = threading.local()
 
 

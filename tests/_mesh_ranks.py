@@ -21,8 +21,8 @@ from repro_torch.models import build_model
 from repro_torch.models.sharding import set_mesh
 
 
-def smoke_model(arch: str, dtype: str):
-    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+def smoke_model(arch: str, dtype: str, **fields):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype, **fields)
     return cfg, build_model(cfg, kernel_backend="torch")
 
 
@@ -38,8 +38,9 @@ def train_steps(arch: str, dtype: str, tc: TrainConfig, shape, batches, masks, s
         step = make_train_step(lambda p, b: model.train_loss(p, b, remat=tc.remat), tc, gs,
                                mesh, model.param_specs(tc.fsdp), backend="torch",
                                layout=model.layout)
-        tree = model.init(torch.Generator().manual_seed(seed))
-        state = init_mesh_train_state(tree, tc, gs, step.layouts, mesh)
+        state = init_mesh_train_state(
+            model.init(torch.Generator().manual_seed(seed), step.layouts.specs, mesh), tc, gs,
+            step.layouts, mesh)
         out = []
         for batch, (m, f, e) in zip(batches, masks):
             state, met = step(state, {k: torch.as_tensor(v) for k, v in batch.items()},
@@ -53,6 +54,12 @@ def train_steps(arch: str, dtype: str, tc: TrainConfig, shape, batches, masks, s
         set_mesh(None)
 
 
+def set_threads(n: int) -> int:
+    """This rank's intra-op threads (ranks of one CPU share its cores)."""
+    torch.set_num_threads(n)
+    return torch.get_num_threads()
+
+
 def _flat(tree, prefix=()):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -61,19 +68,24 @@ def _flat(tree, prefix=()):
         yield prefix, tree
 
 
-def serve(arch: str, dtype: str, shape, batch, num_tokens: int, max_len: int, seed: int = 0):
-    """``Server(mesh=)`` on ``arch``'s smoke model: the whole batch's
-    generated tokens, and the prefill's last logits of this rank's batch
-    slice."""
+def serve(arch: str, dtype: str, shape, batch, num_tokens: int, max_len: int, seed: int = 0,
+          cfg_fields: dict | None = None):
+    """``Server(mesh=)`` on ``arch``'s smoke model (``cfg_fields``
+    replaced): the whole batch's generated tokens, and the prefill's last
+    logits of this rank's batch slice."""
+    from unittest import mock
+
     from torch.distributed.tensor.experimental import implicit_replication
 
-    from repro_torch.launch.serve import Server
+    import repro_torch.launch.serve as serve_mod
     from repro_torch.models.sharding import dp_coordinate, full
 
     mesh = make_test_mesh(shape, device_type="cpu")
     try:
-        srv = Server(arch, device="cpu", kernel_backend="torch", max_len=max_len, seed=seed,
-                     mesh=mesh, dtype=dtype)
+        with mock.patch.object(serve_mod, "get_smoke_config", lambda a: dataclasses.replace(
+                get_smoke_config(a), **(cfg_fields or {}))):
+            srv = serve_mod.Server(arch, device="cpu", kernel_backend="torch", max_len=max_len,
+                                   seed=seed, mesh=mesh, dtype=dtype)
         toks = srv.generate(batch, num_tokens)
         idx, n = dp_coordinate(mesh)
         b = batch["tokens"].shape[0] // n
@@ -98,8 +110,9 @@ def counted_step(arch: str, dtype: str, tc: TrainConfig, shape, batch, mask):
         step = make_train_step(lambda p, b: model.train_loss(p, b, remat=tc.remat), tc, gs,
                                mesh, model.param_specs(tc.fsdp), backend="torch",
                                layout=model.layout)
-        state = init_mesh_train_state(model.init(torch.Generator().manual_seed(0)), tc, gs,
-                                      step.layouts, mesh)
+        state = init_mesh_train_state(
+            model.init(torch.Generator().manual_seed(0), step.layouts.specs, mesh), tc, gs,
+            step.layouts, mesh)
         m = torch.as_tensor(mask)
         cost = count_cost(step, state, {k: torch.as_tensor(v) for k, v in batch.items()},
                           m, torch.zeros_like(m), torch.zeros_like(m))
@@ -215,7 +228,8 @@ def state_by_path(tree) -> dict:
     return out
 
 
-def layout_run(arch: str, tc: TrainConfig, shape, batches, masks, seed: int = 0):
+def layout_run(arch: str, tc: TrainConfig, shape, batches, masks, seed: int = 0,
+               cfg_fields: dict | None = None):
     """The mesh step of ``arch``'s float32 smoke model under ``tc`` on a
     ``shape`` mesh, from the seeded init, over ``batches`` / ``masks``; the
     last step runs under ``count_cost``.  Rank 0 returns each step's
@@ -228,13 +242,14 @@ def layout_run(arch: str, tc: TrainConfig, shape, batches, masks, seed: int = 0)
     mesh = make_test_mesh(shape, device_type="cpu")
     set_mesh(mesh)
     try:
-        cfg, model = smoke_model(arch, "float32")
+        cfg, model = smoke_model(arch, "float32", **(cfg_fields or {}))
         gs = make_group_spec(tc, mesh)
         specs = model.param_specs(tc.fsdp)
         step = make_train_step(lambda p, b: model.train_loss(p, b, remat=tc.remat), tc, gs,
                                mesh, specs, backend="torch", layout=model.layout)
-        state = init_mesh_train_state(model.init(torch.Generator().manual_seed(seed)), tc, gs,
-                                      step.layouts, mesh)
+        state = init_mesh_train_state(
+            model.init(torch.Generator().manual_seed(seed), step.layouts.specs, mesh), tc, gs,
+            step.layouts, mesh)
         out, states, held = [], [], {}
         for i, (batch, bits) in enumerate(zip(batches, masks)):
             args = ({k: torch.as_tensor(v) for k, v in batch.items()},
@@ -319,3 +334,92 @@ def _tensors(tree):
         yield tree.scale
     else:
         yield tree
+
+
+def moe_layer(arch: str, cfg_fields: dict, shape, params: dict, x, w, cf: float):
+    """``moe_apply`` of ``arch``'s float32 smoke config (``cfg_fields``
+    replaced) on a ``shape`` mesh: the parameters (numpy, by name) placed by
+    the MoE's specs (FSDP) and degathered, ``x`` [b, s, d] split over the
+    data-parallel ranks (one token stream).  Each rank's loss is ``R ·
+    sum(out · w)`` over its slice plus the aux, so the mean of the ranks'
+    gradients is the gradient of ``sum(out · w) + aux`` over the whole
+    batch.  Rank 0 returns the whole output, the aux, that mean gradient
+    (by parameter, and of ``x``), the routed experts and the collectives
+    (``count_cost``'s sites: bytes and counts)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.analysis.cost import count_cost
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import sharding
+    from repro_torch.models.layers import make_rules, specs_from_decls
+
+    mesh = make_test_mesh(shape, device_type="cpu")
+    set_mesh(mesh)
+    try:
+        cfg = smoke_model(arch, "float32", **cfg_fields)[0]
+        specs = specs_from_decls(moe_mod.moe_decls(cfg), make_rules(cfg, True))
+        cm = sharding.compute_mesh(mesh)
+        placed = {k: sharding.NamedSharding(mesh, specs[k]).place(torch.as_tensor(v))
+                  for k, v in params.items()}
+        # the leaves the gradient is taken of: the degathered ones (the mesh
+        # step's TP layout), each rank's gradient its own slice's
+        tp = {k: DTensor.from_local(v.to_local().detach().requires_grad_(True), cm,
+                                    v.placements[-cm.ndim:], run_check=False)
+              for k, v in sharding.degather(placed, specs, mesh).items()}
+        idx, R = sharding.dp_coordinate(mesh)
+        b = x.shape[0] // R
+        x_loc = torch.as_tensor(x[idx * b:(idx + 1) * b]).requires_grad_(True)
+        xd = DTensor.from_local(x_loc, cm, [Replicate()] * cm.ndim, run_check=False)
+        routes = []
+        real_route = moe_mod.route
+
+        def route(*a):
+            out = real_route(*a)
+            routes.append(out[2].detach().clone())
+            return out
+
+        held = {}
+
+        def run():
+            with implicit_replication(), sharding.token_stream(sharding.dp_axes()):
+                out, aux = moe_mod.moe_apply(cfg, tp, xd, capacity_factor=cf)
+                loc = out.to_local()
+                loss = R * (loc * torch.as_tensor(w[idx * b:(idx + 1) * b])).sum() \
+                    + aux.to_local()
+                grads = torch.autograd.grad(loss, [x_loc] + list(tp.values()))
+            held.update(out=loc.detach(), aux=aux.to_local().detach(), grads=grads)
+
+        moe_mod.route = route
+        try:
+            cost = count_cost(run)
+        finally:
+            moe_mod.route = real_route
+        # the minor axis first: a concatenation's order is the stream's
+        group = [mesh.get_group(a) for a in reversed(sharding.dp_axes())]
+
+        def over_dp(t, op):
+            t = t.contiguous()
+            for g in group:
+                if op == "cat":
+                    parts = [torch.empty_like(t) for _ in range(g.size())]
+                    torch.distributed.all_gather(parts, t, group=g)
+                    t = torch.cat(parts)
+                else:
+                    torch.distributed.all_reduce(t, group=g)
+            return t
+
+        out = over_dp(held["out"], "cat")
+        dx = over_dp(held["grads"][0], "cat") / R
+        dparams = {}
+        for k, g in zip(tp, held["grads"][1:]):
+            dparams[k] = over_dp(g.full_tensor(), "sum") / R
+        gate_idx = over_dp(routes[0].reshape(b, -1, cfg.top_k), "cat")
+        if torch.distributed.get_rank() != 0:
+            return None
+        return {"out": np.asarray(out), "aux": float(held["aux"]), "dx": np.asarray(dx),
+                "grads": {k: np.asarray(v) for k, v in dparams.items()},
+                "gate_idx": np.asarray(gate_idx), "sites": dict(cost.coll_site_wire_bytes),
+                "site_counts": dict(cost.coll_site_counts)}
+    finally:
+        set_mesh(None)

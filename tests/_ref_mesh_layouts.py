@@ -1,15 +1,19 @@
 """The reference's jitted mesh step on 8 fake XLA CPU devices, for
-``tests/test_torch_mesh_layouts.py`` (run as a subprocess with the jax-0.9
-shim: ``python _ref_mesh_layouts.py <inputs.npz> <cases.json> <out.npz>``).
+``tests/test_torch_mesh_layouts.py`` and ``tests/test_torch_mesh_moe.py``
+(run as a subprocess with the jax-0.9 shim: ``python _ref_mesh_layouts.py
+<inputs.npz> <cases.json> <out.npz>``).
 
-Each case trains an arch's float32 smoke model from the port's initial
-parameters (read from the inputs) for a few steps on the given batches and
-Tier-2 bits, under the reference's ``make_group_spec`` / ``train_state_specs``
-placement (the dry run's flatten-order ``_attach``), and writes each step's
-metrics and train state (by the checkpoint's path strings).  It
-also writes the reference's ``opt_state_specs`` and ``dsag_state_specs`` for
-adafactor and int8 slots under the ``zero`` and ``pod`` layouts, for every
-arch.
+Each case trains an arch's float32 smoke model (its ``cfg`` fields
+replaced) from the port's initial parameters (read from the inputs) for a
+few steps on the given batches and Tier-2 bits, under the reference's
+``make_group_spec`` / ``train_state_specs`` placement (the dry run's
+flatten-order ``_attach``), and writes each step's metrics and train state
+(by the checkpoint's path strings).  A case of kind ``"moe"`` runs
+``moe_apply`` jitted on the mesh instead (the parameters placed by the
+MoE's FSDP specs, the batch over ``data``) and unsharded, and writes each
+one's output, aux loss and gradient of ``sum(out · w) + aux``.  It also writes the reference's
+``opt_state_specs`` and ``dsag_state_specs`` for adafactor and int8 slots
+under the ``zero`` and ``pod`` layouts, for every arch.
 """
 
 import os
@@ -35,6 +39,7 @@ pl.store = _store
 
 import dataclasses  # noqa: E402
 import json  # noqa: E402
+import time  # noqa: E402
 import types  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
@@ -69,7 +74,8 @@ def run_case(name, case, inputs, out):
     mesh = make_test_mesh(tuple(case["shape"]))
     set_mesh(mesh)
     try:
-        cfg = dataclasses.replace(get_smoke_config(case["arch"]), dtype="float32")
+        cfg = dataclasses.replace(get_smoke_config(case["arch"]), dtype="float32",
+                                  **case.get("cfg", {}))
         model = build_model(cfg)
         tc = TrainConfig(**case["tc"])
         gs = D.make_group_spec(tc, mesh)
@@ -100,6 +106,42 @@ def run_case(name, case, inputs, out):
         set_mesh(None)
 
 
+def run_moe_case(name, case, inputs, out):
+    from repro.models import moe
+    from repro.models.layers import make_rules
+
+    mesh = make_test_mesh(tuple(case["shape"]))
+    set_mesh(mesh)
+    try:
+        cfg = dataclasses.replace(get_smoke_config(case["arch"]), dtype="float32",
+                                  **case.get("cfg", {}))
+        rules = make_rules(cfg, True)
+        decls = moe.moe_decls(cfg)
+        params = {k: jax.device_put(jnp.asarray(inputs[f"{name}/p/{k}"]), NamedSharding(
+            mesh, P(*[rules.get(a) for a in d.logical]))) for k, d in decls.items()}
+        x = jax.device_put(jnp.asarray(inputs[f"{name}/x"]), NamedSharding(mesh, P("data")))
+        w = jnp.asarray(inputs[f"{name}/w"])
+
+        def f(p, x):
+            y, aux = moe.moe_apply(cfg, p, x, capacity_factor=case["cf"])
+            return jnp.sum(y * w) + aux, (y, aux)
+
+        def run(tag, p, x):
+            (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+                f, argnums=(0, 1), has_aux=True))(p, x)
+            out[f"{name}/{tag}/out"], out[f"{name}/{tag}/aux"] = np.asarray(y), np.asarray(aux)
+            out[f"{name}/{tag}/dx"] = np.asarray(gx)
+            for k, v in gp.items():
+                out[f"{name}/{tag}/grad/{k}"] = np.asarray(v)
+
+        run("mesh", params, x)
+    finally:
+        set_mesh(None)
+    # the same function unsharded (no mesh installed: no sharding constraint)
+    run("plain", {k: jnp.asarray(np.asarray(v)) for k, v in params.items()},
+        jnp.asarray(np.asarray(x)))
+
+
 def spec_trees():
     """opt_state_specs / dsag_state_specs for adafactor + int8 under zero
     and pod, on (2, 4) and (2, 2, 4) meshes (only their axes are read)."""
@@ -128,7 +170,9 @@ def main():
     out = {"specs": np.frombuffer(json.dumps(spec_trees()).encode(), dtype=np.uint8)}
     with np.load(inputs_path) as inputs:
         for name, case in cases.items():
-            run_case(name, case, inputs, out)
+            t0 = time.perf_counter()
+            (run_moe_case if case.get("kind") == "moe" else run_case)(name, case, inputs, out)
+            print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
     np.savez(out_path, **out)
 
 

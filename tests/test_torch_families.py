@@ -540,9 +540,9 @@ def test_recurrent_prompt_shorter_than_the_conv_tail_is_refused():
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_training_stays_refused(ref, arch):
-    """What stays refused in training these families on a mesh is the MoE
-    (an object that is not a mesh is refused for every family); without one
-    the smoke model's loss is finite and one group's gradient through the
+    """What stays refused in training these families on a mesh is an
+    object that is not a mesh, for every family (the MoE runs there:
+    ``tests/test_torch_mesh_moe.py``); without one the smoke model's loss is finite and one group's gradient through the
     trainer's group gradients (``autograd_group_value_and_grad`` over the
     flat layout) matches the reference's ``value_and_grad`` in float32:
     ``rtol=1e-4``, ``atol = 1e-4 * max|ref| + 4 * spread`` of each leaf
@@ -551,20 +551,13 @@ def test_training_stays_refused(ref, arch):
     Where the reference's gradient is NaN (its SSD fault, ROADMAP §3: the
     smoke config's dt reaches ~16, and a 16-token chunk's decay passes
     88.7), the port's is finite; only the SSM families may hit it."""
-    from repro_torch.core.dsag_pjit import CAP_MESH, autograd_group_value_and_grad
-    from repro_torch.models.model import check_mesh
+    from repro_torch.core.dsag_pjit import autograd_group_value_and_grad
     from repro_torch.experiments.engine import EngineConfig
     from repro_torch.launch.train import Trainer, TrainerOptions
 
     with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(TrainerOptions(arch=arch, mesh=object(),
                                engine=EngineConfig(device="cpu", kernel_backend="torch")))
-    if arch in MOE_ARCHS:  # the MoE layers do not run on a mesh (DTensor: aten.bincount)
-        with pytest.raises(EngineCapabilityError) as e:
-            check_mesh(get_smoke_config(arch))
-        assert e.value.capability.code == CAP_MESH
-    else:  # SSM and hybrid run there (tests/test_torch_mesh.py runs the dense family)
-        check_mesh(get_smoke_config(arch))
     cfg, params, pre, toks = _setup(ref, arch, "float32")
     model = build_model(cfg, kernel_backend="torch")
     layout = model.layout

@@ -68,7 +68,7 @@ from repro_torch.launch.mesh import RankPool, make_production_mesh  # noqa: E402
 from repro_torch.launch.serve import Server, stub_batch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.layers import make_rules  # noqa: E402
-from repro_torch.models.model import cache_specs, check_mesh  # noqa: E402
+from repro_torch.models.model import cache_specs  # noqa: E402
 from repro_torch.models.moe import _ep_mode  # noqa: E402
 from repro_torch.models.sharding import P, set_mesh, strip_axis  # noqa: E402
 from repro_torch.optim.compression import Quantized, dequantize, quantize  # noqa: E402
@@ -273,12 +273,17 @@ def test_production_meshes_over_a_fake_world():
 
 
 def test_what_is_not_a_mesh_and_what_a_mesh_does_not_run_are_refused():
-    """What stays refused: an object that is not a mesh, the MoE family, a
-    projected (PCA) step, group axes off the data axes.  Every group layout
-    of ``make_group_spec`` (``dp``, ``pod``, ``zero``, ``none``, and
+    """What stays refused: an object that is not a mesh, a projected (PCA)
+    step, group axes off the data axes.  Every group layout of
+    ``make_group_spec`` (``dp``, ``pod``, ``zero``, ``none``, and
     ``dsag=False``) with bf16, float32 or int8 slots and adamw or adafactor
     is one a mesh step runs (``tests/test_torch_mesh_layouts.py`` runs
-    them)."""
+    them).  The MoE family is accepted on (2, 4) and (2, 2, 2): every leaf
+    of its parameters splits evenly there, with FSDP and without, its
+    experts in their mode (``tests/test_torch_mesh_moe.py`` runs them)."""
+    from repro_torch.models.layers import _leaves, get_path
+    from repro_torch.models.sharding import local_shape
+
     from repro_torch.core.dsag_pjit import check_mesh_step
 
     with pytest.raises(TypeError, match="DeviceMesh"):
@@ -301,12 +306,14 @@ def test_what_is_not_a_mesh_and_what_a_mesh_does_not_run_are_refused():
                         layout=object())
     assert e.value.capability.code == CAP_MESH and "PCA" in str(e.value)
     for arch in ("grok-1-314b", "deepseek-v2-236b"):
-        with pytest.raises(EngineCapabilityError) as e:
-            check_mesh(get_config(arch))
-        assert e.value.capability.code == CAP_MESH and "bincount" in str(e.value)
-    for arch in ARCHS:
-        if not get_config(arch).num_experts:
-            check_mesh(get_config(arch))
+        cfg = get_config(arch)
+        model = build_model(cfg, kernel_backend="torch")
+        for mesh in meshes:
+            for fsdp in (False, True):
+                specs = model.param_specs(fsdp)
+                for path, decl in _leaves(model.decls):
+                    local_shape(decl.shape, get_path(specs, path), _SizedMesh(mesh))
+            assert make_rules(cfg, True)["expert" if _ep_mode(cfg) else "expert_mlp"] == "model"
 
 
 class _SizedMesh:

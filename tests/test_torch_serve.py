@@ -490,21 +490,19 @@ TRAIN_REFUSED = [("grok-1-314b", {}), ("deepseek-v2-236b", {}), ("mamba2-370m", 
 @pytest.mark.parametrize(("arch", "change"), TRAIN_REFUSED,
                          ids=["moe", "mla", "ssm", "hybrid", "moe-learned-pos", "vlm-moe"])
 def test_unported_model_features_are_refused(arch, change):
-    """What stays refused for these features on a mesh is the experts (an
-    object that is not a mesh is refused for all); without one each config
-    trains: its loss is finite, and the trainer's group gradient
+    """What stays refused for these features on a mesh is an object that is
+    not a mesh (the experts run there: ``tests/test_torch_mesh_moe.py``);
+    without one each config trains: its loss is finite, and the trainer's group gradient
     (``autograd_group_value_and_grad`` over the flat layout) is, group by
     group, the gradient of ``Model.train_loss`` on that group's batch, bit
     for bit (the four registry families are held against the reference in
     ``tests/test_torch_train_families.py``)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.dsag_pjit import (
-        CAP_MESH,
         GroupSpec,
         autograd_group_value_and_grad,
         make_train_step,
     )
-    from repro_torch.models.model import check_mesh
 
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **change)
     model = build_model(cfg, kernel_backend="torch")  # served
@@ -513,12 +511,6 @@ def test_unported_model_features_are_refused(arch, change):
     with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(model.train_loss, TrainConfig(), GroupSpec(2, ()), mesh=object(),
                         layout=layout)
-    if cfg.num_experts:  # the experts do not run on a mesh (DTensor: aten.bincount)
-        with pytest.raises(EngineCapabilityError) as e:
-            check_mesh(cfg)
-        assert _code(e) == CAP_MESH
-    else:
-        check_mesh(cfg)
     batch = {"tokens": torch.as_tensor(
         np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 2, 12)))}
     if cfg.family == "vlm":
