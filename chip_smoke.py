@@ -247,7 +247,7 @@ Phases (any failure raises and the script exits non-zero):
    freed before the next: (a) mamba2-370m at full width and depth and (b)
    zamba2-2.7b at full width, cut to two groups of six Mamba2 layers and
    the shared block (:data:`FAMILY_TRAIN_ARCHS`), each trained
-   :data:`TRAIN_STEPS` steps through ``Trainer`` (``TrainConfig()``, P = 4,
+   :data:`FAMILY_TRAIN_STEPS` steps through ``Trainer`` (``TrainConfig()``, P = 4,
    8 x 128 tokens, random bf16 weights from seed 0): finite losses, K4 once
    per step over [4, n] bf16, no K6, host ms per step, peak memory, and K4
    on the second step's inputs bit-equal to its plain twin, timed beside its
@@ -258,8 +258,8 @@ Phases (any failure raises and the script exits non-zero):
    image embeddings), finite, two runs bit-equal, the MoE backward through
    ``_Dispatch``/``_Combine`` against the indexing form within
    :data:`MOE_BWD_TOL`, ms per forward + backward and peak memory; (d) the
-   four smoke configs in float32, 8 ``Trainer`` steps (sgd, replayed
-   traces), card against CPU: streams equal, losses and the final
+   four smoke configs in float32, :data:`FAMILY_TRAIN_STEPS` ``Trainer``
+   steps (sgd, replayed traces), card against CPU: streams equal, losses and the final
    parameters' relative RMS within :data:`TRAIN_CHECK_RTOL`, K4 once per
    step; (e) the SSD at chunk
    128 past a cumulative decay of 88.7: every gradient finite on the card
@@ -267,8 +267,9 @@ Phases (any failure raises and the script exits non-zero):
 17. the mesh path (~2 min): qwen1.5-0.5b on a (data=2, model=2) device mesh
    of four processes on the card (``RankPool``, gloo: NCCL refuses two
    ranks on one device), each run held against the unsharded port on the
-   same inputs, computed first in this process and freed before the ranks
-   start.  (a) training at full width and depth through
+   same inputs, computed first in this process (while the ranks start) and
+   freed before their first task.  (a) training at full width,
+   :data:`MESH_TRAIN_BF16_LAYERS` of 24 layers, through
    ``Trainer(TrainerOptions(mesh=))`` and its step (:data:`MESH_TC`: DSAG
    groups on ``data``, FSDP, adamw, bf16 slots; P = 2, :data:`MESH_TRAIN`
    tokens), 2 steps with group 1 masked at the second: losses, per-group
@@ -317,12 +318,12 @@ Phases (any failure raises and the script exits non-zero):
    experts expert-parallel, 80 per rank, the outputs all-gathered; MLA) on
    (data=2, model=2), four ranks on the card over gloo, each run against the
    unsharded port on the same weights and inputs, computed first in this
-   process and freed before the ranks start.  (a) ``Server(mesh=)`` at
-   published widths, 2 layers in bf16 and 1 in float32
+   process (while the ranks start) and freed before their first task.  (a)
+   ``Server(mesh=)`` at published widths, 1 layer in bf16 and in float32
    (:data:`MOE_SERVE_F32_FIELDS`: in float32 the experts' hidden width
    halved and grok-1's vocab cut, to fit four ranks on the card), :data:`MOE_SERVE` (16 prompts: the configs'
-   ``moe_dispatch_chunks``, whole chunks on each data rank), prefill and 2
-   decode steps: every K6 call of grok-1's prefill held on its own inputs
+   ``moe_dispatch_chunks``, whole chunks on each data rank), prefill and 1
+   decode step: every K6 call of grok-1's prefill held on its own inputs
    against the plain attention; in float32 every token's experts equal the
    unsharded run's and the logits within :data:`MESH_TOL`; in bf16 the
    logits' gap and the share of flipped routes printed; (b) one full-width
@@ -347,7 +348,18 @@ Phases (any failure raises and the script exits non-zero):
    (d) K6 at grok-1's
    rank-local prefill shape and K4-int8's split form at (c)'s largest split
    expert shard, each against its plain twin, timed beside its bound;
-20. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+20. the dry run (``repro_torch.launch.dryrun``, ~8 s; on the host, over meta
+   tensors in a fake process group): (a) phase 18's ``a bf16`` step
+   (qwen1.5-0.5b at :data:`LAYOUT_BF16_LAYERS` layers, adafactor, int8 slots,
+   ``zero`` groups on (2, 2)) counted dry under ``dry_run("card")`` on rank
+   0 of a fake world of 4, held equal to the rank-0 ``count_cost`` of that
+   step really run on the card in phase 18: FLOPs, bytes, every row (calls,
+   FLOPs, bytes; K4-int8's and its row-max pass's by their cost models),
+   the collectives by kind and by site (any difference fails); (b) its ``peak_estimate_bytes``
+   printed beside phase 18's measured peak per rank and their ratio (not
+   held); (c) :data:`DRYRUN_CELL` on the 16x16 production mesh at full
+   width, its one-line summary printed;
+21. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -3743,6 +3755,9 @@ def run_whisper_training(torch) -> tuple[dict, dict]:
 #: parameter at one group (H100 80GB HBM3, 700 W), so two groups (0.747 B
 #: parameters) take ~59 GiB and three (0.986 B) ~77 GiB
 FAMILY_TRAIN_ARCHS = {"mamba2-370m": None, "zamba2-2.7b": 12}
+#: phase 16 (a), (b), (d): steps of each run (mamba2-370m's take ~3.9 s each
+#: on the card: four keep the script in its time)
+FAMILY_TRAIN_STEPS = 4
 #: phase 16 (c): archs whose full-width layer runs forward and backward alone
 #: (embedding, one block, unembedding; bf16): no DSAG state of them fits one
 #: card (a grok-1 layer alone holds 4.8 B expert parameters, a deepseek-v2
@@ -3771,7 +3786,7 @@ def free_cuda(torch) -> None:
 
 def train_family_arch(torch, arch: str, layers, smi: str) -> tuple[dict, dict, dict]:
     """Phase 16 (a)/(b): ``arch`` at its published width (``layers`` deep,
-    None: all) trained :data:`TRAIN_STEPS` steps through ``Trainer``
+    None: all) trained :data:`FAMILY_TRAIN_STEPS` steps through ``Trainer``
     (``TrainConfig()``: adamw, bf16 slots, remat full; P = 4, live-sampled
     stragglers, random bf16 weights from seed 0).  Returns its numbers, its
     launches and K4's row on the run's second step's inputs."""
@@ -3790,7 +3805,7 @@ def train_family_arch(torch, arch: str, layers, smi: str) -> tuple[dict, dict, d
     free_cuda(torch)
     with mock.patch.object(train_mod, "get_config", cut):
         trn = train_mod.Trainer(train_mod.TrainerOptions(
-            arch=arch, smoke=False, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+            arch=arch, smoke=False, steps=FAMILY_TRAIN_STEPS, global_batch=TRAIN_BATCH,
             seq_len=TRAIN_SEQ, train_config=TrainConfig(), log_every=10**6,
             engine=EngineConfig(device="cuda", kernel_backend="cuda")))
     cfg, n_params = trn.cfg, trn.model.num_params()
@@ -3815,17 +3830,19 @@ def train_family_arch(torch, arch: str, layers, smi: str) -> tuple[dict, dict, d
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = hist["loss"]
-    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+    if len(losses) != FAMILY_TRAIN_STEPS or not np.isfinite(losses).all():
         fail(f"phase 16: {arch}: losses {losses}")
-    if counts["dsag_cache_update"] != TRAIN_STEPS or counts["flash_attention"]:
-        fail(f"phase 16: {arch}: {counts['dsag_cache_update']} K4 launches in {TRAIN_STEPS} "
+    if counts["dsag_cache_update"] != FAMILY_TRAIN_STEPS or counts["flash_attention"]:
+        fail(f"phase 16: {arch}: {counts['dsag_cache_update']} K4 launches in "
+             f"{FAMILY_TRAIN_STEPS} "
              f"steps, {counts['flash_attention']} K6 launches")
     host_ms = float(np.mean(hist["step_time"][2:])) * 1e3
     depth = f"{cfg.num_layers} of {get_config(arch).num_layers}" if layers else cfg.num_layers
     print(f"  {cfg.name}: {depth} layers, d_model {cfg.d_model}, {n_params / 1e6:.1f} M "
           f"parameters (flat n = {n}), P = {P}, global batch {TRAIN_BATCH} x {TRAIN_SEQ}, adamw, "
           f"bf16 slots, remat full ({smi}): losses {', '.join(f'{x:.4f}' for x in losses)}; "
-          f"host {host_ms:.1f} ms per step (steps 2-{TRAIN_STEPS - 1}), run wall {wall:.2f} s; "
+          f"host {host_ms:.1f} ms per step (steps 2-{FAMILY_TRAIN_STEPS - 1}), run wall "
+          f"{wall:.2f} s; "
           f"peak memory {peak / 2**30:.2f} GiB ({peak / n_params:.1f} B per parameter); K4 "
           f"launches {counts['dsag_cache_update']} = steps at [{P}, {n}] bf16, K6 0")
     # K4 on those inputs: bit-equal to its plain twin, timed beside its bound
@@ -3940,9 +3957,9 @@ def layer_forward_backward(torch, arch: str, smi: str) -> dict:
 
 
 def smoke_train_card_vs_cpu(torch, arch: str, traces) -> dict:
-    """Phase 16 (d): ``arch``'s smoke config in float32, sgd, 8 ``Trainer``
-    steps on replayed traces, on the card (K4) and on the CPU (plain): the
-    streams equal, the losses and the final parameters' relative RMS
+    """Phase 16 (d): ``arch``'s smoke config in float32, sgd,
+    :data:`FAMILY_TRAIN_STEPS` ``Trainer`` steps on replayed traces, on the
+    card (K4) and on the CPU (plain): the streams equal, the losses and the final parameters' relative RMS
     difference within :data:`TRAIN_CHECK_RTOL`, K4 once per step on the
     card."""
     from repro_torch.configs.base import TrainConfig
@@ -3954,7 +3971,7 @@ def smoke_train_card_vs_cpu(torch, arch: str, traces) -> dict:
     runs, k4 = {}, {}
     state0 = None
     for dev, backend in (("cpu", "torch"), ("cuda", "cuda")):
-        trn = Trainer(TrainerOptions(arch=arch, dtype="float32", steps=TRAIN_STEPS,
+        trn = Trainer(TrainerOptions(arch=arch, dtype="float32", steps=FAMILY_TRAIN_STEPS,
                                      global_batch=8, seq_len=64, traces=traces, scenario=0,
                                      simulate_stragglers=False, train_config=tc,
                                      log_every=10**6,
@@ -3979,7 +3996,7 @@ def smoke_train_card_vs_cpu(torch, arch: str, traces) -> dict:
     if not np.isfinite(hc["loss"]).all() or rel > TRAIN_CHECK_RTOL or prel > TRAIN_CHECK_RTOL:
         fail(f"phase 16 (d): {arch}: losses differ by rtol {rel}, final parameters by a "
              f"relative RMS of {prel} (tolerance {TRAIN_CHECK_RTOL})")
-    if k4["cuda"] != TRAIN_STEPS or k4["cpu"]:
+    if k4["cuda"] != FAMILY_TRAIN_STEPS or k4["cpu"]:
         fail(f"phase 16 (d): {arch}: K4 launches card {k4['cuda']}, CPU {k4['cpu']}")
     return {"loss_rtol": rel, "params_rel_rms": prel, "params_max_rel": pmax, "k4": k4["cuda"]}
 
@@ -4074,6 +4091,9 @@ MESH_ARCH = "qwen1.5-0.5b"
 #: the masks of the two steps (group 1 misses the second)
 MESH_TRAIN = (4, 256)
 MESH_MASKS = ((True, True), (True, False))
+#: (a): the bf16 trainer's decoder layers (of 24), cut to keep the script
+#: in its time (at full depth its two steps took 17 s per rank)
+MESH_TRAIN_BF16_LAYERS = 12
 #: (c): prompts, prompt length, generated tokens (prefill + 4 decode steps)
 MESH_SERVE = (4, 512, 5)
 #: (c): the bf16 server's decoder layers (of 24), cut to make room for
@@ -4081,8 +4101,9 @@ MESH_SERVE = (4, 512, 5)
 MESH_SERVE_BF16_LAYERS = 4
 #: the bounds of each comparison with the unsharded port (PERF.md states
 #: them and why, written before the first run): bf16 at full depth sums the
-#: TP partial products in bf16 over 48 reduction sites and adamw normalizes
-#: each gradient element; float32 at 2 layers differs by float32 rounding
+#: TP partial products in bf16 over 48 reduction sites (24 at the 12 layers
+#: run now) and adamw normalizes each gradient element; float32 at 2 layers
+#: differs by float32 rounding
 MESH_TOL = {"bf16_loss": 1e-2, "bf16_params": 2e-2, "bf16_logits": SERVE_TOL["k6_vs_plain"],
             "f32_loss": 1e-5, "f32_params": 1e-4, "f32_logits": 1e-4}
 
@@ -4300,8 +4321,13 @@ def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
     cfg = get_config(MESH_ARCH)
     b, s, n_tok = MESH_SERVE
     prompts = stub_batch(cfg, b, s, seed=7)
-    with tempfile.TemporaryDirectory(prefix="mesh") as tmp:
-        runs = {"a": ("bfloat16", None), "b": ("float32", 2)}
+    # the ranks start (import, join the group) beside the unsharded runs
+    # below; until their first task each holds only its CUDA context
+    t0 = time.perf_counter()
+    pool = RankPool(MESH_SHAPE[0] * MESH_SHAPE[1], "cuda", timeout=600)
+    res["pool_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="mesh") as tmp, pool:
+        runs = {"a": ("bfloat16", MESH_TRAIN_BF16_LAYERS), "b": ("float32", 2)}
         serve_runs = {"a": ("bfloat16", MESH_SERVE_BF16_LAYERS), "b": ("float32", 2)}
         want_train, want_serve = {}, {}
         t0 = time.perf_counter()
@@ -4313,24 +4339,21 @@ def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
             want_serve[label] = mesh_unsharded_serve(torch, dtype, layers, prompts, n_tok)
         free_cuda(torch)
         res["unsharded_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        with RankPool(MESH_SHAPE[0] * MESH_SHAPE[1], "cuda", timeout=600) as pool:
-            res["pool_s"] = time.perf_counter() - t0
-            print(f"  {pool.world} ranks on cuda:0 over {pool.backend} "
-                  f"(started in {res['pool_s']:.1f} s; the unsharded runs took "
-                  f"{res['unsharded_s']:.1f} s)")
-            for label, (dtype, layers) in runs.items():
-                t0 = time.perf_counter()
-                got = pool.run(mesh_train_rank, dtype, layers, f"{tmp}/{label}.pt")
-                res[f"train_{label}"] = mesh_train_check(label, dtype, layers, got,
-                                                         want_train[label], launches, smi)
-                res[f"train_{label}"]["phase_s"] = time.perf_counter() - t0
-            for label, (dtype, layers) in serve_runs.items():
-                t0 = time.perf_counter()
-                got = pool.run(mesh_serve_rank, dtype, layers, prompts, n_tok)
-                res[f"serve_{label}"] = mesh_serve_check(torch, label, dtype, layers, got,
-                                                         want_serve[label], launches)
-                res[f"serve_{label}"]["phase_s"] = time.perf_counter() - t0
+        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} "
+              f"(started in {res['pool_s']:.1f} s; the unsharded runs took "
+              f"{res['unsharded_s']:.1f} s)")
+        for label, (dtype, layers) in runs.items():
+            t0 = time.perf_counter()
+            got = pool.run(mesh_train_rank, dtype, layers, f"{tmp}/{label}.pt")
+            res[f"train_{label}"] = mesh_train_check(label, dtype, layers, got,
+                                                     want_train[label], launches, smi)
+            res[f"train_{label}"]["phase_s"] = time.perf_counter() - t0
+        for label, (dtype, layers) in serve_runs.items():
+            t0 = time.perf_counter()
+            got = pool.run(mesh_serve_rank, dtype, layers, prompts, n_tok)
+            res[f"serve_{label}"] = mesh_serve_check(torch, label, dtype, layers, got,
+                                                     want_serve[label], launches)
+            res[f"serve_{label}"]["phase_s"] = time.perf_counter() - t0
     # the kernels at the ranks' local shapes, timed here (not counted)
     rng = np.random.default_rng(17)
     free_cuda(torch)
@@ -4762,6 +4785,7 @@ def layouts_train_rank(label: str, want_path: str, ckpt_dir: str | None = None) 
                 "peak": peak, "k4_shape": [L.rows.stop - L.rows.start, L.slot.numel],
                 "store_numel": L.store.numel, "coll_counts": cost.coll_counts,
                 "coll_wire": cost.coll_wire_bytes, "coll_sites": cost.coll_site_wire_bytes,
+                "cost": cost if torch.distributed.get_rank() == 0 else None,
                 "d2": d2, "n2": n2, "rank": torch.distributed.get_rank(),
                 "int8_launches": checks.log, "states": states,
                 "route_flips": forcer.flips if forcer else None,
@@ -5096,7 +5120,11 @@ def run_layouts(torch, smi: str) -> tuple[dict, dict, list]:
 
     res: dict = {"card": smi}
     launches: dict = {}
-    with tempfile.TemporaryDirectory(prefix="layouts") as tmp:
+    # the ranks start beside the unsharded runs (as in phase 17)
+    t0 = time.perf_counter()
+    pool = RankPool(4, "cuda", timeout=600)
+    res["pool_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="layouts") as tmp, pool:
         want = {}
         t0 = time.perf_counter()
         for label in LAYOUT_RUNS:
@@ -5104,19 +5132,18 @@ def run_layouts(torch, smi: str) -> tuple[dict, dict, list]:
             want[label] = layouts_unsharded(torch, label, f"{tmp}/{label}.pt")
         free_cuda(torch)
         res["unsharded_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        with RankPool(4, "cuda", timeout=600) as pool:
-            res["pool_s"] = time.perf_counter() - t0
-            print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (started in "
-                  f"{res['pool_s']:.1f} s; the unsharded runs took {res['unsharded_s']:.1f} s)")
-            for label in LAYOUT_RUNS:
-                t0 = time.perf_counter()
-                got = pool.run(layouts_train_rank, label, f"{tmp}/{label}.pt",
-                               f"{tmp}/ckpt" if label == CKPT_RUN else None)
-                res[label] = layouts_train_check(label, got, want[label], launches, smi)
-                res[label]["phase_s"] = time.perf_counter() - t0
-                if label == CKPT_RUN:
-                    res["checkpoint"] = checkpoint_check([r["ckpt"] for r in got])
+        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (started in "
+              f"{res['pool_s']:.1f} s; the unsharded runs took {res['unsharded_s']:.1f} s)")
+        for label in LAYOUT_RUNS:
+            t0 = time.perf_counter()
+            got = pool.run(layouts_train_rank, label, f"{tmp}/{label}.pt",
+                           f"{tmp}/ckpt" if label == CKPT_RUN else None)
+            # rank 0's whole count of step 2, for phase 20 (not printed)
+            RANK0_COSTS[label] = got[0].pop("cost")
+            res[label] = layouts_train_check(label, got, want[label], launches, smi)
+            res[label]["phase_s"] = time.perf_counter() - t0
+            if label == CKPT_RUN:
+                res["checkpoint"] = checkpoint_check([r["ckpt"] for r in got])
     # (e) the kernels at the ranks' local shapes, timed here (not counted): K4
     # at (c)'s float32 slots under ``none``, K4-int8's split form at (a)'s
     # largest split shard
@@ -5128,6 +5155,88 @@ def run_layouts(torch, smi: str) -> tuple[dict, dict, list]:
                                                   rng)
     free_cuda(torch)
     return res, launches, [k4_row, row_max_row, int8_row]
+
+
+#: phase 18's rank-0 ``count_cost`` of each run's second step, by label
+RANK0_COSTS: dict = {}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the dry run
+# ---------------------------------------------------------------------------
+
+#: phase 20 (a): the phase-18 run whose step the dry run is held to
+DRYRUN_RUN = "a bf16"
+#: (c): the production cell counted at full width on 16x16
+DRYRUN_CELL = ("qwen2-7b", "train_4k")
+
+
+def run_dryrun(torch, layouts_res: dict, smi: str) -> dict:
+    """Phase 20 (see the module docstring): the dry run against phase 18's
+    count on the card, its memory estimate beside the card's peak, and one
+    production cell at full width."""
+    import dataclasses
+
+    from repro_torch.analysis.cost import missing_bookkeeping
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    res: dict = {"card": smi}
+    # count_cost leaves torch's bookkeeping out by its modules' files
+    missing = missing_bookkeeping()
+    if missing:
+        fail(f"phase 20: this torch lacks the bookkeeping modules {missing}: "
+             f"count_cost would count their ops")
+    _, tc, groups, dtype, arch, cut, depth, _ = _layout(DRYRUN_RUN)
+    cfg = dataclasses.replace(cut(arch), dtype=dtype)
+    shape = ShapeConfig("phase 18", MESH_TRAIN[1], MESH_TRAIN[0], "train")
+    t0 = time.perf_counter()
+    dry = dryrun.dry_count(cfg, shape, LAYOUT_RUNS[DRYRUN_RUN][0], tc, mode="card")
+    res["a_s"] = time.perf_counter() - t0
+    cost = dry["cost"]
+    diffs = RANK0_COSTS[DRYRUN_RUN].diff(cost)
+    if diffs:
+        fail(f"phase 20 (a): the dry count differs from phase 18's rank-0 count on the card "
+             f"in {len(diffs)} fields (name, card's, dry's): {diffs[:6]}")
+    kernels = {n: (r.calls, r.flops, r.bytes) for n, r in cost.rows.items()
+               if not n.startswith("aten.")}
+    if set(kernels) != {"dsag_cache_update_int8", "dsag_int8_row_max"}:
+        fail(f"phase 20 (a): the dry count's kernels are {sorted(kernels)}")
+    res["a"] = {"rows": len(cost.rows), "flops": cost.flops, "bytes": cost.bytes,
+                "kernels": kernels, "coll_site_counts": cost.coll_site_counts}
+    print(f"  (a) {arch} {dtype}, {depth}, (2, 2), {tc.dsag_groups} groups (P = {groups}), "
+          f"{tc.optimizer}, {tc.dsag_cache_dtype} slots: the dry count (dry_run(\"card\"), "
+          f"rank 0 of a fake world of 4, {res['a_s']:.1f} s) equals phase 18's rank-0 count on "
+          f"the card row by row: {len(cost.rows)} rows, {cost.flops:.6g} FLOPs, "
+          f"{cost.bytes:.6g} bytes, kernels (calls, FLOPs, bytes) {kernels}, collectives by "
+          f"site {cost.coll_site_counts}")
+    # (b) the memory estimate against the card's peak per rank
+    mem = dry["memory"]
+    est = mem["peak_estimate_bytes"]
+    peaks = layouts_res[DRYRUN_RUN]["peak_bytes"]
+    res["b"] = {"memory": mem, "peak_bytes": peaks, "ratio": [est / p for p in peaks]}
+    print(f"  (b) the dry run's peak_estimate_bytes {est / 2**30:.3f} GiB (arguments "
+          f"{mem['argument_bytes'] / 2**30:.3f}, temporaries {mem['temp_bytes'] / 2**30:.3f}) "
+          f"against phase 18's torch.cuda.max_memory_allocated per rank "
+          f"{[round(p / 2**30, 3) for p in peaks]} GiB (two steps, the launch checks' buffers "
+          f"in): ratio {[round(r, 3) for r in res['b']['ratio']]} (printed, not held; {smi})")
+    # (c) one production cell at full width on 16x16
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell(*DRYRUN_CELL, False)
+    res["c_s"] = time.perf_counter() - t0
+    rl, mem = cell["roofline"], cell["memory"]
+    tcd = cell["train_config"]
+    res["c"] = {"memory": mem, "roofline": {k: rl[k] for k in (
+        "compute_s", "memory_s", "collective_s", "dominant", "mfu", "flops_per_device",
+        "bytes_per_device")}, "wire_bytes": rl["collectives"]["wire_bytes"],
+        "kernels": cell["cost"]["kernels"], "count_s": cell["count_s"]}
+    print(f"  (c) {' x '.join(DRYRUN_CELL)} on 16x16 (published widths and depth, "
+          f"{tcd['dsag_groups']} groups, {tcd['optimizer']}, {tcd['dsag_cache_dtype']} slots): "
+          f"{mem['peak_estimate_bytes'] / 2**30:.2f} GiB per rank, terms c/m/x = "
+          f"{rl['compute_s']:.4f}/{rl['memory_s']:.4f}/{rl['collective_s']:.4f} s, dominant "
+          f"{rl['dominant']}, mfu {rl['mfu']:.4f} (a count at H100 80GB HBM3, 700 W peaks, "
+          f"not a timing; counted in {res['c_s']:.1f} s)")
+    return res
 
 
 def checkpoint_check(ck: list) -> dict:
@@ -5158,11 +5267,12 @@ MOE_ARCHS = ("grok-1-314b", "deepseek-v2-236b")
 MOE_MESH = (2, 2)
 #: (a): requests (the configs' ``moe_dispatch_chunks``: one request per
 #: chunk, eight whole chunks on each data rank), prompt tokens, generated
-#: tokens (prefill + 2 decode steps: each step of four ranks through gloo
-#: takes 1.6-5.4 s, so the script keeps its time)
-MOE_SERVE = (16, 512, 3)
-#: (a): label -> (dtype, decoder layers)
-MOE_SERVE_RUNS = {"bf16": ("bfloat16", 2), "f32": ("float32", 1)}
+#: tokens (prefill + 1 decode step: each step of four ranks through gloo
+#: takes 1.6-8.6 s, so the script keeps its time)
+MOE_SERVE = (16, 512, 2)
+#: (a): label -> (dtype, decoder layers); one layer each, so the script
+#: keeps its time (a second bf16 layer took ~35 s more of four ranks)
+MOE_SERVE_RUNS = {"bf16": ("bfloat16", 1), "f32": ("float32", 1)}
 #: (a) in float32: fields replaced besides the depth.  Four ranks of one
 #: full-width layer hold its FSDP shards (the model once over the four), a
 #: degathered half each (twice) and gloo's staging of a gathered leaf (two
@@ -5679,7 +5789,14 @@ def run_moe_mesh(torch, smi: str) -> tuple[dict, dict, list]:
     b, s, n_tok = MOE_SERVE
     prompts = {(arch, label): stub_batch(moe_serve_cut(dtype, layers)(arch), b, s, seed=19)
                for arch in MOE_ARCHS for label, (dtype, layers) in MOE_SERVE_RUNS.items()}
-    with tempfile.TemporaryDirectory(prefix="moe_mesh") as tmp:
+    # the ranks start beside the unsharded runs (as in phase 17); their
+    # allocators grow segments in place: four ranks' gathered layers and
+    # staging copies come and go on one card
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"):
+        pool = RankPool(MOE_MESH[0] * MOE_MESH[1], "cuda", timeout=900)
+    res["pool_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="moe_mesh") as tmp, pool:
         t0 = time.perf_counter()
         want_serve, want_layer, want_layout = {}, {}, {}
         for (arch, label), batch in prompts.items():
@@ -5695,33 +5812,27 @@ def run_moe_mesh(torch, smi: str) -> tuple[dict, dict, list]:
         free_cuda(torch)
         res["unsharded_s"] = time.perf_counter() - t0
         free, total = torch.cuda.mem_get_info()
-        t0 = time.perf_counter()
-        # the ranks' allocators grow segments in place: four ranks' gathered
-        # layers and staging copies come and go on one card
-        with mock.patch.dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"), \
-                RankPool(MOE_MESH[0] * MOE_MESH[1], "cuda", timeout=900) as pool:
-            res["pool_s"] = time.perf_counter() - t0
-            print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (started in "
-                  f"{res['pool_s']:.1f} s; the unsharded runs took {res['unsharded_s']:.1f} s; "
-                  f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card, this process "
-                  f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)", flush=True)
-            for (arch, label), batch in prompts.items():
-                t0 = time.perf_counter()
-                dtype, layers = MOE_SERVE_RUNS[label]
-                got = pool.run(moe_serve_rank, arch, dtype, layers, batch, n_tok)
-                r = moe_serve_check(torch, arch, label, got, want_serve[arch, label], launches)
-                r["phase_s"] = time.perf_counter() - t0
-                res[f"serve {arch} {label}"] = r
-            for arch in MOE_ARCHS:
-                t0 = time.perf_counter()
-                got = pool.run(moe_layer_rank, arch, f"{tmp}/{arch}.pt")
-                res[f"layer {arch}"] = moe_layer_check(arch, got, want_layer[arch], smi)
-                res[f"layer {arch}"]["phase_s"] = time.perf_counter() - t0
-            for label in MOE_LAYOUT_RUNS:
-                t0 = time.perf_counter()
-                got = pool.run(layouts_train_rank, label, f"{tmp}/{label}.pt")
-                res[label] = layouts_train_check(label, got, want_layout[label], launches, smi)
-                res[label]["phase_s"] = time.perf_counter() - t0
+        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (started in "
+              f"{res['pool_s']:.1f} s; the unsharded runs took {res['unsharded_s']:.1f} s; "
+              f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card, this process "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)", flush=True)
+        for (arch, label), batch in prompts.items():
+            t0 = time.perf_counter()
+            dtype, layers = MOE_SERVE_RUNS[label]
+            got = pool.run(moe_serve_rank, arch, dtype, layers, batch, n_tok)
+            r = moe_serve_check(torch, arch, label, got, want_serve[arch, label], launches)
+            r["phase_s"] = time.perf_counter() - t0
+            res[f"serve {arch} {label}"] = r
+        for arch in MOE_ARCHS:
+            t0 = time.perf_counter()
+            got = pool.run(moe_layer_rank, arch, f"{tmp}/{arch}.pt")
+            res[f"layer {arch}"] = moe_layer_check(arch, got, want_layer[arch], smi)
+            res[f"layer {arch}"]["phase_s"] = time.perf_counter() - t0
+        for label in MOE_LAYOUT_RUNS:
+            t0 = time.perf_counter()
+            got = pool.run(layouts_train_rank, label, f"{tmp}/{label}.pt")
+            res[label] = layouts_train_check(label, got, want_layout[label], launches, smi)
+            res[label]["phase_s"] = time.perf_counter() - t0
     # (d) the kernels at this phase's local launch shapes, timed here (not
     # counted): K6 at grok-1's rank-local prefill (24 q / 4 kv heads of its
     # 48 / 8 over model = 2, 8 of the 16 prompts per data rank), K4-int8's
@@ -6205,7 +6316,7 @@ def main() -> None:
     print(f"  phase 18 took {layouts_res['seconds']:.1f} s")
     print(f"phase 19: the MoE family on a mesh: grok-1-314b (ffn-sharded experts) and "
           f"deepseek-v2-236b (expert-parallel, MLA) on {MOE_MESH} meshes of four ranks on cuda:0: "
-          f"served at published widths (2 layers bf16, 1 layer float32), one full-width MoE "
+          f"served at published widths (1 layer, bf16 and float32), one full-width MoE "
           f"layer forward and backward, the production DSAG step at reduced widths, against the "
           f"unsharded port")
     t0 = time.perf_counter()
@@ -6216,7 +6327,13 @@ def main() -> None:
     per_kernel["dsag_cache_update_int8"].append(int8_moe)
     moe_res["seconds"] = time.perf_counter() - t0
     print(f"  phase 19 took {moe_res['seconds']:.1f} s")
-    print("phase 20: the kernels line")
+    print("phase 20: the dry run: phase 18's step counted over meta tensors on rank 0 of a "
+          "fake world, against its count on the card; one production cell at full width")
+    t0 = time.perf_counter()
+    dry_res = run_dryrun(torch, layouts_res, smi.stdout.strip())
+    dry_res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 20 took {dry_res['seconds']:.1f} s")
+    print("phase 21: the kernels line")
     reg_train = registry.pop("train_launches")
     launches = {k: sweep_launches[k] + live_launches[k] + wide_launches[k]
                 + engine_launches.get(k, 0) + lb_launches.get(k, 0)
@@ -6291,6 +6408,7 @@ def main() -> None:
     print(json.dumps({"mesh": mesh_res}))
     print(json.dumps({"layouts": layouts_res}))
     print(json.dumps({"moe_mesh": moe_res}))
+    print(json.dumps({"dryrun": dry_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,11 +36,17 @@ trip counts.  The accounting keeps ``hlo.py``'s rules:
   with the reference's ring-model wire bytes (``hlo._collective_cost``):
   all-reduce ``2(n-1)/n`` of its size, all-gather ``(n-1)/n`` of its result,
   reduce-scatter ``(n-1)`` times its result, all-to-all ``(n-1)/n`` of its
-  size, over the ``n`` ranks of its group.  An op on ``DTensor`` operands
-  is not counted itself: the local ops and collectives it runs on this
-  rank are.  A caller names the site of the collectives it dispatches with
-  ``models/sharding.py::collective_site`` (the mesh step's degather,
-  gradient mean, H sum, int8 row max, adafactor means, norm and losses;
+  size, over the ``n`` ranks of its group, beside each kind's result and
+  operand bytes (:meth:`Cost.collectives_dict`, the reference's keys).  An
+  op on ``DTensor`` operands is not counted itself: the local ops and
+  collectives it runs on this rank are; nor is torch's bookkeeping (:func:`not_the_programs`): the ops
+  DTensor's sharding propagation runs on fake or meta tensors to learn an
+  output's shape (cached, so a count would depend on what ran before) and
+  a DeviceMesh's host ops on its rank table.  A caller names the site of
+  the collectives it dispatches with
+  ``models/sharding.py::collective_site`` (the mesh step's and the mesh
+  server's degather, the step's gradient mean, H sum, int8 row max,
+  adafactor means, norm and losses;
   the MoE's ``moe EP combine`` all-gather of the experts' outputs, and of
   their input's cotangent in the backward, ``moe ffn all-reduce`` of the
   down-projection's partial sums, and of the experts' input's cotangent in
@@ -58,9 +64,13 @@ non-contiguous operand re-read, a library's workspace).
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
+import sys
+import weakref
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -88,8 +98,7 @@ _ATTENTION = {
 _FREE = {
     aten.empty.memory_format, aten.empty_strided.default, aten.empty_like.default,
     aten.new_empty.default, aten.new_empty_strided.default, aten._unsafe_view.default,
-    aten.alias.default, aten.detach.default, aten.lift_fresh.default,
-    aten._local_scalar_dense.default,
+    aten.alias.default, aten.detach.default, aten._local_scalar_dense.default,
 }
 
 
@@ -163,6 +172,17 @@ def _wire_bytes(kind: str, size: float, result: float, n: int) -> float:
     return float(size)
 
 
+def _operand_bytes(kind: str, result: float, n: int) -> float:
+    """A collective's operand bytes from its result's, as
+    ``hlo._collective_cost`` has them: an all-gather's operand is ``1/n``
+    of its result, a reduce-scatter's ``n`` times it, any other's its size."""
+    if kind == "all-gather":
+        return result / n
+    if kind == "reduce-scatter":
+        return result * n
+    return float(result)
+
+
 @dataclasses.dataclass
 class CostRow:
     """One op (``aten.<name>``) or kernel's share of a counted run."""
@@ -183,8 +203,10 @@ class Cost:
     attn_score_bytes: float = 0.0
     flops_at_peak: dict = dataclasses.field(default_factory=dict)
     rows: dict = dataclasses.field(default_factory=dict)
-    #: collectives by kind: calls and ring-model wire bytes
+    #: collectives by kind: calls, result and operand bytes, ring-model wire bytes
     coll_counts: dict = dataclasses.field(default_factory=dict)
+    coll_result_bytes: dict = dataclasses.field(default_factory=dict)
+    coll_operand_bytes: dict = dataclasses.field(default_factory=dict)
     coll_wire_bytes: dict = dataclasses.field(default_factory=dict)
     #: the same by ``"<site>: <kind>"`` (``sharding.collective_site``)
     coll_site_counts: dict = dataclasses.field(default_factory=dict)
@@ -194,8 +216,26 @@ class Cost:
     def total_wire_bytes(self) -> float:
         return sum(self.coll_wire_bytes.values())
 
-    def add_collective(self, kind: str, wire: float, site: str = "model") -> None:
+    @property
+    def total_operand_bytes(self) -> float:
+        return sum(self.coll_operand_bytes.values())
+
+    def collectives_dict(self) -> dict:
+        """The collectives by kind under ``HloCost.as_dict()``'s keys."""
+        return {
+            "counts": dict(self.coll_counts),
+            "result_bytes": dict(self.coll_result_bytes),
+            "operand_bytes": dict(self.coll_operand_bytes),
+            "wire_bytes": dict(self.coll_wire_bytes),
+            "total_operand_bytes": self.total_operand_bytes,
+            "total_wire_bytes": self.total_wire_bytes,
+        }
+
+    def add_collective(self, kind: str, wire: float, site: str = "model",
+                       result: float = 0.0, operand: float = 0.0) -> None:
         self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
+        self.coll_result_bytes[kind] = self.coll_result_bytes.get(kind, 0.0) + result
+        self.coll_operand_bytes[kind] = self.coll_operand_bytes.get(kind, 0.0) + operand
         self.coll_wire_bytes[kind] = self.coll_wire_bytes.get(kind, 0.0) + wire
         key = f"{site}: {kind}"
         self.coll_site_counts[key] = self.coll_site_counts.get(key, 0) + 1
@@ -223,14 +263,103 @@ class Cost:
                             reverse=True)[:k],
         }
 
+    def diff(self, other: "Cost") -> list:
+        """Every field of two counts that differs, as ``(name, self's,
+        other's)``: the totals, FLOPs by peak, the collectives by kind and
+        by site, and each row's ``(calls, flops, bytes)``."""
+        out = [(f, getattr(self, f), getattr(other, f))
+               for f in ("flops", "bytes", "attn_score_bytes", "flops_at_peak", "coll_counts",
+                         "coll_result_bytes", "coll_operand_bytes", "coll_wire_bytes",
+                         "coll_site_counts", "coll_site_wire_bytes")
+               if getattr(self, f) != getattr(other, f)]
+        mine = {n: (r.calls, r.flops, r.bytes) for n, r in self.rows.items()}
+        theirs = {n: (r.calls, r.flops, r.bytes) for n, r in other.rows.items()}
+        return out + [(n, mine.get(n), theirs.get(n)) for n in sorted(set(mine) | set(theirs))
+                      if mine.get(n) != theirs.get(n)]
+
     def flops_of(self, *names: str) -> float:
         return sum(self.rows[n].flops for n in names if n in self.rows)
 
 
+#: torch modules whose ops are bookkeeping, not work of the counted program:
+#: DTensor's sharding propagation (an op run on fake or meta tensors to learn
+#: its output's shape and placement; cached, so a count would depend on what
+#: ran before) and a DeviceMesh's coordinates (host ops on its rank table)
+BOOKKEEPING_MODULES = ("torch.distributed.tensor._sharding_prop",
+                       "torch.distributed.tensor._decompositions",
+                       "torch.distributed.device_mesh", "torch.distributed._mesh_layout")
+
+
+def _source_file(module: str) -> str | None:
+    spec = importlib.util.find_spec(module)
+    return None if spec is None else spec.origin
+
+
+#: the source files of :data:`BOOKKEEPING_MODULES` in this torch (a module it
+#: does not have is left out; :func:`missing_bookkeeping` names it)
+_BOOKKEEPING = frozenset(filter(None, map(_source_file, BOOKKEEPING_MODULES)))
+
+
+def missing_bookkeeping() -> list[str]:
+    """The modules of :data:`BOOKKEEPING_MODULES` that this torch does not
+    have: a torch that moved one counts its ops again."""
+    return [m for m in BOOKKEEPING_MODULES if _source_file(m) is None]
+
+
+def not_the_programs(flat) -> bool:
+    """Whether an op of these arguments (``flat``) is torch's bookkeeping
+    (:data:`_BOOKKEEPING`): fake tensors, or an op dispatched from those
+    modules.  The caller's frames are read only where an op may be one
+    (no CUDA tensor among its arguments), so a run on the card pays little."""
+    tensors = [t for t in flat if isinstance(t, torch.Tensor)]
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        return True
+    if tensors and all(t.is_cuda for t in tensors):
+        return False
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename in _BOOKKEEPING:
+            return True
+        f = f.f_back
+    return False
+
+
+class LiveBytes:
+    """The bytes the ops of a counted run allocate and still hold, and their
+    peak (``count_cost(..., live=)``): each storage an op's result lies in,
+    unless an argument's (``known``, the run's inputs) or already held, is
+    held from that op until the storage dies (a weak reference's callback:
+    torch keeps a storage's Python object as long as the storage lives).
+    Meta storages have sizes, so a dry run over meta tensors is measured too."""
+
+    def __init__(self, known=()):
+        self.known = set(known)
+        self.held: dict = {}
+        self.live = self.peak = 0
+
+    def hold(self, out) -> None:
+        for t in _tensors(out):
+            if isinstance(t, DTensor):
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self.known or key in self.held:
+                continue
+            n = st.nbytes()
+            self.held[key] = n
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, key)
+
+    def _free(self, key) -> None:
+        self.live -= self.held.pop(key, 0)
+
+
 class _CostMode(TorchDispatchMode):
-    def __init__(self, cost: Cost):
+    def __init__(self, cost: Cost, live: LiveBytes | None = None):
         super().__init__()
         self.cost = cost
+        self.live = live
         self.paused = False
 
     def kernel(self, name: str, model) -> None:
@@ -245,7 +374,10 @@ class _CostMode(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if any(isinstance(t, DTensor) for t in tree_flatten((args, kwargs))[0]):
+        flat = tree_flatten((args, kwargs))[0]
+        if not_the_programs(flat):
+            return func(*args, **kwargs)
+        if any(isinstance(t, DTensor) for t in flat):
             # DTensor runs it: its local ops and collectives come back here
             return NotImplemented
         if composite(func):
@@ -256,8 +388,12 @@ class _CostMode(TorchDispatchMode):
             if out is not NotImplemented:
                 return out
         out = func(*args, **kwargs)
-        if not self.paused:
+        if not self.paused and func is not aten.lift_fresh.default:
+            # (lift_fresh marks a constant made from a Python number: nothing
+            # the device runs, and a meta constant dispatches no op at all)
             self._count(func, args, kwargs, out)
+            if self.live is not None:
+                self.live.hold(out)
         return out
 
     def _count(self, func, args, kwargs, out) -> None:
@@ -272,7 +408,8 @@ class _CostMode(TorchDispatchMode):
                     "_c10d_functional") else size
                 n = _group_size(func, args)
                 self.cost.add_collective(kind, _wire_bytes(kind, size, result, n),
-                                         sharding.collective_site_name() or "model")
+                                         sharding.collective_site_name() or "model",
+                                         result, _operand_bytes(kind, result, n))
             return
         name = f"aten.{op}"
         if func in _FREE or func.is_view:
@@ -306,13 +443,14 @@ class _CostMode(TorchDispatchMode):
         self.cost.add(name, flops, nbytes, peak)
 
 
-def count_cost(fn, *args, **kwargs) -> Cost:
+def count_cost(fn, *args, live: LiveBytes | None = None, **kwargs) -> Cost:
     """Run ``fn(*args, **kwargs)`` once and count its FLOPs and bytes (see
     the module docstring); the kernels this thread launches meanwhile are
-    billed by their cost models.  ``fn``'s result is not returned: a caller
+    billed by their cost models.  ``live`` also follows the bytes the run's
+    ops hold (:class:`LiveBytes`).  ``fn``'s result is not returned: a caller
     that needs it keeps it from a closure."""
     cost = Cost()
-    mode = _CostMode(cost)
+    mode = _CostMode(cost, live)
     prev = getattr(_build.cost_counter, "active", None)
     _build.cost_counter.active = mode.kernel
     try:

@@ -4,6 +4,7 @@ The card is an NVIDIA H100 80GB HBM3 at a 700 W limit (``nvidia-smi
 --query-gpu=name,power.limit``); its peaks are the SXM data sheet's:
 
   HBM3                               3.35 TB/s
+  NDR InfiniBand, one port per card    50 GB/s each way (:data:`LINK_BW`)
   float32 outside the tensor cores     67 TFLOP/s
   float64 outside the tensor cores     34 TFLOP/s
   bfloat16 dense, tensor cores        989 TFLOP/s
@@ -24,6 +25,13 @@ import numpy as np
 
 #: bytes/s of HBM3
 HBM_BW = 3.35e12
+#: bytes/s each way of the link a collective of the production mesh crosses:
+#: one NDR InfiniBand port per GPU, 400 Gb/s = 50 GB/s (a DGX H100 has eight
+#: ConnectX-7 for its eight cards).  Every group of the 16x16 and 2x16x16
+#: meshes spans nodes of eight cards (``model`` is 16 contiguous ranks,
+#: ``data`` and ``pod`` are strided), so the ring runs at the slowest link on
+#: it; NVLink 4 inside a node (450 GB/s each way) is not used here
+LINK_BW = 50e9
 #: FLOP/s: float32 and float64 outside the tensor cores, bfloat16 dense on them
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12

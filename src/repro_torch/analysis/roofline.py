@@ -6,15 +6,17 @@ here with the kernels' cost models and :func:`bound_ms`:
 
   compute term    = Σ FLOPs of each dtype / that dtype's peak
   memory term     = bytes / HBM rate
-  collective term = 0: the port runs on one card; its scenario shards are
-                    threads of one process, which move no bytes between
-                    cards (``hlo.py``'s collective accounting waits for the
-                    mesh paths)
+  collective term = ring-model wire bytes / LINK_BW   (per rank: the
+                    collectives one rank of a mesh run dispatches, over
+                    50 GB/s each way, one NDR InfiniBand port per card;
+                    0 on one card, where nothing crosses a link)
 
-The counted work comes from :func:`repro_torch.analysis.cost.count_cost`.
-``mfu`` divides the model's FLOPs at the peak of the dtype that does most
-of the counted work by the step time: the largest term, or a measured step
-time where the caller passes one.
+The counted work comes from :func:`repro_torch.analysis.cost.count_cost`,
+one rank's on a mesh; ``num_devices`` divides the model's FLOPs into each
+rank's share, as the reference's ``derive`` does.  ``mfu`` divides that
+share at the peak of the dtype that does most of the counted work by the
+step time: the largest term, or a measured step time where the caller
+passes one.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 
 from repro_torch.analysis.kernel_costs import (  # noqa: F401  (re-exported)
     HBM_BW,
+    LINK_BW,
     PEAK_BF16,
     PEAK_F32,
     PEAK_F64,
@@ -96,19 +99,22 @@ def derive(
     num_params: int,
     cost,
     *,
+    num_devices: int = 1,
     step_time_s: float | None = None,
 ) -> Roofline:
     """The three terms of a counted run (``cost``: a
-    :class:`~repro_torch.analysis.cost.Cost`) and its model FLOPs.
+    :class:`~repro_torch.analysis.cost.Cost`, one rank's on a mesh of
+    ``num_devices`` ranks) and the rank's share of the model FLOPs.
 
     ``step_time_s`` is a measured step time; without one the step is the
     largest term (the roofline's own), as the reference's ``derive``.
     """
     compute_s = sum(f / peak for peak, f in cost.flops_at_peak.items())
     memory_s = cost.bytes / HBM_BW
-    terms = {"compute": compute_s, "memory": memory_s, "collective": 0.0}
+    collective_s = cost.total_wire_bytes / LINK_BW
+    terms = {"compute": compute_s, "memory": memory_s, "collective": collective_s}
     dominant = max(terms, key=terms.get)
-    mf_dev = model_flops(cfg, shape, num_params, active_params(cfg, num_params))
+    mf_dev = model_flops(cfg, shape, num_params, active_params(cfg, num_params)) / num_devices
     step = max(terms.values()) if step_time_s is None else float(step_time_s)
     peak = max(cost.flops_at_peak, key=cost.flops_at_peak.get) if cost.flops_at_peak else PEAK_BF16
     return Roofline(
@@ -116,10 +122,11 @@ def derive(
         memory_s_flash=max(cost.bytes - cost.attn_score_bytes, 0.0) / HBM_BW,
         flops_per_device=cost.flops,
         bytes_per_device=cost.bytes,
-        collectives={},
+        # a run with no collectives (one card) keeps the empty dict
+        collectives=cost.collectives_dict() if cost.coll_counts else {},
         compute_s=compute_s,
         memory_s=memory_s,
-        collective_s=0.0,
+        collective_s=collective_s,
         dominant=dominant,
         model_flops_per_device=mf_dev,
         useful_flops_fraction=mf_dev / cost.flops if cost.flops else 0.0,

@@ -16,6 +16,7 @@ entry point returns ``cudaGetLastError()`` after its launch, and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +26,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
@@ -88,6 +91,63 @@ _count_lock = threading.Lock()
 #: each thread's active cost counter (``repro_torch.analysis.cost``), if any:
 #: the shards of a sharded run count apart
 cost_counter = threading.local()
+#: this thread's dry-run mode (:func:`dry_run`), if any
+_dry = threading.local()
+#: what meta tensors at a kernel wrapper take inside :func:`dry_run`
+DRY_RUN_MODES = ("card", "plain")
+
+
+@contextlib.contextmanager
+def dry_run(mode: str):
+    """Let meta tensors (shapes and dtypes, no data) reach the kernel wrappers
+    on this thread: under ``"card"``, K4, K4-int8 and K6 check them as their
+    launch would, report the launch to the active cost counter with the
+    kernel's cost model and return meta outputs, launching nothing and
+    adding nothing to their launch counts; under ``"plain"`` every wrapper
+    takes its plain twin, as on CPU tensors.  Outside it a meta tensor at a
+    wrapper raises (``launch/dryrun.py`` counts a step over meta tensors)."""
+    if mode not in DRY_RUN_MODES:
+        raise ValueError(f"dry-run mode {mode!r} not in {DRY_RUN_MODES}")
+    prev = getattr(_dry, "mode", None)
+    _dry.mode = mode
+    try:
+        yield
+    finally:
+        _dry.mode = prev
+
+
+def dry_run_mode() -> str | None:
+    """This thread's :func:`dry_run` mode, or None outside one."""
+    return getattr(_dry, "mode", None)
+
+
+def route(*tensors, counts: bool = False) -> str:
+    """Where a kernel wrapper takes its operands: ``"launch"`` (every tensor
+    on a card: the kernel), ``"plain"`` (every tensor on the CPU, or meta
+    tensors under ``dry_run("plain")``: the plain twin) or ``"count"``
+    (meta tensors under ``dry_run("card")``, at a wrapper with a count-only
+    path, ``counts=True``: K4, K4-int8 and K6).  Raises on anything else: a
+    ``DTensor`` (a kernel takes raw pointers, and a mesh run hands it the
+    local shard), mixed devices, and meta tensors outside a dry run or at a
+    wrapper with no count-only path."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError("a kernel takes plain tensors: pass a DTensor's local shard "
+                        "(.to_local())")
+    if all(t.is_cuda for t in tensors):
+        return "launch"
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return "plain"
+    if devices == {"meta"}:
+        mode = dry_run_mode()
+        if mode == "plain":
+            return "plain"
+        if mode == "card" and counts:
+            return "count"
+        raise ValueError(f"tensors on devices {devices}: meta tensors reach a kernel wrapper "
+                         "only inside a dry run (kernels._build.dry_run)" + (
+                             "" if mode is None else ", and this kernel has no count-only path"))
+    raise ValueError(f"tensors on mixed or unsupported devices: {devices}")
 
 
 def _nvcc() -> str:
@@ -195,16 +255,19 @@ def mirror_mismatches() -> dict[str, tuple[int, int]]:
     return {name: (v, constant(name)) for name, v in LIMITS.items() if constant(name) != v}
 
 
-def count_launch(counts: dict[str, int], name: str, cost=None) -> None:
+def count_launch(counts: dict[str, int], name: str, cost=None, launched: bool = True) -> None:
     """Add one to ``counts[name]``, a wrapper's launch counter: the shards of
     a sharded run launch from several threads, and ``+=`` on a dict entry is
     a read, an add and a write.  If this thread has an active cost counter,
     report the launch to it: ``cost()`` returns its ``(bytes, flops, peak)``
     (the kernel's model in :mod:`repro_torch.analysis.kernel_costs`; it may read
     the launch's data on the host, which the counter does not count).
-    Without a counter ``cost`` is not called: no launch, no host read."""
-    with _count_lock:
-        counts[name] += 1
+    Without a counter ``cost`` is not called: no launch, no host read.
+    ``launched=False`` is a dry run's count-only call (:func:`dry_run`):
+    reported to the counter, not counted as a launch."""
+    if launched:
+        with _count_lock:
+            counts[name] += 1
     counter = getattr(cost_counter, "active", None)
     if counter is not None and cost is not None:
         counter(name, cost)

@@ -32,10 +32,10 @@ import functools
 from typing import NamedTuple
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import route
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
 launch_counts = {"logreg_block_sub": 0, "pca_block_sub": 0}
@@ -110,21 +110,6 @@ def _require(t: torch.Tensor, what: str, dtype, shape: tuple, device) -> None:
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
     raise ValueError(f"{what} must be contiguous")
-
-
-def _on_cpu(*tensors) -> bool:
-    """Whether a wrapper takes its plain version (every tensor on the CPU)
-    or its kernel (every tensor on a card).  A ``DTensor`` is refused: a
-    kernel takes raw pointers, and a mesh run hands it the local shard."""
-    if any(isinstance(t, DTensor) for t in tensors):
-        raise TypeError("a kernel takes plain tensors: pass a DTensor's local shard "
-                        "(.to_local())")
-    if all(t.is_cuda for t in tensors):
-        return False
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return True
-    raise ValueError(f"tensors on mixed or unsupported devices: {devices}")
 
 
 def _stream(device) -> int:
@@ -271,7 +256,7 @@ def logreg_block_sub(X, y, Vb, starts, widths, max_width=None):
     :func:`logreg_block_sub_plain`; CUDA tensors launch K1 (its wide path
     past d = 96, :func:`logreg_plan`).
     """
-    if _on_cpu(X, y, Vb, starts, widths):
+    if route(X, y, Vb, starts, widths) == "plain":
         return logreg_block_sub_plain(X, y, Vb, starts, widths, max_width)
     n, d = X.shape
     G = Vb.shape[0]
@@ -310,7 +295,7 @@ def pca_block_sub(X, Vb, starts, widths, max_width=None):
     :func:`pca_block_sub_plain`; CUDA tensors launch K2 (its wide path past
     d*k = 1024 or 48 KB of shared memory, :func:`pca_plan`).
     """
-    if _on_cpu(X, Vb, starts, widths):
+    if route(X, Vb, starts, widths) == "plain":
         return pca_block_sub_plain(X, Vb, starts, widths, max_width)
     n, d = X.shape
     G, k = Vb.shape[0], Vb.shape[-1]

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
+from repro_torch.kernels._build import route
+from repro_torch.kernels.block_sub import _require, _stream
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
 launch_counts = {"grid_cache_update": 0}
@@ -152,7 +153,7 @@ def grid_cache_update(
     CUDA tensors launch K3."""
     args = (valid_r, slot_r, tag_r, vals_r, sums, values, iters, covered,
             rejected, slot_width)
-    if _on_cpu(*args):
+    if route(*args) == "plain":
         return grid_cache_update_plain(*args)
     _check(args)
     S, R = valid_r.shape

@@ -40,6 +40,10 @@ the caller MAX-all-reduces them over the row's ranks, and
 is exact, so the split form is bit for bit the unsharded update whatever the
 split; plain twins :func:`dsag_int8_row_max_plain` and
 ``dsag_cache_update_int8_plain(..., maxima=)``.
+
+Inside ``_build.dry_run("card")`` every entry takes meta tensors: it checks
+them as its launch does, reports the launch to the cost counter with its
+cost model and returns meta outputs, launching nothing.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ import torch
 
 from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
+from repro_torch.kernels._build import route
+from repro_torch.kernels.block_sub import _require, _stream
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
 launch_counts = {"dsag_cache_update": 0, "dsag_cache_update_int8": 0, "dsag_int8_row_max": 0}
@@ -105,7 +110,8 @@ def dsag_cache_update(g, c, h, mask):
     tensors launch K4.  ``p == 0`` returns ``h`` unchanged (a copy), as the
     reference's op does.
     """
-    if _on_cpu(g, c, h, mask):
+    how = route(g, c, h, mask, counts=True)
+    if how == "plain":
         return dsag_cache_update_plain(g, c, h, mask)
     _check(g, c, h, mask)
     p, n = g.shape
@@ -121,15 +127,17 @@ def dsag_cache_update(g, c, h, mask):
     new_h = torch.as_strided(buf, (n,), (1,), c_words)
     if n == 0:
         return new_c, new_h
-    _build.launch(
-        "dsag_dsag_cache_update",
-        g.data_ptr(), c.data_ptr(), h.data_ptr(), mask.data_ptr(),
-        new_c.data_ptr(), new_h.data_ptr(), p, n,
-        int(g.dtype == torch.bfloat16), int(c.dtype == torch.bfloat16),
-        int(n >= STREAM_MIN_N), dev.index or 0, _stream(dev),
-    )
+    if how == "launch":  # a dry run's meta tensors: counted, not launched
+        _build.launch(
+            "dsag_dsag_cache_update",
+            g.data_ptr(), c.data_ptr(), h.data_ptr(), mask.data_ptr(),
+            new_c.data_ptr(), new_h.data_ptr(), p, n,
+            int(g.dtype == torch.bfloat16), int(c.dtype == torch.bfloat16),
+            int(n >= STREAM_MIN_N), dev.index or 0, _stream(dev),
+        )
     _build.count_launch(launch_counts, "dsag_cache_update",
-                        cost=lambda: kernel_costs.dsag_cache_update_cost(p, n, g.element_size()))
+                        cost=lambda: kernel_costs.dsag_cache_update_cost(p, n, g.element_size()),
+                        launched=how == "launch")
     return new_c, new_h
 
 
@@ -233,7 +241,8 @@ def dsag_int8_row_max(g, cq, cs, pq, ps, code):
     ``(cmax, pmax)`` [p, rows] float32, each group's new cache row's and
     new pending row's absmax over this shard of the rows; see
     :func:`dsag_int8_row_max_plain` (what CPU tensors take)."""
-    if _on_cpu(g, cq, cs, pq, ps, code):
+    how = route(g, cq, cs, pq, ps, code, counts=True)
+    if how == "plain":
         return dsag_int8_row_max_plain(g, cq, cs, pq, ps, code)
     _check_int8(g, cq, cs, pq, ps, None, code)
     p, rows, b = g.shape
@@ -244,13 +253,16 @@ def dsag_int8_row_max(g, cq, cs, pq, ps, code):
         maxima.zero_()
         return maxima[0], maxima[1]
     dev = g.device
-    _build.launch(
-        "dsag_dsag_int8_row_max",
-        *(t.data_ptr() for t in (g, cq, cs, pq, ps, code)), maxima[0].data_ptr(),
-        maxima[1].data_ptr(), p, rows, b, dev.index or 0, _stream(dev),
-    )
+    cmax, pmax = maxima[0], maxima[1]  # (views: a dry run bills them as a launch does)
+    if how == "launch":
+        _build.launch(
+            "dsag_dsag_int8_row_max",
+            *(t.data_ptr() for t in (g, cq, cs, pq, ps, code)), cmax.data_ptr(),
+            pmax.data_ptr(), p, rows, b, dev.index or 0, _stream(dev),
+        )
     _build.count_launch(launch_counts, "dsag_int8_row_max",
-                        cost=lambda: kernel_costs.dsag_int8_row_max_cost(p, rows, b))
+                        cost=lambda: kernel_costs.dsag_int8_row_max_cost(p, rows, b),
+                        launched=how == "launch")
     return maxima[0], maxima[1]
 
 
@@ -262,7 +274,9 @@ def dsag_cache_update_int8(g, cq, cs, pq, ps, h, code, maxima=None):
     kernel scales each row by those instead of its own warp's maximum.
     Returns new tensors; the inputs are not modified.  ``p == 0`` returns
     the slots and ``h`` unchanged (copies)."""
-    if _on_cpu(g, cq, cs, pq, ps, h, code, *(maxima or ())):
+    operands = (g, cq, cs, pq, ps, h, code, *(maxima or ()))
+    how = route(*operands, counts=True)
+    if how == "plain":
         return dsag_cache_update_int8_plain(g, cq, cs, pq, ps, h, code, maxima)
     _check_int8(g, cq, cs, pq, ps, h, code, maxima)
     p, rows, b = g.shape
@@ -270,14 +284,15 @@ def dsag_cache_update_int8(g, cq, cs, pq, ps, h, code, maxima=None):
         return cq.clone(), cs.clone(), pq.clone(), ps.clone(), h.clone()
     outs = (torch.empty_like(cq), torch.empty_like(cs), torch.empty_like(pq),
             torch.empty_like(ps), torch.empty_like(h))
-    cmax, pmax = (t.data_ptr() for t in maxima) if maxima is not None else (None, None)
     dev = g.device
-    _build.launch(
-        "dsag_dsag_cache_update_int8",
-        *(t.data_ptr() for t in (g, cq, cs, pq, ps, h, code)), cmax, pmax,
-        *(t.data_ptr() for t in outs), p, rows, b, dev.index or 0, _stream(dev),
-    )
+    if how == "launch":
+        cmax, pmax = (t.data_ptr() for t in maxima) if maxima is not None else (None, None)
+        _build.launch(
+            "dsag_dsag_cache_update_int8",
+            *(t.data_ptr() for t in (g, cq, cs, pq, ps, h, code)), cmax, pmax,
+            *(t.data_ptr() for t in outs), p, rows, b, dev.index or 0, _stream(dev),
+        )
     _build.count_launch(launch_counts, "dsag_cache_update_int8",
                         cost=lambda: kernel_costs.dsag_cache_update_int8_cost(
-                            p, rows, b, split=maxima is not None))
+                            p, rows, b, split=maxima is not None), launched=how == "launch")
     return outs

@@ -31,6 +31,12 @@ The plain version is the twin of ``repro/kernels/ref.py::flash_attention_ref``:
 a full float32 softmax.  Kernel and plain version agree within float32
 rounding of another summation order (tolerances are stated where they are
 compared: ``tests/test_torch_serve.py``, ``chip_smoke.py``).
+
+Inside ``_build.dry_run("card")`` both entries take meta tensors: they check
+them as the launch does (the head-dim pad and the copy out of a padded
+target run as torch ops, as for a real launch), report the launch to the
+cost counter with K6's cost model and return meta outputs, launching
+nothing.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ import torch
 
 from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_sub import _on_cpu, _stream
+from repro_torch.kernels._build import route
+from repro_torch.kernels.block_sub import _stream
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
 launch_counts = {"flash_attention": 0}
@@ -130,20 +137,23 @@ def _launch(q, k, v, out, causal: bool) -> None:
         target = torch.empty((b, h, sq, dp), dtype=q.dtype, device=dev)
     if q.dtype == torch.bfloat16:
         check_alignment(q, k, v, target)
-    block_q = _build.constant("dsag_flash_block_q")
+    # a dry run's meta tensors: the mirrored limit (the library is not built)
+    block_q = (_build.LIMITS["dsag_flash_block_q"] if q.is_meta
+               else _build.constant("dsag_flash_block_q"))
     if -(-sq // block_q) > 65_535:
         raise ValueError(f"flash attention kernel supports sq <= {65_535 * block_q}, got {sq}")
-    _build.launch(
-        "dsag_flash_attention",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), target.data_ptr(),
-        b, h, sq, sk, q.shape[3], h // kvh, int(causal), int(q.dtype == torch.bfloat16),
-        1.0 / math.sqrt(d),  # the true head dim, as the reference's wrapper
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *target.stride()[:3],
-        dev.index or 0, _stream(dev),
-    )
+    if not q.is_meta:  # meta tensors are counted, not launched
+        _build.launch(
+            "dsag_flash_attention",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), target.data_ptr(),
+            b, h, sq, sk, q.shape[3], h // kvh, int(causal), int(q.dtype == torch.bfloat16),
+            1.0 / math.sqrt(d),  # the true head dim, as the reference's wrapper
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *target.stride()[:3],
+            dev.index or 0, _stream(dev),
+        )
     _build.count_launch(
         launch_counts, "flash_attention", cost=lambda: kernel_costs.flash_attention_cost(
-            b, h, kvh, sq, sk, d, causal, q.dtype))
+            b, h, kvh, sq, sk, d, causal, q.dtype), launched=not q.is_meta)
     if target is not out:
         out.copy_(target[..., :d])
 
@@ -172,7 +182,7 @@ def flash_attention_op(q, k, v, *, causal: bool = True, block_q: int = 128,
     (:func:`refuse_grad`).
     """
     _check_contract(q.shape[2], k.shape[2], causal, block_k)
-    if _on_cpu(q, k, v):
+    if route(q, k, v, counts=True) == "plain":
         return flash_attention_plain(q, k, v, causal=causal)
     refuse_grad(q, k, v)
     if k.shape[1] != q.shape[1]:
@@ -194,7 +204,7 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True):
     """
     _check_contract(q.shape[1], k.shape[1], causal, None)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    if _on_cpu(q, k, v):
+    if route(q, k, v, counts=True) == "plain":
         groups = q.shape[2] // k.shape[2]
         kt = kt.repeat_interleave(groups, dim=1)
         vt = vt.repeat_interleave(groups, dim=1)

@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_sub import GRID_Y, Plan, _on_cpu, _require, _stream, wide_plan
+from repro_torch.kernels._build import route
+from repro_torch.kernels.block_sub import GRID_Y, Plan, _require, _stream, wide_plan
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
 launch_counts = {"gram_matvec": 0}
@@ -98,7 +99,7 @@ def gram_matvec(x, v):
     ``x`` [m, d] or [B, m, d] float32, ``v`` [d, k] float32.  CPU tensors
     take :func:`gram_matvec_plain`; CUDA tensors launch K5.
     """
-    if _on_cpu(x, v):
+    if route(x, v) == "plain":
         return gram_matvec_plain(x, v)
     shape = x.shape
     if len(shape) not in (2, 3) or v.dim() != 2:

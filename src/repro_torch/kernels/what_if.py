@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.analysis import kernel_costs
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_sub import _on_cpu, _require, _stream
+from repro_torch.kernels._build import route
+from repro_torch.kernels.block_sub import _require, _stream
 
 #: kernel launches per wrapper (counted only where a kernel is launched)
 launch_counts = {"what_if_replay": 0}
@@ -90,7 +91,7 @@ def what_if_replay(total, w, margin: float):
     waits.  CPU tensors take :func:`what_if_replay_plain`; CUDA tensors
     launch K7 (or raise for shapes it refuses)."""
     per_scenario = not isinstance(w, int)
-    if _on_cpu(total, *((w,) if per_scenario else ())):
+    if route(total, *((w,) if per_scenario else ())) == "plain":
         return what_if_replay_plain(total, w, margin)
     S, N, K = total.shape
     _require(total, "total", torch.float64, (S, N, K), total.device)

@@ -138,30 +138,7 @@ class Server:
         return result
 
     def _weights(self):
-        """The weights degathered to their TP-only layout, as DTensors on the
-        compute mesh (the ``model`` axis); the stacked blocks' leaves layer by
-        layer, as the model reads them (:class:`_LayerDegather`)."""
-        out = {}
-        for key, tree in self.params.items():
-            specs = self.param_specs[key]
-            if key == "blocks":
-                out[key] = sharding.map_specs(lambda t, spec: _LayerDegather(
-                    t, sharding.P(*tuple(spec)[1:]), self.mesh), tree, specs)
-            else:
-                out[key] = tree_map(sharding.to_compute_mesh,
-                                    sharding.degather(tree, specs, self.mesh))
-        return out
-
-    @staticmethod
-    def _kept(weights):
-        """``weights`` whose blocks keep each layer once gathered: the decode
-        steps of one ``generate`` read every layer each, so they share one
-        gather of each (the prefill, whose activations are the larger,
-        gathers and drops layer by layer, keeping only its last layer, which
-        the first decode step reads last)."""
-        blocks = tree_map(lambda t: _LayerDegather(t.stored, t.spec, t.mesh, kept=t.kept),
-                          weights["blocks"])
-        return dict(weights, blocks=blocks)
+        return mesh_weights(self.params, self.param_specs, self.mesh)
 
     def _generate_sharded(self, batch, num_tokens: int) -> torch.Tensor:
         """``generate`` on the mesh: this data rank's slice of the batch, then
@@ -190,7 +167,7 @@ class Server:
             t1 = time.perf_counter()
             out = [tok]
             index = prompt_positions(cfg, batch["tokens"].shape[1])
-            weights = self._kept(weights)
+            weights = kept_weights(weights)
             for _ in range(num_tokens - 1):
                 logits, cache = self.model.decode_step(weights, tok, cache, index)
                 tok = pick(logits)
@@ -202,6 +179,35 @@ class Server:
         self._sync()
         self.timings = {"prefill": t1 - t0, "decode": time.perf_counter() - t1}
         return result
+
+
+def mesh_weights(params, param_specs, mesh):
+    """The stored weights ``params`` (``DTensor`` leaves laid out by
+    ``param_specs`` on ``mesh``) degathered to their TP-only layout, as
+    DTensors on the compute mesh (the ``model`` axis); the stacked blocks'
+    leaves layer by layer, as the model reads them (:class:`_LayerDegather`)."""
+    out = {}
+    for key, tree in params.items():
+        specs = param_specs[key]
+        if key == "blocks":
+            out[key] = sharding.map_specs(lambda t, spec: _LayerDegather(
+                t, sharding.P(*tuple(spec)[1:]), mesh), tree, specs)
+        else:
+            with sharding.collective_site("degather"):
+                out[key] = tree_map(sharding.to_compute_mesh,
+                                    sharding.degather(tree, specs, mesh))
+    return out
+
+
+def kept_weights(weights):
+    """``weights`` (:func:`mesh_weights`) whose blocks keep each layer once
+    gathered: the decode steps of one ``generate`` read every layer each, so
+    they share one gather of each (the prefill, whose activations are the
+    larger, gathers and drops layer by layer, keeping only its last layer,
+    which the first decode step reads last)."""
+    blocks = tree_map(lambda t: _LayerDegather(t.stored, t.spec, t.mesh, kept=t.kept),
+                      weights["blocks"])
+    return dict(weights, blocks=blocks)
 
 
 class _LayerDegather:
@@ -227,7 +233,8 @@ class _LayerDegather:
         # DTensor laid out by the layer's spec
         layer = DTensor.from_local(self.stored.to_local()[i], self.mesh,
                                    sharding.placements(self.spec, self.mesh), run_check=False)
-        out = sharding.to_compute_mesh(sharding.degather(layer, self.spec, self.mesh))
+        with sharding.collective_site("degather"):
+            out = sharding.to_compute_mesh(sharding.degather(layer, self.spec, self.mesh))
         if self.keep or i == self.stored.shape[0] - 1:
             self.kept[i] = out
         return out

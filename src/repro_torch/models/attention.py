@@ -43,6 +43,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels._build import route
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 from repro_torch.models.layers import ParamDecl, apply_rope, tp_contract
 from repro_torch.models.sharding import is_sharded, shard_batch, write_slice
@@ -149,22 +150,22 @@ def _attend(q, k, v, *, causal: bool, q_offset: int = 0, scale: float | None = N
     prefill and cross-attention calls of this model (q_offset 0, the default
     scale, sq == sk when causal, any sk when not) and refuses others;
     everything else is the reference's plain path over repeated kv heads.
+    Meta tensors go where a dry run sends them (``_build.route``): K6's
+    count-only path under ``dry_run("card")``, the plain path under
+    ``"plain"``; outside a dry run they raise.
     On a mesh either runs on each rank's own heads (:func:`_on_local_heads`).
     """
-    if backend == "cuda" and q.device.type == "cuda":
+    if is_sharded(q):
+        return _on_local_heads(lambda a, b, c: _attend(
+            a, b, c, causal=causal, q_offset=q_offset, scale=scale, backend=backend), q, k, v)
+    if backend == "cuda" and route(q, k, v, counts=True) != "plain":
         if q_offset or scale is not None or (causal and q.shape[1] != k.shape[1]):
             raise ValueError(
                 f"the flash-attention kernel serves prefill attention (q_offset 0, the "
                 f"default scale, sq == sk); got q_offset={q_offset}, scale={scale}, "
                 f"sq={q.shape[1]}, sk={k.shape[1]}"
             )
-        if is_sharded(q):
-            return _on_local_heads(lambda a, b, c: flash_attention_bshd(a, b, c, causal=causal),
-                                   q, k, v)
         return flash_attention_bshd(q, k, v, causal=causal)
-    if is_sharded(q):
-        return _on_local_heads(lambda a, b, c: _attend(
-            a, b, c, causal=causal, q_offset=q_offset, scale=scale, backend="torch"), q, k, v)
     groups = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
     if q.shape[1] > CHUNKED_ATTENTION_THRESHOLD:
@@ -251,10 +252,36 @@ def _decode_attend_sharded(q, k, v, index: int, scale: float, dtype):
 # ---------------------------------------------------------------------------
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the cotangent contiguous: einsum's
+    backward views its output's cotangent, and a ``DTensor`` whose local
+    shard was transposed (the attention's) cannot be viewed (DTensor plans
+    the view from the global strides: at one query head per rank the local
+    ones differ and the view raises)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        # (``g.contiguous()`` trusts the global strides, and returns g)
+        return DTensor.from_local(g.to_local().contiguous(), g.device_mesh, g.placements,
+                                  shape=g.shape, stride=g.stride(), run_check=False)
+
+
+def _project(x, w):
+    """``x`` [b, s, d] by a head projection ``w`` [d, h, k] -> [b, s, h, k]."""
+    y = torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+    return _ContiguousGrad.apply(y) if is_sharded(y) else y
+
+
 def _project_qkv(cfg: ModelConfig, params, x):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(x.dtype))
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)

@@ -23,6 +23,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.sharding import P, local_shape, local_shard, placements, shard_batch
@@ -47,13 +48,74 @@ def set_tp_reduce_dtype(dtype) -> None:
     _TP_REDUCE_DTYPE = None if dtype is None else torch_dtype(dtype)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """The partial sums of a TP contraction all-reduced over ``group``; the
+    backward is the identity (each rank's addend takes the whole sum's
+    cotangent, which is replicated)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_reduce(t.contiguous(), "sum", group.group_name))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _dim_letter(term: str, ndim: int, dim: int) -> str | None:
+    """The letter of einsum ``term`` (one operand's subscript, maybe with
+    ``...``) that names dim ``dim`` of an ``ndim``-dim operand, or None for
+    a dim under the ellipsis."""
+    pre, _, post = term.partition("...")
+    if dim < len(pre):
+        return pre[dim]
+    tail = dim - (ndim - len(post))
+    return post[tail] if tail >= 0 else None
+
+
+def _split_contraction(subscript: str, x, w) -> bool:
+    """Whether ``x`` and ``w`` are DTensors on one 1-D mesh, each split
+    there on the dim that ``subscript`` contracts (as at every psum site).
+    Split on any other dim (a kept batch, sequence or expert dim) they
+    raise: each rank's local product would hold other rows, and their sum
+    over ranks would add them."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor) and x.device_mesh.ndim == 1
+            and w.device_mesh == x.device_mesh and isinstance(x.placements[0], Shard)
+            and isinstance(w.placements[0], Shard)):
+        return False
+    ins, out = subscript.replace(" ", "").split("->")
+    tx, tw = ins.split(",")
+    lx = _dim_letter(tx, x.ndim, x.placements[0].dim)
+    lw = _dim_letter(tw, w.ndim, w.placements[0].dim)
+    if lx is None or lx != lw or lx in out:
+        raise ValueError(f"tp_contract({subscript!r}) takes x and w split on the contracted "
+                         f"dim; x is split on {x.placements[0]}, w on {w.placements[0]}")
+    return True
+
+
 def tp_contract(subscript: str, x, w):
     """einsum whose contraction dim is TP-sharded (the psum site): with a
     reduce dtype set, its partial sums are cast to it before the reduction
-    (the reference's ``preferred_element_type``)."""
+    (the reference's ``preferred_element_type``).  On a mesh each rank
+    contracts its own shards and the partial sums are all-reduced here, as
+    the reference's psum, into a replicated result: DTensor left to itself
+    keeps a ``Partial`` residual stream (whose next layer then gathers its
+    weights whole) and computes these weights' gradients unsharded."""
+    if _split_contraction(subscript, x, w):
+        mesh = x.device_mesh
+        out = torch.einsum(subscript, x.to_local(), w.to_local())
+        if _TP_REDUCE_DTYPE is not None:
+            out = out.to(_TP_REDUCE_DTYPE)
+        out = _SumOverRanks.apply(out, mesh.get_group(0))
+        return DTensor.from_local(out, mesh, [Replicate()], run_check=False)
     out = torch.einsum(subscript, x, w)
     if _TP_REDUCE_DTYPE is not None:
         out = out.to(_TP_REDUCE_DTYPE)
+    if isinstance(out, DTensor) and any(isinstance(p, Partial) for p in out.placements):
+        # a replicated x by sharded w (a decode step's attention output)
+        out = out.redistribute(out.device_mesh, [Replicate() if isinstance(p, Partial) else p
+                                                 for p in out.placements])
     return out
 
 

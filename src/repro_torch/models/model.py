@@ -214,6 +214,25 @@ def cache_specs(cfg: ModelConfig) -> Any:
     return {"k": kv, "v": kv}
 
 
+def sharded_cache(cfg: ModelConfig, b: int, cache_len: int, mesh, device, dtype=None) -> dict:
+    """The decode cache of a mesh run: DTensors on the compute mesh ``mesh``
+    laid out by :func:`cache_specs` (this rank's batch slice of ``b`` rows,
+    the sequence over ``model``), zero, on ``device`` (meta in a dry run)."""
+    from torch.distributed.tensor import DTensor
+
+    abstract = cache_abstract(cfg, b, cache_len, dtype)
+    specs = cache_specs(cfg)
+    out: dict = {}
+    for path, t in _leaves(abstract):
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        local = torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype, device=device)
+        set_path(out, path, DTensor.from_local(local, mesh, placements(spec, mesh),
+                                               run_check=False))
+    return out
+
+
 def _layer(cache: dict, i: int) -> dict:
     """Layer (or shared-block group) ``i``'s views of a stacked cache."""
     return tree_map(lambda a: a[i], cache)
@@ -366,24 +385,10 @@ class Model:
         return cache
 
     def _empty_sharded_cache(self, b: int, cache_len: int, x) -> dict:
-        """The decode cache of a mesh run: DTensors on ``x``'s compute
-        mesh laid out by :func:`cache_specs` (this rank's batch slice, the
-        sequence over ``model``), zero."""
-        from torch.distributed.tensor import DTensor
-
-        mesh = x.device_mesh
-        abstract = cache_abstract(self.cfg, b, cache_len, x.dtype)
-        specs = cache_specs(self.cfg)
-        out: dict = {}
-        for path, t in _leaves(abstract):
-            spec = specs
-            for key in path:
-                spec = spec[key]
-            local = torch.zeros(local_shape(t.shape, spec, mesh), dtype=t.dtype,
-                                device=x.to_local().device)
-            set_path(out, path, DTensor.from_local(local, mesh, placements(spec, mesh),
-                                                   run_check=False))
-        return out
+        """The decode cache of a mesh run on ``x``'s compute mesh
+        (:func:`sharded_cache`)."""
+        return sharded_cache(self.cfg, b, cache_len, x.device_mesh, x.to_local().device,
+                             x.dtype)
 
     def _prefill_encdec(self, params, batch, cache_len: int):
         """Encode the audio, then the decoder over the prompt: its self-

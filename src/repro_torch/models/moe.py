@@ -224,10 +224,13 @@ def _own_slots(own, slot_of_pair, src_of_slot, pair_of_slot, e: int, capacity: i
     their order at the front of its ``c`` slots, ``c`` the most any expert
     of any chunk keeps here: so the rank's experts run over its own rows
     only.  Every row of the expert FFN is independent, so its values are
-    those of the whole chunk's slots.  Returns the tables and ``c``."""
+    those of the whole chunk's slots.  Returns the tables and ``c``.
+
+    ``c`` is read on the host; meta tensors (a dry run's, which hold no
+    data) take its static bound ``capacity`` instead, the most it can be."""
     nx = own.shape[0]
     per_expert = own.reshape(nx, e, capacity)
-    c = max(int(per_expert.sum(-1).max()), 1)
+    c = capacity if own.is_meta else max(int(per_expert.sum(-1).max()), 1)
     pad = e * c
     pos = per_expert.cumsum(-1) - 1 + torch.arange(e, device=own.device)[:, None] * c
     new = torch.where(per_expert, pos, pad).reshape(nx, e * capacity)
@@ -365,7 +368,11 @@ def moe_apply(cfg: ModelConfig, params, x, *, capacity_factor: float | None = No
     # aux loss (Switch-style) over the whole stream: its expert counts summed
     # and its mean probabilities averaged over the stream's ranks; the
     # gradient that of this rank's own probabilities against them
-    counts = torch.bincount(gate_idx.reshape(-1), minlength=e).to(torch.float32)
+    flat = gate_idx.reshape(-1)
+    # (a scatter, not bincount, whose size depends on the data: a dry run's
+    # meta tensors have none)
+    counts = torch.zeros(e, dtype=torch.int64, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).to(torch.float32)
     me = probs.mean(dim=(0, 1))  # [e]
     me_all = me.detach()
     if R > 1:

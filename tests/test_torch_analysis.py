@@ -366,12 +366,12 @@ def test_what_if_cost_model_equals_the_former_formula(S, N, K, live, mask):
 
 @pytest.fixture
 def card_stub(monkeypatch):
-    """The wrappers take their kernel path on CPU tensors: ``_on_cpu`` says
-    no, ``_build.launch`` runs ``fake_launch[name]`` (or nothing), and the
+    """The wrappers take their kernel path on CPU tensors: ``route`` says
+    ``"launch"``, ``_build.launch`` runs ``fake_launch[name]`` (or nothing), and the
     streams and compiled constants are stubbed."""
     fakes = {}
     for mod in (block_sub, cache_events, dsag_update, gram_matvec, flash_attention, what_if):
-        monkeypatch.setattr(mod, "_on_cpu", lambda *t: False)
+        monkeypatch.setattr(mod, "route", lambda *t, **kw: "launch")
         monkeypatch.setattr(mod, "_stream", lambda dev: 0)
     monkeypatch.setattr(_build, "launch", lambda name, *a: fakes.get(name, lambda *b: None)(*a))
     monkeypatch.setattr(_build, "constant", lambda name: _build.LIMITS[name])

@@ -371,9 +371,9 @@ def test_flat_optimizers_equal_per_leaf(opt):
 @pytest.mark.parametrize("entry", ["bshd", "op"])
 def test_k6_refuses_grad_on_the_card_path(monkeypatch, entry):
     """K6 writes through a raw pointer and has no backward: on the card path
-    (``_on_cpu`` forced false here) a grad-requiring input raises before any
+    (``route`` forced to ``"launch"`` here) a grad-requiring input raises before any
     launch; under no grad the guard lets the call through to the launch."""
-    monkeypatch.setattr(k6, "_on_cpu", lambda *a: False)
+    monkeypatch.setattr(k6, "route", lambda *a, **kw: "launch")
     launched = []
     monkeypatch.setattr(k6, "_launch", lambda *a: launched.append(1))
     shape = (1, 8, 2, 64) if entry == "bshd" else (1, 2, 8, 64)
