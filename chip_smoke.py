@@ -107,8 +107,8 @@ Phases (any failure raises and the script exits non-zero):
    any launch;
    (d) ``pca_paper_scale``'s dsag with the balancer at
    :data:`PCA_LB_DEPTH` iterations, scalar == host == device through K2;
-   (e) (a)'s first Algorithm-1 call again, timed through K7 and through
-   its plain version on the card (not counted);
+   (e) (a)'s first Algorithm-1 call again, timed through K7 (not counted;
+   through its plain version it took 7.8-9.1 s, PERF.md);
 9. slice 9, elastic-fleet churn, with the counters set to 0 just before each
    path and read just after: (a) the committed ``BENCH_convergence.json``
    ``churn`` column from its recipe (dsag, sag, coded through the host and
@@ -119,9 +119,11 @@ Phases (any failure raises and the script exits non-zero):
    fifth dies at 30% of the churn-free run, half of it rejoins at 70%):
    dsag, sag, sgd, coded device == host bit for bit, scalar == row 0 for
    dsag and sag, wall clocks beside phase 4's, the ordering reported; (c)
-   the ``lb_scan`` recipe under the same schedule, device == host ==
+   the ``lb_scan`` recipe under the same schedule at
+   :data:`CHURN_LB_DEPTH` of its iterations, device == host ==
    scalar (publication times included) through K1 and K7 with the mask,
-   at least one Algorithm-1 call with a dead worker; (d) §7.2: the scalar
+   at least one Algorithm-1 call with a dead worker and one after the
+   rejoin (the revived workers live, the other dead ones dead); (d) §7.2: the scalar
    simulator with ``SlowdownRemoval`` timed events on a replayed trace
    equal to the engines on ``paper_artificial_churn``'s schedule; (e)
    ``pca_paper_scale``'s dsag and sag under the schedule rule at
@@ -146,8 +148,12 @@ Phases (any failure raises and the script exits non-zero):
    through K4, fresh/flush counts and virtual time equal to the reference's
    float32 runs, host ms per step; (e) an int8 run saved every 20 steps, the
    latest restored ``torch.equal`` to the saved state, 20 more steps;
-   phase 3 holds K4's int8 entry at [100, 1, 29] and [50, 64, 3] with
-   ``torch.equal`` and times it;
+   phase 3 holds K4's int8 entry at [100, 1, 29] and [50, 64, 3], at the
+   unsharded port's embedding rows [2, 76032, 1024], at a shape for each of
+   its launches (:data:`INT8_LAUNCH_SHAPES`) and its split form at the
+   mesh's shards [2, 24576, 1024] and [2, 76032, 512] and at [8, 50, 100]
+   (with the row-max pass) with ``torch.equal`` and times each beside its
+   bound;
 11. slice 11, scenario sharding of the device engine, with the counters
    set to 0 just before each part and read just after: (a) the committed
    ``BENCH_convergence.json`` ``pca_grid_sharded`` column
@@ -244,7 +250,8 @@ Phases (any failure raises and the script exits non-zero):
    4): K4 once per step over [4, n] bf16, no K6, finite losses, host ms per
    step and peak memory;
 16. training the MoE, MLA, SSM and hybrid families on the card, each model
-   freed before the next: (a) mamba2-370m at full width and depth and (b)
+   freed before the next: (a) mamba2-370m at full width, cut to 24 of its 48
+   layers (to keep the script in its time), and (b)
    zamba2-2.7b at full width, cut to two groups of six Mamba2 layers and
    the shared block (:data:`FAMILY_TRAIN_ARCHS`), each trained
    :data:`FAMILY_TRAIN_STEPS` steps through ``Trainer`` (``TrainConfig()``, P = 4,
@@ -266,7 +273,10 @@ Phases (any failure raises and the script exits non-zero):
    and within :data:`SSD_CPU_TOL` of the CPU port's;
 17. the mesh path (~2 min): qwen1.5-0.5b on a (data=2, model=2) device mesh
    of four processes on the card (``RankPool``, gloo: NCCL refuses two
-   ranks on one device), each run held against the unsharded port on the
+   ranks on one device; :func:`mesh_ranks`, started before phase 12 and
+   warmed up beside its lint, idle through phases 13-16; the same four then
+   run phase 18, their cached blocks freed between), each run held against
+   the unsharded port on the
    same inputs, computed first in this process (while the ranks start) and
    freed before their first task.  (a) training at full width,
    :data:`MESH_TRAIN_BF16_LAYERS` of 24 layers, through
@@ -282,7 +292,10 @@ Phases (any failure raises and the script exits non-zero):
    layers (cut to make room for phase 19) and float32 at 2 layers,
    against the unsharded ``Server``: every K6 call (each rank's 8 local
    heads) held on its own inputs against the plain attention, the prefill
-   logits within :data:`MESH_TOL`, the float32 tokens equal; every rank's K4
+   logits within :data:`MESH_TOL`, the float32 tokens equal; the prefill's
+   collectives counted (``count_cost``) and its cache write (keys and values
+   split over heads into a cache split over its sequence) held to
+   all-to-alls, their calls and wire bytes per rank printed; every rank's K4
    and K6 launches counted into the kernels line; K4 and K6 then timed at
    the ranks' local shapes in this process;
 18. the reference's production DSAG layouts on a mesh (qwen1.5-0.5b at full
@@ -358,7 +371,9 @@ Phases (any failure raises and the script exits non-zero):
    the collectives by kind and by site (any difference fails); (b) its ``peak_estimate_bytes``
    printed beside phase 18's measured peak per rank and their ratio (not
    held); (c) :data:`DRYRUN_CELL` on the 16x16 production mesh at full
-   width, its one-line summary printed;
+   width, its summary and wire bytes by kind printed, its peak estimate and
+   all-gather bytes held under :data:`DRYRUN_CELL_PEAK` and
+   :data:`DRYRUN_CELL_GATHER` (the loss keeps the vocab split);
 21. print one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -674,7 +689,7 @@ def check_what_if(torch, S: int, N: int, w: int, margin: float, rng,
     if not (torch.equal(got, want) and torch.equal(got, again)):
         fail(f"what_if_replay S={S} N={N}: differs from its plain version "
              f"(max |diff| {float((got - want).abs().max()):.3e}) or does not repeat")
-    k_ms, p_ms = timed_pair(torch, kernel, plain, reps=50, plain_reps=5)
+    k_ms, p_ms = timed_pair(torch, kernel, plain, reps=50, plain_reps=2)
     dev_ms, dev_kernels = device_ms(torch, kernel, 20)
     bound = bound_of(roofline.what_if_replay_cost(S, N, K, n_live, dead is not None))
     b_ms, b_by = bound["bound_ms"], bound["bound_by"]
@@ -703,8 +718,9 @@ def check_what_if(torch, S: int, N: int, w: int, margin: float, rng,
 
 
 def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
-                     plain_reps: int = 3, cleared: int = 0) -> dict:
-    """Phase 3 for K3 at one dsag shape; exact equality.  ``cleared`` slots
+                     plain_reps: int = 1, cleared: int = 0) -> dict:
+    """Phase 3 for K3 at one dsag shape; exact equality.  ``plain_reps`` 0
+    times the plain walk by its one checked run.  ``cleared`` slots
     of every scenario are in the state a churn clear leaves them: tag -1 and
     a stale non-zero value row, which the walk must take as empty."""
     from repro_torch.analysis import roofline
@@ -733,15 +749,21 @@ def check_cache_walk(torch, S: int, R: int, E: int, F: int, T: int, rng,
     # the device time before the plain version runs: after its ~10^5 small
     # launches at R = 10000 the profiler recorded no device time for a while
     dev_ms, dev_kernels = device_ms(torch, lambda: cache_events.grid_cache_update(*a), 50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = cache_events.grid_cache_update_plain(*a)
     torch.cuda.synchronize()
+    once_ms = (time.perf_counter() - t0) * 1e3
     names = ("sums", "values", "iters", "covered", "rejected")
     for name, g, w in zip(names, got, want):
         if not torch.equal(g, w):
             fail(f"grid_cache_update output {name} is not equal to its plain version")
-    k_ms, p_ms = timed_pair(torch, lambda: cache_events.grid_cache_update(*a),
-                            lambda: cache_events.grid_cache_update_plain(*a),
-                            reps=50, plain_reps=plain_reps)
+    if plain_reps:
+        k_ms, p_ms = timed_pair(torch, lambda: cache_events.grid_cache_update(*a),
+                                lambda: cache_events.grid_cache_update_plain(*a),
+                                reps=50, plain_reps=plain_reps)
+    else:  # a plain walk of seconds: its one (synchronized) run above
+        k_ms, p_ms = cuda_ms(torch, lambda: cache_events.grid_cache_update(*a), 50), once_ms
     n_valid = int(args["valid_r"].sum())
     n_rej = int((got[4] - args["rejected"]).sum())
     accepted = n_valid - n_rej
@@ -829,9 +851,10 @@ def check_dsag_update(torch, p: int, n: int, slot_dtype, rng, inputs=None,
                 other_path_device_ms=other_ms, plain_ms=p_ms, library_ms=None, **bound)
 
 
-def _int8_inputs(torch, p: int, rows: int, b: int, rng) -> tuple:
+def _int8_inputs(torch, p: int, rows: int, b: int, rng, misaligned: bool = False) -> tuple:
     """K4-int8's operands at one shape, the live mix of row sources:
-    ``(g, cq, cs, pq, ps, h, code)`` on the card."""
+    ``(g, cq, cs, pq, ps, h, code)`` on the card; ``misaligned``: g, the
+    int8 slots and h each contiguous from one element past an aligned start."""
     from repro_torch.kernels import dsag_update
     from repro_torch.optim.compression import quantize
 
@@ -840,14 +863,20 @@ def _int8_inputs(torch, p: int, rows: int, b: int, rng) -> tuple:
     def f32(*shape):
         return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=dev)
 
+    def moved(t):
+        if not misaligned:
+            return t
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
     c, pe = quantize(f32(p, rows, b), block=b), quantize(f32(p, rows, b), block=b)
     # the live mix: ~70% fresh, a few flushes and evictions, the rest kept
     src = rng.choice([dsag_update.TAKE_G, dsag_update.TAKE_PENDING, dsag_update.ZERO,
                       dsag_update.KEEP], size=p, p=[0.7, 0.1, 0.02, 0.18])
     take = np.where(rng.random(p) < 0.8, dsag_update.TAKE_NEW, 0)
     code = torch.as_tensor(src + take, dtype=torch.uint8, device=dev)
-    return (f32(p, rows, b), c.q, c.scale[..., 0].contiguous(), pe.q,
-            pe.scale[..., 0].contiguous(), f32(rows, b), code)
+    return (moved(f32(p, rows, b)), moved(c.q), c.scale[..., 0].contiguous(), moved(pe.q),
+            pe.scale[..., 0].contiguous(), moved(f32(rows, b)), code)
 
 
 def _int8_update_row(torch, args, maxima, shape: str, plain_reps: int) -> dict:
@@ -858,6 +887,7 @@ def _int8_update_row(torch, args, maxima, shape: str, plain_reps: int) -> dict:
 
     split = maxima is not None
     p, rows, b = args[0].shape
+    misaligned = any(t.data_ptr() % 16 for t in args)
     got = dsag_update.dsag_cache_update_int8(*args, maxima)
     want = dsag_update.dsag_cache_update_int8_plain(*args, maxima)
     torch.cuda.synchronize()
@@ -876,16 +906,33 @@ def _int8_update_row(torch, args, maxima, shape: str, plain_reps: int) -> dict:
     print(f"  dsag_cache_update_int8 {shape}{' (split form: given row maxima)' if split else ''}"
           f": equal; kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)}: {dev_kernels}), plain "
           f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); no single PyTorch call computes it")
-    return dict(call=f"p{p}_rows{rows}_b{b}" + ("_split" if split else ""), max_abs_err=0.0,
+    return dict(call=f"p{p}_rows{rows}_b{b}" + ("_split" if split else "")
+                + ("_misaligned" if misaligned else ""), max_abs_err=0.0,
                 ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, library_ms=None, **bound)
 
 
-def check_dsag_update_int8(torch, p: int, rows: int, b: int, rng) -> dict:
+#: phase 3: K4-int8 at a shape for each of its launches, ``(p, rows, b,
+#: misaligned)``: the team kernel's 16-byte vectors at grok-1's d_model
+#: (6144), a norm's single row and a bias's short rows; its single elements
+#: at a width no multiple of 16 and at operands one element past an aligned
+#: start; the long-row kernel past the on-chip tile (16384); the staged
+#: kernel (rows of at most 128, 4 or more groups) wide and over many rows;
+#: three groups
+INT8_LAUNCH_SHAPES = (
+    (2, 64, 6144, False), (2, 1, 1024, False), (2, 16, 64, False), (2, 32, 1000, False),
+    (2, 64, 1024, True), (2, 8, 16384, False), (8, 50, 100, False), (4, 1000, 29, False),
+    (3, 100, 200, False),
+)
+
+
+def check_dsag_update_int8(torch, p: int, rows: int, b: int, rng, misaligned: bool = False,
+                           plain_reps: int = 10) -> dict:
     """Phase 3 for K4's int8 entry at one shape (``p`` groups of ``rows``
     rows of ``b`` elements, one bf16 scale per row); ``torch.equal`` to the
     plain version, every output."""
-    return _int8_update_row(torch, _int8_inputs(torch, p, rows, b, rng), None,
-                            f"[{p}, {rows}, {b}]", plain_reps=10)
+    return _int8_update_row(torch, _int8_inputs(torch, p, rows, b, rng, misaligned), None,
+                            f"[{p}, {rows}, {b}]" + (" misaligned" if misaligned else ""),
+                            plain_reps=plain_reps)
 
 
 def check_dsag_int8_split(torch, p: int, rows: int, b: int, rng, plain_reps: int = 2):
@@ -1696,24 +1743,28 @@ def run_lb(torch, outcomes: dict) -> dict:
           f"{walls['scalar']:.2f} s; {n_d['pca_block_sub']} pca_block_sub, "
           f"{n_d['what_if_replay']} what_if_replay launches")
 
-    # (e) (a)'s first Algorithm-1 call again, through K7 and through its plain
-    # version on the card (comparison runs: their launches are not counted)
+    # (e) (a)'s first Algorithm-1 call again, through K7 (a comparison run: its
+    # launches are not counted; through the plain replay it took 7.8-9.1 s,
+    # PERF.md)
     args, kw = calls[0][1], calls[0][2]
-    for backend in ("cuda", "torch"):
-        hs_e = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with counting(jlb, "estimate_h", hs_e):
-            jlb.lb_update(*args, **dict(kw, kernel_backend=backend))
-        torch.cuda.synchronize()
-        print(f"  lb_scan's first Algorithm-1 call, replay through "
-              f"{'K7' if backend == 'cuda' else 'its plain version'}: "
-              f"{time.perf_counter() - t0:.3f} s, {len(hs_e)} h estimates, "
-              f"{np.median([h[0] for h in hs_e]) * 1e3:.2f} ms median each")
+    hs_e = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counting(jlb, "estimate_h", hs_e):
+        jlb.lb_update(*args, **dict(kw, kernel_backend="cuda"))
+    torch.cuda.synchronize()
+    print(f"  lb_scan's first Algorithm-1 call, replay through K7: "
+          f"{time.perf_counter() - t0:.3f} s, {len(hs_e)} h estimates, "
+          f"{np.median([h[0] for h in hs_e]) * 1e3:.2f} ms median each")
     reset_launch_counts()
     return counts
 
 
+#: phase 9 (c): iterations of the lb_scan recipe under churn (of its 60; its
+#: engines' Algorithm 1 took ~48 s at 60).  The deaths and the rejoin come
+#: before §6's first call (``lb_startup_delay``); (c) fails unless an
+#: Algorithm-1 call sees the rejoined workers live and the others dead
+CHURN_LB_DEPTH = 30
 #: the §7.2 run of phase 9 (d): the paper's 49 workers, slowed by
 #: 1 + (i/N) 0.4, the last 10 relieved halfway through the churn-free run
 ART72 = dict(n_workers=49, n_scenarios=4, num_iterations=60, w=40, removed=10)
@@ -1884,12 +1935,13 @@ def run_churn(torch, outcomes: dict) -> dict:
           f"{len(sch['dead_workers'])} dead and w = {methods['dsag'].w}, dsag waits for "
           f"min(w, {n_alive}) living workers)")
 
-    # (c) §6 under churn at full width: the lb_scan recipe with the same schedule
+    # (c) §6 under churn at full width: the lb_scan recipe with the same
+    # schedule, CHURN_LB_DEPTH of its iterations
     dsag_lb = dataclasses.replace(out.methods["dsag"], load_balance=True, **GRID_LB)
     calls = []
     reset_launch_counts()
     with counting(jlb, "lb_update", calls):
-        runs_c, walls_c = batched(out.problem, churned, {"dsag_lb": dsag_lb}, T,
+        runs_c, walls_c = batched(out.problem, churned, {"dsag_lb": dsag_lb}, CHURN_LB_DEPTH,
                                   out.eval_every, out.seed)
     n_c = add_counts()
     if n_c["logreg_block_sub"] == 0 or n_c["what_if_replay"] == 0:
@@ -1898,10 +1950,19 @@ def run_churn(torch, outcomes: dict) -> dict:
                     and bool((~kw["alive"] & args[7][:, None]).any()))
     if with_dead == 0:
         fail("§6 under churn: no Algorithm-1 call was made with a dead worker")
+    # after the rejoin: the revived workers live, the rest of the dead still dead
+    revived = sch["revived_workers"]
+    still_dead = sorted(set(sch["dead_workers"]) - set(revived))
+    rejoined = sum(1 for _, args, kw in calls if kw.get("alive") is not None
+                   and bool((kw["alive"][:, revived].all(1) & ~kw["alive"][:, still_dead].any(1)
+                             & args[7]).any()))
+    if rejoined == 0:
+        fail(f"§6 under churn: no Algorithm-1 call in {CHURN_LB_DEPTH} iterations saw the "
+             f"rejoined workers {revived} live")
     reset_launch_counts()
     hist_c, wall_cs = timed(lambda: TrainingSimulator(
         out.problem, out.cluster, dsag_lb, eval_every=out.eval_every, seed=out.seed,
-        latency_source=TraceLatencySource(churned, 0), engine=card).run(T))
+        latency_source=TraceLatencySource(churned, 0), engine=card).run(CHURN_LB_DEPTH))
     n_cs = add_counts()
     engines_equal("lb_scan under churn, scalar/scenario 0", hist_c,
                   {"scan": runs_c["dsag_lb", "scan"]})
@@ -1915,7 +1976,7 @@ def run_churn(torch, outcomes: dict) -> dict:
     print(f"    wall clock: device engine {walls_c['dsag_lb', 'scan']:.2f} s, host engine "
           f"{walls_c['dsag_lb', 'host']:.2f} s, scalar scenario 0 {wall_cs:.2f} s; Algorithm 1: "
           f"{len(calls)} batched calls over both engines, {with_dead} with a dead worker in an "
-          f"active scenario, {sum(opt_s):.2f} s, {np.median(opt_s):.3f} s median per call; "
+          f"active scenario, {rejoined} after the rejoin, {sum(opt_s):.2f} s, {np.median(opt_s):.3f} s median per call; "
           f"launches {n_c['logreg_block_sub']} logreg_block_sub, {n_c['what_if_replay']} "
           f"what_if_replay (+{n_cs['what_if_replay']} scalar)")
 
@@ -3750,11 +3811,13 @@ def run_whisper_training(torch) -> tuple[dict, dict]:
 
 #: phase 16 (a), (b): the SSM and hybrid archs trained through ``Trainer`` at
 #: their published widths, and the depth each is cut to (None: full depth).
+#: mamba2-370m keeps 24 of its 48 layers: at full depth its four steps made
+#: the script take 1193 s of its 1200 on a slow host (H100 80GB HBM3, 700 W).
 #: zamba2-2.7b keeps two of its nine groups of six Mamba2 layers and the shared
 #: block, the deepest that fits under ~70 GiB: a run peaked at 84.1 bytes per
 #: parameter at one group (H100 80GB HBM3, 700 W), so two groups (0.747 B
 #: parameters) take ~59 GiB and three (0.986 B) ~77 GiB
-FAMILY_TRAIN_ARCHS = {"mamba2-370m": None, "zamba2-2.7b": 12}
+FAMILY_TRAIN_ARCHS = {"mamba2-370m": 24, "zamba2-2.7b": 12}
 #: phase 16 (a), (b), (d): steps of each run (mamba2-370m's take ~3.9 s each
 #: on the card: four keep the script in its time)
 FAMILY_TRAIN_STEPS = 4
@@ -4245,6 +4308,7 @@ def mesh_serve_rank(dtype: str | None, layers, batch, num_tokens: int) -> dict:
     import torch
 
     import repro_torch.launch.serve as serve_mod
+    from repro_torch.analysis.cost import count_cost
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import attention as attn_mod
@@ -4268,8 +4332,14 @@ def mesh_serve_rank(dtype: str | None, layers, batch, num_tokens: int) -> dict:
         prefill = srv.model.prefill
 
         def keep_logits(*a, **kw):
-            logits, cache = prefill(*a, **kw)
+            # counted: the collectives at the prefill's cache write
+            out = {}
+            cost = count_cost(lambda: out.update(r=prefill(*a, **kw)))
+            logits, cache = out["r"]
             kept["logits"] = sharding.full(logits).float().cpu()
+            kept["cache_write"] = {k.removeprefix("cache write: "): (
+                cost.coll_site_counts[k], cost.coll_site_wire_bytes[k])
+                for k in cost.coll_site_counts if k.startswith("cache write: ")}
             return logits, cache
 
         reset_launch_counts()
@@ -4280,7 +4350,7 @@ def mesh_serve_rank(dtype: str | None, layers, batch, num_tokens: int) -> dict:
         counts = launch_counts()
         return {"tokens": toks.cpu().numpy(), "logits": kept["logits"].numpy(), "calls": calls,
                 "counts": counts, "timings": srv.timings, "max_len": srv.max_len,
-                "peak": torch.cuda.max_memory_allocated()}
+                "peak": torch.cuda.max_memory_allocated(), "cache_write": kept["cache_write"]}
     finally:
         sharding.set_mesh(None)
 
@@ -4306,13 +4376,67 @@ def mesh_unsharded_serve(torch, dtype, layers, batch, num_tokens: int) -> dict:
     return out
 
 
-def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
-    """Phase 17: the mesh path (see the module docstring).  Returns its
-    numbers, every rank's K4 and K6 launches, and K4's and K6's rows at the
-    ranks' local shapes."""
+def warm_rank() -> bool:
+    """On a rank: the first-use costs of a mesh run (imports, a ``(2, 2)``
+    CUDA mesh, a ``DTensor`` product and its backward, products in bf16 and
+    float32, a gloo all-reduce on a CUDA tensor), paid before its first
+    task; its blocks handed back to the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    import repro_torch.core.dsag_pjit  # noqa: F401
+    import repro_torch.launch.serve  # noqa: F401
+    from repro_torch.analysis.cost import count_cost
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sharding import compute_mesh
+
+    mesh = compute_mesh(make_test_mesh(MESH_SHAPE, device_type="cuda"))
+    for dtype in (torch.bfloat16, torch.float32):
+        x = distribute_tensor(torch.ones(64, 64, dtype=dtype, device="cuda"), mesh,
+                              [Replicate()]).requires_grad_()
+        w = distribute_tensor(torch.ones(64, 64, dtype=dtype, device="cuda"), mesh, [Shard(1)])
+        count_cost(lambda: torch.einsum("ij,jk->ik", x, w).redistribute(
+            mesh, [Replicate()]).float().sum().backward())
+    torch.distributed.all_reduce(torch.ones(8, device="cuda"))
+    torch.cuda.synchronize()
+    release_rank()
+    return True
+
+
+def mesh_ranks(expandable: bool = False):
+    """The four ranks of a mesh phase on the card (gloo), warming up
+    (:func:`warm_rank`) in the background from their start while this
+    process runs the phase's unsharded yardsticks; the first task waits for
+    that.  Phases 17 and 18 share one pool (sparing phase 18 its ranks'
+    set-up).  ``expandable``: the ranks' allocators grow segments in place
+    (phase 19: four ranks' gathered layers and staging copies come and go
+    on one card)."""
+    from repro_torch.launch.mesh import RankPool
+
+    env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"} if expandable else {}
+    with mock.patch.dict(os.environ, env):
+        return RankPool(4, "cuda", timeout=900 if expandable else 600, warm=warm_rank)
+
+
+def release_rank() -> int:
+    """On a rank: free its cached CUDA blocks; its bytes still reserved."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def run_mesh(torch, smi: str, pool) -> tuple[dict, dict, list]:
+    """Phase 17: the mesh path (see the module docstring), on ``pool``
+    (:func:`mesh_ranks`, started just before; phase 18 runs on it next).
+    Returns its numbers, every rank's K4 and K6 launches, and K4's and K6's
+    rows at the ranks' local shapes."""
     import tempfile
 
-    from repro_torch.launch.mesh import RankPool
     from repro_torch.launch.serve import stub_batch
     from repro_torch.configs import get_config
 
@@ -4321,12 +4445,8 @@ def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
     cfg = get_config(MESH_ARCH)
     b, s, n_tok = MESH_SERVE
     prompts = stub_batch(cfg, b, s, seed=7)
-    # the ranks start (import, join the group) beside the unsharded runs
-    # below; until their first task each holds only its CUDA context
-    t0 = time.perf_counter()
-    pool = RankPool(MESH_SHAPE[0] * MESH_SHAPE[1], "cuda", timeout=600)
-    res["pool_s"] = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="mesh") as tmp, pool:
+    # a pool just started warms up beside the unsharded runs below
+    with tempfile.TemporaryDirectory(prefix="mesh") as tmp:
         runs = {"a": ("bfloat16", MESH_TRAIN_BF16_LAYERS), "b": ("float32", 2)}
         serve_runs = {"a": ("bfloat16", MESH_SERVE_BF16_LAYERS), "b": ("float32", 2)}
         want_train, want_serve = {}, {}
@@ -4339,9 +4459,12 @@ def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
             want_serve[label] = mesh_unsharded_serve(torch, dtype, layers, prompts, n_tok)
         free_cuda(torch)
         res["unsharded_s"] = time.perf_counter() - t0
-        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} "
-              f"(started in {res['pool_s']:.1f} s; the unsharded runs took "
-              f"{res['unsharded_s']:.1f} s)")
+        t0 = time.perf_counter()
+        pool.wait_warm()
+        res["warm_wait_s"] = time.perf_counter() - t0
+        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (the unsharded runs took "
+              f"{res['unsharded_s']:.1f} s; then the ranks' warm-up {res['warm_wait_s']:.1f} s "
+              f"more)")
         for label, (dtype, layers) in runs.items():
             t0 = time.perf_counter()
             got = pool.run(mesh_train_rank, dtype, layers, f"{tmp}/{label}.pt")
@@ -4354,6 +4477,7 @@ def run_mesh(torch, smi: str) -> tuple[dict, dict, list]:
             res[f"serve_{label}"] = mesh_serve_check(torch, label, dtype, layers, got,
                                                      want_serve[label], launches)
             res[f"serve_{label}"]["phase_s"] = time.perf_counter() - t0
+    pool.run(release_rank)  # the ranks' cached blocks back to the card for phase 18
     # the kernels at the ranks' local shapes, timed here (not counted)
     rng = np.random.default_rng(17)
     free_cuda(torch)
@@ -4454,7 +4578,16 @@ def mesh_serve_check(torch, label: str, dtype: str, layers, got: list, want: dic
           f"rounding (worst |K6 - plain| {max(c[3] for c in calls):.3g}; outside the strict "
           f"tolerance {sum(c[4] for c in calls)} outputs); prefill {t['prefill']:.3f} s, "
           f"decode {t['decode']:.3f} s (rank 0)")
+    # the prompt's keys and values, split over heads, go to the cache split
+    # over its sequence: an all-to-all (gloo runs it on CUDA tensors)
+    cw = got[0]["cache_write"]
+    print(f"      the prefill's cache write per rank (count_cost, rank 0): "
+          + (", ".join(f"{k} x{n} {w / 2**20:.3f} MiB" for k, (n, w) in sorted(cw.items()))
+             or "no collective"))
+    if "all-to-all" not in cw or "all-gather" in cw:
+        fail(f"phase 17 ({label}): the prefill's cache write ran {sorted(cw)}, not all-to-all")
     return {"logits_max_rel": max_rel, "logits_norm_rel": norm_rel, "token_agreement": agree,
+            "cache_write": {k: {"calls": n, "wire_bytes": w} for k, (n, w) in cw.items()},
             "k6_launches": k6, "k6_local_q": calls[0][0], "k6_local_k": calls[0][1],
             "k6_worst": max(c[3] for c in calls), "timings": t,
             "peak_bytes": [r["peak"] for r in got]}
@@ -5110,21 +5243,16 @@ def layouts_train_check(label: str, got: list, want: dict, launches: dict, smi: 
             "one_ulp_spread": want.get("spread"), **states}
 
 
-def run_layouts(torch, smi: str) -> tuple[dict, dict, list]:
+def run_layouts(torch, smi: str, pool) -> tuple[dict, dict, list]:
     """Phase 18: the reference's production DSAG layouts on a mesh (see the
-    module docstring).  Returns its numbers, every rank's K4, K4-int8 and
-    row-max launches, and the kernels' rows at the ranks' local shapes."""
+    module docstring), on ``pool`` (:func:`mesh_ranks`).  Returns its
+    numbers, every rank's K4, K4-int8 and row-max launches, and the
+    kernels' rows at the ranks' local shapes."""
     import tempfile
-
-    from repro_torch.launch.mesh import RankPool
 
     res: dict = {"card": smi}
     launches: dict = {}
-    # the ranks start beside the unsharded runs (as in phase 17)
-    t0 = time.perf_counter()
-    pool = RankPool(4, "cuda", timeout=600)
-    res["pool_s"] = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="layouts") as tmp, pool:
+    with tempfile.TemporaryDirectory(prefix="layouts") as tmp:
         want = {}
         t0 = time.perf_counter()
         for label in LAYOUT_RUNS:
@@ -5132,8 +5260,8 @@ def run_layouts(torch, smi: str) -> tuple[dict, dict, list]:
             want[label] = layouts_unsharded(torch, label, f"{tmp}/{label}.pt")
         free_cuda(torch)
         res["unsharded_s"] = time.perf_counter() - t0
-        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (started in "
-              f"{res['pool_s']:.1f} s; the unsharded runs took {res['unsharded_s']:.1f} s)")
+        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (phase 17's; the "
+              f"unsharded runs took {res['unsharded_s']:.1f} s)")
         for label in LAYOUT_RUNS:
             t0 = time.perf_counter()
             got = pool.run(layouts_train_rank, label, f"{tmp}/{label}.pt",
@@ -5169,6 +5297,9 @@ RANK0_COSTS: dict = {}
 DRYRUN_RUN = "a bf16"
 #: (c): the production cell counted at full width on 16x16
 DRYRUN_CELL = ("qwen2-7b", "train_4k")
+#: phase 20 (c): that cell's most peak estimate and all-gather wire bytes per
+#: rank with the vocab-parallel loss (the gathered logits held 185 of 208 GiB)
+DRYRUN_CELL_PEAK, DRYRUN_CELL_GATHER = 60 * 2**30, 5 * 2**30
 
 
 def run_dryrun(torch, layouts_res: dict, smi: str) -> dict:
@@ -5235,7 +5366,15 @@ def run_dryrun(torch, layouts_res: dict, smi: str) -> dict:
           f"{mem['peak_estimate_bytes'] / 2**30:.2f} GiB per rank, terms c/m/x = "
           f"{rl['compute_s']:.4f}/{rl['memory_s']:.4f}/{rl['collective_s']:.4f} s, dominant "
           f"{rl['dominant']}, mfu {rl['mfu']:.4f} (a count at H100 80GB HBM3, 700 W peaks, "
-          f"not a timing; counted in {res['c_s']:.1f} s)")
+          f"not a timing; counted in {res['c_s']:.1f} s); wire GiB per rank by kind "
+          + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in sorted(res["c"]["wire_bytes"].items())))
+    # the loss keeps the vocab split (its logits were 185 of 208.17 GiB and
+    # 38.1 GiB of all-gather while it gathered them)
+    gathered = res["c"]["wire_bytes"].get("all-gather", 0.0)
+    if mem["peak_estimate_bytes"] > DRYRUN_CELL_PEAK or gathered > DRYRUN_CELL_GATHER:
+        fail(f"phase 20 (c): {mem['peak_estimate_bytes'] / 2**30:.2f} GiB per rank (at most "
+             f"{DRYRUN_CELL_PEAK / 2**30:g}), all-gather {gathered / 2**30:.2f} GiB (at most "
+             f"{DRYRUN_CELL_GATHER / 2**30:g})")
     return res
 
 
@@ -5781,7 +5920,6 @@ def run_moe_mesh(torch, smi: str) -> tuple[dict, dict, list]:
     at its local shapes."""
     import tempfile
 
-    from repro_torch.launch.mesh import RankPool
     from repro_torch.launch.serve import stub_batch
 
     res: dict = {"card": smi, "mesh": list(MOE_MESH)}
@@ -5789,13 +5927,9 @@ def run_moe_mesh(torch, smi: str) -> tuple[dict, dict, list]:
     b, s, n_tok = MOE_SERVE
     prompts = {(arch, label): stub_batch(moe_serve_cut(dtype, layers)(arch), b, s, seed=19)
                for arch in MOE_ARCHS for label, (dtype, layers) in MOE_SERVE_RUNS.items()}
-    # the ranks start beside the unsharded runs (as in phase 17); their
-    # allocators grow segments in place: four ranks' gathered layers and
-    # staging copies come and go on one card
-    t0 = time.perf_counter()
-    with mock.patch.dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"):
-        pool = RankPool(MOE_MESH[0] * MOE_MESH[1], "cuda", timeout=900)
-    res["pool_s"] = time.perf_counter() - t0
+    # the ranks warm up beside the unsharded runs; the timed one (the MoE
+    # layer's) comes after the warm-up
+    pool = mesh_ranks(expandable=True)
     with tempfile.TemporaryDirectory(prefix="moe_mesh") as tmp, pool:
         t0 = time.perf_counter()
         want_serve, want_layer, want_layout = {}, {}, {}
@@ -5803,17 +5937,21 @@ def run_moe_mesh(torch, smi: str) -> tuple[dict, dict, list]:
             free_cuda(torch)
             dtype, layers = MOE_SERVE_RUNS[label]
             want_serve[arch, label] = moe_unsharded_serve(torch, arch, dtype, layers, batch, n_tok)
-        for arch in MOE_ARCHS:
-            free_cuda(torch)
-            want_layer[arch] = moe_layer_unsharded(torch, arch, f"{tmp}/{arch}.pt")
         for label in MOE_LAYOUT_RUNS:
             free_cuda(torch)
             want_layout[label] = layouts_unsharded(torch, label, f"{tmp}/{label}.pt")
+        t1 = time.perf_counter()
+        pool.wait_warm()
+        res["warm_wait_s"] = time.perf_counter() - t1
+        for arch in MOE_ARCHS:
+            free_cuda(torch)
+            want_layer[arch] = moe_layer_unsharded(torch, arch, f"{tmp}/{arch}.pt")
         free_cuda(torch)
         res["unsharded_s"] = time.perf_counter() - t0
         free, total = torch.cuda.mem_get_info()
-        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (started in "
-              f"{res['pool_s']:.1f} s; the unsharded runs took {res['unsharded_s']:.1f} s; "
+        print(f"  {pool.world} ranks on cuda:0 over {pool.backend} (the unsharded runs took "
+              f"{res['unsharded_s']:.1f} s, {res['warm_wait_s']:.1f} s of it waiting for the "
+              f"ranks' warm-up; "
               f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card, this process "
               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved)", flush=True)
         for (arch, label), batch in prompts.items():
@@ -6086,6 +6224,7 @@ def main() -> None:
         build_times(_build)
 
     print("phase 3: kernels against their plain versions at the recipes' shapes")
+    t3 = time.perf_counter()
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     Xh, yh = make_higgs_like(16_384, seed=0)
@@ -6116,11 +6255,15 @@ def main() -> None:
             check_dsag_update(torch, 8, 1 << 20, torch.bfloat16, rng),
         ],
         # K4's int8 entry at the live logreg [100 groups, 29] and paper-scale
-        # PCA [50 groups, 64 rows, 3] slots (phase 10)
+        # PCA [50 groups, 64 rows, 3] slots (phase 10), and the unsharded
+        # port's embedding rows of phase 18 (a) ([2, 76032, 1024]: p = 2);
+        # then each launch the update chooses among (INT8_LAUNCH_SHAPES)
         "dsag_cache_update_int8": [
             check_dsag_update_int8(torch, 100, 1, 29, rng),
             check_dsag_update_int8(torch, 50, 64, 3, rng),
-        ],
+            check_dsag_update_int8(torch, 2, 76032, 1024, rng),
+        ] + [check_dsag_update_int8(torch, *shape, rng, misaligned, plain_reps=2)
+             for *shape, misaligned in INT8_LAUNCH_SHAPES],
         "gram_matvec": [
             check_gram_matvec(
                 torch,
@@ -6201,6 +6344,15 @@ def main() -> None:
         check_what_if(torch, 10, 100, 80, 0.02, rng, dead=[20] * 9 + [25]),
         check_what_if(torch, 1, 100, 80, 0.02, rng, dead=[20]),
     ]
+    # K4-int8's split form at the mesh's shards: grok-1's w_down shard of
+    # phase 19 (24576 rows of 1024) and the embedding's of phase 18 (76032
+    # rows of 512), and the staged kernel's split form, each with its
+    # row-max pass
+    per_kernel["dsag_int8_row_max"] = []
+    for split_shape in ((2, 24576, 1024), (2, 76032, 512), (8, 50, 100)):
+        row_max_row, int8_row = check_dsag_int8_split(torch, *split_shape, rng)
+        per_kernel["dsag_int8_row_max"].append(row_max_row)
+        per_kernel["dsag_cache_update_int8"].append(int8_row)
     # K3 at the grid shape on a state a churn clear leaves: 200 slots of each
     # scenario with tag -1 and stale non-zero values
     per_kernel["grid_cache_update"].append(
@@ -6223,7 +6375,8 @@ def main() -> None:
     # leave the profiler without device times for the kernels after it (so do
     # phases 4-7: every device time is taken in phase 3)
     per_kernel["grid_cache_update"].append(check_cache_walk(
-        torch, 2, 10_000, 50_000, 29, 60, np.random.default_rng(1), plain_reps=1))
+        torch, 2, 10_000, 50_000, 29, 60, np.random.default_rng(1), plain_reps=0))
+    print(f"  phase 3 took {time.perf_counter() - t3:.1f} s")
     if "--profile" in sys.argv[1:]:
         profile_paths(torch)
         profile_serving(torch)
@@ -6234,12 +6387,18 @@ def main() -> None:
         return
 
     print("phase 4: the grid and pca_paper_scale recipes through the kernels")
+    t0 = time.perf_counter()
     sweep_launches, _, outcomes = run_recipes(torch)
     wide_launches = run_wide_sweep(torch)
+    print(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
     print("phase 5: the live two-tier trainer through the kernels")
+    t0 = time.perf_counter()
     live_launches = run_live(torch)
+    print(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
     print("phase 6: serving qwen1.5-0.5b at full width and depth through K6")
+    t0 = time.perf_counter()
     serving, server = run_serving(torch)
+    print(f"  phase 6 took {time.perf_counter() - t0:.1f} s")
     print("phase 7: the scalar simulator and the host engine against the device engine, "
           "the live pin, the BENCH_sweep grid")
     t0 = time.perf_counter()
@@ -6261,64 +6420,72 @@ def main() -> None:
     t0 = time.perf_counter()
     sharding_launches = run_sharding(torch, outcomes)
     print(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
-    print("phase 12: the analysis layer: the lint on cuda:0, the kernels' bounds, the "
-          "serving roofline")
-    t0 = time.perf_counter()
-    analysis = run_analysis(torch, per_kernel, serving, server)
-    del server
-    print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
-    print("phase 13: the model zoo's DSAG training path (qwen1.5-0.5b at full width)")
-    t0 = time.perf_counter()
-    training, train_launches, k4_row = run_training(torch)
-    per_kernel["dsag_cache_update"].append(k4_row)
-    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
-    print("phase 14: serving the MoE, MLA, SSM and hybrid families at full width "
-          "(mamba2-370m and zamba2-2.7b at full depth; grok-1-314b and deepseek-v2-236b cut "
-          "to 4 layers)")
-    t0 = time.perf_counter()
-    families = run_families(torch)
-    families["seconds"] = time.perf_counter() - t0
-    print(f"  phase 14 took {families['seconds']:.1f} s")
-    print("phase 15: serving the rest of the registry at full width (qwen2-7b, "
-          "starcoder2-15b, pixtral-12b and whisper-base at full depth; qwen1.5-32b cut to "
-          "32 of 64 layers); whisper-base trained at full width")
-    t0 = time.perf_counter()
-    registry = run_registry(torch)
-    registry["seconds"] = time.perf_counter() - t0
-    print(f"  phase 15 took {registry['seconds']:.1f} s")
-    print("phase 16: training the MoE, MLA, SSM and hybrid families on the card "
-          "(mamba2-370m at full depth, zamba2-2.7b at two groups of six layers; one layer of "
-          "grok-1-314b, deepseek-v2-236b and pixtral-12b forward and backward)")
-    t0 = time.perf_counter()
-    fam_train, fam_train_launches, k4_rows = run_family_training(torch)
-    per_kernel["dsag_cache_update"] += k4_rows
-    fam_train["seconds"] = time.perf_counter() - t0
-    print(f"  phase 16 took {fam_train['seconds']:.1f} s")
-    print(f"phase 17: the mesh path: {MESH_ARCH} on a (data={MESH_SHAPE[0]}, "
-          f"model={MESH_SHAPE[1]}) mesh of four ranks on cuda:0, against the unsharded port")
-    t0 = time.perf_counter()
-    mesh_res, mesh_launches, (k4_mesh, k6_mesh) = run_mesh(torch, smi.stdout.strip())
-    per_kernel["dsag_cache_update"].append(k4_mesh)
-    per_kernel["flash_attention"].append(k6_mesh)
-    mesh_res["seconds"] = time.perf_counter() - t0
-    print(f"  phase 17 took {mesh_res['seconds']:.1f} s")
-    print(f"phase 18: the reference's production DSAG layouts: {MESH_ARCH} on (2, 2) and "
-          f"(pod=2, data=2, model=1) meshes of four ranks on cuda:0 (zero, pod and none "
-          f"groups, dsag=False, int8 slots, adafactor, a mesh trainer's checkpoint), against "
-          f"the unsharded port")
-    t0 = time.perf_counter()
-    layouts_res, layouts_launches, (k4_lay, row_max_lay, int8_lay) = run_layouts(
-        torch, smi.stdout.strip())
-    per_kernel["dsag_cache_update"].append(k4_lay)
-    per_kernel["dsag_cache_update_int8"].append(int8_lay)
-    per_kernel["dsag_int8_row_max"] = [row_max_lay]
-    layouts_res["seconds"] = time.perf_counter() - t0
-    print(f"  phase 18 took {layouts_res['seconds']:.1f} s")
+    # the ranks of phases 17 and 18 start here and warm up beside phase 12's
+    # lint (not timed); they idle through phases 13-16
+    with mesh_ranks() as pool:
+        print("phase 12: the analysis layer: the lint on cuda:0, the kernels' bounds, the "
+              "serving roofline")
+        t0 = time.perf_counter()
+        analysis = run_analysis(torch, per_kernel, serving, server)
+        del server
+        print(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+        # nothing timed runs beside the warm-up: wait for it before phase 13
+        t0 = time.perf_counter()
+        pool.wait_warm()
+        print(f"  phases 17 and 18's ranks warmed up beside phase 12's lint, then "
+              f"{time.perf_counter() - t0:.1f} s more")
+        print("phase 13: the model zoo's DSAG training path (qwen1.5-0.5b at full width)")
+        t0 = time.perf_counter()
+        training, train_launches, k4_row = run_training(torch)
+        per_kernel["dsag_cache_update"].append(k4_row)
+        print(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+        print("phase 14: serving the MoE, MLA, SSM and hybrid families at full width "
+              "(mamba2-370m and zamba2-2.7b at full depth; grok-1-314b and deepseek-v2-236b cut "
+              "to 4 layers)")
+        t0 = time.perf_counter()
+        families = run_families(torch)
+        families["seconds"] = time.perf_counter() - t0
+        print(f"  phase 14 took {families['seconds']:.1f} s")
+        print("phase 15: serving the rest of the registry at full width (qwen2-7b, "
+              "starcoder2-15b, pixtral-12b and whisper-base at full depth; qwen1.5-32b cut to "
+              "32 of 64 layers); whisper-base trained at full width")
+        t0 = time.perf_counter()
+        registry = run_registry(torch)
+        registry["seconds"] = time.perf_counter() - t0
+        print(f"  phase 15 took {registry['seconds']:.1f} s")
+        print("phase 16: training the MoE, MLA, SSM and hybrid families on the card "
+              "(mamba2-370m at 24 of 48 layers, zamba2-2.7b at two groups of six layers; one "
+              "layer of grok-1-314b, deepseek-v2-236b and pixtral-12b forward and backward)")
+        t0 = time.perf_counter()
+        fam_train, fam_train_launches, k4_rows = run_family_training(torch)
+        per_kernel["dsag_cache_update"] += k4_rows
+        fam_train["seconds"] = time.perf_counter() - t0
+        print(f"  phase 16 took {fam_train['seconds']:.1f} s")
+        print(f"phase 17: the mesh path: {MESH_ARCH} on a (data={MESH_SHAPE[0]}, "
+              f"model={MESH_SHAPE[1]}) mesh of four ranks on cuda:0, against the unsharded port")
+        t0 = time.perf_counter()
+        mesh_res, mesh_launches, (k4_mesh, k6_mesh) = run_mesh(torch, smi.stdout.strip(), pool)
+        per_kernel["dsag_cache_update"].append(k4_mesh)
+        per_kernel["flash_attention"].append(k6_mesh)
+        mesh_res["seconds"] = time.perf_counter() - t0
+        print(f"  phase 17 took {mesh_res['seconds']:.1f} s")
+        print(f"phase 18: the reference's production DSAG layouts: {MESH_ARCH} on (2, 2) and "
+              f"(pod=2, data=2, model=1) meshes of four ranks on cuda:0 (zero, pod and none "
+              f"groups, dsag=False, int8 slots, adafactor, a mesh trainer's checkpoint), against "
+              f"the unsharded port")
+        t0 = time.perf_counter()
+        layouts_res, layouts_launches, (k4_lay, row_max_lay, int8_lay) = run_layouts(
+            torch, smi.stdout.strip(), pool)
+        per_kernel["dsag_cache_update"].append(k4_lay)
+        per_kernel["dsag_cache_update_int8"].append(int8_lay)
+        per_kernel["dsag_int8_row_max"].append(row_max_lay)
+        layouts_res["seconds"] = time.perf_counter() - t0
+        print(f"  phase 18 took {layouts_res['seconds']:.1f} s")
     print(f"phase 19: the MoE family on a mesh: grok-1-314b (ffn-sharded experts) and "
-          f"deepseek-v2-236b (expert-parallel, MLA) on {MOE_MESH} meshes of four ranks on cuda:0: "
-          f"served at published widths (1 layer, bf16 and float32), one full-width MoE "
-          f"layer forward and backward, the production DSAG step at reduced widths, against the "
-          f"unsharded port")
+          f"deepseek-v2-236b (expert-parallel, MLA) on {MOE_MESH} meshes of four ranks on "
+          f"cuda:0: served at published widths (1 layer, bf16 and float32), one full-width "
+          f"MoE layer forward and backward, the production DSAG step at reduced widths, "
+          f"against the unsharded port")
     t0 = time.perf_counter()
     moe_res, moe_launches, (k6_moe, row_max_moe, int8_moe) = run_moe_mesh(
         torch, smi.stdout.strip())

@@ -136,13 +136,16 @@ def _written(func, args, ins, outs) -> int:
     return _nbytes(target)
 
 
-#: collective ops (``_c10d_functional`` and ``c10d`` names) -> the reference's kind
+#: collective ops (``_c10d_functional``, ``c10d`` and ``_dtensor`` names: DTensor
+#: reshards ``Shard(i)`` to ``Shard(j)`` through its own all-to-all op on a
+#: card) -> the reference's kind
 COLLECTIVES = {
     "all_reduce": "all-reduce", "all_reduce_": "all-reduce", "allreduce_": "all-reduce",
     "all_gather_into_tensor": "all-gather", "_allgather_base_": "all-gather",
     "allgather_into_tensor_coalesced_": "all-gather",
     "reduce_scatter_tensor": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
     "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
     "broadcast": "broadcast", "broadcast_": "broadcast",
 }
 
@@ -398,7 +401,7 @@ class _CostMode(TorchDispatchMode):
 
     def _count(self, func, args, kwargs, out) -> None:
         op = func.overloadpacket.__name__
-        if func.namespace in ("_c10d_functional", "c10d"):
+        if func.namespace in ("_c10d_functional", "c10d", "_dtensor"):
             kind = COLLECTIVES.get(op)
             if kind is not None:
                 # a c10d op's first argument is its output (or, for an

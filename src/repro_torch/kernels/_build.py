@@ -75,7 +75,7 @@ LIMITS = {
     "dsag_flash_block_q": 64,
     "dsag_flash_block_k": 64,
     "dsag_what_if_max_workers": 1024,
-    "dsag_int8_rows_per_block": 4,
+    "dsag_int8_rows_per_block": 1,
 }
 #: integer constants the library exports
 CONSTANTS = tuple(LIMITS)

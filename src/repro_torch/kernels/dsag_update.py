@@ -30,6 +30,13 @@ pending slot (kept or the gradient); ``h + Σ_i delta_i``, the groups summed
 in order first, as the reference does.  The plain version
 :func:`dsag_cache_update_int8_plain` quantizes through
 :func:`repro_torch.optim.compression.quantize`; the kernel is bit-equal to it.
+On the card (``csrc/dsag_update.cu``) each (group, row) is read once: a team
+of threads per row holds its part in registers (16-byte vectors where the
+row and the pointers allow) between the absmax and the requantization, and
+each element's running sum of deltas in a register across the groups, h
+written once; where rows are short and groups many (the live steps) the
+(group, row) pairs are spread over a block's warps and their deltas summed
+in group order through shared memory.
 
 Its split form serves a device mesh, where the slots hold a shard of each
 row (the row's scale is the absmax of the whole row, as the reference's
@@ -197,14 +204,15 @@ def dsag_cache_update_int8_plain(g, cq, cs, pq, ps, h, code, maxima=None):
     return new_cq, new_cs, new_pq, new_ps, h + acc
 
 
-#: rows per block of the int8 kernel (one warp per row)
+#: the fewest rows a block of the int8 update takes (a team of 256 threads
+#: per row)
 INT8_ROWS_PER_BLOCK = _build.LIMITS["dsag_int8_rows_per_block"]
 _MAX_GRID_X = 2**31 - 1
 
 
 def int8_shape_error(rows: int) -> str | None:
-    """Why the int8 kernel cannot take ``rows`` rows per group (its grid is
-    one block per 4 rows), or None."""
+    """Why the int8 kernel cannot take ``rows`` rows per group (its grid has
+    up to one block per row), or None."""
     if -(-rows // INT8_ROWS_PER_BLOCK) > _MAX_GRID_X:
         return (f"dsag_cache_update_int8: {rows} rows need more than {_MAX_GRID_X} blocks "
                 f"of {INT8_ROWS_PER_BLOCK}")

@@ -37,6 +37,7 @@ import multiprocessing as mp
 import os
 import queue
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any
@@ -251,11 +252,15 @@ class RankPool:
     task outlasts ``timeout`` prints its stacks and the run raises.  Each CUDA rank
     takes card ``rank % device_count``.  The kernels are built in this
     process first (``device_type="cuda"``), so the ranks load the library
-    and never build it side by side.  Use as a context manager or call
-    :meth:`close`: every process is stopped.
+    and never build it side by side.  ``warm``: a task every rank runs in a
+    background thread from the start (first-use costs paid while the caller
+    does other work); the first ``run`` waits for it, and a rank's failure
+    there makes :meth:`wait_warm` (so that ``run``) raise.  Use as a context
+    manager or call :meth:`close`: every process is stopped.
     """
 
-    def __init__(self, world: int, device_type: str = "cuda", timeout: float = 900.0):
+    def __init__(self, world: int, device_type: str = "cuda", timeout: float = 900.0,
+                 warm=None):
         self.world, self.device_type, self.timeout = world, device_type, timeout
         self.backend = choose_backend(device_type, world)
         if device_type == "cuda":
@@ -273,8 +278,32 @@ class RankPool:
                        for r in range(world)]
         for p in self._procs:
             p.start()
+        self._warm_error: BaseException | None = None
+        self._warming = None
+        if warm is not None:
+            self._warming = threading.Thread(target=self._warm, args=(warm,), daemon=True)
+            self._warming.start()
+
+    def _warm(self, fn) -> None:
+        try:
+            self._run(fn)
+        except BaseException as e:  # handed to the caller by wait_warm
+            self._warm_error = e
+
+    def wait_warm(self) -> None:
+        """Wait for the ``warm`` task; raise its failure, once."""
+        if self._warming is None:
+            return
+        self._warming.join()
+        self._warming = None
+        if self._warm_error is not None:
+            raise RuntimeError("the rank pool's warm-up failed") from self._warm_error
 
     def run(self, fn, *args, **kwargs) -> list:
+        self.wait_warm()
+        return self._run(fn, *args, **kwargs)
+
+    def _run(self, fn, *args, **kwargs) -> list:
         if not self._procs:
             raise RuntimeError("the rank pool is closed")
         for q in self._tasks:
@@ -307,6 +336,8 @@ class RankPool:
         return [out[r] for r in range(self.world)]
 
     def close(self) -> None:
+        if self._warming not in (None, threading.current_thread()):
+            self._warming.join()  # a failing warm-up closes the pool from its thread
         for q, p in zip(self._tasks, self._procs):
             if p.is_alive():
                 q.put(None)

@@ -173,16 +173,31 @@ def _attend(q, k, v, *, causal: bool, q_offset: int = 0, scale: float | None = N
     return full_attention(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
 
 
+def _own_kv_heads(mesh, h: int, kvh: int) -> tuple[int, int]:
+    """``(k0, nk)``: the kv heads ``[k0, k0 + nk)`` that this rank's query
+    heads read, of ``h`` query heads split over the 1-D ``mesh`` in groups
+    of ``h // kvh`` per kv head."""
+    m = mesh.size(0)
+    if h % m or h % kvh:
+        raise ValueError(f"{h} query heads do not split over {m} ranks in groups of "
+                         f"{kvh} kv heads")
+    hl, start, group = h // m, mesh.get_local_rank(0) * (h // m), h // kvh
+    if hl % group and group % hl:
+        raise ValueError(f"a rank's {hl} query heads straddle the {group}-head kv groups")
+    return start // group, max(hl // group, 1)
+
+
 def _on_local_heads(fn, q, k, v):
     """``fn(q, k, v)`` on this rank's heads of ``DTensor`` q [b, s, h, d]
     (heads split over the compute mesh's ``model`` axis) and k, v [b, sk,
     kvh, d] (split the same way, or replicated: the GQA models whose kv
-    heads the rules leave whole).  ``fn`` sees plain local tensors: the
-    rank's query heads and the kv heads they read, which are its own shard
-    of k and v or a slice of the replicated ones.  Attention is independent
-    per head, so nothing is communicated; the local output comes back as a
-    ``DTensor`` laid out as q (differentiably: training's plain attention
-    runs here too)."""
+    heads the rules leave whole; or plain tensors that hold the rank's kv
+    heads already, :func:`_project_qkv`'s ``own_kv``).  ``fn`` sees plain
+    local tensors: the rank's query heads and the kv heads they read, which
+    are its own shard of k and v or a slice of the replicated ones.
+    Attention is independent per head, so nothing is communicated; the
+    local output comes back as a ``DTensor`` laid out as q (differentiably:
+    training's plain attention runs here too)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     q = shard_batch(q, None, "model", None)
@@ -190,16 +205,12 @@ def _on_local_heads(fn, q, k, v):
     if mesh.ndim != 1 or list(q.placements) != [Shard(2)]:
         raise ValueError(f"attention on a mesh takes q split over heads on a 1-D compute "
                          f"mesh, got {q.placements} on {mesh.mesh_dim_names}")
-    h, kvh, m = q.shape[2], k.shape[2], mesh.size(0)
-    if h % m or h % kvh:
-        raise ValueError(f"{h} query heads do not split over {m} ranks in groups of "
-                         f"{kvh} kv heads")
-    hl, start, group = h // m, mesh.get_local_rank(0) * (h // m), h // kvh
-    if hl % group and group % hl:
-        raise ValueError(f"a rank's {hl} query heads straddle the {group}-head kv groups")
-    k0, nk = start // group, max(hl // group, 1)
+    m = mesh.size(0)
 
     def local(t):
+        if not isinstance(t, DTensor):
+            return t
+        k0, nk = _own_kv_heads(mesh, q.shape[2], t.shape[2])
         if list(t.placements) == [Shard(2)] and t.shape[2] // m == nk and (
                 mesh.get_local_rank(0) * nk == k0):
             return t.to_local()
@@ -278,21 +289,60 @@ def _project(x, w):
     return _ContiguousGrad.apply(y) if is_sharded(y) else y
 
 
-def _project_qkv(cfg: ModelConfig, params, x):
+def _project_qkv(cfg: ModelConfig, params, x, *, own_kv: bool = False):
+    """q, k, v [b, s, heads, hd] of x [b, s, d].  With ``own_kv``, where a
+    mesh splits the query heads and leaves the kv weights whole (kv heads no
+    multiple of the TP degree), k and v are projected for this rank's kv
+    heads only, as plain local tensors (:func:`_project_own_kv`)."""
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    if own_kv and _kv_replicated(q, x, params["wk"]):
+        k0, nk = _own_kv_heads(q.device_mesh, q.shape[2], params["wk"].shape[1])
+        k, v = (_project_own_kv(x, params[w], params[b] if cfg.qkv_bias else None, k0, nk)
+                for w, b in (("wk", "bk"), ("wv", "bv")))
+    else:
+        k = _project(x, params["wk"])
+        v = _project(x, params["wv"])
+        if cfg.qkv_bias:
+            k = k + params["bk"].to(x.dtype)
+            v = v + params["bv"].to(x.dtype)
     if cfg.qkv_bias:
         q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
     return q, k, v
+
+
+def _kv_replicated(q, x, wk) -> bool:
+    """Whether q is split over heads on a 1-D mesh where x and the kv
+    weight ``wk`` are whole on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    return (isinstance(q, DTensor) and isinstance(x, DTensor) and isinstance(wk, DTensor)
+            and q.device_mesh.ndim == 1 and x.device_mesh == q.device_mesh
+            and wk.device_mesh == q.device_mesh and list(q.placements) == [Shard(2)]
+            and list(x.placements) == [Replicate()] and list(wk.placements) == [Replicate()])
+
+
+def _project_own_kv(x, w, bias, k0: int, nk: int):
+    """x [b, s, d] (replicated ``DTensor``) by the kv heads ``[k0, k0 + nk)``
+    of a replicated ``w`` [d, kvh, hd] (and ``bias`` [kvh, hd]): a plain
+    local [b, s, nk, hd].  The cotangents of x, w and the bias are this
+    rank's addends, summed over the mesh (``Partial``) where they meet the
+    others'."""
+    from torch.distributed.tensor import Partial
+
+    xl = x.to_local(grad_placements=[Partial()])
+    wl = w.to_local(grad_placements=[Partial()])[:, k0:k0 + nk]
+    y = torch.einsum("bsd,dhk->bshk", xl, wl.to(xl.dtype))
+    if bias is not None:
+        y = y + bias.to_local(grad_placements=[Partial()])[k0:k0 + nk].to(xl.dtype)
+    return y
 
 
 def gqa_forward(cfg: ModelConfig, params, x, positions, *, causal: bool = True,
                 use_rope: bool = True, backend: str = "cuda") -> torch.Tensor:
-    """Training / prefill attention over a full sequence: x [b, s, d]."""
-    q, k, v = _project_qkv(cfg, params, x)
+    """Training / prefill attention over a full sequence: x [b, s, d].  On a
+    mesh that leaves the kv weights whole, each rank projects the kv heads
+    its query heads read (``own_kv``)."""
+    q, k, v = _project_qkv(cfg, params, x, own_kv=True)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -305,7 +355,10 @@ def gqa_forward(cfg: ModelConfig, params, x, positions, *, causal: bool = True,
 def gqa_prefill_with_cache(cfg: ModelConfig, params, x, positions, *,
                            use_rope: bool = True, backend: str = "cuda"):
     """Prefill that also returns the prompt's keys and values [b, s, kvh, hd]
-    (unpadded: the caller writes them into its cache, whose tail it zeroes)."""
+    (unpadded: the caller writes them into its cache, whose tail it zeroes).
+    On a mesh it projects every kv head, where training projects a rank's
+    own: the cache is split over its sequence, so each rank stores every kv
+    head at its positions, and projecting them all replaces a gather."""
     q, k, v = _project_qkv(cfg, params, x)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)

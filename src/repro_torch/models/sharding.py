@@ -417,24 +417,58 @@ def write_slice(dst, dim: int, start: int, src) -> None:
     """``dst.narrow(dim, start, n).copy_(src)`` in place, also where ``dst``
     is a ``DTensor`` split along ``dim`` (a decode cache sharded over its
     sequence): each rank writes the part of ``src`` that falls in its own
-    shard, ``src`` made whole along ``dim`` first."""
+    shard.  A ``DTensor`` ``src`` split on another dim that covers at
+    least one shard's length (a prefill's prompt, split over heads) is
+    zero-padded to ``dst``'s length and resharded straight to ``dst``'s
+    layout: an all-to-all, each rank receiving its positions of every head
+    (torch falls back to an all-gather on a CPU group).  A shorter one (a
+    decode step's token) is made whole along ``dim`` first: a gather of
+    fewer bytes than the padded all-to-all."""
     n = src.shape[dim]
     if not isinstance(dst, DTensor):
         dst.narrow(dim, start, n).copy_(src)
         return
     mesh = dst.device_mesh
-    want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in dst.placements]
-    if isinstance(src, DTensor):
-        src = (src if list(src.placements) == want else src.redistribute(mesh, want)).to_local()
     local = dst.to_local()
+    chunk = local.shape[dim]
     off = 0
     for i, p in enumerate(dst.placements):
         if isinstance(p, Shard) and p.dim == dim:
             off = off * mesh.size(i) + mesh.get_local_rank(i)
-    chunk = local.shape[dim]
     lo, hi = max(start, off * chunk), min(start + n, (off + 1) * chunk)
+    if isinstance(src, DTensor):
+        with collective_site("cache write"):
+            split = [p.dim for p in src.placements if isinstance(p, Shard)]
+            if n >= chunk and split and dim not in split:
+                mine = _padded_to(src, dim, start, dst.shape[dim])
+                mine = mine.redistribute(mesh, dst.placements).to_local()
+                if lo < hi:
+                    local.narrow(dim, lo - off * chunk, hi - lo).copy_(
+                        mine.narrow(dim, lo - off * chunk, hi - lo))
+                return
+            want = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                    for p in dst.placements]
+            src = (src if list(src.placements) == want else src.redistribute(mesh, want))
+            src = src.to_local()
     if lo < hi:
         local.narrow(dim, lo - off * chunk, hi - lo).copy_(src.narrow(dim, lo - start, hi - lo))
+
+
+def _padded_to(src: DTensor, dim: int, start: int, length: int) -> DTensor:
+    """``src`` (split on another dim) placed at ``[start, start + n)`` of
+    zeros of ``length`` along ``dim``: each rank pads its own shard."""
+    local = src.to_local()
+    if start == 0 and local.shape[dim] == length:
+        return src
+    shape = list(local.shape)
+    shape[dim] = length
+    padded = local.new_zeros(shape)
+    padded.narrow(dim, start, local.shape[dim]).copy_(local)
+    whole = list(src.shape)
+    whole[dim] = length
+    return DTensor.from_local(padded, src.device_mesh, src.placements, run_check=False,
+                              shape=torch.Size(whole),
+                              stride=tuple(math.prod(whole[i + 1:]) for i in range(len(whole))))
 
 
 def full(x):

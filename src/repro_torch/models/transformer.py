@@ -55,7 +55,7 @@ from repro_torch.models.layers import (
     tree_map,
     unembed,
 )
-from repro_torch.models.sharding import is_sharded, shard_batch
+from repro_torch.models.sharding import collective_site, is_sharded, shard_batch
 
 AUX_LOSS_COEF = 0.01
 
@@ -290,16 +290,64 @@ def fused_next_token_loss(cfg: ModelConfig, params, x, tokens, *, text_offset: i
     return torch.mean(torch.log(s) + m - tl)
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """The mean next-token cross-entropy of logits split over the vocab on a
+    1-D mesh (``group``), each rank on its own slice ``[b, s, V/model]``
+    starting at vocab index ``start``: the max over the vocab (a stabiliser,
+    no gradient) and the sum of ``exp(pred - max)`` all-reduced, ``lse = max
+    + log(sum)``, and the target's logit from the rank holding its index (a
+    masked local gather, zero elsewhere, all-reduced).  The reference keeps
+    the vocab split there too (``"vocab": "model"``); no rank holds the
+    whole ``[b, s, V]``.  The backward is ``softmax - onehot`` on the
+    rank's slice, formed as torch's logsumexp and gather backwards form it
+    on whole rows."""
+
+    @staticmethod
+    def forward(ctx, pred, targets, group, start: int):
+        ops = torch.ops._c10d_functional
+
+        def reduced(t, op):
+            return ops.wait_tensor(ops.all_reduce(t.contiguous(), op, group.group_name))
+
+        width = pred.shape[-1]
+        m = reduced(pred.amax(dim=-1), "max")
+        s = reduced(torch.exp(pred - m[..., None]).sum(dim=-1), "sum")
+        local = targets - start
+        hit = (local >= 0) & (local < width)
+        idx = local.clamp(0, width - 1)[..., None]
+        got = torch.take_along_dim(pred, idx, dim=-1)[..., 0]
+        true_logit = reduced(torch.where(hit, got, torch.zeros_like(got)), "sum")
+        lse = m + torch.log(s)
+        ctx.save_for_backward(pred, lse, idx, hit)
+        return torch.mean(lse - true_logit)
+
+    @staticmethod
+    def backward(ctx, g):
+        pred, lse, idx, hit = ctx.saved_tensors
+        each = g / lse.numel()
+        grad = torch.exp(pred - lse[..., None]) * each
+        grad.scatter_add_(-1, idx, torch.where(hit, -each, torch.zeros_like(each))[..., None])
+        return grad, None, None, None
+
+
 def next_token_loss(cfg: ModelConfig, logits, tokens, *, text_offset: int = 0):
-    """Cross-entropy of logits[:, t] against tokens[:, t+1]."""
+    """Cross-entropy of logits[:, t] against tokens[:, t+1]: the logsumexp
+    over the whole padded vocab, the mean over every position.  Logits
+    split over the vocab on a mesh (``lm_logits``'s layout) stay split
+    (:class:`_VocabParallelCE`)."""
     if text_offset:
         logits = logits[:, text_offset:]
     pred = logits[:, :-1].to(torch.float32)
-    if is_sharded(pred):
-        # the target logit's gather runs on whole rows (DTensor has no rule
-        # for take_along_dim over a split vocab): the logits are all-gathered
-        pred = shard_batch(pred, None, None)
     targets = tokens[:, 1:].long()
+    if is_sharded(pred):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = pred.device_mesh
+        width = -(-pred.shape[-1] // mesh.size(0))  # torch.chunk's split, as DTensor's
+        start = min(mesh.get_local_rank(0) * width, pred.shape[-1])
+        with collective_site("loss"):
+            loss = _VocabParallelCE.apply(pred.to_local(), targets, mesh.get_group(0), start)
+        return DTensor.from_local(loss, mesh, [Replicate()], run_check=False)
     lse = torch.logsumexp(pred, dim=-1)
     true_logit = torch.take_along_dim(pred, targets[..., None], dim=-1)[..., 0]
     return torch.mean(lse - true_logit)

@@ -423,3 +423,70 @@ def moe_layer(arch: str, cfg_fields: dict, shape, params: dict, x, w, cf: float)
                 "site_counts": dict(cost.coll_site_counts)}
     finally:
         set_mesh(None)
+
+
+def vocab_parallel_loss(shape, logits, tokens, text_offset: int):
+    """``next_token_loss`` of ``logits`` [b, s, V] (numpy float32) split over
+    the vocab on the compute mesh (``model``), as ``lm_logits`` lays them
+    out: rank 0 returns the loss and the whole gradient of the logits."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models.sharding import compute_mesh
+    from repro_torch.models.transformer import next_token_loss
+
+    mesh = make_test_mesh(shape, device_type="cpu")
+    set_mesh(mesh)
+    try:
+        cm = compute_mesh(mesh)
+        x = distribute_tensor(torch.as_tensor(logits), cm, [Shard(2)]).requires_grad_()
+        loss = next_token_loss(None, x, torch.as_tensor(tokens), text_offset=text_offset)
+        loss.backward()
+        grad = x.grad.full_tensor()
+        local = x.grad.to_local().shape
+        if torch.distributed.get_rank() != 0:
+            return None
+        return float(loss.to_local()), grad.numpy(), tuple(local)
+    finally:
+        set_mesh(None)
+
+
+def cache_write(shape, src, cache_len: int, start: int):
+    """``write_slice`` of ``src`` [b, n, kvh, hd] (numpy), split over heads
+    on the compute mesh, into a zero cache [b, cache_len, kvh, hd] split over
+    its sequence there: rank 0 returns the whole cache."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models.sharding import compute_mesh, write_slice
+
+    mesh = make_test_mesh(shape, device_type="cpu")
+    try:
+        cm = compute_mesh(mesh)
+        s = torch.as_tensor(src)
+        cache = distribute_tensor(torch.zeros(s.shape[0], cache_len, *s.shape[2:]), cm,
+                                  [Shard(1)])
+        write_slice(cache, 1, start, distribute_tensor(s, cm, [Shard(2)]))
+        whole = cache.full_tensor()
+        return whole.numpy() if torch.distributed.get_rank() == 0 else None
+    finally:
+        set_mesh(None)
+
+
+#: what :func:`warm_up` left in this rank's process
+WARMED: list = []
+
+
+def warm_up() -> int:
+    """A ``RankPool`` warm-up task: leaves a mark a later task reads."""
+    WARMED.append(torch.distributed.get_rank())
+    return WARMED[-1]
+
+
+def warm_up_failing() -> int:
+    """A warm-up task that fails on rank 1."""
+    if torch.distributed.get_rank() == 1:
+        raise ValueError("warm-up failed on purpose")
+    return 0
+
+
+def warmed() -> list:
+    return list(WARMED)

@@ -24,6 +24,11 @@ against the reference and against the unsharded port.
   ``quantized_fsdp_allgather`` the degathered bf16 weights equal
   ``dequantize(quantize(w))`` (one block per row) bit for bit, and float32
   leaves and vectors gather unchanged, as the reference's rule says.
+* **The loss and the cache write**: the vocab-parallel cross-entropy and
+  its gradient against the unsharded port's (float32 bound); the prefill's
+  cache write from keys split over heads into a cache split over its
+  sequence (an all-to-all on a card, an all-gather fallback on gloo's CPU
+  group), by its values.
 * **Serving**: ``Server(mesh=)`` (K6's plain version on the CPU) generates
   the unsharded server's tokens (prefill and 3 decode steps), and its
   prefill logits agree within 1e-5 of their largest magnitude.
@@ -450,6 +455,63 @@ def test_sharded_server_equals_the_unsharded_server(pool):
     logits = np.concatenate([got[0][1], got[SHAPE[1]][1]])  # the two data ranks' halves
     np.testing.assert_allclose(logits, want.numpy(), rtol=0,
                                atol=RTOL * float(np.abs(want.numpy()).max()))
+
+
+@pytest.mark.parametrize("text_offset", [0, 3])
+def test_vocab_parallel_loss_equals_the_unsharded_loss(pool, text_offset):
+    """``next_token_loss`` of logits split over the vocab on ``model`` (the
+    layout ``lm_logits`` gives on a mesh, a vocab of 512 over 4 ranks):
+    each rank keeps its ``[b, s, V / 4]`` slice, and the loss and the
+    gradient of the logits equal the unsharded port's within the float32
+    bound (the max, sum-exp and target logit all-reduced)."""
+    from repro_torch.models.transformer import next_token_loss
+
+    rng = np.random.default_rng(3)
+    logits = (rng.normal(size=(2, 12, 512)) * 4).astype(np.float32)
+    tokens = rng.integers(0, 512, size=(2, 12 - text_offset))  # the text after the prefix
+    loss, grad, local = pool.run(ranks.vocab_parallel_loss, SHAPE, logits, tokens,
+                                 text_offset)[0]
+    assert local == (2, 12, 512 // SHAPE[1])
+    x = torch.as_tensor(logits).requires_grad_()
+    want = next_token_loss(None, x, torch.as_tensor(tokens), text_offset=text_offset)
+    want.backward()
+    np.testing.assert_allclose(loss, want.item(), rtol=RTOL, atol=0)
+    np.testing.assert_allclose(grad, x.grad.numpy(), rtol=0,
+                               atol=RTOL * float(np.abs(x.grad.numpy()).max()))
+
+
+#: (prompt length, start) of the cache writes: a whole cache, a prompt
+#: shorter than the cache (padded, then all-to-all), one not at 0, and a
+#: decode step's token (gathered: shorter than a rank's shard)
+CACHE_WRITES = {"whole": (16, 0), "shorter": (9, 0), "offset": (6, 5), "token": (1, 11)}
+
+
+@pytest.mark.parametrize("case", list(CACHE_WRITES))
+def test_cache_write_from_heads_to_sequence(pool, case):
+    """``write_slice`` of keys split over heads into a cache split over its
+    sequence (the prefill's cache write) writes the values in place, each
+    rank its own positions: the whole cache equals the plain write."""
+    n, start = CACHE_WRITES[case]
+    src = np.random.default_rng(4).normal(size=(2, n, 4, 3)).astype(np.float32)
+    got = pool.run(ranks.cache_write, SHAPE, src, 16, start)[0]
+    want = np.zeros((2, 16, 4, 3), np.float32)
+    want[:, start:start + n] = src
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_rank_pool_warms_up_before_its_first_task(fails):
+    """``RankPool(warm=)`` runs the warm-up on every rank in the background;
+    the first ``run`` waits for it, and a rank's failure there makes that
+    ``run`` raise, with the rank's traceback as its cause."""
+    with RankPool(2, "cpu", timeout=120,
+                  warm=ranks.warm_up_failing if fails else ranks.warm_up) as p:
+        if fails:
+            with pytest.raises(RuntimeError, match="warm-up failed") as info:
+                p.run(ranks.warmed)
+            assert "warm-up failed on purpose" in str(info.value.__cause__)
+        else:
+            assert p.run(ranks.warmed) == [[0], [1]]
 
 
 def test_kernels_refuse_a_dtensor(pool):
